@@ -1,0 +1,23 @@
+from repro_torch.configs.base import (
+    BlockSpec,
+    MeshConfig,
+    ModelConfig,
+    SEBSConfig,
+    SegmentSpec,
+    ServeConfig,
+    TrainConfig,
+)
+from repro_torch.configs.registry import ARCHS, get_config, list_archs
+
+__all__ = [
+    "BlockSpec",
+    "MeshConfig",
+    "ModelConfig",
+    "SEBSConfig",
+    "SegmentSpec",
+    "ServeConfig",
+    "TrainConfig",
+    "ARCHS",
+    "get_config",
+    "list_archs",
+]
