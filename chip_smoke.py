@@ -5,22 +5,37 @@
 
 1. Checks that CUDA is present (else exits 1) and prints the card's name
    and power limit; turns TF32 off for matmul and cuDNN.
-2. Builds the paged-decode kernels from ``src/repro_torch/kernels/paged_decode/csrc``
-   with nvcc (one process per source, in parallel).
-3. Holds each kernel's wrapper (what the engine calls) against its plain
-   PyTorch version on the card, at the main path's full-width shapes, and
-   times both (L2-cold: the inputs rotate over copies that exceed the 50 MB
-   L2 cache). Attention must agree within one bf16 ulp, and a planted
-   fault (the plain version with the last visible key dropped) must not.
-4. Drives the main path: the paged continuous-batching engine serving
+2. Builds every kernel family (``src/repro_torch/kernels/*/csrc``) with
+   nvcc, one process per source, in parallel.
+3. Holds each kernel's wrapper against its plain PyTorch version on the
+   card, at the main paths' full-width shapes, and times both (L2-cold: the
+   inputs rotate over copies that exceed the 50 MB L2 cache, or are larger
+   than it). Attention forwards must agree within one bf16 ulp and a
+   planted fault (the plain version with the last visible key dropped) must
+   not; the flash backward within two bf16 ulps plus 1e-3 of each
+   gradient's largest value, while a planted fault (the Di term left out)
+   must not; the fused updates bit for bit over every leaf of the tree
+   their run updates. scaled_dot_product_attention is timed beside the
+   flash kernels as a yardstick only.
+4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
-5. Checks the output: every request completes with in-vocabulary tokens,
-   the page pool is consistent, prefix pages were reused, every kernel was
-   launched, the full model's logits are finite, and on a small input the
-   card's greedy tokens equal those of the CPU path (the plain versions).
+5. Checks the serving output: every request completes with in-vocabulary
+   tokens, the page pool is consistent, prefix pages were reused, every
+   kernel was launched, the full model's logits are finite, and on a small
+   input the card's greedy tokens equal those of the CPU path.
 6. Serves the same batch again under torch.profiler, tracing the device
    only, and prints the device's busy time, idle share and top kernels.
+7. Drives the training path: SEBSTrainer with pSGD (gamma 1e4, eta 1) on
+   qwen2.5-3b at full width (SEBS b1 4, C1 16, rho 2, 3 stages, seq 512,
+   microbatch 4: 12 updates at batch 4, 8 and 16), counters zeroed just
+   before and read just after; then momentum (beta 0.9, eta 0.3) and
+   AdaGrad-DA (eta 1), each the same schedule at full width and 8 layers. Each run must follow the
+   schedule's stage ladder exactly, give finite losses, end below its first
+   loss and launch its kernels.
+8. On qwen2.5-3b smoke in float32, the losses of a short SEBS run on the
+   card equal the CPU path's (the plain versions) within 1e-4 relative.
+9. Traces one full-width pSGD update on the device (as phase 6).
 
 Any failed phase exits non-zero. The last lines of standard output are the
 kernels' JSON record, the card's name and power limit as nvidia-smi gives
@@ -30,7 +45,9 @@ them, and ``{"ok": true, "device": {...}}``. A copy of the record goes to
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -322,15 +339,283 @@ def device_profile(run) -> dict:
     }
 
 
+# The flash backward's outputs are bf16 too, but dS = P (dP - Di) cancels,
+# so an element near zero carries the f32 error of its tensor's scale:
+# two bf16 ulps of the value plus 1e-3 of the tensor's largest value.
+BWD_RTOL = 2.0**-6
+BWD_SCALE_TOL = 1e-3
+LIBRARY_NONE = "no single PyTorch call computes this update"
+# Learning rates of the training runs: the largest of 0.3, 1, 3 and 10 with
+# which 12 SEBS updates of the 8-layer model stayed finite and fell
+# (tools/train_lr_scan.py; 3 diverged in the second stage), and 0.3 for
+# momentum, whose beta = 0.9 multiplies its steps up to tenfold.
+ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0}
+
+
+def excess_bwd(out, expect) -> float:
+    """Largest |out - expect| in units of the backward's allowance."""
+    err = (out.float() - expect.float()).abs()
+    allow = BWD_RTOL * expect.float().abs() + BWD_SCALE_TOL * expect.float().abs().max()
+    return (err / allow).max().item()
+
+
+def leaf_shapes(cfg) -> list:
+    """Shapes of the parameter leaves of a dense attention model, in the
+    order of ``tree_leaves(LanguageModel(cfg).init())``."""
+    d, hq, hkv, hd, dff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff
+    layer = [(d,), (d, hq, hd), (d, hkv, hd), (d, hkv, hd), (hq, hd, d)]
+    if cfg.qkv_bias:
+        layer += [(hq, hd), (hkv, hd), (hkv, hd)]
+    layer += [(d,), (d, dff), (d, dff), (dff, d)]
+    shapes = [(cfg.padded_vocab, d)] + layer * cfg.num_layers + [(d,)]
+    norms = (2 * cfg.num_layers + 1) * d  # param_counts leaves the norm scales out
+    if sum(math.prod(s) for s in shapes) != cfg.param_counts()["total"] + norms:
+        fail(f"leaf shapes do not add up to {cfg.name}'s parameter count")
+    return shapes
+
+
+def flash_checks(records: dict) -> None:
+    """The flash kernels through their ops wrappers at the training path's
+    shapes: qwen2.5-3b, microbatch 4 of 512 + 1 tokens (B 4, S 513, 16 query
+    and 2 KV heads, head_dim 128), bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, hq, hkv, d = 4, 513, 16, 2, 128
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, d_out = rand(b, s, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d), rand(b, s, hq, d)
+    out, lse = ops.forward(q, k, v)
+    expect, _ = ref.attention_fwd_ref(q, k, v)
+    # planted fault: query i sees keys up to i - 1 (its last visible key dropped)
+    dropped = ref.attention_ref(q, k[:, :-1], v[:, :-1])
+    fwd = [check_close("flash_attention_fwd", out, expect, dropped)]
+    fwd.append(check_close("flash_attention_fwd (window 100)",
+                           ops.forward(q, k, v, sliding_window=100)[0],
+                           ref.attention_ref(q, k, v, sliding_window=100)))
+    grads = ops.backward(q, k, v, out, lse, d_out)
+    expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out)
+    fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out)  # Di left out
+    again = ops.backward(q, k, v, out, lse, d_out)
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        fail("flash_attention_bwd: two runs on the same inputs differ")
+    bwd = {"max_abs_err": 0.0, "excess": 0.0, "fault_excess": float("inf")}
+    for name, g, e, f in zip(("dq", "dk", "dv"), grads, expect_grads, fault_grads):
+        x = excess_bwd(g, e)
+        if not torch.isfinite(g).all() or x > 1:
+            fail(f"flash_attention_bwd {name}: kernel disagrees with its plain version "
+                 f"({x:.2f} x the allowance)")
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], (g.float() - e.float()).abs().max().item())
+        bwd["excess"] = max(bwd["excess"], x)
+        if name != "dv":  # dV does not read Di
+            bwd["fault_excess"] = min(bwd["fault_excess"], excess_bwd(f, e))
+    if bwd["fault_excess"] <= 1:
+        fail("flash_attention_bwd: the tolerance cannot tell a missing Di term from the right answer")
+
+    n_sets = copies_for(nbytes(q, k, v, d_out, out))
+    sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_sets)]
+    bwd_sets = [(*x, out.clone(), lse.clone(), d_out.clone()) for x in sets]
+    pairs = sum(min(i + 1, s) for i in range(s))  # visible (query, key) pairs, causal
+    io = nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s
+    records["flash_attention_fwd"] = dict(
+        **merge(fwd),
+        ms=timed(ops.forward, sets, 50),
+        plain_ms=timed(ref.attention_fwd_ref, sets, 5),
+        bound=bound(io, 4 * d * pairs * b * hq, BF16_FLOPS),
+    )
+    records["flash_attention_bwd"] = dict(
+        **bwd,
+        ms=timed(ops.backward, bwd_sets, 20),
+        plain_ms=timed(ref.attention_bwd_ref, bwd_sets, 3),
+        # reads q, k, v, out, dO and lse; writes dq, dk, dv; the four
+        # products of the gradient (dV, dP, dQ, dK), the recomputation of
+        # P being the kernel's choice
+        bound=bound(2 * nbytes(q, k, v) + nbytes(out, d_out) + 4 * b * hq * s,
+                    8 * d * pairs * b * hq, BF16_FLOPS),
+    )
+    # the library yardstick: SDPA on the (B, H, S, D) layout, forward and backward
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=True)
+
+    records["flash_attention_fwd"]["library_ms"] = timed(sdpa, lib_sets, 50)
+    graphs = []
+    for x in lib_sets:
+        leaves = [t.detach().requires_grad_(True) for t in x]
+        graphs.append((sdpa(*leaves), leaves, d_out.transpose(1, 2).contiguous()))
+
+    def sdpa_bwd(o, leaves, grad):
+        return torch.autograd.grad(o, leaves, grad, retain_graph=True)
+
+    records["flash_attention_bwd"]["library_ms"] = timed(sdpa_bwd, graphs, 20)
+
+
+def fused_checks(records: dict, trees: dict) -> None:
+    """Each fused update through its ops wrapper over every leaf of the tree
+    its training run updates (``trees``: kernel -> leaf shapes), held bit
+    for bit against its plain version leaf by leaf, then timed (the trees
+    are far larger than L2)."""
+    import torch
+
+    from repro_torch.kernels.fused_optim import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lr, gamma, beta, delta, nu = 0.3, 1e4, 0.9, 1.0, 1.0
+
+    def leaves(shapes, positive=False):
+        out = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        return [x.abs_() for x in out] if positive else out
+
+    for kname, shapes in trees.items():
+        n = sum(math.prod(s) for s in shapes)
+        w, g = leaves(shapes), leaves(shapes)
+        if kname == "fused_psgd":
+            state = [leaves(shapes)]
+            wrapper = lambda w_, g_, a_: ops.psgd_update(w_, g_, a_, lr=lr, gamma=gamma)
+            plain = lambda w_, g_, a_: [ref.psgd_ref(*x, lr=lr, gamma=gamma) for x in zip(w_, g_, a_)]
+            outputs = lambda w_, st: [w_]
+            moved = 16 * n  # w, g, anchor read; w written
+        elif kname == "fused_momentum":
+            state = [leaves(shapes)]
+            wrapper = lambda w_, g_, u_: ops.momentum_update(w_, g_, u_, lr=lr, beta=beta)
+            plain = lambda w_, g_, u_: list(zip(*[ref.momentum_ref(*x, lr=lr, beta=beta)
+                                                  for x in zip(w_, g_, u_)]))
+            outputs = lambda w_, st: [w_, st[0]]
+            moved = 20 * n  # w, g, u read; w, u written
+        else:
+            state = [leaves(shapes), leaves(shapes), leaves(shapes, positive=True)]
+            wrapper = lambda w_, g_, a_, z_, s_: ops.adagrad_da_update(
+                w_, g_, a_, z_, s_, lr=lr, delta=delta, nu=nu)
+            plain = lambda w_, g_, a_, z_, s_: list(zip(*[
+                ref.adagrad_da_ref(*x, lr=lr, delta=delta, nu=nu) for x in zip(w_, g_, a_, z_, s_)]))
+            outputs = lambda w_, st: [w_, st[1], st[2]]
+            moved = 28 * n  # g, anchor, z, s2 read; w, z, s2 written (w is not read)
+        expect = plain(w, g, *state)
+        expect = [expect] if kname == "fused_psgd" else expect
+        wrapper(w, g, *state)
+        torch.cuda.synchronize()
+        mismatched, max_err = 0, 0.0
+        for got_leaves, exp_leaves in zip(outputs(w, state), expect):
+            for x, e in zip(got_leaves, exp_leaves):
+                mismatched += int((x != e).sum())
+                max_err = max(max_err, (x - e).abs().max().item())
+        if mismatched:
+            fail(f"{kname}: {mismatched} elements differ from the plain version (max {max_err:.3e})")
+        del expect
+        records[kname] = dict(
+            max_abs_err=max_err, elements=n, leaves=len(shapes),
+            ms=timed(wrapper, [(w, g, *state)], 10),
+            plain_ms=timed(plain, [(w, g, *state)], 2),
+            bound=bound(moved, 6 * n, F32_FLOPS),
+            library_ms=None,
+        )
+        del w, g, state
+        torch.cuda.empty_cache()
+
+
+def expected_ladder(schedule) -> tuple:
+    """(stages, batch sizes) of every update, from the schedule's own
+    updates_per_stage and its stage batch sizes."""
+    stages, batches = [], []
+    for s, m in enumerate(schedule.updates_per_stage()):
+        stages += [s] * m
+        batches += [int(round(schedule.b1 * schedule.rho**s))] * m
+    return stages, batches
+
+
+def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: int, stages: int,
+             params=None):
+    """One SEBS run (rho 2, microbatch b1) from seed-0 weights (or
+    ``params``), every launch counter zeroed just before and read just
+    after. Returns (log, wall s, launches, per-update seconds, state)."""
+    import torch
+
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.train import TrainState, init_train_state
+
+    model = LanguageModel(cfg)
+    schedule = SEBS(b1=b1, C1=c1, rho=2.0, num_stages=stages, eta=eta)
+    tracer = Tracer()
+    trainer = SEBSTrainer(model, optimizer, schedule,
+                          DataPipeline(TokenDataset(cfg.vocab_size, seq, seed=0), device=device),
+                          microbatch=b1, mode="accumulate", accum_mode="psum_each", tracer=tracer)
+    if params is None:
+        state = init_train_state(model, optimizer, seed=0, device=device)
+    else:
+        state = TrainState(params, optimizer.init(params), 0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launches()
+    optim_ops.reset_launches()
+    t0 = time.perf_counter()
+    state, log = trainer.run(state, log_every=1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES}
+    updates = [ev["dur"] for ev in tracer.events if ev.get("name") == "train.update"]
+    if log.stages != expected_ladder(schedule)[0] or log.batch_sizes != expected_ladder(schedule)[1]:
+        fail(f"{cfg.name}: stages {log.stages} / batches {log.batch_sizes} differ from the "
+             f"schedule's ladder {expected_ladder(schedule)}")
+    return log, wall, launches, updates, state, trainer
+
+
+def check_training(label: str, log, launches: dict, kernels) -> None:
+    if not all(math.isfinite(x) for x in log.losses):
+        fail(f"{label}: a loss is not finite: {log.losses}")
+    if not log.losses[-1] < log.losses[0]:
+        fail(f"{label}: the last loss {log.losses[-1]:.4f} is not below the first {log.losses[0]:.4f}")
+    for kname in kernels:
+        if launches[kname] <= 0:
+            fail(f"{label}: {kname} was not launched on the main path")
+
+
+def card_cpu_agreement() -> list:
+    """Phase 8: a short SEBS run of qwen2.5-3b smoke in float32 from the same
+    weights on the CPU (plain versions) and on the card (kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        # the same seed-0 weights on both: made on the CPU, then moved
+        params = to_device(LanguageModel(cfg).init(seed=0, device="cpu"), device)
+        log = run_sebs(cfg, make_optimizer("psgd", gamma=1e4), eta=0.3, device=device, seq=32,
+                       b1=4, c1=8, stages=2, params=params)[0]
+        losses[device] = log.losses
+    worst = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
+    if worst > 1e-4:
+        fail(f"card and CPU losses differ by {worst:.2e} relative: {losses}")
+    return [losses["cpu"], losses["cuda"], worst]
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs one CUDA device")
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_decode import kernel as K, ops
+    from repro_torch.configs.base import SegmentSpec
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.paged_decode import ops
     from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
     from repro_torch.serve import PagedContinuousBatchingEngine
+    from repro_torch.train import build_train_step
 
     # 1. device
     smi = nvidia_smi()
@@ -344,23 +629,30 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    seconds = K.build()
+    seconds = _cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{n}={s:.1f}s" for n, s in seconds.items()), flush=True)
-    for lib, log in K.BUILD_LOGS.items():
+    for lib, log in _cuda.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{lib}]: {line.strip()}")
 
     # 3. kernels against their plain versions
+    cfg = get_config("qwen2.5-3b", "full")
+    reduced = cfg.replace(segments=(SegmentSpec(body=cfg.segments[0].body, repeat=8),))
     records: dict = {}
     kernel_checks(records)
+    flash_checks(records)
+    fused_checks(records, {"fused_psgd": leaf_shapes(cfg), "fused_momentum": leaf_shapes(reduced),
+                           "fused_adagrad_da": leaf_shapes(reduced)})
     print("kernel checks: ok | tolerance readings, in units of the allowance (sound <= 1 < planted "
           "fault): " + ", ".join(f"{n} {r['excess']:.3f} vs {r['fault_excess']:.1f}"
-                                 for n, r in records.items() if "excess" in r), flush=True)
+                                 for n, r in records.items() if "excess" in r)
+          + " | fused updates bit-equal over " + ", ".join(
+              f"{n} {r['elements']} elements in {r['leaves']} leaves"
+              for n, r in records.items() if "elements" in r), flush=True)
 
-    # 4. the main path at full width
-    cfg = get_config("qwen2.5-3b", "full")
+    # 4. the serving path at full width
     model = LanguageModel(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
@@ -441,23 +733,116 @@ def main() -> None:
     )
     print(f"launches: {launches} | per decode tick {launches['paged_flash_decode'] / stats['ticks']:.0f}, "
           f"per chunk {launches['paged_chunk_prefill'] / stats['prefill_chunks']:.0f}", flush=True)
+    del engine, params, probe, results
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    sources = {
-        "paged_flash_decode": ("csrc/paged_attention.cu", 84),
-        "paged_chunk_prefill": ("csrc/paged_attention.cu", 171),
-        "fused_sample": ("csrc/fused_sample.cu", 238),
+    # 7. the training path: SEBS with pSGD at full width
+    seq, b1 = 512, 4
+    psgd = make_optimizer("psgd", gamma=1e4)
+    log, train_wall, train_launches, updates, state, trainer = run_sebs(
+        cfg, psgd, eta=ETAS["psgd"], device="cuda", seq=seq, b1=b1, c1=16, stages=3)
+    train_peak = torch.cuda.max_memory_allocated()
+    check_training("psgd, full width", log, train_launches,
+                   ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"))
+    per_stage = {}
+    for st, bs, dur in zip(log.stages, log.batch_sizes, updates):
+        per_stage.setdefault(st, []).append((bs, dur))
+    train_stages = {
+        st: {"batch": rows[0][0], "updates": len(rows),
+             "median_update_ms": sorted(d for _, d in rows)[len(rows) // 2] * 1e3,
+             "tokens_per_s": sum(bs * (seq + 1) for bs, _ in rows) / sum(d for _, d in rows)}
+        for st, rows in per_stage.items()
     }
+    print(f"train psgd: {cfg.name} full, {len(log.steps)} updates in {train_wall:.1f} s | losses "
+          + " ".join(f"{x:.4f}" for x in log.losses) + f" | peak memory {train_peak / 2**30:.1f} GiB "
+          f"| launches {train_launches}", flush=True)
+    for st, row in train_stages.items():
+        print(f"train psgd stage {st}: batch {row['batch']} x {seq + 1} tokens, {row['updates']} "
+              f"updates, median {row['median_update_ms']:.1f} ms an update, "
+              f"{row['tokens_per_s']:.0f} tokens/s (first update included)", flush=True)
+
+    # 9. where the time goes: one stage-2 update (4 microbatches), traced on the device
+    step = build_train_step(trainer.model, psgd, accum_steps=4)
+    batch = trainer.pipeline.next_batch(16)
+    batch = {k: v.reshape((4, 4) + tuple(v.shape[1:])) for k, v in batch.items()}
+    lr = ETAS["psgd"]
+    step(state, batch, lr, 2)  # untraced, for the comparison below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, lr, 2)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    train_profile = device_profile(lambda: step(state, batch, lr, 2))
+    print(f"train profile: one update of 4 microbatches, device busy {train_profile['busy_ms']:.1f} ms "
+          f"of {train_profile['wall_ms']:.1f} ms wall, idle {100 * train_profile['idle_share']:.1f}% | "
+          f"{train_profile['activities']} device activities | untraced update {untraced_ms:.1f} ms",
+          flush=True)
+    for kname, (ms, n) in list(train_profile["by_kernel"].items())[:10]:
+        print(f"train profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    del state, trainer, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7b. momentum and AdaGrad-DA, full width at 8 layers
+    runs = {"psgd": {"layers": cfg.num_layers, "eta": ETAS["psgd"], "losses": log.losses,
+                     "wall_s": train_wall, "peak_gib": train_peak / 2**30,
+                     "launches": dict(train_launches), "stages": train_stages}}
+    for opt_name, hp, kname in (("momentum", {"beta": 0.9}, "fused_momentum"),
+                                 ("adagrad_da", {}, "fused_adagrad_da")):
+        eta = ETAS[opt_name]
+        rlog, rwall, rlaunches, _, rstate, _ = run_sebs(
+            reduced, make_optimizer(opt_name, **hp), eta=eta, device="cuda", seq=seq, b1=b1, c1=16,
+            stages=3)
+        peak = torch.cuda.max_memory_allocated()
+        check_training(f"{opt_name}, 8 layers", rlog, rlaunches,
+                       ("flash_attention_fwd", "flash_attention_bwd", kname))
+        train_launches[kname] = rlaunches[kname]
+        runs[opt_name] = {"layers": reduced.num_layers, "eta": eta, "losses": rlog.losses,
+                          "wall_s": rwall, "peak_gib": peak / 2**30, "launches": rlaunches}
+        print(f"train {opt_name}: {reduced.num_layers} layers, {len(rlog.steps)} updates in {rwall:.1f} s "
+              f"| losses " + " ".join(f"{x:.4f}" for x in rlog.losses)
+              + f" | peak memory {peak / 2**30:.1f} GiB | launches {rlaunches}", flush=True)
+        del rstate
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 8. card against CPU on a small input
+    agreement = card_cpu_agreement()
+    print(f"card vs cpu: qwen2.5-3b smoke f32, {len(agreement[0])} updates, losses agree within "
+          f"{agreement[2]:.2e} relative", flush=True)
+
+    replaces = {
+        "paged_flash_decode": "src/repro/kernels/paged_decode/kernel.py:84",
+        "paged_chunk_prefill": "src/repro/kernels/paged_decode/kernel.py:171",
+        "fused_sample": "src/repro/kernels/paged_decode/kernel.py:238",
+        "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:76",
+        "flash_attention_bwd": "no TPU counterpart (JAX forward only)",
+        "fused_psgd": "src/repro/kernels/fused_optim/kernel.py:82",
+        "fused_momentum": "src/repro/kernels/fused_optim/kernel.py:88",
+        "fused_adagrad_da": "src/repro/kernels/fused_optim/kernel.py:96",
+    }
+    sources = {
+        "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
+        "paged_chunk_prefill": "paged_decode/csrc/paged_attention.cu",
+        "fused_sample": "paged_decode/csrc/fused_sample.cu",
+        "flash_attention_fwd": "flash_attention/csrc/flash_attention.cu",
+        "flash_attention_bwd": "flash_attention/csrc/flash_attention.cu",
+        "fused_psgd": "fused_optim/csrc/fused_optim.cu",
+        "fused_momentum": "fused_optim/csrc/fused_optim.cu",
+        "fused_adagrad_da": "fused_optim/csrc/fused_optim.cu",
+    }
+    all_launches = {**launches, **train_launches}
     kernels = []
     for kname, rec in records.items():
         bound_ms, bound_by = rec["bound"]
-        src, line = sources[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/kernels/paged_decode/{src}",
-            "replaces": f"src/repro/kernels/paged_decode/kernel.py:{line}",
-            "launches": launches[kname], "max_abs_err": rec["max_abs_err"],
+            "source": f"src/repro_torch/kernels/{sources[kname]}",
+            "replaces": replaces[kname],
+            "launches": all_launches[kname], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec.get("library_ms"),
         })
     record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"
@@ -465,11 +850,15 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         **record, "nvidia_smi": smi, "tolerance": {
             n: {key: r[key] for key in ("excess", "fault_excess")} for n, r in records.items() if "excess" in r
-        }, "profile": profile, "engine": {
+        }, "library_none": {n: LIBRARY_NONE for n, r in records.items()
+                            if n.startswith("fused_") and r.get("library_ms") is None},
+        "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
             "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": decode_tick_ms,
             "pages_peak": mem["pages_peak"], "prefix_tokens_reused": stats["prefix_tokens_reused"],
-        },
+        }, "train": {"runs": runs, "profile": train_profile, "untraced_update_ms": untraced_ms,
+                     "card_vs_cpu": {"cpu": agreement[0], "cuda": agreement[1],
+                                     "max_rel": agreement[2]}},
     }, indent=1))
     print(json.dumps(record))
     print(smi)

@@ -4,7 +4,10 @@
 parameter tree with numpy (or torch) leaves and returns the port's tree: the
 same names and layouts (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, ...), with
 each segment's scanned ``layers`` axis unstacked into a list of per-layer
-trees. :func:`load_checkpoint` reads the JAX package's checkpoint format
+trees. :func:`opt_state_from_numpy` does the same for an optimizer state
+(``stage`` and the parameter-shaped slots: pSGD's ``anchor``, momentum's
+``u``, AdaGrad's ``z`` and ``s2``), so both frameworks can start from one
+``TrainState``. :func:`load_checkpoint` reads the JAX package's checkpoint format
 (``step_<N>/arrays.npz`` keyed by ``|``-joined tree paths, bfloat16 leaves
 stored as a uint16 view and named in ``meta.json["_dtypes"]``) without
 importing JAX, so a checkpoint written there serves here.
@@ -63,6 +66,21 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> 
             for name, block in sub.items()
         }
     return params
+
+
+def opt_state_from_numpy(state: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+    """The port's optimizer state from the JAX package's: ``stage`` as a host
+    integer, each parameter-shaped slot as :func:`params_from_numpy` makes
+    it."""
+    out: Dict[str, Any] = {}
+    for key, value in state.items():
+        if isinstance(value, dict):
+            out[key] = params_from_numpy(value, cfg, device)
+        elif key == "stage":
+            out[key] = int(np.asarray(value))
+        else:
+            raise ValueError(f"optimizer state slot {key!r} is not ported")
+    return out
 
 
 def _bf16(arr: np.ndarray) -> torch.Tensor:

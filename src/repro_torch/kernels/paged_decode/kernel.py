@@ -1,13 +1,5 @@
-"""Build, bind and launch the hand-written CUDA kernels of the paged-decode
-family (sources in ``csrc/``).
-
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``: pointers and the
-current stream go in as ``c_void_p``, and each C function returns
-``cudaGetLastError()`` after its launch, which the launcher here turns into
-an exception. The build happens at first use, into ``kernels/_build/``
-(git-ignored), under a name carrying the source's hash, so an edited source
-is rebuilt and an unchanged one is loaded as it is.
+"""Bind and launch the hand-written CUDA kernels of the paged-decode family
+(sources in ``csrc/``), built and loaded by :mod:`repro_torch.kernels._cuda`.
 
 The launchers take CUDA tensors only and check device, type, shape and
 contiguity; they allocate the output and never fall back to the plain
@@ -15,113 +7,24 @@ versions. ``ops`` adds the launch counters and the CPU path.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Optional
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = {"paged_attention": "paged_attention.cu", "fused_sample": "fused_sample.cu"}
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from repro_torch.kernels._cuda import F as _F, I as _I, P as _P
+from repro_torch.kernels._cuda import check as _check, check_cuda as _check_cuda
+from repro_torch.kernels._cuda import launch as _launch, register
 
+CSRC = Path(__file__).resolve().parent / "csrc"
 _Q_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # pages are bf16
 RING_STAGES = 4  # pages of K and V staged in shared memory (kStages in paged_attention.cu)
 SHARED_MEMORY_BYTES = 227 * 1024  # what one block may use on sm_90
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "paged_attention": {
-        "paged_flash_decode": [_P] * 6 + [_I] * 9 + [_F, _P],
-        "paged_chunk_prefill": [_P] * 6 + [_I] * 10 + [_F, _P],
-    },
-    "fused_sample": {"fused_sample": [_P] * 5 + [_I] * 2 + [_P]},
-}
-_LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas reports (registers, shared memory, spills) of the builds this process ran
-BUILD_LOGS: Dict[str, str] = {}
-
-
-def nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    found = str(path) if path.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-
-
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named sources (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together. Returns the seconds each
-    build took (0.0 for a library already on disk)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {}
-    seconds = {}
-    for name in names or SOURCES:
-        target = library_path(name)
-        if target.exists():
-            seconds[name] = 0.0
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        todo[name] = (proc, tmp, target, time.perf_counter())
-    for name, (proc, tmp, target, t0) in todo.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-        os.replace(tmp, target)
-    return seconds
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
-    for name, t in tensors.items():
-        _check(t.is_cuda and t.device == device, f"{name} must be on {device}, got {t.device}")
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-
-
-def _launch(lib: str, fn: str, device: torch.device, *args) -> None:
-    """Call ``fn`` of ``lib`` on ``device``'s current stream; raise if the
-    launch was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(_lib(lib), fn)(*args, stream)
-    if code != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {code}")
+register("paged_attention", CSRC / "paged_attention.cu", {
+    "paged_flash_decode": [_P] * 6 + [_I] * 9 + [_F],
+    "paged_chunk_prefill": [_P] * 6 + [_I] * 10 + [_F],
+})
+register("fused_sample", CSRC / "fused_sample.cu", {"fused_sample": [_P] * 5 + [_I] * 2})
 
 
 def _attention_checks(q, k_pages, v_pages, page_table, pos, *, head_axis: int):

@@ -4,8 +4,13 @@ A *block* is (pre-norm → mixer → residual, pre-norm → ffn → residual). A
 *segment* is ``repeat`` iterations of a tuple of blocks (the "body"). The
 JAX package scans the body over weights stacked on a leading ``layers``
 axis; here each body block holds a list of per-layer parameter (and cache)
-trees, and a Python loop walks them. Serving keeps no activations for a
-backward pass, so there is no rematerialization.
+trees, and a Python loop walks them.
+
+Two modes: the full-sequence forward of training (no cache) and the paged
+serving steps. In training, ``cfg.remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
+package's ``jax.checkpoint`` with the ``nothing_saveable`` policy does per
+scanned layer; the other JAX policies come with a later slice.
 
 Ported so far: attention mixers (``"attn"``, ``"swa"``) with the dense
 SwiGLU FFN, which is every block of the dense decoders.
@@ -13,6 +18,7 @@ SwiGLU FFN, which is every block of the dense decoders.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, SegmentSpec
 from repro_torch.models.layers import attention, mlp, norm
@@ -69,15 +75,17 @@ def init_segment_cache_paged(cfg: ModelConfig, seg: SegmentSpec, num_pages: int,
     }
 
 
-def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache,
-                page_table, cache_index=None):
-    """Returns (x, cache); the cache is updated in place."""
+def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None,
+                page_table=None, cache_index=None):
+    """Returns (x, cache); a paged cache is updated in place. With ``cache``
+    None it is the full-sequence (training) forward."""
     window = None
     if spec.mixer == "swa":
         window = spec.sliding_window or cfg.sliding_window
     h = norm.apply(params["norm1"], x, cfg.norm_eps)
     y, _ = attention.apply(
-        params["attn"], h, cfg, positions=positions, cache=cache["attn"],
+        params["attn"], h, cfg, positions=positions,
+        cache=None if cache is None else cache["attn"],
         page_table=page_table, cache_index=cache_index, sliding_window=window,
     )
     x = x + y
@@ -85,9 +93,30 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
     return x + mlp.apply(params["mlp"], h), cache
 
 
-def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, cache,
-                  page_table, cache_index=None):
-    """Run the segment's layers in order. Returns (x, cache)."""
+def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions):
+    return apply_block(params, x, cfg, spec, positions=positions)[0]
+
+
+def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, cache=None,
+                  page_table=None, cache_index=None):
+    """Run the segment's layers in order. Returns (x, cache); with ``cache``
+    None it is the full-sequence (training) forward, rematerialized per
+    block when ``cfg.remat`` is set."""
+    if cache is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "nothing_saveable":
+            raise NotImplementedError(
+                f"remat policy {cfg.remat_policy!r} comes with a later slice; "
+                "the port has nothing_saveable"
+            )
+        for r in range(seg.repeat):
+            for bi, spec in enumerate(seg.body):
+                p = params[f"b{bi}"][r]
+                if remat:
+                    x = checkpoint(_train_block, p, x, cfg, spec, positions, use_reentrant=False)
+                else:
+                    x = _train_block(p, x, cfg, spec, positions)
+        return x, None
     for r in range(seg.repeat):
         for bi, spec in enumerate(seg.body):
             x, _ = apply_block(

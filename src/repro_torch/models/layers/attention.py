@@ -1,17 +1,24 @@
-"""Grouped-query attention over the paged KV cache: GQA
-(num_kv_heads <= num_heads), optional QKV bias (qwen2.5), rotary
-embeddings, causal / sliding-window masks and attention-logit soft-capping.
+"""Grouped-query attention: GQA (num_kv_heads <= num_heads), optional QKV
+bias (qwen2.5), rotary embeddings, causal / sliding-window masks and
+attention-logit soft-capping.
 
-Two execution modes are ported, the two that serving runs:
+Three execution modes are ported:
 
-- chunked prefill (``s > 1``): the chunk's KV is written at its absolute
-  positions and its queries attend through the page table to every
-  earlier position plus the chunk itself;
+- full sequence (training; ``cache`` None): every query attends to the
+  sequence under the causal/window mask, through kernels/flash_attention
+  (forward and backward kernels for a CUDA tensor, the plain versions for a
+  CPU tensor). The JAX package runs its ``_sdpa`` (or ``_sdpa_chunked``
+  above ``attn_chunk``) here unless ``use_flash_kernel`` is set; the port
+  always takes its kernel, and the tests show that the results agree.
+  Soft-capping (gemma2) and cross-attention memory (whisper) come with
+  their slices;
+- chunked prefill (``s > 1`` with a paged cache): the chunk's KV is written
+  at its absolute positions and its queries attend through the page table
+  to every earlier position plus the chunk itself;
 - paged decode (``s == 1``): one token per slot, each at its own depth.
 
-Both go through kernels/paged_decode: the CUDA kernels for a CUDA tensor,
-their plain PyTorch versions for a CPU tensor. The dense, full-sequence and
-cross-attention modes come with the slices that need them.
+The paged modes go through kernels/paged_decode. The dense-cache decode
+mode comes with the dense-serving slice.
 
 The cache is updated in place. The JAX package donates the paged cache to
 each step and gets the updated buffer back; here each layer's
@@ -24,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_decode import ops as paged_ops
 from repro_torch.models.layers import rope
 
@@ -99,29 +107,37 @@ def apply(
     cfg,
     *,
     positions,
-    cache,
-    page_table,
+    cache=None,
+    page_table=None,
     cache_index=None,
     sliding_window: Optional[int] = None,
 ):
-    """Returns (out, cache); ``cache`` is updated in place.
+    """Returns (out, cache); a paged ``cache`` is updated in place.
 
+    full sequence: ``cache`` is None; ``positions`` (B, S) or (1, S).
     decode: ``x`` is (B, 1, d) and ``cache_index`` a scalar or (B,) int.
     chunked prefill: ``x`` is (B, C, d), ``cache_index`` None, and
     ``positions`` (B, C) are contiguous from each row's start.
     """
     b, s, _ = x.shape
     decode = s == 1 and cache_index is not None
-    if not decode and not (s > 1 and cache_index is None):
+    cap = cfg.attn_logit_softcap
+    if cache is None and cap is not None:
         raise NotImplementedError(
-            "only the paged decode and chunked-prefill modes are ported; "
-            "full-sequence attention comes with the training slice"
+            "full-sequence attention with logit soft-capping comes with the gemma2 slice"
         )
+    if cache is not None and decode != (s == 1):
+        raise ValueError("against a paged cache, a one-token step takes a cache_index and a "
+                         "chunk (s > 1) takes none")
     q, k, v = _project_qkv(params, x)
     q = rope.apply_rope(q, positions, cfg.rope_theta)
-    k = rope.apply_rope(k, positions, cfg.rope_theta)
-    cap = cfg.attn_logit_softcap
 
+    if cache is None:  # full sequence
+        k = rope.apply_rope(k, torch.arange(s, device=x.device)[None, :], cfg.rope_theta)
+        out = flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
+        return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), None
+
+    k = rope.apply_rope(k, positions, cfg.rope_theta)
     if not decode:  # chunked prefill
         write_pos = positions.expand(b, s)
         _paged_write(cache["k"], k, page_table, write_pos)

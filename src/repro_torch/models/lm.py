@@ -1,5 +1,5 @@
-"""The language model's serving path: embeddings → segments → logits over
-a paged KV cache.
+"""The language model: embeddings → segments → logits, for training (the
+full-sequence ``forward``) and for serving over a paged KV cache.
 
 Parameters are a plain tree of tensors with the JAX package's names and
 layouts (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, ...), except that each
@@ -24,7 +24,8 @@ from repro_torch.models.layers import embedding, norm
 
 
 class LanguageModel:
-    """Functional model: ``params = lm.init(seed)``, then the serving steps."""
+    """Functional model: ``params = lm.init(seed)``, then ``forward`` or the
+    serving steps."""
 
     def __init__(self, cfg: ModelConfig):
         blocks.check_supported(cfg)
@@ -41,6 +42,20 @@ class LanguageModel:
             params[f"seg{i}"] = blocks.init_segment(gen, cfg, seg, device)
         params["final_norm"] = norm.init(cfg.d_model, getattr(torch, cfg.param_dtype), device)
         return params
+
+    # -- train forward --------------------------------------------------------
+    def forward(self, params, batch):
+        """batch: {tokens (B, S) int}. Returns (logits (B, S, V) f32, aux loss
+        (a zero f32 scalar: the dense models have no router loss))."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embedding.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        for i, seg in enumerate(cfg.segments):
+            x, _ = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions)
+        x = norm.apply(params["final_norm"], x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return embedding.logits(params["embed"], x, cfg), aux
 
     # -- paged KV cache -------------------------------------------------------
     def init_paged_cache(self, num_pages: int, page_size: int, state_batch: int,

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,7 +44,8 @@ def test_registry_resolves_inside_the_port():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
-        "import repro_torch.launch.serve, repro_torch.bridge, repro_torch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge\n"
+        "import repro_torch.serve, repro_torch.core, repro_torch.train, repro_torch.optim\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -60,6 +62,33 @@ def test_launcher_without_cpu_flag_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         launcher.main(["--engine", "paged"])
+
+
+def test_train_launcher_without_cpu_flag_needs_cuda(monkeypatch):
+    from repro_torch.launch import train as launcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        launcher.main([])
+
+
+def test_train_launcher_runs_on_cpu(tmp_path):
+    from repro_torch.launch import train as launcher
+
+    log = launcher.main(["--device", "cpu", "--b1", "2", "--c1", "4", "--rho", "2", "--stages", "2",
+                         "--seq", "8", "--steps-log", "1", "--log-json", str(tmp_path / "log.json")])
+    assert log.batch_sizes == [2, 2, 4, 4] and log.stages == [0, 0, 1, 1]
+    assert all(np.isfinite(log.losses)) and (tmp_path / "log.json").exists()
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--dp-elastic"], ["--ckpt-dir", "x"],
+                                   ["--resume"], ["--stop-after", "2"], ["--optimizer", "adamw"]])
+def test_train_launcher_names_the_later_slice(flags, capsys):
+    from repro_torch.launch import train as launcher
+
+    with pytest.raises(SystemExit):
+        launcher.main(["--device", "cpu", *flags])
+    assert "slice" in capsys.readouterr().err
 
 
 def test_engine_default_device_needs_cuda(monkeypatch):

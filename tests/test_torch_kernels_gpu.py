@@ -11,12 +11,24 @@ Inputs are made with numpy from a seed; pages are bf16. Attention agrees
 within 2e-5 for f32 queries (f32 math on both sides) and within one bf16
 ulp for bf16 queries (both sides round an f32 result to bf16: rtol 2**-7,
 atol 1e-4 for values near 0); the sampler agrees exactly.
+
+The training kernels: flash attention's forward agrees as paged attention
+does; its backward within 1e-5 of the tensor's largest value (f32) or two
+bf16 ulps plus 1e-3 of that value (bf16: dS = P (dP - Di) cancels, so an
+element near zero carries the f32 error of the tensor's scale), and is the
+same bit for bit from run to run. The fused pSGD, momentum and AdaGrad-DA
+(nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
+nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.fused_optim import ops as optim_ops  # noqa: E402
+from repro_torch.kernels.fused_optim import ref as optim_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ops, ref  # noqa: E402
 
 from _paged_inputs import paged_setup, sampler_inputs  # noqa: E402
@@ -110,3 +122,136 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ops.paged_flash_decode(torch.zeros((2, 4, 64), device=cuda), f32_pages, f32_pages, table, pos)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.paged_chunk_prefill(torch.zeros((2, 1, 4, 64), device=cuda), f32_pages, f32_pages, table, pos)
+
+
+FLASH_CASES = {
+    # name: (b, sq, sk, hq, hkv, d, causal, window)
+    "ragged_causal": (2, 77, 77, 4, 2, 64, True, None),
+    "window": (2, 130, 130, 6, 3, 64, True, 17),
+    "gqa_1_1": (1, 65, 65, 4, 4, 128, True, None),
+    "gqa_8_1": (2, 100, 100, 8, 1, 128, True, None),
+    "sq_lt_sk": (2, 50, 129, 4, 2, 128, True, 40),
+    "fully_masked_rows": (1, 70, 50, 4, 2, 128, True, None),
+    "not_causal": (2, 33, 33, 4, 1, 64, False, None),
+    "full_width": (4, 513, 513, 16, 2, 128, True, None),
+}
+
+
+def _flash_inputs(device, case, dtype, seed=0):
+    b, sq, sk, hq, hkv, d, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, hq, d))]
+    return [t.to(dtype) for t in _on(device, *arrays)], dict(causal=causal, sliding_window=window)
+
+
+def _close_to_scale(out, expect, rtol, scale_tol):
+    out, expect = out.float().cpu().numpy(), expect.float().cpu().numpy()
+    np.testing.assert_allclose(out, expect, rtol=rtol, atol=scale_tol * np.abs(expect).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    (q, k, v, d_out), kw = _flash_inputs(cuda, case, dt)
+    flash_ops.reset_launches()
+    out, lse = flash_ops.forward(q, k, v, **kw)
+    expect, expect_lse = flash_ref.attention_fwd_ref(q, k, v, **kw)
+    assert out.dtype == dt and out.shape == q.shape
+    _close(out, expect, **(dict(atol=2e-5, rtol=2e-5) if dtype == "float32" else BF16_ULP))
+    finite = torch.isfinite(expect_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    _close(lse[finite], expect_lse[finite], atol=1e-5, rtol=1e-5)
+    grads = flash_ops.backward(q, k, v, out, lse, d_out, **kw)
+    expect_grads = flash_ref.attention_bwd_ref(q, k, v, out, lse, d_out, **kw)
+    for g, e in zip(grads, expect_grads):
+        assert g.dtype == dt and g.shape == e.shape and torch.isfinite(g).all()
+        if dtype == "float32":
+            _close_to_scale(g, e, rtol=1e-5, scale_tol=1e-5)
+        else:
+            _close_to_scale(g, e, rtol=2.0**-6, scale_tol=1e-3)
+    again = flash_ops.backward(q, k, v, out, lse, d_out, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again)), "backward is not deterministic"
+    assert flash_ops.LAUNCHES == {"flash_attention_fwd": 1, "flash_attention_bwd": 2}
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    (q, k, v, d_out), kw = _flash_inputs(cuda, "window", torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, d_out)
+    expect, lse = flash_ref.attention_fwd_ref(q, k, v, **kw)
+    for g, e in zip(grads, flash_ref.attention_bwd_ref(q, k, v, expect, lse, d_out, **kw)):
+        _close_to_scale(g, e, rtol=1e-5, scale_tol=1e-5)
+
+
+def _leaves(device, sizes, seed, positive=False):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    return _on(device, *[np.abs(a) if positive else a for a in arrays])
+
+
+# ragged leaf sizes around the kernel's 2,048-element blocks, an empty leaf,
+# and one leaf of many blocks, in one table
+LEAF_SIZES = [1, 2047, 2048, 2049, 0, 77, 5 * 2048 + 3, 1 << 20]
+
+
+@pytest.mark.parametrize("name", ["psgd", "momentum", "adagrad_da", "adagrad_da_nu_half",
+                                  "adagrad_da_nu_other"])
+def test_fused_updates_match_plain(cuda, name):
+    w, g, a, z = (_leaves(cuda, LEAF_SIZES, seed) for seed in range(4))
+    s2 = _leaves(cuda, LEAF_SIZES, 4, positive=True)
+    ws = [x.clone() for x in w]
+    optim_ops.reset_launches()
+    if name == "psgd":
+        states = [x.clone() for x in a]
+        optim_ops.psgd_update(ws, g, states, lr=0.3, gamma=1e4)
+        expect = [(optim_ref.psgd_ref(*x, lr=0.3, gamma=1e4),) for x in zip(w, g, a)]
+        got = [(x,) for x in ws]
+    elif name == "momentum":
+        states = [x.clone() for x in a]
+        optim_ops.momentum_update(ws, g, states, lr=0.3, beta=0.9)
+        expect = [optim_ref.momentum_ref(*x, lr=0.3, beta=0.9) for x in zip(w, g, a)]
+        got = list(zip(ws, states))
+    else:
+        nu = {"adagrad_da": 1.0, "adagrad_da_nu_half": 0.5, "adagrad_da_nu_other": 0.7}[name]
+        zs, s2s = [x.clone() for x in z], [x.clone() for x in s2]
+        optim_ops.adagrad_da_update(ws, g, a, zs, s2s, lr=0.3, delta=0.5, nu=nu)
+        expect = [optim_ref.adagrad_da_ref(*x, lr=0.3, delta=0.5, nu=nu) for x in zip(w, g, a, z, s2)]
+        got = list(zip(ws, zs, s2s))
+    for x, y in zip(got, expect):
+        for u, e in zip(x, y):
+            if name == "adagrad_da_nu_other":
+                _close(u, e, atol=1e-6, rtol=1e-6)
+            else:
+                assert torch.equal(u, e), f"{name}: {(u - e).abs().max().item()}"
+    assert sum(optim_ops.LAUNCHES.values()) == 1
+
+
+def test_training_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.fused_optim import kernel as optim_kernel
+
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    kv = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="must be on"):
+        flash_kernel.flash_attention_fwd(q.cpu(), kv.cpu(), kv.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_kernel.flash_attention_fwd(torch.zeros((1, 8, 4, 96), device=cuda),
+                                         torch.zeros((1, 8, 2, 96), device=cuda),
+                                         torch.zeros((1, 8, 2, 96), device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_kernel.flash_attention_fwd(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="like q"):
+        flash_kernel.flash_attention_fwd(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention_fwd(q.transpose(1, 2), kv, kv)
+    w = [torch.zeros(10, device=cuda)]
+    with pytest.raises(ValueError, match="must be on"):
+        optim_kernel.psgd_(w, [torch.zeros(10)], w, lr=0.1, gamma=1.0, denom=1.1)
+    with pytest.raises(ValueError, match="float32"):
+        optim_kernel.momentum_([torch.zeros(10, device=cuda, dtype=torch.bfloat16)], w, w,
+                               lr=0.1, beta=0.9)
+    with pytest.raises(ValueError, match="sizes differ"):
+        optim_kernel.psgd_(w, [torch.zeros(11, device=cuda)], w, lr=0.1, gamma=1.0, denom=1.1)
