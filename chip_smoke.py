@@ -16,7 +16,12 @@
    gradient's largest value, while a planted fault (the Di term left out)
    must not; the fused updates bit for bit over every leaf of the tree
    their run updates. scaled_dot_product_attention is timed beside the
-   flash kernels as a yardstick only.
+   flash kernels as a yardstick only. The GLA forward at rwkv6's training
+   shape (S 513, not a whole number of chunks), at S 512 and at its serving
+   shape (a 256-token chunk from a carried state), and the GLA backward at
+   the training shape, within GLA_TOL, while planted faults (bonus left
+   out, initial state undecayed, chunk-total decay term left out of
+   dlog_w) must not be; the backward gives the same bits twice.
 4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
@@ -33,9 +38,21 @@
    AdaGrad-DA (eta 1), each the same schedule at full width and 8 layers. Each run must follow the
    schedule's stage ladder exactly, give finite losses, end below its first
    loss and launch its kernels.
-8. On qwen2.5-3b smoke in float32, the losses of a short SEBS run on the
-   card equal the CPU path's (the plain versions) within 1e-4 relative.
+8. On qwen2.5-3b smoke in float32, the first update's gradients on the card
+   equal the CPU path's (the plain versions) within 1e-4 of each leaf's
+   norm, and the losses of a short SEBS run within 1e-4 relative, while a
+   control CPU run from weights moved by 1e-7 stays within half of that.
 9. Traces one full-width pSGD update on the device (as phase 6).
+10. Serves rwkv6-1.6b at full width through the same engine (8 requests
+    of 512 + 32 tokens, 256-token chunks), counters zeroed just before and
+    read just after: the GLA forward runs once a layer and chunk, the
+    sampler every tick, no prefix is shared; traces the same batch again;
+    greedy tokens on the card equal the CPU path's on rwkv6 smoke.
+11. Trains rwkv6-1.6b at full width with SEBS and pSGD on phase 7's
+    schedule: the GLA forward runs twice a layer and microbatch (remat), the
+    backward once; traces a stage-2 update; on rwkv6 smoke the card agrees
+    with the CPU path as in phase 8 (its SEBS run at eta 0.01, where the
+    control run holds: see CARD_CPU_ETAS).
 
 Any failed phase exits non-zero. The last lines of standard output are the
 kernels' JSON record, the card's name and power limit as nvidia-smi gives
@@ -113,22 +130,25 @@ def excess(out, expect) -> float:
     return (err / (ATTN_ATOL + ATTN_RTOL * expect.float().abs())).max().item()
 
 
-def check_close(name: str, out, expect, fault=None) -> dict:
-    """Fail unless ``out`` is finite and within the allowance of ``expect``.
-    ``fault`` is the plain version with a planted bug (the last key each
-    query may see dropped): it must fall outside the allowance, or the
-    tolerance could not see such a bug."""
+def check_close(name: str, out, expect, fault=None, allowance=None) -> dict:
+    """Fail unless ``out`` is finite and within the allowance of ``expect``
+    (``allowance(out, expect)``, the largest error in units of the
+    allowance; the attention forwards' by default). ``fault`` is the plain
+    version with a planted bug (for attention, the last key each query may
+    see dropped): it must fall outside the allowance, or the tolerance could
+    not see such a bug."""
     import torch
 
+    allowance = allowance or excess
     reading = {"max_abs_err": (out.float() - expect.float()).abs().max().item(),
-               "excess": excess(out, expect)}
+               "excess": allowance(out, expect)}
     if not torch.isfinite(out.float()).all() or reading["excess"] > 1:
         fail(f"{name}: kernel disagrees with its plain version (max abs err "
              f"{reading['max_abs_err']:.3e}, {reading['excess']:.2f} x the allowance)")
     if fault is not None:
-        reading["fault_excess"] = excess(fault, expect)
+        reading["fault_excess"] = allowance(fault, expect)
         if reading["fault_excess"] <= 1:
-            fail(f"{name}: the tolerance cannot tell a dropped key from the right answer")
+            fail(f"{name}: the tolerance cannot tell the planted fault from the right answer")
     return reading
 
 
@@ -168,8 +188,13 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 
 def merge(readings: list) -> dict:
-    return {key: max(r[key] for r in readings if key in r)
-            for key in ("max_abs_err", "excess", "fault_excess")}
+    """The worst reading of each kind: the largest error and excess, the
+    planted fault closest to passing."""
+    out = {key: max(r[key] for r in readings) for key in ("max_abs_err", "excess")}
+    faults = [r["fault_excess"] for r in readings if "fault_excess" in r]
+    if faults:
+        out["fault_excess"] = min(faults)
+    return out
 
 
 def kernel_checks(kernel_records: dict) -> None:
@@ -272,16 +297,16 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def small_input_agreement() -> None:
+def small_input_agreement(arch: str) -> None:
     """Greedy tokens of the engine on the card (kernels) equal the CPU
-    path's (plain versions) on qwen2.5-3b smoke in float32."""
+    path's (plain versions) on ``arch`` smoke in float32."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import LanguageModel
     from repro_torch.serve import PagedContinuousBatchingEngine
 
-    cfg = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
+    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
     model = LanguageModel(cfg)
     cpu_params = model.init(seed=0, device="cpu")
     rng = np.random.default_rng(0)
@@ -298,7 +323,7 @@ def small_input_agreement() -> None:
         out = engine.run()
         streams[device] = [out[i].tolist() for i in ids]
     if streams["cpu"] != streams["cuda"]:
-        fail(f"small-input greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
+        fail(f"{arch} small-input greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
 
 
 def device_profile(run) -> dict:
@@ -348,15 +373,170 @@ LIBRARY_NONE = "no single PyTorch call computes this update"
 # Learning rates of the training runs: the largest of 0.3, 1, 3 and 10 with
 # which 12 SEBS updates of the 8-layer model stayed finite and fell
 # (tools/train_lr_scan.py; 3 diverged in the second stage), and 0.3 for
-# momentum, whose beta = 0.9 multiplies its steps up to tenfold.
-ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0}
+# momentum, whose beta = 0.9 multiplies its steps up to tenfold. For
+# rwkv6-1.6b (all 24 layers) the same scan gave 11.5833 -> 11.3441 / 11.2839
+# / 17.4028 / NaN at 0.3 / 1 / 3 / 10 (on an H100 80GB HBM3 at 700 W).
+ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0}
 
 
-def excess_bwd(out, expect) -> float:
-    """Largest |out - expect| in units of the backward's allowance."""
+def excess_bwd(out, expect, rtol: float = BWD_RTOL, scale_tol: float = BWD_SCALE_TOL) -> float:
+    """Largest |out - expect| in units of the allowance rtol |expect| +
+    scale_tol max |expect| (the flash backward's by default)."""
     err = (out.float() - expect.float()).abs()
-    allow = BWD_RTOL * expect.float().abs() + BWD_SCALE_TOL * expect.float().abs().max()
+    allow = rtol * expect.float().abs() + scale_tol * expect.float().abs().max()
     return (err / allow).max().item()
+
+
+# GLA. The kernels and the plain recurrence both compute in f32 from the same
+# inputs, in other orders (chunked products against a step-by-step scan) and
+# with the fast exp: f32 outputs (final state, dlog_w, du, ds0) agree within
+# 1e-4 relative plus 1e-4 of the output's largest value; bf16 outputs are
+# rounded once more (y: one bf16 ulp, dq, dk, dv: two) plus 1e-3 of the
+# largest value, for elements that cancel near zero.
+GLA_TOL = {"float32": (1e-4, 1e-4), "y": (2.0**-7, 1e-3), "grad": (2.0**-6, 1e-3)}
+LIBRARY_NONE_GLA = "no single PyTorch call computes gated linear attention"
+
+
+def check_scaled(name: str, out, expect, tol: str, fault=None) -> dict:
+    """check_close with the GLA allowance GLA_TOL[tol]."""
+    return check_close(name, out, expect, fault, lambda o, e: excess_bwd(o, e, *GLA_TOL[tol]))
+
+
+def gla_inputs(gen, b: int, s: int, h: int, initial_state: bool):
+    """bf16 q, k, v and dy; f32 log_w from RWKV6's decay range (log_w =
+    -exp(base + noise), the per-channel base spanning -6 to -1 as RWKV6's
+    decay speeds do); a random bonus u (the model starts it at zero, which
+    would hide a fault in it) and initial state."""
+    import torch
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    q, k, v, dy = (rand(b, s, h, 64).to(torch.bfloat16) for _ in range(4))
+    lw = -torch.exp(torch.linspace(-6, -1, 64, device="cuda") + rand(b, s, h, 64, scale=0.5))
+    s0 = rand(b, h, 64, 64, scale=0.3) if initial_state else None
+    return q, k, v, lw, rand(h, 64, scale=0.5), s0, dy
+
+
+def gla_products(s: int, backward: bool) -> int:
+    """Multiply-adds x 2 of the chunked form's matrix products for one
+    (batch, head) over S positions (the last chunk as long as it is):
+    forward A (L L K), A v (L L V), q S and k^T v (L K V each); the backward
+    recomputes A and adds dA, A^T dy, dq and dk's pairwise (L L K each, L L V
+    for the two with V) and four L K V products."""
+    total = 0
+    for t0 in range(0, s, 64):
+        n = min(64, s - t0)
+        total += 2 * (3 * n * n * 64 + 2 * n * n * 64 + 4 * n * 64 * 64) if backward else \
+            2 * (2 * n * n * 64 + 2 * n * 64 * 64)
+    return total
+
+
+def dlog_w_without_chunk_totals(q, k, v, lw, u, dy, d_lw):
+    """The planted backward fault: the plain dlog_w with each chunk's total
+    decay term left out, i.e. minus rowsum(dS_{n+1} * S_{n+1}) on every row of
+    chunk n, with S_{n+1} the state after the chunk and dS_{n+1} its gradient
+    (from the plain recurrence run chunk by chunk)."""
+    import torch
+
+    from repro_torch.kernels.gla import ref
+
+    b, s, h, _ = q.shape
+    state = torch.zeros((b, h, 64, 64), device=q.device, requires_grad=True)
+    ys, ends = [], []
+    with torch.enable_grad():
+        for t0 in range(0, s, 64):
+            rows = slice(t0, t0 + 64)
+            y, state = ref.gla_fwd_ref(q[:, rows], k[:, rows], v[:, rows], lw[:, rows], bonus_u=u,
+                                       include_current=False, initial_state=state)
+            ys.append(y)
+            ends.append(state)
+        d_ends = torch.autograd.grad(torch.cat(ys, dim=1), ends, dy, allow_unused=True)
+    out = d_lw.clone()
+    for t0, d_end, end in zip(range(0, s, 64), d_ends, ends):
+        if d_end is not None:
+            out[:, t0:t0 + 64] -= (d_end * end).sum(-1)[:, None]
+    return out
+
+
+def gla_checks(records: dict) -> dict:
+    """The GLA kernels through their ops wrappers against the plain
+    recurrence: the forward at the training shape (rwkv6-1.6b, microbatch 4
+    of 513-token rows: B 4, S 513, H 32, not a multiple of the 64-step
+    chunk), at S 512, and at the serving shape (a 256-token prefill chunk of
+    one request: B 1, S 256, with an initial state); the backward at the
+    training shape. Planted faults: the bonus left out (training shape),
+    the initial state's decay dropped (serving shape), each chunk's total
+    decay term left out of dlog_w (backward). Returns the serving shape's
+    timings."""
+    import torch
+
+    from repro_torch.kernels.gla import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fwd, bwd = [], []
+    # training shape
+    q, k, v, lw, u, _, dy = gla_inputs(gen, 4, 513, 32, initial_state=False)
+    y, final, states = ops.forward(q, k, v, lw, u, include_current=False, save_states=True)
+    expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False)
+    no_bonus = ref.gla_fwd_ref(q, k, v, lw, include_current=False)[0]
+    fwd.append(check_scaled("gla_fwd y (B 4, S 513)", y, expect_y, "y", no_bonus))
+    fwd.append(check_scaled("gla_fwd final state (B 4, S 513)", final, expect_final, "float32"))
+    grads = ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=False)
+    expect = ref.gla_bwd_ref(q, k, v, lw, u, None, dy, None, include_current=False)
+    again = ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=False)
+    if not all(torch.equal(x, y_) for x, y_ in zip(grads, again) if x is not None):
+        fail("gla_bwd: two runs on the same inputs differ")
+    fault = dlog_w_without_chunk_totals(q, k, v, lw, u, dy, expect[3])
+    for name, g, e in zip(("dq", "dk", "dv", "dlog_w", "du"), grads, expect):
+        tol = "grad" if g.dtype == torch.bfloat16 else "float32"
+        bwd.append(check_scaled(f"gla_bwd {name}", g, e, tol, fault if name == "dlog_w" else None))
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u) for _ in range(copies_for(nbytes(q, k, v, lw)))]
+    bwd_sets = [(*x, None, states.clone(), final.clone(), dy.clone(), None) for x in sets]
+    b, s, h = q.shape[:3]
+    io = nbytes(q, k, v, lw, u) + nbytes(v) + 4 * b * h * 64 * 64  # y and the final state written
+    records["gla_fwd"] = dict(
+        **merge(fwd),
+        ms=timed(lambda *a: ops.forward(*a, include_current=False, save_states=True), sets, 50),
+        plain_ms=timed(lambda q_, k_, v_, lw_, u_: ref.gla_fwd_ref(q_, k_, v_, lw_, bonus_u=u_,
+                                                                   include_current=False), sets, 3),
+        bound=bound(io, b * h * gla_products(s, backward=False), BF16_FLOPS),
+        library_ms=None,
+    )
+    records["gla_bwd"] = dict(
+        **merge(bwd),
+        ms=timed(lambda *a: ops.backward(*a, include_current=False), bwd_sets, 20),
+        plain_ms=timed(lambda *a: ref.gla_bwd_ref(*a[:6], a[8], a[9], include_current=False),
+                       bwd_sets, 2),
+        # reads q, k, v, dy, log_w and u; writes dq, dk, dv, dlog_w and du
+        bound=bound(nbytes(q, k, v, dy, lw, u) + nbytes(q, k, v, lw, u),
+                    b * h * gla_products(s, backward=True), BF16_FLOPS),
+        library_ms=None,
+    )
+    del q, k, v, lw, dy, y, final, states, grads, again, expect, fault, sets, bwd_sets
+    # S 512, a whole number of chunks
+    q, k, v, lw, u, _, _ = gla_inputs(gen, 4, 512, 32, initial_state=False)
+    fwd.append(check_scaled("gla_fwd y (B 4, S 512)", ops.forward(q, k, v, lw, u, include_current=False)[0],
+                            ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False)[0], "y"))
+    # serving shape: one 256-token prefill chunk from a slot's carried state
+    q, k, v, lw, u, s0, _ = gla_inputs(gen, 1, 256, 32, initial_state=True)
+    y, final, _ = ops.forward(q, k, v, lw, u, s0, include_current=False)
+    expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False,
+                                             initial_state=s0)
+    undecayed = (ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False)[0].float()
+                 + torch.einsum("bshk,bhkv->bshv", q.float(), s0))
+    fwd.append(check_scaled("gla_fwd y (B 1, S 256, initial state)", y, expect_y, "y", undecayed))
+    fwd.append(check_scaled("gla_fwd final state (B 1, S 256)", final, expect_final, "float32"))
+    records["gla_fwd"].update(merge(fwd))
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u, s0.clone())
+            for _ in range(copies_for(nbytes(q, k, v, lw, s0)))]
+    io = nbytes(q, k, v, lw, u, s0) + nbytes(v) + nbytes(s0)
+    return dict(
+        ms=timed(lambda *a: ops.forward(*a, include_current=False), sets, 100),
+        plain_ms=timed(lambda q_, k_, v_, lw_, u_, s0_: ref.gla_fwd_ref(
+            q_, k_, v_, lw_, bonus_u=u_, include_current=False, initial_state=s0_), sets, 3),
+        bound=bound(io, q.shape[0] * q.shape[2] * gla_products(q.shape[1], backward=False), BF16_FLOPS),
+    )
 
 
 def leaf_shapes(cfg) -> list:
@@ -540,6 +720,7 @@ def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: 
     from repro_torch.data import DataPipeline, TokenDataset
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.fused_optim import ops as optim_ops
+    from repro_torch.kernels.gla import ops as gla_ops
     from repro_torch.models import LanguageModel
     from repro_torch.obs import Tracer
     from repro_torch.train import TrainState, init_train_state
@@ -557,14 +738,14 @@ def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: 
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    flash_ops.reset_launches()
-    optim_ops.reset_launches()
+    for ops in (flash_ops, optim_ops, gla_ops):
+        ops.reset_launches()
     t0 = time.perf_counter()
     state, log = trainer.run(state, log_every=1)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES}
+    launches = {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES, **gla_ops.LAUNCHES}
     updates = [ev["dur"] for ev in tracer.events if ev.get("name") == "train.update"]
     if log.stages != expected_ladder(schedule)[0] or log.batch_sizes != expected_ladder(schedule)[1]:
         fail(f"{cfg.name}: stages {log.stages} / batches {log.batch_sizes} differ from the "
@@ -582,25 +763,252 @@ def check_training(label: str, log, launches: dict, kernels) -> None:
             fail(f"{label}: {kname} was not launched on the main path")
 
 
-def card_cpu_agreement() -> list:
-    """Phase 8: a short SEBS run of qwen2.5-3b smoke in float32 from the same
-    weights on the CPU (plain versions) and on the card (kernels)."""
+# Learning rates of the card-against-CPU runs (smoke, float32, 4 updates).
+# rwkv6's smoke run amplifies rounding: its group norm starts at y = 0 on
+# the first position (u = 0), so at qwen's 0.3 a CPU run whose weights move
+# by 1e-7 ends far from the unmoved one. The control run below measures that
+# at the rate used, and must stay within half the tolerance for the
+# comparison to mean anything; where the rate is below 0.3, the three runs
+# are also made at 0.3 and recorded, as the reason for the lower rate.
+CARD_CPU_ETAS = {"qwen2.5-3b": 0.3, "rwkv6-1.6b": 0.01}
+CARD_CPU_REFERENCE_ETA = 0.3
+CARD_CPU_RTOL = 1e-4
+
+
+def card_cpu_agreement(arch: str) -> dict:
+    """``arch`` smoke in float32 from the same weights on the CPU (plain
+    versions) and on the card (kernels): the first update's gradients leaf
+    by leaf (within 1e-4 of each leaf's norm), and the losses of a short
+    SEBS run (within 1e-4 relative). A control run on the CPU from weights
+    moved by 1e-7 relative shows how far rounding alone carries the losses."""
+    import numpy as np
+    import torch
+
     from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import make_optimizer
+    from repro_torch.train.step import _grads_over_microbatches
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
-    losses = {}
+    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    # the same seed-0 weights on both: made on the CPU, then moved
+    base = model.init(seed=0, device="cpu")
+    tokens = torch.from_numpy(np.asarray(TokenDataset(cfg.vocab_size, 32, seed=1).batch(0, 4)["tokens"]))
+    def copy_to(tree, device):  # the runs update their weights in place
+        return tree_map(lambda x: x.detach().to(device, copy=True), tree)
+
+    grads = {}
     for device in ("cpu", "cuda"):
-        # the same seed-0 weights on both: made on the CPU, then moved
-        params = to_device(LanguageModel(cfg).init(seed=0, device="cpu"), device)
-        log = run_sebs(cfg, make_optimizer("psgd", gamma=1e4), eta=0.3, device=device, seq=32,
-                       b1=4, c1=8, stages=2, params=params)[0]
-        losses[device] = log.losses
-    worst = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
-    if worst > 1e-4:
-        fail(f"card and CPU losses differ by {worst:.2e} relative: {losses}")
-    return [losses["cpu"], losses["cuda"], worst]
+        params = copy_to(base, device)
+        for w in tree_leaves(params):
+            w.requires_grad_(True)
+        g, _ = _grads_over_microbatches(model, params, {"tokens": tokens.to(device)}, 1, 0.0)
+        grads[device] = [x.detach().cpu() for x in g]
+    grad_worst = max((torch.linalg.vector_norm(c - a) / torch.linalg.vector_norm(a)).item()
+                     for a, c in zip(grads["cpu"], grads["cuda"]))
+    if grad_worst > CARD_CPU_RTOL:
+        fail(f"{arch}: card and CPU gradients differ by {grad_worst:.2e} of a leaf's norm")
+    gen = torch.Generator().manual_seed(1)
+    moved = tree_map(lambda x: x * (1 + 1e-7 * torch.randn(x.shape, generator=gen)), base)
+
+    def gaps(eta):
+        """Losses of the CPU, card and control runs at ``eta``, and the card's
+        and the control's largest relative distance from the CPU run."""
+        losses = {}
+        for label, device, weights in (("cpu", "cpu", base), ("cuda", "cuda", base),
+                                       ("control", "cpu", moved)):
+            log = run_sebs(cfg, make_optimizer("psgd", gamma=1e4), eta=eta, device=device,
+                           seq=32, b1=4, c1=8, stages=2, params=copy_to(weights, device))[0]
+            losses[label] = log.losses
+        return losses, *(max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses[other]))
+                         for other in ("cuda", "control"))
+
+    eta = CARD_CPU_ETAS[arch]
+    losses, worst, control = gaps(eta)
+    if control > CARD_CPU_RTOL / 2:
+        fail(f"{arch}: the control run moves {control:.2e} from weights moved by 1e-7: the "
+             f"comparison cannot hold {CARD_CPU_RTOL:.0e} at eta {eta}")
+    if worst > CARD_CPU_RTOL:
+        fail(f"{arch}: card and CPU losses differ by {worst:.2e} relative: {losses}")
+    print(f"card vs cpu: {arch} smoke f32, first-update gradients within {grad_worst:.2e} of a "
+          f"leaf's norm; {len(losses['cpu'])} updates at eta {eta}, losses within "
+          f"{worst:.2e} relative (control run from weights moved by 1e-7: {control:.2e})", flush=True)
+    out = {"cpu": losses["cpu"], "cuda": losses["cuda"], "max_rel": worst, "control_max_rel": control,
+           "grad_max_rel": grad_worst, "eta": eta}
+    if eta < CARD_CPU_REFERENCE_ETA:
+        _, worst_ref, control_ref = gaps(CARD_CPU_REFERENCE_ETA)
+        print(f"card vs cpu: {arch} at eta {CARD_CPU_REFERENCE_ETA} (not held, the reason for eta "
+              f"{eta}): card {worst_ref:.2e}, control {control_ref:.2e} relative", flush=True)
+        out["at_reference_eta"] = {"eta": CARD_CPU_REFERENCE_ETA, "max_rel": worst_ref,
+                                   "control_max_rel": control_ref}
+    return out
+
+
+def stage_table(log, updates, seq: int) -> dict:
+    """Per stage: batch, updates, median update time, tokens per second."""
+    per_stage: dict = {}
+    for st, bs, dur in zip(log.stages, log.batch_sizes, updates):
+        per_stage.setdefault(st, []).append((bs, dur))
+    return {
+        st: {"batch": rows[0][0], "updates": len(rows),
+             "median_update_ms": sorted(d for _, d in rows)[len(rows) // 2] * 1e3,
+             "tokens_per_s": sum(bs * (seq + 1) for bs, _ in rows) / sum(d for _, d in rows)}
+        for st, rows in per_stage.items()
+    }
+
+
+def print_training(label: str, log, wall: float, peak: int, launches: dict, stages: dict, seq: int) -> None:
+    print(f"train {label}: {len(log.steps)} updates in {wall:.1f} s | losses "
+          + " ".join(f"{x:.4f}" for x in log.losses) + f" | peak memory {peak / 2**30:.1f} GiB "
+          f"| launches {launches}", flush=True)
+    for st, row in stages.items():
+        print(f"train {label} stage {st}: batch {row['batch']} x {seq + 1} tokens, {row['updates']} "
+              f"updates, median {row['median_update_ms']:.1f} ms an update, "
+              f"{row['tokens_per_s']:.0f} tokens/s (first update included)", flush=True)
+
+
+def trace_update(label: str, trainer, state, optimizer, lr: float):
+    """One stage-2 update (4 microbatches of 4) traced on the device, after
+    an untraced one timed for comparison. Returns (profile, untraced ms)."""
+    import torch
+
+    from repro_torch.train import build_train_step
+
+    step = build_train_step(trainer.model, optimizer, accum_steps=4)
+    batch = trainer.pipeline.next_batch(16)
+    batch = {k: v.reshape((4, 4) + tuple(v.shape[1:])) for k, v in batch.items()}
+    step(state, batch, lr, 2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, lr, 2)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(lambda: step(state, batch, lr, 2))
+    print(f"{label} profile: one update of 4 microbatches, device busy {prof['busy_ms']:.1f} ms "
+          f"of {prof['wall_ms']:.1f} ms wall, idle {100 * prof['idle_share']:.1f}% | "
+          f"{prof['activities']} device activities | untraced update {untraced_ms:.1f} ms", flush=True)
+    for kname, (ms, n) in list(prof["by_kernel"].items())[:10]:
+        print(f"{label} profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    return prof, untraced_ms
+
+
+def serve_rwkv6(cfg) -> dict:
+    """Phase 10: the paged engine serving rwkv6-1.6b at full width (8 slots,
+    cache 2048, 256-token prefill chunks; 8 requests of 512 prompt tokens,
+    the first 256 shared, and 32 new tokens, half greedy, half t=0.8,
+    top_k=50), counters zeroed just before and read just after. Prefix
+    sharing is off for a recurrent model, so nothing is reused; every chunk
+    launches the GLA forward once a layer. Then the same batch again, traced
+    on the device, and greedy tokens on the card against the CPU path's on
+    rwkv6 smoke."""
+    import torch
+
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import PagedContinuousBatchingEngine
+
+    model = LanguageModel(cfg)
+    params = model.init(seed=0, device="cuda")
+    engine = PagedContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16, cache_len=2048, prefill_chunks=(256,), seed=0,
+    )
+    rng = torch.Generator().manual_seed(7)
+    prefix = torch.randint(0, cfg.vocab_size, (256,), generator=rng)
+
+    def submit_batch():
+        return [
+            engine.submit(torch.cat([prefix, torch.randint(0, cfg.vocab_size, (256,), generator=rng)]).numpy(),
+                          max_new_tokens=32, temperature=0.0 if i % 2 == 0 else 0.8,
+                          top_k=0 if i % 2 == 0 else 50)
+            for i in range(8)
+        ]
+
+    engine.submit(prefix.numpy(), max_new_tokens=4)  # warm-up
+    engine.run()
+    engine.reset_stats()
+    ids = submit_batch()
+    torch.cuda.synchronize()
+    paged_ops.reset_launches()
+    gla_ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **gla_ops.LAUNCHES}
+    for rid in ids:
+        gen_tokens = results[rid][512:]
+        if len(gen_tokens) != 32 or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"rwkv6 request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    engine.pool.check()
+    stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    if engine.prefix_sharing or stats["prefix_tokens_reused"] != 0:
+        fail("rwkv6: prefix sharing must be off for a recurrent model")
+    if launches["gla_fwd"] != cfg.num_layers * stats["prefill_chunks"]:
+        fail(f"rwkv6: gla_fwd launched {launches['gla_fwd']} times, not {cfg.num_layers} x "
+             f"{stats['prefill_chunks']} prefill chunks")
+    if launches["fused_sample"] <= 0:
+        fail("rwkv6: fused_sample was not launched on the serving path")
+    submit_batch()
+    profile = device_profile(engine.run)
+    engine.pool.check()
+    decode_tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+    print(
+        f"rwkv6 engine: {len(ids)} requests x 32 tokens in {wall:.3f} s | decode {stats['decoded_tokens']} "
+        f"tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | median decode tick {decode_tick_ms:.2f} ms "
+        f"| {stats['ticks']} ticks, {stats['prefill_chunks']} chunks | prefix reused "
+        f"{stats['prefix_tokens_reused']} | kv bytes peak {mem['kv_bytes_peak']} "
+        f"| peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | launches {launches}",
+        flush=True,
+    )
+    print(f"rwkv6 profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, "
+          f"idle {100 * profile['idle_share']:.1f}% | {profile['activities']} device activities", flush=True)
+    for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
+        print(f"rwkv6 profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    del engine, params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_input_agreement("rwkv6-1.6b")
+    return {"wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
+            "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": decode_tick_ms,
+            "launches": launches, "profile": profile}
+
+
+def train_rwkv6(cfg) -> dict:
+    """Phase 11: SEBSTrainer with pSGD on rwkv6-1.6b at full width, on phase
+    7's schedule (12 updates at batch 4, 8, 16 by 1, 2 and 4 microbatches of
+    4 x 513 tokens), counters zeroed just before and read just after: the
+    GLA forward runs twice a layer and microbatch (remat), the backward
+    once. Then one stage-2 update traced on the device, and the card's
+    losses against the CPU path's on rwkv6 smoke."""
+    import torch
+
+    from repro_torch.optim import make_optimizer
+
+    seq, b1 = 512, 4
+    psgd = make_optimizer("psgd", gamma=1e4)
+    eta = ETAS["rwkv6_psgd"]
+    log, wall, launches, updates, state, trainer = run_sebs(
+        cfg, psgd, eta=eta, device="cuda", seq=seq, b1=b1, c1=16, stages=3)
+    peak = torch.cuda.max_memory_allocated()
+    check_training("rwkv6 psgd, full width", log, launches, ("gla_fwd", "gla_bwd", "fused_psgd"))
+    micro = sum(bs // b1 for bs in log.batch_sizes)
+    expect = {"gla_fwd": cfg.num_layers * 2 * micro, "gla_bwd": cfg.num_layers * micro}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"rwkv6 training: {kname} launched {launches[kname]} times, not {n}")
+    stages = stage_table(log, updates, seq)
+    print_training("rwkv6 psgd", log, wall, peak, launches, stages, seq)
+    profile, untraced_ms = trace_update("rwkv6 train", trainer, state, psgd, eta)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = card_cpu_agreement("rwkv6-1.6b")
+    return {"layers": cfg.num_layers, "eta": eta, "losses": log.losses, "wall_s": wall,
+            "peak_gib": peak / 2**30, "launches": launches, "stages": stages, "profile": profile,
+            "untraced_update_ms": untraced_ms, "card_vs_cpu": agreement}
 
 
 def main() -> None:
@@ -615,7 +1023,6 @@ def main() -> None:
     from repro_torch.models import LanguageModel
     from repro_torch.optim import make_optimizer
     from repro_torch.serve import PagedContinuousBatchingEngine
-    from repro_torch.train import build_train_step
 
     # 1. device
     smi = nvidia_smi()
@@ -645,6 +1052,7 @@ def main() -> None:
     flash_checks(records)
     fused_checks(records, {"fused_psgd": leaf_shapes(cfg), "fused_momentum": leaf_shapes(reduced),
                            "fused_adagrad_da": leaf_shapes(reduced)})
+    gla_serving_shape = gla_checks(records)
     print("kernel checks: ok | tolerance readings, in units of the allowance (sound <= 1 < planted "
           "fault): " + ", ".join(f"{n} {r['excess']:.3f} vs {r['fault_excess']:.1f}"
                                  for n, r in records.items() if "excess" in r)
@@ -720,7 +1128,7 @@ def main() -> None:
     for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
         print(f"profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
 
-    small_input_agreement()
+    small_input_agreement("qwen2.5-3b")
     ops.reset_launches()
     decode_tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
     print(
@@ -745,42 +1153,12 @@ def main() -> None:
     train_peak = torch.cuda.max_memory_allocated()
     check_training("psgd, full width", log, train_launches,
                    ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"))
-    per_stage = {}
-    for st, bs, dur in zip(log.stages, log.batch_sizes, updates):
-        per_stage.setdefault(st, []).append((bs, dur))
-    train_stages = {
-        st: {"batch": rows[0][0], "updates": len(rows),
-             "median_update_ms": sorted(d for _, d in rows)[len(rows) // 2] * 1e3,
-             "tokens_per_s": sum(bs * (seq + 1) for bs, _ in rows) / sum(d for _, d in rows)}
-        for st, rows in per_stage.items()
-    }
-    print(f"train psgd: {cfg.name} full, {len(log.steps)} updates in {train_wall:.1f} s | losses "
-          + " ".join(f"{x:.4f}" for x in log.losses) + f" | peak memory {train_peak / 2**30:.1f} GiB "
-          f"| launches {train_launches}", flush=True)
-    for st, row in train_stages.items():
-        print(f"train psgd stage {st}: batch {row['batch']} x {seq + 1} tokens, {row['updates']} "
-              f"updates, median {row['median_update_ms']:.1f} ms an update, "
-              f"{row['tokens_per_s']:.0f} tokens/s (first update included)", flush=True)
+    train_stages = stage_table(log, updates, seq)
+    print_training(f"psgd {cfg.name}", log, train_wall, train_peak, train_launches, train_stages, seq)
 
     # 9. where the time goes: one stage-2 update (4 microbatches), traced on the device
-    step = build_train_step(trainer.model, psgd, accum_steps=4)
-    batch = trainer.pipeline.next_batch(16)
-    batch = {k: v.reshape((4, 4) + tuple(v.shape[1:])) for k, v in batch.items()}
-    lr = ETAS["psgd"]
-    step(state, batch, lr, 2)  # untraced, for the comparison below
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, batch, lr, 2)
-    torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t0) * 1e3
-    train_profile = device_profile(lambda: step(state, batch, lr, 2))
-    print(f"train profile: one update of 4 microbatches, device busy {train_profile['busy_ms']:.1f} ms "
-          f"of {train_profile['wall_ms']:.1f} ms wall, idle {100 * train_profile['idle_share']:.1f}% | "
-          f"{train_profile['activities']} device activities | untraced update {untraced_ms:.1f} ms",
-          flush=True)
-    for kname, (ms, n) in list(train_profile["by_kernel"].items())[:10]:
-        print(f"train profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
-    del state, trainer, step, batch
+    train_profile, untraced_ms = trace_update("train", trainer, state, psgd, ETAS["psgd"])
+    del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -808,9 +1186,12 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # 8. card against CPU on a small input
-    agreement = card_cpu_agreement()
-    print(f"card vs cpu: qwen2.5-3b smoke f32, {len(agreement[0])} updates, losses agree within "
-          f"{agreement[2]:.2e} relative", flush=True)
+    agreement = card_cpu_agreement("qwen2.5-3b")
+
+    # 10-11. rwkv6-1.6b at full width: served, then trained, through the GLA kernels
+    rwkv = get_config("rwkv6-1.6b", "full")
+    rwkv_serving = serve_rwkv6(rwkv)
+    rwkv_training = train_rwkv6(rwkv)
 
     replaces = {
         "paged_flash_decode": "src/repro/kernels/paged_decode/kernel.py:84",
@@ -821,6 +1202,8 @@ def main() -> None:
         "fused_psgd": "src/repro/kernels/fused_optim/kernel.py:82",
         "fused_momentum": "src/repro/kernels/fused_optim/kernel.py:88",
         "fused_adagrad_da": "src/repro/kernels/fused_optim/kernel.py:96",
+        "gla_fwd": "src/repro/kernels/gla/kernel.py:81",
+        "gla_bwd": "no TPU counterpart (the JAX package differentiates gla_scan)",
     }
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
@@ -831,8 +1214,13 @@ def main() -> None:
         "fused_psgd": "fused_optim/csrc/fused_optim.cu",
         "fused_momentum": "fused_optim/csrc/fused_optim.cu",
         "fused_adagrad_da": "fused_optim/csrc/fused_optim.cu",
+        "gla_fwd": "gla/csrc/gla.cu",
+        "gla_bwd": "gla/csrc/gla.cu",
     }
     all_launches = {**launches, **train_launches}
+    # the GLA kernels run on both rwkv6 paths: serving (the forward) and training
+    for kname in ("gla_fwd", "gla_bwd"):
+        all_launches[kname] = rwkv_serving["launches"].get(kname, 0) + rwkv_training["launches"][kname]
     kernels = []
     for kname, rec in records.items():
         bound_ms, bound_by = rec["bound"]
@@ -850,15 +1238,19 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         **record, "nvidia_smi": smi, "tolerance": {
             n: {key: r[key] for key in ("excess", "fault_excess")} for n, r in records.items() if "excess" in r
-        }, "library_none": {n: LIBRARY_NONE for n, r in records.items()
-                            if n.startswith("fused_") and r.get("library_ms") is None},
+        }, "library_none": {n: LIBRARY_NONE if n.startswith("fused_") else LIBRARY_NONE_GLA
+                            for n, r in records.items()
+                            if n.startswith(("fused_", "gla_")) and r.get("library_ms") is None},
+        "gla_fwd_serving_shape": {"ms": gla_serving_shape["ms"], "plain_ms": gla_serving_shape["plain_ms"],
+                                  "bound_ms": gla_serving_shape["bound"][0],
+                                  "bound_by": gla_serving_shape["bound"][1]},
+        "rwkv6": {"serving": rwkv_serving, "training": rwkv_training},
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
             "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": decode_tick_ms,
             "pages_peak": mem["pages_peak"], "prefix_tokens_reused": stats["prefix_tokens_reused"],
         }, "train": {"runs": runs, "profile": train_profile, "untraced_update_ms": untraced_ms,
-                     "card_vs_cpu": {"cpu": agreement[0], "cuda": agreement[1],
-                                     "max_rel": agreement[2]}},
+                     "card_vs_cpu": agreement},
     }, indent=1))
     print(json.dumps(record))
     print(smi)

@@ -1,5 +1,6 @@
 """Build and bind the port's hand-written CUDA kernels, shared by every
-kernel family (``paged_decode``, ``flash_attention``, ``fused_optim``).
+kernel family (``paged_decode``, ``flash_attention``, ``fused_optim``,
+``gla``).
 
 Each family registers its sources with :func:`register`. A source is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: the kernel families, each of whose ``kernel`` module registers its sources
-FAMILIES = ("paged_decode", "flash_attention", "fused_optim")
+FAMILIES = ("paged_decode", "flash_attention", "fused_optim", "gla")
 #: library name -> source file
 SOURCES: Dict[str, Path] = {}
 #: library name -> {C function: ctypes argtypes, the trailing stream excluded}

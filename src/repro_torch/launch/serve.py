@@ -8,6 +8,10 @@
     # on the CPU (the kernels' plain versions), smoke width
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged --device cpu
 
+``--arch`` takes the ported families: the dense decoders and rwkv6-1.6b
+(whose recurrent state rides per slot beside the page pool; prefix sharing
+is off for it, as in the JAX engine).
+
 The static, continuous and disaggregated engines of the JAX launcher come
 with later slices of the port; asking for them is an error.
 """

@@ -5,6 +5,7 @@
         --variant smoke --schedule sebs --rho 4 --stages 3 --b1 8 \\
         --c1 256 --seq 64 --steps-log 5 [--device cpu]
 
+``--arch`` takes the ported families: the dense decoders and rwkv6-1.6b.
 Runs on the CUDA device by default (and raises when there is none);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--seed``
 seeds the random weights and the data stream.

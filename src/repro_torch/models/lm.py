@@ -7,14 +7,16 @@ segment's scanned ``layers`` axis is unstacked into a list of per-layer
 trees. Weights stay at ``param_dtype`` and are cast to ``compute_dtype``
 where they are used, as in the JAX package.
 
-The paged cache mirrors the JAX tree the same way: per layer, a
+The paged cache mirrors the JAX tree the same way. Per attention layer, a
 ``{"attn": {"k", "v"}}`` pair of ``(num_pages, page_size, hkv, hd)`` pools,
-one page id indexing every layer at once. Steps update it in place and
-return it.
+one page id indexing every layer at once, which the steps update in place.
+Per RWKV6 layer, ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` recurrent
+state at ``state_batch`` rows (one per slot), which a step computes anew
+and the ``paged_state_*`` helpers write back into the slot rows.
 """
 from __future__ import annotations
 
-from typing import Any, Iterator
+from typing import Any, Callable, List
 
 import torch
 
@@ -58,35 +60,83 @@ class LanguageModel:
         return embedding.logits(params["embed"], x, cfg), aux
 
     # -- paged KV cache -------------------------------------------------------
+    # One merged tree: attention leaves live in the shared page pool (a page
+    # id indexes axis 0 of every attention leaf at once), while O(1)
+    # recurrent state stays per slot (axis 0 of each state leaf is the
+    # slot). The helpers below walk the tree and dispatch on which side of
+    # that split a leaf is on (anything under an "attn" key is paged KV).
     def init_paged_cache(self, num_pages: int, page_size: int, state_batch: int,
                          dtype=torch.bfloat16, device="cuda"):
-        """``state_batch`` sizes recurrent state, which attention-only models
-        do not have; it is kept for the JAX signature."""
         return {
             f"seg{i}": blocks.init_segment_cache_paged(
-                self.cfg, seg, num_pages, page_size, dtype, device
+                self.cfg, seg, num_pages, page_size, state_batch, dtype, device
             )
             for i, seg in enumerate(self.cfg.segments)
         }
 
     @staticmethod
-    def _kv_leaves(cache) -> Iterator[torch.Tensor]:
-        for seg in cache.values():
-            for layers in seg.values():
-                for layer in layers:
-                    yield layer["attn"]["k"]
-                    yield layer["attn"]["v"]
+    def _map_paged(kv_fn: Callable, state_fn: Callable, *trees, _in_attn: bool = False):
+        """Walk one or more trees of one structure, leaf by leaf: ``kv_fn``
+        on the leaves under an "attn" key, ``state_fn`` on the others."""
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: LanguageModel._map_paged(kv_fn, state_fn, *(t[k] for t in trees),
+                                                _in_attn=_in_attn or k == "attn")
+                    for k in first}
+        if isinstance(first, list):
+            return [LanguageModel._map_paged(kv_fn, state_fn, *xs, _in_attn=_in_attn)
+                    for xs in zip(*trees)]
+        return kv_fn(*trees) if _in_attn else state_fn(*trees)
 
-    # Recurrent state is per slot in the JAX package's paged cache; an
-    # attention-only model has none, so these are identities.
+    def _kv_leaves(self, cache) -> List[torch.Tensor]:
+        leaves: List[torch.Tensor] = []
+        self._map_paged(leaves.append, lambda leaf: None, cache)
+        return leaves
+
     def paged_state_slice(self, cache, width: int):
-        return cache
+        """Static-width view: state rows [:width], paged KV untouched."""
+        return self._map_paged(lambda leaf: leaf, lambda leaf: leaf[:width], cache)
 
     def paged_state_merge(self, full, new, width: int, active=None):
-        return new
+        """Write a width-sliced step's updated state rows back into the
+        full-width buffers, in place; the paged KV is the step's (updated in
+        place already). With ``active`` (width,) bool, only active rows take
+        the new state: a masked lane must not advance its recurrence (a slot
+        awaiting its next prefill chunk rides the tick as a dead lane; its
+        attention writes land at positions the chunk will overwrite, but a
+        recurrent state update would be irreversible corruption)."""
+        def upd(f, n):
+            n = n.to(f.dtype)
+            if active is not None:
+                mask = active.reshape((active.shape[0],) + (1,) * (n.ndim - 1))
+                n = torch.where(mask, n, f[:width])
+            f[:width].copy_(n)
+            return f
+
+        return self._map_paged(lambda f, n: n, upd, full, new)
+
+    def paged_state_row(self, cache, slot: int):
+        """Batch-1 view for a chunk prefill: state row ``slot``, the full
+        paged KV riding along."""
+        return self._map_paged(lambda leaf: leaf, lambda leaf: leaf[slot:slot + 1], cache)
+
+    def paged_state_merge_row(self, full, new, slot: int):
+        """Write a chunk prefill's state row back into row ``slot``, in place."""
+        def upd(f, n):
+            f[slot:slot + 1].copy_(n)
+            return f
+
+        return self._map_paged(lambda f, n: n, upd, full, new)
 
     def paged_zero_state_row(self, cache, slot: int):
-        return cache
+        """Clear slot ``slot``'s recurrent state at admission, in place (the
+        row may hold a previous occupant's state; attention pages need no
+        clearing: the causal mask never reads unwritten positions)."""
+        def zero(leaf):
+            leaf[slot].zero_()
+            return leaf
+
+        return self._map_paged(lambda leaf: leaf, zero, cache)
 
     def paged_copy_page(self, cache, src: int, dst: int):
         """Copy-on-write: duplicate physical page ``src`` into ``dst`` across
@@ -98,43 +148,49 @@ class LanguageModel:
 
     def paged_kv_bytes_per_page(self, page_size: int, dtype=torch.bfloat16) -> int:
         """Host-side accounting: bytes one page occupies across all
-        attention leaves (the unit of the pool's memory high-water mark)."""
-        cfg = self.cfg
-        per_leaf = page_size * cfg.num_kv_heads * cfg.resolved_head_dim * dtype.itemsize
-        return 2 * cfg.num_layers * per_leaf
+        attention leaves (the unit of the pool's memory high-water mark; 0
+        for a model without attention)."""
+        cache = self.init_paged_cache(2, page_size, 1, dtype=dtype, device="meta")
+        return sum(leaf[0].numel() * leaf.element_size() for leaf in self._kv_leaves(cache))
 
     # -- serving ----------------------------------------------------------------
     def _segments(self, params, x, cache, *, positions, page_table, cache_index=None):
+        new_cache = {}
         for i, seg in enumerate(self.cfg.segments):
-            x, _ = blocks.apply_segment(
+            x, new_cache[f"seg{i}"] = blocks.apply_segment(
                 params[f"seg{i}"], x, self.cfg, seg, positions=positions,
                 cache=cache[f"seg{i}"], page_table=page_table, cache_index=cache_index,
             )
-        return x
+        return x, new_cache
 
     def decode_step(self, params, token, cache, cache_index, page_table):
         """One-token decode. token: (B, 1) int; cache_index: scalar or (B,)
-        int, each slot's depth; page_table: (B, max_pages).
-        Returns (logits (B, 1, V) f32, cache)."""
+        int, each slot's depth; page_table: (B, max_pages); ``cache`` holds B
+        state rows (``paged_state_slice``). Returns (logits (B, 1, V) f32,
+        new cache: the KV updated in place, new state rows for
+        ``paged_state_merge``)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], token, cfg)
         idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
         positions = idx.expand(token.shape[0])[:, None]
-        x = self._segments(params, x, cache, positions=positions, page_table=page_table,
-                           cache_index=idx)
+        x, new_cache = self._segments(params, x, cache, positions=positions,
+                                      page_table=page_table, cache_index=idx)
         x = norm.apply(params["final_norm"], x, cfg.norm_eps)
-        return embedding.logits(params["embed"], x, cfg), cache
+        return embedding.logits(params["embed"], x, cfg), new_cache
 
     def prefill_chunk(self, params, tokens, cache, pos_start: int, slot: int, page_table):
         """One chunk of a paged, chunked prefill: ``tokens`` (1, C) are the
         prompt positions ``[pos_start, pos_start + C)`` of the request in
         slot ``slot``, whose pages ``page_table`` (1, max_pages) names. The
         chunk's KV is written into those pages and attends to everything
-        already written (shared prefix pages included).
+        already written (shared prefix pages included); recurrent state
+        resumes from, and is written back to, row ``slot``.
         Returns (logits (1, 1, V) for the chunk's last token, cache)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], tokens, cfg)
         positions = pos_start + torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
-        x = self._segments(params, x, cache, positions=positions[None, :], page_table=page_table)
+        row = self.paged_state_row(cache, slot)
+        x, new_row = self._segments(params, x, row, positions=positions[None, :],
+                                    page_table=page_table)
         x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-        return embedding.logits(params["embed"], x, cfg), cache
+        return embedding.logits(params["embed"], x, cfg), self.paged_state_merge_row(cache, new_row, slot)

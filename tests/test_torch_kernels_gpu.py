@@ -19,6 +19,13 @@ element near zero carries the f32 error of the tensor's scale), and is the
 same bit for bit from run to run. The fused pSGD, momentum and AdaGrad-DA
 (nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
 nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
+
+Chunked GLA: the forward and the backward against the plain recurrence
+(and its autograd), within 1e-4 of each output's largest value plus 1e-4
+relative for f32 inputs (chunked sums in another order than the scan's,
+and the fast exp), one bf16 ulp (y) or two (dq, dk, dv) plus 1e-3 of the
+largest value for bf16 inputs; the backward is the same bit for bit from
+run to run.
 """
 import numpy as np
 import pytest
@@ -29,6 +36,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.fused_optim import ops as optim_ops  # noqa: E402
 from repro_torch.kernels.fused_optim import ref as optim_ref  # noqa: E402
+from repro_torch.kernels.gla import ops as gla_ops  # noqa: E402
+from repro_torch.kernels.gla import ref as gla_ref  # noqa: E402
 from repro_torch.kernels.paged_decode import ops, ref  # noqa: E402
 
 from _paged_inputs import paged_setup, sampler_inputs  # noqa: E402
@@ -255,3 +264,87 @@ def test_training_kernels_refuse_what_they_do_not_take(cuda):
                                lr=0.1, beta=0.9)
     with pytest.raises(ValueError, match="sizes differ"):
         optim_kernel.psgd_(w, [torch.zeros(11, device=cuda)], w, lr=0.1, gamma=1.0, denom=1.1)
+
+
+GLA_CASES = {
+    # name: (b, s, h, include_current, bonus, initial state)
+    "rwkv6_ragged": (2, 150, 3, False, True, True),
+    "rwkv6_no_state": (1, 64, 2, False, True, False),
+    "mamba2_style": (2, 130, 2, True, False, True),
+    "short": (3, 5, 2, False, True, True),
+    "training_shape": (4, 513, 32, False, True, False),
+}
+
+
+def _gla_inputs(device, case, dtype, seed=0):
+    """Decays from RWKV6's range: log_w = -exp(b + noise), b from -6 to -1
+    across channels (strong decay included)."""
+    b, s, h, inc, bonus, init = GLA_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v, dy = (rng.standard_normal((b, s, h, 64)).astype(np.float32) for _ in range(4))
+    lw = -np.exp(np.linspace(-6, -1, 64) + 0.5 * rng.standard_normal((b, s, h, 64))).astype(np.float32)
+    u = 0.5 * rng.standard_normal((h, 64)).astype(np.float32)
+    s0 = 0.3 * rng.standard_normal((b, h, 64, 64)).astype(np.float32)
+    d_final = rng.standard_normal((b, h, 64, 64)).astype(np.float32)
+    q, k, v, dy, lw, u, s0, d_final = _on(device, q, k, v, dy, lw, u, s0, d_final)
+    q, k, v, dy = (t.to(dtype) for t in (q, k, v, dy))
+    return (q, k, v, lw, u if bonus else None, s0 if init else None, dy, d_final), inc
+
+
+def _gla_tol(dtype, grad=False):
+    if dtype == torch.float32:
+        return dict(rtol=1e-4, scale_tol=1e-4)
+    return dict(rtol=2.0**-6 if grad else 2.0**-7, scale_tol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GLA_CASES))
+def test_gla_matches_plain(cuda, case, dtype):
+    dt = getattr(torch, dtype)
+    (q, k, v, lw, u, s0, dy, d_final), inc = _gla_inputs(cuda, case, dt)
+    gla_ops.reset_launches()
+    y, final, states = gla_ops.forward(q, k, v, lw, u, s0, include_current=inc, save_states=True)
+    expect_y, expect_final = gla_ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=inc,
+                                                 initial_state=s0)
+    assert y.dtype == dt and y.shape == v.shape and final.dtype == torch.float32
+    _close_to_scale(y, expect_y, **_gla_tol(dt))
+    _close_to_scale(final, expect_final, **_gla_tol(torch.float32))
+    grads = gla_ops.backward(q, k, v, lw, u, s0, states, final, dy, d_final, include_current=inc)
+    expect = gla_ref.gla_bwd_ref(q, k, v, lw, u, s0, dy, d_final, include_current=inc)
+    for name, g, e in zip(("dq", "dk", "dv", "dlog_w", "du", "ds0"), grads, expect):
+        if e is None:  # no bonus: no du; no initial state: its gradient is not asked for
+            assert (name == "du" and g is None) or (name == "ds0" and s0 is None)
+            continue
+        assert g.dtype == e.dtype and g.shape == e.shape and torch.isfinite(g).all(), name
+        _close_to_scale(g, e, **_gla_tol(g.dtype, grad=True))
+    again = gla_ops.backward(q, k, v, lw, u, s0, states, final, dy, d_final, include_current=inc)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again)), "not deterministic"
+    assert gla_ops.LAUNCHES == {"gla_fwd": 1, "gla_bwd": 2}
+
+
+def test_gla_autograd_on_the_card(cuda):
+    (q, k, v, lw, u, s0, dy, d_final), inc = _gla_inputs(cuda, "rwkv6_ragged", torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lw, u, s0)]
+    y, final = gla_ops.gla_chunked(*leaves[:4], bonus_u=leaves[4], include_current=inc,
+                                   initial_state=leaves[5])
+    grads = torch.autograd.grad((y, final), leaves, (dy, d_final))
+    expect = gla_ref.gla_bwd_ref(q, k, v, lw, u, s0, dy, d_final, include_current=inc)
+    for g, e in zip(grads, expect):
+        _close_to_scale(g, e, rtol=1e-4, scale_tol=1e-4)
+
+
+def test_gla_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.gla import kernel as gla_kernel
+
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="must be on"):
+        gla_kernel.gla_fwd(x.cpu(), x, x, x, include_current=True)
+    with pytest.raises(ValueError, match="64"):
+        y = torch.zeros((1, 8, 2, 32), device=cuda)
+        gla_kernel.gla_fwd(y, y, y, y, include_current=True)
+    with pytest.raises(ValueError, match="like q"):
+        gla_kernel.gla_fwd(x, x.bfloat16(), x, x, include_current=True)
+    with pytest.raises(ValueError, match="log_w must be float32"):
+        gla_kernel.gla_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(), x.bfloat16(), include_current=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gla_kernel.gla_fwd(x.transpose(1, 2), x, x, x, include_current=True)

@@ -225,8 +225,10 @@ def test_attention_decode_branch_matches_jax(models, cfgs):
 
 
 def test_unported_blocks_raise():
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        LanguageModel(get_config("rwkv6-1.6b", "smoke"))
+    with pytest.raises(NotImplementedError, match="zamba2 slice"):
+        LanguageModel(get_config("zamba2-2.7b", "smoke"))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        LanguageModel(get_config("dbrx-132b", "smoke"))
     # full-sequence attention is ported (training); its soft-capped form is not
     cfg = get_config("gemma2-9b", "smoke")
     with pytest.raises(NotImplementedError, match="gemma2 slice"):
