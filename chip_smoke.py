@@ -6,7 +6,9 @@
 1. Checks that CUDA is present (else exits 1) and prints the card's name
    and power limit; turns TF32 off for matmul and cuDNN.
 2. Builds every kernel family (``src/repro_torch/kernels/*/csrc``) with
-   nvcc, one process per source, in parallel.
+   nvcc, one process per source, in parallel; prints ptxas' registers,
+   spills and wgmma warnings, and the HGMMA (wgmma) count in the SASS of
+   each flash kernel, which must be above 0 for the bf16 (tensor-core) ones.
 3. Holds each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' full-width shapes, and times both (L2-cold: the
    inputs rotate over copies that exceed the 50 MB L2 cache, or are larger
@@ -14,9 +16,12 @@
    planted fault (the plain version with the last visible key dropped) must
    not; the flash backward within two bf16 ulps plus 1e-3 of each
    gradient's largest value, while a planted fault (the Di term left out)
-   must not; the fused updates bit for bit over every leaf of the tree
-   their run updates. scaled_dot_product_attention is timed beside the
-   flash kernels as a yardstick only. The GLA forward at rwkv6's training
+   must not; the flash kernels' f32 route (CUDA cores) at a small shape
+   within 2e-5 (forward) and 1e-5 (backward); the fused updates bit for bit
+   over every leaf of the tree their run updates.
+   scaled_dot_product_attention is timed beside the flash kernels as a
+   yardstick only, under one named backend (flash where it takes GQA) and
+   under the default dispatch. The GLA forward at rwkv6's training
    shape (S 513, not a whole number of chunks), at S 512 and at its serving
    shape (a 256-token chunk from a carried state), and the GLA backward at
    the training shape, within GLA_TOL, while planted faults (bonus left
@@ -115,6 +120,20 @@ def timed(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, arg_sets, iters: int) -> float:
+    """Device busy ms per call of ``fn(*args)`` (its kernels alone, without
+    the host's gaps between calls), from one traced run of ``iters`` calls
+    rotating over ``arg_sets``."""
+    for args in arg_sets[:2]:
+        fn(*args)
+
+    def run():
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+
+    return device_profile(run)["busy_ms"] / iters
+
+
 def copies_for(nbytes: int) -> int:
     return max(2, -(-2 * L2_BYTES // nbytes))
 
@@ -195,6 +214,30 @@ def merge(readings: list) -> dict:
     if faults:
         out["fault_excess"] = min(faults)
     return out
+
+
+def hgmma_counts() -> dict:
+    """The HGMMA (wgmma) instructions in the SASS of each flash kernel, from
+    cuobjdump of the built library: name<head_dim> -> count."""
+    import re
+
+    from repro_torch.kernels import _cuda
+
+    tool = Path(_cuda.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d+(flash_\w+?_kernel)ILi(\d+)E", line)
+            current = f"{found.group(1)}<{found.group(2)}>" if found else None
+            if current:
+                counts[current] = 0
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    if not counts:
+        fail("cuobjdump found no flash kernel in the built library")
+    return dict(sorted(counts.items()))
 
 
 def kernel_checks(kernel_records: dict) -> None:
@@ -327,7 +370,7 @@ def small_input_agreement(arch: str) -> None:
 
 
 def device_profile(run) -> dict:
-    """Phase 6: ``run()`` under torch.profiler, tracing the device only
+    """``run()`` under torch.profiler, tracing the device only
     (kernels, copies, memsets). The device's busy time (the union of its
     activity intervals) and the run's wall time come from this one run."""
     import torch
@@ -618,22 +661,79 @@ def flash_checks(records: dict) -> None:
         bound=bound(2 * nbytes(q, k, v) + nbytes(out, d_out) + 4 * b * hq * s,
                     8 * d * pairs * b * hq, BF16_FLOPS),
     )
-    # the library yardstick: SDPA on the (B, H, S, D) layout, forward and backward
+    # the library yardstick: SDPA on the (B, H, S, D) layout, forward and
+    # backward, under one named backend (library_ms; flash where it takes
+    # GQA, else memory-efficient) and under PyTorch's default dispatch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]
 
     def sdpa(q_, k_, v_):
         return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=True)
 
-    records["flash_attention_fwd"]["library_ms"] = timed(sdpa, lib_sets, 50)
-    graphs = []
-    for x in lib_sets:
-        leaves = [t.detach().requires_grad_(True) for t in x]
-        graphs.append((sdpa(*leaves), leaves, d_out.transpose(1, 2).contiguous()))
-
     def sdpa_bwd(o, leaves, grad):
         return torch.autograd.grad(o, leaves, grad, retain_graph=True)
 
-    records["flash_attention_bwd"]["library_ms"] = timed(sdpa_bwd, graphs, 20)
+    def yardstick():
+        graphs = []
+        for x in lib_sets:
+            leaves = [t.detach().requires_grad_(True) for t in x]
+            graphs.append((sdpa(*leaves), leaves, d_out.transpose(1, 2).contiguous()))
+        return ((timed(sdpa, lib_sets, 50), device_ms(sdpa, lib_sets, 20)),
+                (timed(sdpa_bwd, graphs, 20), device_ms(sdpa_bwd, graphs, 10)))
+
+    backend = SDPBackend.FLASH_ATTENTION
+    try:
+        with sdpa_kernel(backend):
+            sdpa(*lib_sets[0])
+    except RuntimeError:
+        backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        named = yardstick()
+    default = yardstick()
+    for rec, (ms_named, dev_named), (ms_default, dev_default) in zip(
+            (records["flash_attention_fwd"], records["flash_attention_bwd"]), named, default):
+        rec.update(library_ms=ms_named, library_backend=backend.name, library_ms_default=ms_default,
+                   library_device_ms=dev_named, library_device_ms_default=dev_default)
+    # the kernels' own device time: the L2-cold loop above also holds the
+    # host's time per call where that exceeds the kernels'
+    records["flash_attention_fwd"]["device_ms"] = device_ms(ops.forward, sets, 20)
+    records["flash_attention_bwd"]["device_ms"] = device_ms(ops.backward, bwd_sets, 10)
+    f32_route_checks(records)
+
+
+# The f32 route (CUDA cores; phase 8's card-against-CPU check runs it): f32
+# math on both sides, so the forward agrees within 2e-5 and the backward
+# within 1e-5 relative plus 1e-5 of each gradient's largest value.
+F32_FWD_TOL = 2e-5
+F32_BWD_TOL = 1e-5
+
+
+def f32_route_checks(records: dict) -> None:
+    """The flash kernels on f32 inputs against their plain version, at a
+    small shape with a ragged S, GQA 2:1 and a sliding window."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, s, hq, hkv = 2, 77, 4, 2
+    readings = {}
+    for d in (64, 128):
+        q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda")
+                          for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+        kw = dict(causal=True, sliding_window=40)
+        out, lse = ops.forward(q, k, v, **kw)
+        expect, _ = ref.attention_fwd_ref(q, k, v, **kw)
+        fwd = check_close(f"flash_attention_fwd (f32, D {d})", out, expect,
+                          allowance=lambda o, e: ((o - e).abs() / (F32_FWD_TOL * (1 + e.abs()))).max().item())
+        grads = ops.backward(q, k, v, out, lse, d_out, **kw)
+        bwd = max(check_close(f"flash_attention_bwd {name} (f32, D {d})", g, e,
+                              allowance=lambda o, e_: excess_bwd(o, e_, F32_BWD_TOL, F32_BWD_TOL))["excess"]
+                  for name, g, e in zip(("dq", "dk", "dv"), grads,
+                                        ref.attention_bwd_ref(q, k, v, out, lse, d_out, **kw)))
+        readings[f"d{d}"] = {"fwd_excess": fwd["excess"], "bwd_excess": bwd}
+    records["flash_attention_fwd"]["f32_route"] = readings
 
 
 def fused_checks(records: dict, trees: dict) -> None:
@@ -1041,8 +1141,13 @@ def main() -> None:
           + " ".join(f"{n}={s:.1f}s" for n, s in seconds.items()), flush=True)
     for lib, log in _cuda.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"ptxas[{lib}]: {line.strip()}")
+    hgmma = hgmma_counts()
+    print("sass HGMMA per flash kernel: " + ", ".join(f"{n} {c}" for n, c in hgmma.items()), flush=True)
+    for kname, count in hgmma.items():
+        if "_tc_kernel" in kname and count == 0:
+            fail(f"{kname} has no HGMMA in its SASS: the bf16 route is not on the tensor cores")
 
     # 3. kernels against their plain versions
     cfg = get_config("qwen2.5-3b", "full")
@@ -1053,6 +1158,16 @@ def main() -> None:
     fused_checks(records, {"fused_psgd": leaf_shapes(cfg), "fused_momentum": leaf_shapes(reduced),
                            "fused_adagrad_da": leaf_shapes(reduced)})
     gla_serving_shape = gla_checks(records)
+    fwd_rec, bwd_rec = records["flash_attention_fwd"], records["flash_attention_bwd"]
+    print(f"flash yardstick, ms a call (device ms in brackets): SDPA ({fwd_rec['library_backend']}) fwd "
+          f"{fwd_rec['library_ms']:.4f} ({fwd_rec['library_device_ms']:.4f}), bwd {bwd_rec['library_ms']:.4f} "
+          f"({bwd_rec['library_device_ms']:.4f}); default dispatch fwd {fwd_rec['library_ms_default']:.4f} "
+          f"({fwd_rec['library_device_ms_default']:.4f}), bwd {bwd_rec['library_ms_default']:.4f} "
+          f"({bwd_rec['library_device_ms_default']:.4f}) | kernels fwd {fwd_rec['ms']:.4f} "
+          f"({fwd_rec['device_ms']:.4f}), bwd {bwd_rec['ms']:.4f} ({bwd_rec['device_ms']:.4f})"
+          f" | f32 route, in units of its allowance: " + ", ".join(
+              f"D {d[1:]} fwd {r['fwd_excess']:.3f} bwd {r['bwd_excess']:.3f}"
+              for d, r in fwd_rec["f32_route"].items()), flush=True)
     print("kernel checks: ok | tolerance readings, in units of the allowance (sound <= 1 < planted "
           "fault): " + ", ".join(f"{n} {r['excess']:.3f} vs {r['fault_excess']:.1f}"
                                  for n, r in records.items() if "excess" in r)
@@ -1241,6 +1356,10 @@ def main() -> None:
         }, "library_none": {n: LIBRARY_NONE if n.startswith("fused_") else LIBRARY_NONE_GLA
                             for n, r in records.items()
                             if n.startswith(("fused_", "gla_")) and r.get("library_ms") is None},
+        "flash": {"hgmma": hgmma, **{n: {key: records[n][key] for key in (
+            "device_ms", "library_backend", "library_ms_default", "library_device_ms",
+            "library_device_ms_default", "f32_route") if key in records[n]}
+            for n in ("flash_attention_fwd", "flash_attention_bwd")}},
         "gla_fwd_serving_shape": {"ms": gla_serving_shape["ms"], "plain_ms": gla_serving_shape["plain_ms"],
                                   "bound_ms": gla_serving_shape["bound"][0],
                                   "bound_by": gla_serving_shape["bound"][1]},

@@ -111,15 +111,17 @@ def _lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def check(cond: bool, msg: str) -> None:
+def check(cond: bool, msg) -> None:
+    """Raise ValueError(msg) unless ``cond``; ``msg`` may be a function that
+    makes the message, so that a launch path formats none when all is well."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
-        check(t.is_cuda and t.device == device, f"{name} must be on {device}, got {t.device}")
-        check(t.is_contiguous(), f"{name} must be contiguous")
+        check(t.is_cuda and t.device == device, lambda: f"{name} must be on {device}, got {t.device}")
+        check(t.is_contiguous(), lambda: f"{name} must be contiguous")
 
 
 def launch(lib: str, fn: str, device: torch.device, *args) -> None:

@@ -16,7 +16,8 @@ The training kernels: flash attention's forward agrees as paged attention
 does; its backward within 1e-5 of the tensor's largest value (f32) or two
 bf16 ulps plus 1e-3 of that value (bf16: dS = P (dP - Di) cancels, so an
 element near zero carries the f32 error of the tensor's scale), and is the
-same bit for bit from run to run. The fused pSGD, momentum and AdaGrad-DA
+same bit for bit from run to run. f32 inputs take the CUDA-core kernels,
+bf16 inputs the tensor-core ones. The fused pSGD, momentum and AdaGrad-DA
 (nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
 nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
 
@@ -134,7 +135,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 FLASH_CASES = {
-    # name: (b, sq, sk, hq, hkv, d, causal, window)
+    # name: (b, sq, sk, hq, hkv, d, causal, window). The bf16 kernels cut Sq
+    # and Sk into 64-row tiles right-aligned to their ends, so S runs over
+    # every alignment: 1 (Sq = Sk = 1 has identically zero dQ and dK, which a
+    # tolerance scaled to the gradient cannot read, so one query over 65
+    # keys, whose first key tile holds one key), 63, 64, 65, 127, 128, 129
+    # and 513.
     "ragged_causal": (2, 77, 77, 4, 2, 64, True, None),
     "window": (2, 130, 130, 6, 3, 64, True, 17),
     "gqa_1_1": (1, 65, 65, 4, 4, 128, True, None),
@@ -143,6 +149,13 @@ FLASH_CASES = {
     "fully_masked_rows": (1, 70, 50, 4, 2, 128, True, None),
     "not_causal": (2, 33, 33, 4, 1, 64, False, None),
     "full_width": (4, 513, 513, 16, 2, 128, True, None),
+    "s1": (2, 1, 65, 8, 1, 128, True, None),
+    "s63": (1, 63, 63, 4, 1, 64, True, None),
+    "s64": (2, 64, 64, 8, 1, 128, True, None),
+    "s127_window_100": (1, 127, 127, 2, 2, 64, True, 100),
+    "s128_not_causal": (1, 128, 128, 4, 4, 128, False, None),
+    "s129": (1, 129, 129, 8, 1, 64, True, None),
+    "s513_window_100": (1, 513, 513, 8, 1, 128, True, 100),
 }
 
 
