@@ -8,7 +8,9 @@
 2. Builds every kernel family (``src/repro_torch/kernels/*/csrc``) with
    nvcc, one process per source, in parallel; prints ptxas' registers,
    spills and wgmma warnings, and the HGMMA (wgmma) count in the SASS of
-   each flash kernel, which must be above 0 for the bf16 (tensor-core) ones.
+   each flash kernel, which must be above 0 for the bf16 (tensor-core)
+   ones, and the HMMA/HGMMA count of each GLA kernel, which must be above 0
+   for the bf16 ones that hold products (GLA_TC_KERNELS).
 3. Holds each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' full-width shapes, and times both (L2-cold: the
    inputs rotate over copies that exceed the 50 MB L2 cache, or are larger
@@ -26,7 +28,10 @@
    shape (a 256-token chunk from a carried state), and the GLA backward at
    the training shape, within GLA_TOL, while planted faults (bonus left
    out, initial state undecayed, chunk-total decay term left out of
-   dlog_w) must not be; the backward gives the same bits twice.
+   dlog_w) must not be; the backward gives the same bits twice; a
+   strong-decay input at the training shape (log_w -30 a step on every
+   fifth channel) stays finite and within GLA_TOL. The GLA kernels' device
+   time comes from torch.profiler, as the flash kernels' does.
 4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
@@ -216,28 +221,61 @@ def merge(readings: list) -> dict:
     return out
 
 
-def hgmma_counts() -> dict:
-    """The HGMMA (wgmma) instructions in the SASS of each flash kernel, from
-    cuobjdump of the built library: name<head_dim> -> count."""
+def tensor_op_counts(lib: str, name_of) -> dict:
+    """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in the
+    SASS of each kernel of library ``lib``, from cuobjdump of the built
+    library: ``name_of(mangled name)`` (None to skip a function) -> count."""
     import re
 
     from repro_torch.kernels import _cuda
 
     tool = Path(_cuda.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path("flash_attention"))],
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path(lib))],
                           capture_output=True, text=True, check=True).stdout
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"\d+(flash_\w+?_kernel)ILi(\d+)E", line)
-            current = f"{found.group(1)}<{found.group(2)}>" if found else None
+            current = name_of(line.split("Function :")[1].strip())
             if current:
                 counts[current] = 0
-        elif current and "HGMMA" in line:
+        elif current and re.search(r"\bH(G)?MMA\b", line):
             counts[current] += 1
     if not counts:
-        fail("cuobjdump found no flash kernel in the built library")
+        fail(f"cuobjdump found no {lib} kernel in the built library")
     return dict(sorted(counts.items()))
+
+
+def hgmma_counts() -> dict:
+    """The HGMMA (wgmma) instructions in the SASS of each flash kernel:
+    name<head_dim> -> count."""
+    import re
+
+    def name_of(mangled):
+        found = re.search(r"\d+(flash_\w+?_kernel)ILi(\d+)E", mangled)
+        return f"{found.group(1)}<{found.group(2)}>" if found else None
+
+    return tensor_op_counts("flash_attention", name_of)
+
+
+# the bf16 GLA kernels that hold matrix products (the two scans are elementwise)
+GLA_TC_KERNELS = ("tc::local_kernel<false>", "tc::local_kernel<true>", "tc::fwd_out_kernel",
+                  "tc::bwd_chunk_kernel")
+
+
+def gla_tensor_op_counts() -> dict:
+    """HMMA and HGMMA in the SASS of each GLA kernel: the bf16 route's
+    (namespace tc) and the f32 route's, name -> count."""
+    import re
+
+    def name_of(mangled):
+        found = re.search(r"\d+((?:local|fwd_scan|bwd_scan|fwd_out|bwd_chunk|gla_fwd|gla_bwd)_kernel)"
+                          r"(ILb([01])E)?", mangled)
+        if not found:
+            return None
+        name = found.group(1) + (f"<{'true' if found.group(3) == '1' else 'false'}>" if found.group(2) else "")
+        return f"tc::{name}" if "2tc" in mangled else name
+
+    return tensor_op_counts("gla", name_of)
 
 
 def kernel_checks(kernel_records: dict) -> None:
@@ -403,8 +441,14 @@ def device_profile(run) -> dict:
     return {
         "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
         "activities": len(device),
+        "gla_ms": sum(ms for name, (ms, _) in by_kernel.items() if any(k in name for k in GLA_KERNEL_NAMES)),
         "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]),
     }
+
+
+# the GLA kernels' names in a trace (gla.cu): the bf16 passes, the f32 route, du's sum
+GLA_KERNEL_NAMES = ("tc::local_kernel", "tc::fwd_scan_kernel", "tc::fwd_out_kernel", "tc::bwd_scan_kernel",
+                    "tc::bwd_chunk_kernel", "du_reduce_kernel", "gla_fwd_kernel", "gla_bwd_kernel")
 
 
 # The flash backward's outputs are bf16 too, but dS = P (dP - Di) cancels,
@@ -556,7 +600,27 @@ def gla_checks(records: dict) -> dict:
                     b * h * gla_products(s, backward=True), BF16_FLOPS),
         library_ms=None,
     )
+    # the kernels' own device time (the L2-cold loop also holds the host's time a call)
+    records["gla_fwd"]["device_ms"] = device_ms(
+        lambda *a: ops.forward(*a, include_current=False, save_states=True), sets, 20)
+    records["gla_bwd"]["device_ms"] = device_ms(lambda *a: ops.backward(*a, include_current=False),
+                                                bwd_sets, 10)
     del q, k, v, lw, dy, y, final, states, grads, again, expect, fault, sets, bwd_sets
+    # strong decay at the training shape: every fifth channel at log_w -30 a step, where
+    # exp(-W) overflows within a chunk
+    q, k, v, lw, u, _, dy = gla_inputs(gen, 4, 513, 32, initial_state=False)
+    lw[..., ::5] = -30.0
+    y, final, states = ops.forward(q, k, v, lw, u, include_current=False, save_states=True)
+    expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False)
+    fwd.append(check_scaled("gla_fwd y (strong decay)", y, expect_y, "y"))
+    fwd.append(check_scaled("gla_fwd final state (strong decay)", final, expect_final, "float32"))
+    grads = ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=False)
+    expect = ref.gla_bwd_ref(q, k, v, lw, u, None, dy, None, include_current=False)
+    for name, g, e in zip(("dq", "dk", "dv", "dlog_w", "du"), grads, expect):
+        tol = "grad" if g.dtype == torch.bfloat16 else "float32"
+        bwd.append(check_scaled(f"gla_bwd {name} (strong decay)", g, e, tol))
+    records["gla_bwd"].update(merge(bwd))
+    del q, k, v, lw, dy, y, final, states, grads, expect
     # S 512, a whole number of chunks
     q, k, v, lw, u, _, _ = gla_inputs(gen, 4, 512, 32, initial_state=False)
     fwd.append(check_scaled("gla_fwd y (B 4, S 512)", ops.forward(q, k, v, lw, u, include_current=False)[0],
@@ -576,6 +640,7 @@ def gla_checks(records: dict) -> dict:
     io = nbytes(q, k, v, lw, u, s0) + nbytes(v) + nbytes(s0)
     return dict(
         ms=timed(lambda *a: ops.forward(*a, include_current=False), sets, 100),
+        device_ms=device_ms(lambda *a: ops.forward(*a, include_current=False), sets, 20),
         plain_ms=timed(lambda q_, k_, v_, lw_, u_, s0_: ref.gla_fwd_ref(
             q_, k_, v_, lw_, bonus_u=u_, include_current=False, initial_state=s0_), sets, 3),
         bound=bound(io, q.shape[0] * q.shape[2] * gla_products(q.shape[1], backward=False), BF16_FLOPS),
@@ -988,7 +1053,8 @@ def trace_update(label: str, trainer, state, optimizer, lr: float):
     prof = device_profile(lambda: step(state, batch, lr, 2))
     print(f"{label} profile: one update of 4 microbatches, device busy {prof['busy_ms']:.1f} ms "
           f"of {prof['wall_ms']:.1f} ms wall, idle {100 * prof['idle_share']:.1f}% | "
-          f"{prof['activities']} device activities | untraced update {untraced_ms:.1f} ms", flush=True)
+          f"{prof['activities']} device activities | untraced update {untraced_ms:.1f} ms | GLA kernels "
+          f"{prof['gla_ms']:.2f} ms", flush=True)
     for kname, (ms, n) in list(prof["by_kernel"].items())[:10]:
         print(f"{label} profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
     return prof, untraced_ms
@@ -1064,7 +1130,8 @@ def serve_rwkv6(cfg) -> dict:
         flush=True,
     )
     print(f"rwkv6 profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, "
-          f"idle {100 * profile['idle_share']:.1f}% | {profile['activities']} device activities", flush=True)
+          f"idle {100 * profile['idle_share']:.1f}% | {profile['activities']} device activities | GLA kernels "
+          f"{profile['gla_ms']:.2f} ms", flush=True)
     for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
         print(f"rwkv6 profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
     del engine, params, results
@@ -1141,13 +1208,20 @@ def main() -> None:
           + " ".join(f"{n}={s:.1f}s" for n, s in seconds.items()), flush=True)
     for lib, log in _cuda.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
+            # the GLA kernels' own lines name the kernel each register count is for
+            if ("registers" in line or "spill" in line or "Performance Loss" in line
+                    or (lib == "gla" and "Compiling entry" in line)):
                 print(f"ptxas[{lib}]: {line.strip()}")
     hgmma = hgmma_counts()
     print("sass HGMMA per flash kernel: " + ", ".join(f"{n} {c}" for n, c in hgmma.items()), flush=True)
     for kname, count in hgmma.items():
         if "_tc_kernel" in kname and count == 0:
             fail(f"{kname} has no HGMMA in its SASS: the bf16 route is not on the tensor cores")
+    gla_mma = gla_tensor_op_counts()
+    print("sass HMMA/HGMMA per GLA kernel: " + ", ".join(f"{n} {c}" for n, c in gla_mma.items()), flush=True)
+    for kname in GLA_TC_KERNELS:
+        if gla_mma.get(kname, 0) == 0:
+            fail(f"{kname} has no HMMA or HGMMA in its SASS: the bf16 GLA route is not on the tensor cores")
 
     # 3. kernels against their plain versions
     cfg = get_config("qwen2.5-3b", "full")
@@ -1168,6 +1242,10 @@ def main() -> None:
           f" | f32 route, in units of its allowance: " + ", ".join(
               f"D {d[1:]} fwd {r['fwd_excess']:.3f} bwd {r['bwd_excess']:.3f}"
               for d, r in fwd_rec["f32_route"].items()), flush=True)
+    print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
+          f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
+          f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
+          f"({gla_serving_shape['device_ms']:.4f})", flush=True)
     print("kernel checks: ok | tolerance readings, in units of the allowance (sound <= 1 < planted "
           "fault): " + ", ".join(f"{n} {r['excess']:.3f} vs {r['fault_excess']:.1f}"
                                  for n, r in records.items() if "excess" in r)
@@ -1356,10 +1434,13 @@ def main() -> None:
         }, "library_none": {n: LIBRARY_NONE if n.startswith("fused_") else LIBRARY_NONE_GLA
                             for n, r in records.items()
                             if n.startswith(("fused_", "gla_")) and r.get("library_ms") is None},
+        "gla_tensor_ops": gla_mma,
         "flash": {"hgmma": hgmma, **{n: {key: records[n][key] for key in (
             "device_ms", "library_backend", "library_ms_default", "library_device_ms",
             "library_device_ms_default", "f32_route") if key in records[n]}
             for n in ("flash_attention_fwd", "flash_attention_bwd")}},
+        "gla_device_ms": {"gla_fwd": records["gla_fwd"]["device_ms"], "gla_bwd": records["gla_bwd"]["device_ms"],
+                          "gla_fwd_serving_shape": gla_serving_shape["device_ms"]},
         "gla_fwd_serving_shape": {"ms": gla_serving_shape["ms"], "plain_ms": gla_serving_shape["plain_ms"],
                                   "bound_ms": gla_serving_shape["bound"][0],
                                   "bound_by": gla_serving_shape["bound"][1]},

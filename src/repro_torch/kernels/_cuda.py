@@ -30,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: extra nvcc arguments (e.g. ``-DGLA_CLOCK_STAMPS`` for a measurement build), from the
+#: environment; part of the build's hash, so such a build never replaces the plain one
+EXTRA_FLAGS = tuple(os.environ.get("REPRO_TORCH_NVCC_EXTRA", "").split())
 #: the kernel families, each of whose ``kernel`` module registers its sources
 FAMILIES = ("paged_decode", "flash_attention", "fused_optim", "gla")
 #: library name -> source file
@@ -61,7 +64,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -82,7 +85,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         todo[name] = (proc, tmp, target, time.perf_counter())
     failed = []

@@ -35,7 +35,16 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _contiguous(*tensors):
-    return [None if t is None else t.contiguous() for t in tensors]
+    """Contiguous, and 16-byte aligned (a view may start anywhere; the bf16
+    kernels load rows 16 bytes at a time)."""
+    out = []
+    for t in tensors:
+        if t is not None:
+            t = t.contiguous()
+            if t.data_ptr() % 16:
+                t = t.clone()
+        out.append(t)
+    return out
 
 
 def forward(q, k, v, log_w, bonus_u=None, initial_state=None, *, include_current: bool,

@@ -7,6 +7,14 @@ chunk (against ``gla_ref`` only: the TPU grid asserts divisibility); a
 strong-decay case; and all six gradients (q, k, v, log_w, u, initial state)
 against ``jax.vjp`` of ``gla_ref``, through the port's autograd function.
 
+The chunked plain versions (``gla_fwd_chunked_ref``, ``gla_bwd_chunked_ref``:
+the CUDA kernels' passes step for step, 64-position chunks cut into 16-row
+sub-chunks) against the same oracles, over S in {1, 15, 16, 17, 63, 64, 65,
+130} (every sub-chunk and chunk edge), both readout modes, with and without
+the bonus and an initial state, and a strong-decay case (log_w -30 a step on
+some channels, where a factorisation through the chunk start overflows);
+every exponent they evaluate is <= 0.
+
 Inputs are made with numpy from a seed. Tolerance: f32, atol 5e-5 and
 rtol 5e-4, the JAX tests' own bound for the kernel against the oracle
 (the same sums in another order); gradients 5e-5 of each gradient's
@@ -152,3 +160,117 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     assert ops.LAUNCHES == {"gla_fwd": 0, "gla_bwd": 0}
     with pytest.raises(ValueError, match="not meta"):
         ops.gla_chunked(*(t.to("meta") for t in (q, k, v, lw)))
+
+
+# -- the chunked plain versions, which the CUDA kernels follow step for step --
+
+CHUNKED_S = [1, 15, 16, 17, 63, 64, 65, 130]
+
+
+def _jax_chunk(s):
+    """A chunk of the JAX kernel that divides S (its grid asserts that)."""
+    return 65 if s == 130 else s
+
+
+def _chunked_case(s, inc, strong=False):
+    bonus, init = not inc and s % 2 == 1, s % 3 != 0
+    q, k, v, lw, u, s0 = _inputs(2, s, 2, 16, 8, bonus, init, seed=s + 7 * inc)
+    if strong:
+        lw[..., ::3] = -30.0  # the state forgets within a step
+    return q, k, v, lw, u, s0
+
+
+def _exponents_ok(exponents):
+    assert exponents and max(exponents) <= 0.0, f"an exponent above 0: {max(exponents)}"
+
+
+@pytest.mark.parametrize("inc", [True, False], ids=["include_current", "rwkv6"])
+@pytest.mark.parametrize("s", CHUNKED_S)
+def test_chunked_forward_matches_jax(s, inc):
+    q, k, v, lw, u, s0 = _chunked_case(s, inc)
+    exponents = []
+    y, final = ref.gla_fwd_chunked_ref(*_torch(q, k, v, lw), bonus_u=_torch(u)[0], include_current=inc,
+                                       initial_state=_torch(s0)[0], exponents=exponents)
+    _exponents_ok(exponents)
+    jargs = dict(bonus_u=_jax(u)[0], include_current=inc, initial_state=_jax(s0)[0])
+    ry, rf = gla_ref(*_jax(q, k, v, lw), **jargs)
+    ky, kf = jax_gla_chunked(*_jax(q, k, v, lw), chunk=_jax_chunk(s), interpret=True, **jargs)
+    for expect_y, expect_f in ((ry, rf), (ky, kf)):
+        _close(y.numpy(), expect_y)
+        _close(final.numpy(), expect_f)
+
+
+def _jax_grads(q, k, v, lw, u, s0, dy, df, inc):
+    given = [a for a in (q, k, v, lw, u, s0) if a is not None]
+
+    def jfwd(*xs):
+        it = iter(xs)
+        jq, jk, jv, jlw = next(it), next(it), next(it), next(it)
+        return gla_ref(jq, jk, jv, jlw, bonus_u=next(it) if u is not None else None,
+                       include_current=inc, initial_state=next(it) if s0 is not None else None)
+
+    _, vjp = jax.vjp(jfwd, *_jax(*given))
+    return [np.asarray(g) for g in vjp((jnp.asarray(dy), jnp.asarray(df)))]
+
+
+def _check_chunked_grads(s, inc, strong=False):
+    q, k, v, lw, u, s0 = _chunked_case(s, inc, strong)
+    rng = np.random.default_rng(s)
+    dy = rng.standard_normal(v.shape).astype(np.float32)
+    df = rng.standard_normal((2, 2, 16, 8)).astype(np.float32)
+    exponents = []
+    got = ref.gla_bwd_chunked_ref(*_torch(q, k, v, lw, u, s0, dy, df), include_current=inc,
+                                  exponents=exponents)
+    _exponents_ok(exponents)
+    got = [g for g in got if g is not None]
+    expect = _jax_grads(q, k, v, lw, u, s0, dy, df, inc)
+    assert len(got) == len(expect)
+    for g, e in zip(got, expect):
+        assert torch.isfinite(g).all()
+        _close(g.numpy(), e, atol=ATOL * np.abs(e).max())
+
+
+@pytest.mark.parametrize("inc", [True, False], ids=["include_current", "rwkv6"])
+@pytest.mark.parametrize("s", CHUNKED_S)
+def test_chunked_backward_matches_jax_vjp(s, inc):
+    """All gradients of the chunked plain backward (local pass, reverse dS
+    scan, per-chunk sub-chunked products) against jax.vjp of gla_ref."""
+    _check_chunked_grads(s, inc)
+
+
+@pytest.mark.parametrize("inc", [True, False], ids=["include_current", "rwkv6"])
+def test_chunked_strong_decay_stays_finite(inc):
+    """log_w = -30 a step on every third channel: W reaches -1,920 within a
+    chunk, so exp(-W) (a factorisation through the chunk start) is inf, yet
+    the chunked versions, whose exponents are all <= 0, stay finite and
+    match the oracles."""
+    s = 130
+    q, k, v, lw, u, s0 = _chunked_case(s, inc, strong=True)
+    w = torch.from_numpy(lw[:, :64]).cumsum(1)
+    assert torch.isinf(torch.exp(-w)).any()
+    exponents = []
+    y, final = ref.gla_fwd_chunked_ref(*_torch(q, k, v, lw), bonus_u=_torch(u)[0], include_current=inc,
+                                       initial_state=_torch(s0)[0], exponents=exponents)
+    _exponents_ok(exponents)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+    ry, rf = gla_ref(*_jax(q, k, v, lw), bonus_u=_jax(u)[0], include_current=inc,
+                     initial_state=_jax(s0)[0])
+    _close(y.numpy(), ry)
+    _close(final.numpy(), rf)
+    _check_chunked_grads(s, inc, strong=True)
+
+
+def test_chunked_versions_match_the_step_recurrence_on_the_kernel_width():
+    """At K = V = 64, the kernels' width, over three chunks with a ragged
+    last one: the chunked forward and backward against the port's own step
+    recurrence and its autograd."""
+    q, k, v, lw, u, s0 = _torch(*_inputs(1, 150, 2, 64, 64, True, True, seed=11))
+    dy, df = torch.randn(1, 150, 2, 64), torch.randn(1, 2, 64, 64)
+    for expect, got in zip(ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False, initial_state=s0),
+                           ref.gla_fwd_chunked_ref(q, k, v, lw, bonus_u=u, include_current=False,
+                                                   initial_state=s0)):
+        _close(got.numpy(), expect.numpy())
+    for expect, got in zip(ref.gla_bwd_ref(q, k, v, lw, u, s0, dy, df, include_current=False),
+                           ref.gla_bwd_chunked_ref(q, k, v, lw, u, s0, dy, df, include_current=False)):
+        e = expect.numpy()
+        _close(got.numpy(), e, atol=ATOL * np.abs(e).max())

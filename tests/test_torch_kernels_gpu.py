@@ -26,7 +26,10 @@ Chunked GLA: the forward and the backward against the plain recurrence
 relative for f32 inputs (chunked sums in another order than the scan's,
 and the fast exp), one bf16 ulp (y) or two (dq, dk, dv) plus 1e-3 of the
 largest value for bf16 inputs; the backward is the same bit for bit from
-run to run.
+run to run. f32 inputs take the CUDA-core kernels, bf16 inputs the
+chunk-parallel tensor-core passes; the cases cover S across the 16-row
+sub-chunk and 64-position chunk edges, strong decay, and more (batch, head,
+chunk) blocks than the card has SMs.
 """
 import numpy as np
 import pytest
@@ -280,22 +283,34 @@ def test_training_kernels_refuse_what_they_do_not_take(cuda):
 
 
 GLA_CASES = {
-    # name: (b, s, h, include_current, bonus, initial state)
+    # name: (b, s, h, include_current, bonus, initial state[, strong decay])
     "rwkv6_ragged": (2, 150, 3, False, True, True),
     "rwkv6_no_state": (1, 64, 2, False, True, False),
     "mamba2_style": (2, 130, 2, True, False, True),
     "short": (3, 5, 2, False, True, True),
     "training_shape": (4, 513, 32, False, True, False),
+    # S across the 16-row sub-chunk and the chunk edges
+    "s15": (2, 15, 3, False, True, True),
+    "s16": (1, 16, 2, True, False, True),
+    "s17": (2, 17, 2, False, True, False),
+    "s63": (1, 63, 2, True, False, False),
+    "s65": (2, 65, 3, False, True, True),
+    # log_w -30 a step on every fifth channel: exp(-W) overflows within a chunk
+    "strong_decay": (2, 150, 3, False, True, True, True),
+    # 3 x 12 x 5 = 180 (batch, head, chunk) blocks a pass, more than the 132 SMs
+    "many_chunks": (3, 300, 12, False, True, True),
 }
 
 
 def _gla_inputs(device, case, dtype, seed=0):
     """Decays from RWKV6's range: log_w = -exp(b + noise), b from -6 to -1
     across channels (strong decay included)."""
-    b, s, h, inc, bonus, init = GLA_CASES[case]
+    b, s, h, inc, bonus, init, *strong = GLA_CASES[case]
     rng = np.random.default_rng(seed)
     q, k, v, dy = (rng.standard_normal((b, s, h, 64)).astype(np.float32) for _ in range(4))
     lw = -np.exp(np.linspace(-6, -1, 64) + 0.5 * rng.standard_normal((b, s, h, 64))).astype(np.float32)
+    if strong:
+        lw[..., ::5] = -30.0
     u = 0.5 * rng.standard_normal((h, 64)).astype(np.float32)
     s0 = 0.3 * rng.standard_normal((b, h, 64, 64)).astype(np.float32)
     d_final = rng.standard_normal((b, h, 64, 64)).astype(np.float32)
