@@ -10,7 +10,9 @@
    spills and wgmma warnings, and the HGMMA (wgmma) count in the SASS of
    each flash kernel, which must be above 0 for the bf16 (tensor-core)
    ones, and the HMMA/HGMMA count of each GLA kernel, which must be above 0
-   for the bf16 ones that hold products (GLA_TC_KERNELS).
+   for the bf16 ones that hold products (GLA_TC_KERNELS), and of each
+   paged-attention kernel, which must be above 0 for the bf16 ones
+   (namespace tc, PAGED_TC_KERNELS).
 3. Holds each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' full-width shapes, and times both (L2-cold: the
    inputs rotate over copies that exceed the 50 MB L2 cache, or are larger
@@ -31,7 +33,10 @@
    dlog_w) must not be; the backward gives the same bits twice; a
    strong-decay input at the training shape (log_w -30 a step on every
    fifth channel) stays finite and within GLA_TOL. The GLA kernels' device
-   time comes from torch.profiler, as the flash kernels' does.
+   time comes from torch.profiler, as the flash kernels' does, and so does
+   the paged kernels': decode at the ragged lengths and at the serving
+   shape (8 slots of 544 tokens sharing a 256-token prefix), which must
+   also agree and give the same bits twice, chunk prefill and the sampler.
 4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
@@ -40,7 +45,8 @@
    kernel was launched, the full model's logits are finite, and on a small
    input the card's greedy tokens equal those of the CPU path.
 6. Serves the same batch again under torch.profiler, tracing the device
-   only, and prints the device's busy time, idle share and top kernels.
+   only, and prints the device's busy time, idle share, top kernels and
+   the paged decode and prefill kernels' share.
 7. Drives the training path: SEBSTrainer with pSGD (gamma 1e4, eta 1) on
    qwen2.5-3b at full width (SEBS b1 4, C1 16, rho 2, 3 stages, seq 512,
    microbatch 4: 12 updates at batch 4, 8 and 16), counters zeroed just
@@ -75,24 +81,23 @@ import copy
 import gc
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
+
+from cardbench import (  # noqa: E402  (tools/cardbench.py: timing, traces, SASS, pools)
+    copies_for, device_trace, excess, nbytes, nvidia_smi, paged_pool, sass_counts, timed,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-L2_BYTES = 50 * 2**20
-# Attention outputs are bf16: the kernel and the plain version each round an
-# f32 result to bf16, so they may differ by one bf16 ulp, at most 2**-7 of
-# the value; ATTN_ATOL covers values near 0.
-ATTN_RTOL = 2.0**-7
-ATTN_ATOL = 1e-4
+OUT_DIR = ROOT / "chiprun_out"
 
 
 def fail(msg: str) -> None:
@@ -100,58 +105,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def timed(fn, arg_sets, iters: int) -> float:
-    """Mean ms per call of ``fn(*args)``, rotating over ``arg_sets`` (whose
-    inputs together exceed L2, so each call finds its inputs cold)."""
-    import torch
-
-    for args in arg_sets[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, arg_sets, iters: int) -> float:
-    """Device busy ms per call of ``fn(*args)`` (its kernels alone, without
-    the host's gaps between calls), from one traced run of ``iters`` calls
-    rotating over ``arg_sets``."""
-    for args in arg_sets[:2]:
-        fn(*args)
+    """Device busy ms per call of ``fn(*args)`` (cardbench.device_ms)."""
+    from cardbench import device_ms as per_call
 
-    def run():
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-
-    return device_profile(run)["busy_ms"] / iters
-
-
-def copies_for(nbytes: int) -> int:
-    return max(2, -(-2 * L2_BYTES // nbytes))
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def excess(out, expect) -> float:
-    """Largest |out - expect| in units of its allowance, ATTN_ATOL +
-    ATTN_RTOL * |expect|: at most 1 passes."""
-    err = (out.float() - expect.float()).abs()
-    return (err / (ATTN_ATOL + ATTN_RTOL * expect.float().abs())).max().item()
+    return per_call(fn, arg_sets, iters, OUT_DIR)[0]
 
 
 def check_close(name: str, out, expect, fault=None, allowance=None) -> dict:
@@ -174,26 +132,6 @@ def check_close(name: str, out, expect, fault=None, allowance=None) -> dict:
         if reading["fault_excess"] <= 1:
             fail(f"{name}: the tolerance cannot tell the planted fault from the right answer")
     return reading
-
-
-def paged_pool(gen, *, pages, ps, hkv, d, lengths, share_first_page):
-    """bf16 K/V pools with scratch page 0 poisoned, and per-slot tables."""
-    import torch
-
-    k = torch.randn((pages, ps, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((pages, ps, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k[0] = 1e4
-    v[0] = 1e4
-    mp = 2048 // ps
-    table = torch.zeros((len(lengths), mp), dtype=torch.int32)
-    nxt = 1
-    for b, n in enumerate(lengths):
-        n_pages = -(-n // ps)
-        table[b, :n_pages] = torch.arange(nxt, nxt + n_pages, dtype=torch.int32)
-        nxt += n_pages
-    if share_first_page:
-        table[1, 0] = table[0, 0]  # a published prefix page aliased copy-on-write
-    return k, v, table.cuda()
 
 
 def kv_bytes_read(table, q_hi, ps, hkv, d, itemsize) -> int:
@@ -223,26 +161,12 @@ def merge(readings: list) -> dict:
 
 def tensor_op_counts(lib: str, name_of) -> dict:
     """The tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in the
-    SASS of each kernel of library ``lib``, from cuobjdump of the built
-    library: ``name_of(mangled name)`` (None to skip a function) -> count."""
-    import re
-
-    from repro_torch.kernels import _cuda
-
-    tool = Path(_cuda.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path(lib))],
-                          capture_output=True, text=True, check=True).stdout
-    counts, current = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            current = name_of(line.split("Function :")[1].strip())
-            if current:
-                counts[current] = 0
-        elif current and re.search(r"\bH(G)?MMA\b", line):
-            counts[current] += 1
+    SASS of each kernel of library ``lib``: ``name_of(mangled name)`` (None
+    to skip a function) -> count."""
+    counts = {name: tensor_ops for name, (tensor_ops, _) in sass_counts(lib, name_of).items()}
     if not counts:
         fail(f"cuobjdump found no {lib} kernel in the built library")
-    return dict(sorted(counts.items()))
+    return counts
 
 
 def hgmma_counts() -> dict:
@@ -278,9 +202,33 @@ def gla_tensor_op_counts() -> dict:
     return tensor_op_counts("gla", name_of)
 
 
-def kernel_checks(kernel_records: dict) -> None:
+# the bf16 paged-attention kernels, all of which hold products (decode's
+# combine pass only merges partials)
+PAGED_TC_KERNELS = tuple(f"tc::attend_kernel<{d}, {kind}>" for d in (64, 128, 256)
+                         for kind in ("decode", "prefill"))
+
+
+def paged_tensor_op_counts() -> dict:
+    """HMMA and HGMMA in the SASS of each paged-attention kernel: the bf16
+    route's (namespace tc) and the f32 route's, name -> count."""
+    import re
+
+    def name_of(mangled):
+        found = re.search(r"\d+(attend_kernel|combine_kernel|paged_decode_kernel|paged_prefill_kernel)"
+                          r"ILi(\d+)E(?:Li\d+ELi\d+ELi\d+ELb([01])E)?", mangled)
+        if not found:
+            return None
+        name, arg, decode = found.groups()
+        if name == "attend_kernel":
+            return f"tc::{name}<{arg}, {'decode' if decode == '1' else 'prefill'}>"
+        return f"tc::{name}<{arg}>" if "2tc" in mangled else f"{name}<{32 * int(arg)}>"
+
+    return tensor_op_counts("paged_attention", name_of)
+
+
+def kernel_checks(kernel_records: dict) -> dict:
     """Phase 3: every kernel's wrapper (what the engine calls) against its
-    plain version at full width."""
+    plain version at full width. Returns the decode's serving-shape timings."""
     import torch
 
     from repro_torch.kernels.paged_decode import ops, ref
@@ -296,9 +244,11 @@ def kernel_checks(kernel_records: dict) -> None:
     pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device="cuda")
     dropped = (pos - 1).clamp_min(0)  # planted fault: the last key dropped
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
-    readings = [check_close("paged_flash_decode", ops.paged_flash_decode(q, k, v, table, pos),
-                            ref.paged_attention_ref(q, k, v, table, pos),
+    out = ops.paged_flash_decode(q, k, v, table, pos)
+    readings = [check_close("paged_flash_decode", out, ref.paged_attention_ref(q, k, v, table, pos),
                             ref.paged_attention_ref(q, k, v, table, dropped))]
+    if not torch.equal(out, ops.paged_flash_decode(q, k, v, table, pos)):
+        fail("paged_flash_decode: two runs on the same inputs differ")
     readings.append(check_close(
         "paged_flash_decode (window, softcap)",
         ops.paged_flash_decode(q, k, v, table, pos, sliding_window=100, softcap=30.0),
@@ -310,14 +260,34 @@ def kernel_checks(kernel_records: dict) -> None:
     kernel_records["paged_flash_decode"] = dict(
         **merge(readings),
         ms=timed(ops.paged_flash_decode, sets, 200),
+        device_ms=device_ms(ops.paged_flash_decode, sets, 50),
         plain_ms=timed(ref.paged_attention_ref, sets, 20),
         bound=bound(io + kv, 4 * hq * d * sum(lengths), BF16_FLOPS),
     )
+    # the serving shape: 8 slots of 544 tokens (512 of prompt, 32 decoded)
+    # whose first 16 pages hold the shared 256-token prefix
+    lengths = [544] * b
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=lengths, prefix_pages=16)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device="cuda")
+    out = ops.paged_flash_decode(q, k, v, table, pos)
+    serving = check_close("paged_flash_decode (serving shape)", out, ref.paged_attention_ref(q, k, v, table, pos),
+                          ref.paged_attention_ref(q, k, v, table, pos - 1))
+    if not torch.equal(out, ops.paged_flash_decode(q, k, v, table, pos)):
+        fail("paged_flash_decode (serving shape): two runs on the same inputs differ")
+    kernel_records["paged_flash_decode"].update(merge(readings + [serving]))
+    sets = [(q.clone(), k.clone(), v.clone(), table, pos) for _ in range(copies_for(nbytes(q, k, v)))]
+    kv = kv_bytes_read(table, pos, ps, hkv, d, 2)
+    decode_serving = dict(
+        ms=timed(ops.paged_flash_decode, sets, 200),
+        device_ms=device_ms(ops.paged_flash_decode, sets, 50),
+        plain_ms=timed(ref.paged_attention_ref, sets, 20),
+        bound=bound(io + kv, 4 * hq * d * sum(lengths), BF16_FLOPS),
+    )
+    del k, v, sets
 
     # -- paged chunk prefill: one 256-token chunk at pos_start 0 and 256
     c = 256
-    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=[512],
-                             share_first_page=False)
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=[512])
     q = torch.randn((1, c, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
     readings = []
     for start in (0, 256):
@@ -339,6 +309,7 @@ def kernel_checks(kernel_records: dict) -> None:
     kernel_records["paged_chunk_prefill"] = dict(
         **merge(readings),
         ms=timed(ops.paged_chunk_prefill, sets, 50),
+        device_ms=device_ms(ops.paged_chunk_prefill, sets, 20),
         plain_ms=timed(ref.paged_prefill_ref, sets, 10),
         bound=bound(io + kv, 4 * hq * d * visible, BF16_FLOPS),
     )
@@ -365,9 +336,11 @@ def kernel_checks(kernel_records: dict) -> None:
     kernel_records["fused_sample"] = dict(
         max_abs_err=mismatched,  # tokens that differ
         ms=timed(ops.fused_sample, sets, 100),
+        device_ms=device_ms(ops.fused_sample, sets, 20),
         plain_ms=timed(ref.fused_sample_ref, sets, 20),
         bound=bound(io, vocab * (b - sampled) + 4 * vocab * sampled, F32_FLOPS),
     )
+    return decode_serving
 
 
 def to_device(tree, device):
@@ -409,41 +382,30 @@ def small_input_agreement(arch: str) -> None:
 
 def device_profile(run) -> dict:
     """``run()`` under torch.profiler, tracing the device only
-    (kernels, copies, memsets). The device's busy time (the union of its
-    activity intervals) and the run's wall time come from this one run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    path = out_dir / "profile.tmp.json"  # too large to keep
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    device = [ev for ev in events if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not device:
-        fail("the traced run recorded no device activity")
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in device):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    by_kernel: dict = {}
-    for ev in device:
-        ms, n = by_kernel.get(ev["name"], (0.0, 0))
-        by_kernel[ev["name"]] = (ms + ev["dur"] / 1e3, n + 1)
+    (cardbench.device_trace), with the GLA and the paged decode and prefill
+    kernels' ms and the 15 largest kernels."""
+    trace = device_trace(run, OUT_DIR)
+    by_kernel = trace["by_kernel"]
     return {
-        "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-        "activities": len(device),
+        **trace,
         "gla_ms": sum(ms for name, (ms, _) in by_kernel.items() if any(k in name for k in GLA_KERNEL_NAMES)),
-        "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]),
+        **{f"{kind}_ms": sum(ms for name, (ms, _) in by_kernel.items() if paged_kind(name) == kind)
+           for kind in ("paged_decode", "paged_prefill")},
+        "by_kernel": dict(list(by_kernel.items())[:15]),
     }
+
+
+def paged_kind(name: str):
+    """"paged_decode" or "paged_prefill" for a paged-attention kernel's name
+    in a trace (paged_attention.cu: the bf16 route's tc::attend_kernel<...,
+    true> and tc::combine_kernel decode, tc::attend_kernel<..., false>
+    prefills; the f32 route's kernels are named for what they do), else None."""
+    if "paged_decode_kernel" in name or "tc::combine_kernel" in name or (
+            "tc::attend_kernel" in name and "true>" in name):
+        return "paged_decode"
+    if "paged_prefill_kernel" in name or ("tc::attend_kernel" in name and "false>" in name):
+        return "paged_prefill"
+    return None
 
 
 # the GLA kernels' names in a trace (gla.cu): the bf16 passes, the f32 route, du's sum
@@ -1222,12 +1184,18 @@ def main() -> None:
     for kname in GLA_TC_KERNELS:
         if gla_mma.get(kname, 0) == 0:
             fail(f"{kname} has no HMMA or HGMMA in its SASS: the bf16 GLA route is not on the tensor cores")
+    paged_mma = paged_tensor_op_counts()
+    print("sass HMMA/HGMMA per paged-attention kernel: " + ", ".join(f"{n} {c}" for n, c in paged_mma.items()),
+          flush=True)
+    for kname in PAGED_TC_KERNELS:
+        if paged_mma.get(kname, 0) == 0:
+            fail(f"{kname} has no HMMA or HGMMA in its SASS: the bf16 paged route is not on the tensor cores")
 
     # 3. kernels against their plain versions
     cfg = get_config("qwen2.5-3b", "full")
     reduced = cfg.replace(segments=(SegmentSpec(body=cfg.segments[0].body, repeat=8),))
     records: dict = {}
-    kernel_checks(records)
+    decode_serving = kernel_checks(records)
     flash_checks(records)
     fused_checks(records, {"fused_psgd": leaf_shapes(cfg), "fused_momentum": leaf_shapes(reduced),
                            "fused_adagrad_da": leaf_shapes(reduced)})
@@ -1242,6 +1210,11 @@ def main() -> None:
           f" | f32 route, in units of its allowance: " + ", ".join(
               f"D {d[1:]} fwd {r['fwd_excess']:.3f} bwd {r['bwd_excess']:.3f}"
               for d, r in fwd_rec["f32_route"].items()), flush=True)
+    print(f"paged, ms a call L2-cold (device ms in brackets): decode {records['paged_flash_decode']['ms']:.4f} "
+          f"({records['paged_flash_decode']['device_ms']:.4f}), decode at the serving shape "
+          f"{decode_serving['ms']:.4f} ({decode_serving['device_ms']:.4f}), prefill "
+          f"{records['paged_chunk_prefill']['ms']:.4f} ({records['paged_chunk_prefill']['device_ms']:.4f}), "
+          f"sampler {records['fused_sample']['ms']:.4f} ({records['fused_sample']['device_ms']:.4f})", flush=True)
     print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
           f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
           f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
@@ -1317,7 +1290,8 @@ def main() -> None:
     engine.pool.check()
     print(f"profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, idle "
           f"{100 * profile['idle_share']:.1f}% | {profile['activities']} device activities | traced "
-          f"run {profile['wall_ms'] / (wall * 1e3):.2f} x the untraced one", flush=True)
+          f"run {profile['wall_ms'] / (wall * 1e3):.2f} x the untraced one | paged decode "
+          f"{profile['paged_decode_ms']:.2f} ms, prefill {profile['paged_prefill_ms']:.2f} ms", flush=True)
     for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
         print(f"profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
 
@@ -1426,15 +1400,21 @@ def main() -> None:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec.get("library_ms"),
         })
     record = {"kernels": kernels}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps({
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         **record, "nvidia_smi": smi, "tolerance": {
             n: {key: r[key] for key in ("excess", "fault_excess")} for n, r in records.items() if "excess" in r
         }, "library_none": {n: LIBRARY_NONE if n.startswith("fused_") else LIBRARY_NONE_GLA
                             for n, r in records.items()
                             if n.startswith(("fused_", "gla_")) and r.get("library_ms") is None},
         "gla_tensor_ops": gla_mma,
+        "paged_tensor_ops": paged_mma,
+        "paged_device_ms": {n: records[n]["device_ms"] for n in ("paged_flash_decode", "paged_chunk_prefill",
+                                                                  "fused_sample")},
+        "paged_flash_decode_serving_shape": {"ms": decode_serving["ms"], "device_ms": decode_serving["device_ms"],
+                                             "plain_ms": decode_serving["plain_ms"],
+                                             "bound_ms": decode_serving["bound"][0],
+                                             "bound_by": decode_serving["bound"][1]},
         "flash": {"hgmma": hgmma, **{n: {key: records[n][key] for key in (
             "device_ms", "library_backend", "library_ms_default", "library_device_ms",
             "library_device_ms_default", "f32_route") if key in records[n]}

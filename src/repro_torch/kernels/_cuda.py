@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,8 @@ FAMILIES = ("paged_decode", "flash_attention", "fused_optim", "gla")
 SOURCES: Dict[str, Path] = {}
 #: library name -> {C function: ctypes argtypes, the trailing stream excluded}
 _SIGNATURES: Dict[str, Dict[str, List]] = {}
+#: library name -> {C function that launches nothing: (argtypes, restype)}
+_QUERIES: Dict[str, Dict[str, Tuple[List, object]]] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas reports (registers, shared memory, spills) of the builds this process ran
 BUILD_LOGS: Dict[str, str] = {}
@@ -46,11 +48,15 @@ BUILD_LOGS: Dict[str, str] = {}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def register(name: str, source: Path, signatures: Dict[str, List]) -> None:
+def register(name: str, source: Path, signatures: Dict[str, List],
+             queries: Optional[Dict[str, Tuple[List, object]]] = None) -> None:
     """Declare library ``name``, built from ``source``, with its C functions
-    and their argument types (each also takes the stream, last)."""
+    and their argument types (each also takes the stream, last), and the C
+    functions that launch nothing and return a value (``queries``: argument
+    types and result type), called by :func:`query`."""
     SOURCES[name] = source
     _SIGNATURES[name] = {fn: list(args) + [P] for fn, args in signatures.items()}
+    _QUERIES[name] = dict(queries or {})
 
 
 def nvcc() -> str:
@@ -110,6 +116,9 @@ def _lib(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        for fn, (argtypes, restype) in _QUERIES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -135,3 +144,9 @@ def launch(lib: str, fn: str, device: torch.device, *args) -> None:
         code = getattr(_lib(lib), fn)(*args, stream)
     if code != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {code}")
+
+
+def query(lib: str, fn: str, *args):
+    """The value that C function ``fn`` of ``lib`` (one registered among its
+    ``queries``) returns for ``args``."""
+    return getattr(_lib(lib), fn)(*args)

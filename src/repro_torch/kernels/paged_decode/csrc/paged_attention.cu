@@ -3,46 +3,92 @@
 // softmax. Bound by a plain C interface and ctypes (kernel.py).
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/paged_decode/kernel.py:
-//   paged_flash_decode_grouped  (_decode_kernel)  -> paged_decode_kernel
-//   paged_chunk_prefill_grouped (_prefill_kernel) -> paged_prefill_kernel
+//   paged_flash_decode_grouped  (_decode_kernel)
+//     bf16 queries: tc::attend_kernel<..., kDecode = true> + tc::combine_kernel
+//     f32 queries:  paged_decode_kernel
+//   paged_chunk_prefill_grouped (_prefill_kernel)
+//     bf16 queries: tc::attend_kernel<..., kDecode = false>
+//     f32 queries:  paged_prefill_kernel
+// Two routes by the query's type, as flash attention and GLA have: bf16 (the
+// serving path at full width) on the tensor cores, f32 (the card-against-CPU
+// checks, which need f32 math) on the CUDA-core kernels below.
 //
-// What bounds them on this card: decode reads each live K/V position once
-// (bf16, 2 x Hkv x D x 2 bytes a token) and does ~4 flops per byte, far
-// below the H100's ~295 flops/byte ridge, so it is bound by memory, and at
-// serving batch sizes by launch and load latency (B x Hkv blocks only).
-// Chunked prefill reuses each K/V page for G x C query rows and is bound by
-// its f32 FMA work.
+// What bounds them on this card. Decode reads each visible K/V position once
+// (bf16, 2 x Hkv x D x 2 bytes a token) and does ~4 flops per byte, far below
+// the H100's ~295 flops/byte ridge: at serving sizes (8 slots of 544 tokens
+// sharing a 256-token prefix, 2.7 MB of K/V) the byte bound is ~0.8 us, so
+// what is left is latency: the
+// launch, the dependent loads of position, table entry and page, and the
+// combine. Chunked prefill does 4 x D flops per visible (query, key) pair on
+// K/V that stays in L2; its bound is the tensor cores' rate, far below what
+// a block's chain of dependent steps takes (clock stamps of the measurement
+// build -DPAGED_CLOCK_STAMPS: tools/paged_bench.py --stamps).
 //
-// Design. The TPU kernels walk a sequential grid axis over pages with VMEM
-// scratch carried between steps; here one block walks the pages of its slot
-// in a loop and keeps the running max, sum and output in registers:
-//   * a block is (row tile, kv head h, slot b); its rows are the G query
-//     heads that share kv head h (decode), or the G x C (head, chunk offset)
-//     rows of a chunk (prefill), row r = g * C + c at position pos[b] + c;
-//   * each warp owns ROWS_PER_WARP rows. For the scores, lane (t, half)
-//     dots key t of the page with half of the query, 16 bytes at a time, and
-//     one shuffle joins the halves, so no per-key reduction chain is left;
-//     for P.V a lane holds D/32 dims of each row's output, so that update
-//     needs no reduction;
-//   * the block loads each page index itself (the TPU kernel's scalar
-//     prefetch) and stages the page's K and V for head h in shared memory
-//     with cp.async, in a ring of kStages pages: the copies of the next
-//     kStages - 1 pages are in flight while one page is computed on, so a
-//     block waits for device memory about once per ring rather than once
-//     per page;
-//   * the page loop stops after the last page the tile's highest query
-//     position can see, and with a sliding window starts at the first page
-//     the lowest one can see. The TPU kernel iterates every page and masks
-//     them; masked positions contribute nothing, so the result is the same.
-//     Within a page, masked positions get probability 0 (scratch page 0 is
-//     never read unmasked), exactly as in the TPU kernel.
-// Table entries are clamped into the pool, so a corrupt table cannot fault.
+// Design of the bf16 route (namespace tc). A block owns a tile of query rows
+// that share one kv head h: row r = c * G + g is head h * G + g at position
+// pos[b] + c (decode: C = 1, the G heads; prefill: the tile holds every head
+// of a few consecutive positions). It walks the 16-key chunks of logical
+// positions its rows can see, staged in shared memory by cp.async (each row of
+// a chunk read through the page table, the page index clamped into the pool;
+// keys outside the tile's visible range are zero-filled, never read).
+//   1. The grid. Decode splits each slot's chunks over blocks. The layout
+//      comes from the table width alone (decode_layout), so the host reads no
+//      position: kDecodeKeyGroups chunks (two pages of 16) a split up to
+//      kMaxDecodeSplits splits, and more chunks a split for a wider table, so
+//      the grid and the f32 scratch (B x Hq x nsplit x (D + 2) floats, sized
+//      by paged_decode_scratch_floats) stop growing with the cache length
+//      past 8,192 positions (there a split of four chunks took 1.4x the time
+//      of two; below it, dead splits cost less than longer walks would). A block whose split holds no visible key exits
+//      at once. Each live split writes its partial
+//      (m, l, o) in f32 to scratch, and combine_kernel merges a slot's live
+//      splits in index order (no atomics: the same bits every call). A split
+//      with no visible key adds exactly 0 (exp(-1e30 - m) = 0). Prefill
+//      tiles hold 32 rows, run longest first, and their warps split the
+//      chunks, so a 256-token chunk gives 128 blocks of 8 warps.
+//   2. The products. Both go to the tensor cores as mma.sync m16n8k16 (bf16
+//      in, f32 sums), FlashAttention-2 style, one warp per 16 query rows and
+//      one chunk at a time: S = Q K^T from ldmatrix fragments of Q and K,
+//      then O += P V with V from ldmatrix.trans; the accumulator of S is the
+//      A fragment of P. q is bf16, so it reaches the tensor cores exactly;
+//      the f32 scores are scaled after the product and soft-capped after
+//      that. P is split into bf16 hi + lo (two P V products) to keep the
+//      forwards within one bf16 ulp of the plain version: with P rounded to
+//      bf16 alone, decode read 2.0x and prefill up to 14.4x that allowance on
+//      the serving shapes (measured once on a variant that is not kept). The
+//      online softmax stays in registers; the warps that split a tile's chunks
+//      merge their (m, l, o) in shared memory in a fixed order.
+//   3. K/V reuse. A prefill tile holds every head of its positions, so each
+//      chunk it stages serves all G heads that share the kv head, instead of
+//      one head a tile.
+// Masking is the TPU kernel's: causal on positions, with the optional sliding
+// window and logit softcap; masked keys get probability exactly 0, so scratch
+// page 0 is never read unmasked; each row ends with o / max(l, 1e-30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The f32 route: CUDA-core kernels
+// ---------------------------------------------------------------------------
+// The TPU kernels walk a sequential grid axis over pages with VMEM scratch
+// carried between steps; here one block walks the pages of its slot in a
+// loop and keeps the running max, sum and output in registers:
+//   * a block is (row tile, kv head h, slot b); its rows are the G query
+//     heads that share kv head h (decode), or the G x C (head, chunk offset)
+//     rows of a chunk (prefill), row r = g * C + c at position pos[b] + c;
+//   * each warp owns ROWS_PER_WARP rows. For the scores, lane (t, half)
+//     dots key t of the page with half of the query, 16 bytes at a time, and
+//     one shuffle joins the halves; for P.V a lane holds D/32 dims of each
+//     row's output, so that update needs no reduction;
+//   * the block loads each page index itself (the TPU kernel's scalar
+//     prefetch) and stages the page's K and V for head h in shared memory
+//     with cp.async, in a ring of kStages pages;
+//   * the page loop runs over the pages the tile's queries can see; within a
+//     page, masked positions get probability 0.
+// Table entries are clamped into the pool, so a corrupt table cannot fault.
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -75,12 +121,6 @@ __device__ __forceinline__ float dot_chunk(const __nv_bfloat16* k, const float* 
          q1.w * k3.y;
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 struct Params {
   const void* q;         // row (b, c, head) at b * q_stride_b + c * q_stride_c + head * D
   void* out;             // same layout and type as q
@@ -111,7 +151,7 @@ __device__ __forceinline__ void copy_page(KV* ks, KV* vs, const KV* kp, const KV
   }
 }
 
-template <typename TQ, int DPL, int ROWS_PER_WARP>
+template <int DPL, int ROWS_PER_WARP>
 __device__ __forceinline__ void paged_attend(const Params& p) {
   constexpr int D = 32 * DPL;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -145,7 +185,7 @@ __device__ __forceinline__ void paged_attend(const Params& p) {
   // each warp's query rows, scaled, in shared memory: the score loop reads
   // them a 16-byte chunk at a time
   float* qs = sc + kTileRows * p.ps + warp * ROWS_PER_WARP * D;  // (ROWS_PER_WARP, D)
-  const TQ* q = static_cast<const TQ*>(p.q);
+  const float* q = static_cast<const float*>(p.q);
   float o[ROWS_PER_WARP][DPL];
   float m[ROWS_PER_WARP], l[ROWS_PER_WARP];
   int qpos[ROWS_PER_WARP];
@@ -251,30 +291,30 @@ __device__ __forceinline__ void paged_attend(const Params& p) {
     __syncthreads();  // the stage is refilled in a later iteration
   }
 
-  TQ* out = static_cast<TQ*>(p.out);
+  float* out = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     if (!valid[i]) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int k = 0; k < DPL; ++k) out[qoff[i] + lane + 32 * k] = from_f32<TQ>(o[i][k] * inv);
+    for (int k = 0; k < DPL; ++k) out[qoff[i] + lane + 32 * k] = o[i][k] * inv;
   }
 }
 
 constexpr int kDecodeRowsPerWarp = 2;   // a tile of 8 rows: all G = 8 heads of a group
 constexpr int kPrefillRowsPerWarp = 4;  // a tile of 16 rows
 
-template <typename TQ, int DPL>
+template <int DPL>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
-  paged_attend<TQ, DPL, kDecodeRowsPerWarp>(p);
+  paged_attend<DPL, kDecodeRowsPerWarp>(p);
 }
 
-template <typename TQ, int DPL>
+template <int DPL>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
-  paged_attend<TQ, DPL, kPrefillRowsPerWarp>(p);
+  paged_attend<DPL, kPrefillRowsPerWarp>(p);
 }
 
-template <typename TQ, int DPL>
+template <int DPL>
 cudaError_t launch(Params p, int batch, bool decode, cudaStream_t stream) {
   const int rows_per_warp = decode ? kDecodeRowsPerWarp : kPrefillRowsPerWarp;
   const int tile_rows = kWarps * rows_per_warp;
@@ -282,7 +322,7 @@ cudaError_t launch(Params p, int batch, bool decode, cudaStream_t stream) {
   const size_t smem = sizeof(KV) * 2 * kStages * p.ps * 32 * DPL +
                       sizeof(float) * kWarps * rows_per_warp * (p.ps + 32 * DPL);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;  // the ring does not fit (kernel.py checks first)
-  void (*kernel)(Params) = decode ? paged_decode_kernel<TQ, DPL> : paged_prefill_kernel<TQ, DPL>;
+  void (*kernel)(Params) = decode ? paged_decode_kernel<DPL> : paged_prefill_kernel<DPL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -291,59 +331,614 @@ cudaError_t launch(Params p, int batch, bool decode, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ>
-cudaError_t dispatch_dim(Params p, int head_dim, int batch, bool decode, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64: return launch<TQ, 2>(p, batch, decode, stream);
-    case 128: return launch<TQ, 4>(p, batch, decode, stream);
-    case 256: return launch<TQ, 8>(p, batch, decode, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// The bf16 route: tensor-core kernels
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kChunk = 16;             // keys a chunk: the K side of P V, two 8-key tiles of S
+constexpr int kDecodeKeyGroups = 2;    // decode: warps a block, each on every 2nd chunk of the split
+constexpr int kMaxDecodeSplits = 256;  // decode: splits a slot at most (8,192 positions at two chunks a split)
+constexpr int kPrefillRowGroups = 2;   // prefill: 16-row tiles a block
+constexpr int kPrefillKeyGroups = 4;   // prefill: warps on each row tile, each on every 4th chunk
+constexpr int kPrefillStages = 2;      // prefill: chunk groups in the shared-memory ring
+constexpr int kCombineWarps = 4;       // combine: query rows a block, a warp each
+
+// A measurement build (-DPAGED_CLOCK_STAMPS) sums, per warp of one block
+// of each kernel (blockIdx (0, 0, 0): decode's first split of slot 0 and kv
+// head 0, the prefill tile that starts first and sees the most keys), the
+// clock64() cycles of each section, read back by paged_clock_stamps: where a
+// block's time goes. The plain build records nothing.
+constexpr int kStampSections = 6;  // setup, waits, products, barrier, merge, store
+constexpr int kStampWarps = 8;
+#ifdef PAGED_CLOCK_STAMPS
+__device__ long long g_stamps[2][kStampWarps][kStampSections];  // decode, prefill
+#endif
+
+__device__ __forceinline__ long long cycles() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
+  return t;
+}
+
+struct Stamps {
+#ifdef PAGED_CLOCK_STAMPS
+  bool on;
+  long long prev, acc[kStampSections];
+  __device__ explicit Stamps(bool on_) : on(on_), prev(cycles()), acc{} {}
+  __device__ void section(int k) {
+    if (on) {
+      const long long t = cycles();
+      acc[k] += t - prev;
+      prev = t;
+    }
+  }
+  __device__ void flush(int kernel) {
+    if (on)
+      for (int k = 0; k < kStampSections; ++k) g_stamps[kernel][threadIdx.x >> 5][k] = acc[k];
+  }
+#else
+  __device__ explicit Stamps(bool) {}
+  __device__ void section(int) {}
+  __device__ void flush(int) {}
+#endif
+};
+
+struct Params {
+  const bf16* q;           // row (b, c, head) at b * q_stride_b + c * q_stride_c + head * D
+  bf16* out;               // same layout as q
+  const bf16* k_pages;     // (P, ps, Hkv, D)
+  const bf16* v_pages;
+  const int* page_table;   // (B, MP)
+  const int* pos;          // (B,) decode position, or chunk start
+  float* part_o;           // decode: (B, Hkv, nsplit, G, D) partial outputs
+  float2* part_ml;         // decode: (B, Hkv, nsplit, G) partial (max, sum)
+  long long q_stride_b, q_stride_c;
+  int batch, hq, num_pages, ps, hkv, group, chunk, max_pages;
+  int split_chunks, nsplit;  // decode: chunks a split, and splits a slot (decode_layout)
+  int window;              // <= 0: no sliding window
+  float softcap;           // <= 0: no soft-capping
+  float scale;
+};
+
+// The decode's split layout, from the table width alone: split_chunks, a
+// multiple of kDecodeKeyGroups, is the fewest that keeps nsplit <= kMaxDecodeSplits.
+struct DecodeLayout {
+  int split_chunks, nsplit;
+};
+inline DecodeLayout decode_layout(int max_pages, int ps) {
+  const long long chunks = ((long long)max_pages * ps + kChunk - 1) / kChunk;
+  const long long groups = (chunks + kDecodeKeyGroups - 1) / kDecodeKeyGroups;
+  const long long per = (groups + kMaxDecodeSplits - 1) / kMaxDecodeSplits;  // stages a split
+  const int split_chunks = (per > 1 ? (int)per : 1) * kDecodeKeyGroups;
+  const long long nsplit = (chunks + split_chunks - 1) / split_chunks;
+  return {split_chunks, nsplit > 1 ? (int)nsplit : 1};  // an empty table: one split, which exits
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy into shared memory; zero-fills (reads nothing) unless `live`
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a b: mma.sync m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) { return *reinterpret_cast<uint32_t*>(&h); }
+
+// (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
+__device__ __forceinline__ void split_hi_lo(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - f.x, y - f.y));
+}
+
+// The keys that query positions [qlo, qhi] may see, [key_lo, key_hi] (the
+// table addresses keys below max_pages * ps), as the chunk range
+// [c_begin, c_end). The attention and combine kernels must agree on it.
+__device__ __forceinline__ void visible_chunks(const Params& p, int qlo, int qhi, int& key_lo, int& key_hi,
+                                               int& c_begin, int& c_end) {
+  key_lo = p.window > 0 ? max(qlo - p.window + 1, 0) : 0;
+  key_hi = min(qhi, p.max_pages * p.ps - 1);
+  c_begin = key_lo / kChunk;
+  c_end = key_hi >= key_lo ? key_hi / kChunk + 1 : c_begin;
+}
+
+// One warp: its 16 query rows (sQ, row stride kLd) against one staged chunk
+// of 16 keys (sK, sV) starting at position key0; updates the running max m,
+// this lane's part of the sum l and the output o of rows g and g + 8 (g =
+// lane / 4). Row ri sees key t iff qwin[ri] < t <= qlim[ri].
+template <int D>
+__device__ __forceinline__ void attend_chunk(const bf16* sQ, const bf16* sK, const bf16* sV, int key0,
+                                             const int (&qlim)[2], const int (&qwin)[2], const Params& p,
+                                             float (&o)[D / 8][4], float (&m)[2], float (&l)[2]) {
+  constexpr int kLd = D + 8;
+  const int lane = threadIdx.x & 31;
+  // S = Q K^T as two 16 x 8 tiles (keys 0-7, 8-15). ldmatrix x4 of Q gives
+  // the A fragment (rows 0-7 / 8-15 x columns 0-7 / 8-15); of K, keys 0-7
+  // and 8-15 at columns 0-7 and 8-15, the B fragments of both tiles.
+  float s[2][4] = {};
+  const bf16* qa = sQ + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 8 * (lane >> 4);
+  const bf16* kb = sK + ((lane & 7) + 8 * (lane >> 4)) * kLd + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4], bk[4];
+    ldsm_x4(a, qa + 16 * ks);
+    ldsm_x4(bk, kb + 16 * ks);
+    mma(s[0], a, bk[0], bk[1]);
+    mma(s[1], a, bk[2], bk[3]);
+  }
+  // scale, soft-cap, mask; the online softmax of rows g (elements 0, 1) and
+  // g + 8 (2, 3); a row's four lanes (lane % 4) share it by two shuffles
+  const int c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[j][2 * ri + e] * p.scale;
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        const int t = key0 + 8 * j + c2 + e;
+        x = (t <= qlim[ri] && t > qwin[ri]) ? x : kNegInf;
+        s[j][2 * ri + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[ri], mx);
+    const float alpha = __expf(m[ri] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = s[j][2 * ri + e];
+        const float pr = x > 0.5f * kNegInf ? __expf(x - m_new) : 0.f;  // masked keys: exactly 0
+        s[j][2 * ri + e] = pr;
+        sum += pr;
+      }
+    }
+    l[ri] = l[ri] * alpha + sum;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      o[nt][2 * ri] *= alpha;
+      o[nt][2 * ri + 1] *= alpha;
+    }
+    m[ri] = m_new;
+  }
+  // O += P V: the two S tiles are P's A fragment (16 rows x 16 keys), split
+  // hi + lo; ldmatrix.trans of V (keys 0-7 / 8-15 x 8 columns) gives B.
+  uint32_t ph[4], pl[4];
+  split_hi_lo(s[0][0], s[0][1], ph[0], pl[0]);
+  split_hi_lo(s[0][2], s[0][3], ph[1], pl[1]);
+  split_hi_lo(s[1][0], s[1][1], ph[2], pl[2]);
+  split_hi_lo(s[1][2], s[1][3], ph[3], pl[3]);
+  const bf16* vb = sV + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 8 * (lane >> 4);
+#pragma unroll
+  for (int n2 = 0; n2 < D / 16; ++n2) {
+    uint32_t bv[4];
+    ldsm_x4_trans(bv, vb + 16 * n2);
+    mma(o[2 * n2], pl, bv[0], bv[1]);
+    mma(o[2 * n2 + 1], pl, bv[2], bv[3]);
+    mma(o[2 * n2], ph, bv[0], bv[1]);
+    mma(o[2 * n2 + 1], ph, bv[2], bv[3]);
   }
 }
 
-// q dtype codes: 0 = float32, 1 = bfloat16
-cudaError_t dispatch(Params p, int head_dim, int q_dtype, int batch, bool decode, cudaStream_t stream) {
-  if (q_dtype == 0) return dispatch_dim<float>(p, head_dim, batch, decode, stream);
-  if (q_dtype == 1) return dispatch_dim<__nv_bfloat16>(p, head_dim, batch, decode, stream);
-  return cudaErrorInvalidValue;
+template <int D, int RG, int KG, int ST>
+constexpr size_t smem_bytes() {
+  constexpr size_t q_tile = size_t(RG) * 16 * (D + 8) * sizeof(bf16);
+  constexpr size_t ring = size_t(ST) * KG * 2 * kChunk * (D + 8) * sizeof(bf16);
+  // after the walk the ring holds the warps' (m, l) and o for their merge
+  constexpr size_t merge = size_t(KG) * RG * 32 * 4 * sizeof(float) + size_t(KG - 1) * RG * D * 4 * 32 / 8 * sizeof(float);
+  return q_tile + (ring > merge ? ring : merge);
 }
 
-Params make_params(const void* q, void* out, const void* k_pages, const void* v_pages, const int* page_table,
-                   const int* pos, int hq, int hkv, int head_dim, int num_pages, int page_size, int max_pages,
-                   int chunk, int window, float softcap) {
-  Params p;
-  p.q = q;
-  p.out = out;
-  p.k_pages = k_pages;
-  p.v_pages = v_pages;
+// A block: RG row tiles of 16 query rows of kv head h, and KG warps on each,
+// warp (rg, kg) = (warp % RG, warp / RG) taking chunks c_begin + kg,
+// c_begin + kg + KG, ...; the ring holds ST groups of KG chunks. Decode: the
+// grid is (split, Hkv x row tiles, B) and a block covers the split_chunks
+// chunks of its split; prefill: (row tiles, Hkv, B), a block covers every
+// chunk its rows see.
+template <int D, int RG, int KG, int ST, bool kDecode>
+__global__ void __launch_bounds__(RG * KG * 32) attend_kernel(const Params p) {
+  constexpr int kThreads = RG * KG * 32;
+  constexpr int kRows = RG * 16;
+  constexpr int kLd = D + 8;  // padded shared-memory row: the 8 rows of an ldmatrix hit 8 bank groups
+  constexpr int kNt = D / 8;
+  constexpr int kVec = D / 8;  // 16-byte vectors a row
+  constexpr int kChunkElems = kChunk * kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // (kRows, kLd)
+  bf16* ring = sQ + kRows * kLd;              // (ST, KG, {K, V}, kChunk, kLd)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp % RG, kg = warp / RG;
+  const int b = blockIdx.z;
+  Stamps stamps(blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && lane == 0);
+  int h, tile, split = 0;
+  if constexpr (kDecode) {
+    const int tiles = (p.group + 15) / 16;
+    h = blockIdx.y / tiles;
+    tile = blockIdx.y % tiles;
+    split = blockIdx.x;
+  } else {
+    h = blockIdx.y;
+    tile = gridDim.x - 1 - blockIdx.x;  // later rows see more keys: start them first
+  }
+  const int rows_total = p.group * p.chunk;
+  const int r0 = tile * kRows;
+  const int pos0 = p.pos[b];
+  int key_lo, key_hi, c_begin, c_end;
+  visible_chunks(p, pos0 + r0 / p.group, pos0 + (min(r0 + kRows, rows_total) - 1) / p.group, key_lo, key_hi,
+                 c_begin, c_end);
+  if constexpr (kDecode) {
+    c_begin = max(c_begin, split * p.split_chunks);
+    c_end = min(c_end, (split + 1) * p.split_chunks);
+    if (c_begin >= c_end) return;  // no visible key in this split: the combine skips it
+  }
+
+  // the query tile, rows past the last zero-filled
+  const bf16* qh = p.q + b * p.q_stride_b + (long long)h * p.group * D;
+  for (int v = threadIdx.x; v < kRows * kVec; v += kThreads) {
+    const int r = v / kVec, col = (v % kVec) * 8, row = r0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows_total)
+      x = *reinterpret_cast<const uint4*>(qh + (row / p.group) * p.q_stride_c + (row % p.group) * D + col);
+    *reinterpret_cast<uint4*>(sQ + r * kLd + col) = x;
+  }
+  // what this lane's rows (g and g + 8 of its warp's tile) may see
+  int qlim[2], qwin[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = r0 + rg * 16 + (lane >> 2) + 8 * ri;
+    const int qpos = pos0 + row / p.group;
+    qlim[ri] = row < rows_total ? min(qpos, key_hi) : -1;
+    qwin[ri] = p.window > 0 ? qpos - p.window : -1;
+  }
+
+  const int* table = p.page_table + (long long)b * p.max_pages;
+  // stage n: chunks c_begin + n * KG + i, i < KG, each row read through the
+  // page table (the page index clamped into the pool); keys outside
+  // [key_lo, key_hi] are zero-filled
+  auto issue = [&](int n) {
+    bf16* st = ring + (n % ST) * KG * 2 * kChunkElems;
+    for (int v = threadIdx.x; v < KG * kChunk * kVec; v += kThreads) {
+      const int i = v / (kChunk * kVec), t = (v / kVec) % kChunk, col = (v % kVec) * 8;
+      const int key = (c_begin + n * KG + i) * kChunk + t;
+      const bool live = key >= key_lo && key <= key_hi;
+      long long src = 0;
+      if (live) {
+        const int page = min(max(__ldg(table + key / p.ps), 0), p.num_pages - 1);
+        src = ((long long)page * p.ps + key % p.ps) * p.hkv * D + (long long)h * D + col;
+      }
+      bf16* dst = st + 2 * i * kChunkElems + t * kLd + col;
+      cp_async16(dst, p.k_pages + src, live);
+      cp_async16(dst + kChunkElems, p.v_pages + src, live);
+    }
+  };
+
+  float o[kNt][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int nstages = (c_end - c_begin + KG - 1) / KG;
+#pragma unroll
+  for (int n = 0; n < ST - 1; ++n) {
+    if (n < nstages) issue(n);
+    cp_async_commit();
+  }
+  stamps.section(0);
+  for (int n = 0; n < nstages; ++n) {
+    if (n + ST - 1 < nstages) issue(n + ST - 1);  // its stage was last read in iteration n - 1
+    cp_async_commit();
+    cp_async_wait<ST - 1>();  // this thread's copies of stage n have landed
+    __syncthreads();           // and every thread's (and the query tile)
+    stamps.section(1);
+    const int c = c_begin + n * KG + kg;
+    if (c < c_end) {  // warp-uniform
+      const bf16* sK = ring + ((n % ST) * KG + kg) * 2 * kChunkElems;
+      attend_chunk<D>(sQ + rg * 16 * kLd, sK, sK + kChunkElems, c * kChunk, qlim, qwin, p, o, m, l);
+    }
+    stamps.section(2);
+    __syncthreads();  // the stage is refilled in a later iteration
+    stamps.section(3);
+  }
+
+  // each row's sum over its four lanes, then the KG warps of a row tile
+  // merged in a fixed order: warp kg = 0 ends with (M, L, O) of its rows
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    l[ri] += __shfl_xor_sync(0xffffffffu, l[ri], 1);
+    l[ri] += __shfl_xor_sync(0xffffffffu, l[ri], 2);
+  }
+  if constexpr (KG > 1) {
+    __syncthreads();  // the ring is free
+    float4* sML = reinterpret_cast<float4*>(ring);                 // (KG, RG, 32 lanes): m0, m1, l0, l1
+    float* sO = reinterpret_cast<float*>(sML + KG * RG * 32);      // (KG - 1, RG, kNt, 4, 32 lanes)
+    sML[(kg * RG + rg) * 32 + lane] = make_float4(m[0], m[1], l[0], l[1]);
+    if (kg > 0) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sO[((((kg - 1) * RG + rg) * kNt + nt) * 4 + e) * 32 + lane] = o[nt][e];
+    }
+    __syncthreads();
+    if (kg > 0) {
+      stamps.section(4);
+      stamps.flush(kDecode ? 0 : 1);
+      return;
+    }
+    float mk[KG][2], lk[KG][2], M[2];
+#pragma unroll
+    for (int k = 0; k < KG; ++k) {
+      const float4 x = sML[(k * RG + rg) * 32 + lane];
+      mk[k][0] = x.x, mk[k][1] = x.y, lk[k][0] = x.z, lk[k][1] = x.w;
+    }
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      M[ri] = mk[0][ri];
+#pragma unroll
+      for (int k = 1; k < KG; ++k) M[ri] = fmaxf(M[ri], mk[k][ri]);
+      l[ri] = 0.f;
+#pragma unroll
+      for (int k = 0; k < KG; ++k) {
+        mk[k][ri] = __expf(mk[k][ri] - M[ri]);  // warp k's factor; a warp that saw nothing has l = o = 0
+        l[ri] += lk[k][ri] * mk[k][ri];
+      }
+      m[ri] = M[ri];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = o[nt][e] * mk[0][e >> 1];
+#pragma unroll
+        for (int k = 1; k < KG; ++k) x += sO[((((k - 1) * RG + rg) * kNt + nt) * 4 + e) * 32 + lane] * mk[k][e >> 1];
+        o[nt][e] = x;
+      }
+  }
+  stamps.section(4);
+
+  const int c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = r0 + rg * 16 + (lane >> 2) + 8 * ri;
+    if (row >= rows_total) continue;
+    if constexpr (kDecode) {  // the split's partial, row g = row
+      const long long idx = (((long long)b * p.hkv + h) * p.nsplit + split) * p.group + row;
+      float2* dst = reinterpret_cast<float2*>(p.part_o + idx * D) + (c2 >> 1);
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) dst[4 * nt] = make_float2(o[nt][2 * ri], o[nt][2 * ri + 1]);
+      if ((lane & 3) == 0) p.part_ml[idx] = make_float2(m[ri], l[ri]);
+    } else {
+      const float inv = 1.f / fmaxf(l[ri], 1e-30f);
+      bf16* dst = p.out + b * p.q_stride_b + (row / p.group) * p.q_stride_c +
+                  ((long long)h * p.group + row % p.group) * D + c2;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt) =
+            __floats2bfloat162_rn(o[nt][2 * ri] * inv, o[nt][2 * ri + 1] * inv);
+    }
+  }
+  stamps.section(5);
+  stamps.flush(kDecode ? 0 : 1);
+}
+
+// Decode's second pass: a warp per query row (b, head) merges the partials
+// of its slot's live splits in index order: M = max m_s, L = sum l_s
+// exp(m_s - M), out = (sum o_s exp(m_s - M)) / max(L, 1e-30). Lane j holds
+// split s0 + j's (m, l) and factor; the partial outputs are read kBatch
+// splits at a time, all loads of a batch in flight together.
+template <int D>
+__global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(const Params p) {
+  constexpr int kPer = D / 32;  // output columns a lane
+  constexpr int kBatch = 8;
+  const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= p.batch * p.hq) return;
+  const int b = row / p.hq, head = row % p.hq, h = head / p.group, g = head % p.group;
+  const int pos0 = p.pos[b];
+  int key_lo, key_hi, c_begin, c_end;
+  visible_chunks(p, pos0, pos0, key_lo, key_hi, c_begin, c_end);
+  const int s_lo = c_begin / p.split_chunks;
+  const int s_hi = c_end > c_begin ? (c_end - 1) / p.split_chunks : s_lo - 1;
+  const long long base = ((long long)b * p.hkv + h) * p.nsplit * p.group + g;  // split s at base + s * G
+  auto ml_of = [&](int s) {
+    return s <= s_hi ? p.part_ml[base + (long long)s * p.group] : make_float2(kNegInf, 0.f);
+  };
+  const float2 first = ml_of(s_lo + lane);
+  float M = first.x;
+  for (int s = s_lo + 32 + lane; s <= s_hi; s += 32) M = fmaxf(M, ml_of(s).x);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  float acc[kPer] = {};
+  float L = 0.f;
+  for (int s0 = s_lo; s0 <= s_hi; s0 += 32) {
+    const float2 ml = s0 == s_lo ? first : ml_of(s0 + lane);
+    const float w = __expf(ml.x - M);  // 0 past s_hi (l = 0 there too)
+    L += w * ml.y;
+    const int n = min(32, s_hi - s0 + 1);
+    for (int j0 = 0; j0 < n; j0 += kBatch) {
+      float x[kBatch][kPer];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const float* src = p.part_o + (base + (long long)(s0 + j0 + j) * p.group) * D + lane * kPer;
+#pragma unroll
+        for (int i = 0; i < kPer; i += 2) {
+          const float2 v = j0 + j < n ? *reinterpret_cast<const float2*>(src + i) : make_float2(0.f, 0.f);
+          x[j][i] = v.x, x[j][i + 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, w, (j0 + j) & 31);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[i] += wj * x[j][i];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.out + b * p.q_stride_b + (long long)head * D + lane * kPer);
+#pragma unroll
+  for (int i = 0; i < kPer / 2; ++i) dst[i] = __floats2bfloat162_rn(acc[2 * i] * inv, acc[2 * i + 1] * inv);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D>
+cudaError_t launch(const Params& p, bool decode, cudaStream_t stream) {
+  if (decode) {
+    // ST = 1: a split of a table up to 8,192 positions wide is one stage; a
+    // wider table's splits walk their stages (a second stage in the ring did
+    // not speed them up)
+    constexpr int RG = 1, KG = kDecodeKeyGroups, ST = 1;
+    constexpr size_t smem = smem_bytes<D, RG, KG, ST>();
+    auto kernel = attend_kernel<D, RG, KG, ST, true>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = (p.group + 15) / 16;
+    kernel<<<dim3(p.nsplit, p.hkv * tiles, p.batch), RG * KG * 32, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int rows = p.batch * p.hq;
+    combine_kernel<D><<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0, stream>>>(p);
+  } else {
+    constexpr int RG = kPrefillRowGroups, KG = kPrefillKeyGroups, ST = kPrefillStages;
+    constexpr size_t smem = smem_bytes<D, RG, KG, ST>();
+    auto kernel = attend_kernel<D, RG, KG, ST, false>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = (p.group * p.chunk + RG * 16 - 1) / (RG * 16);
+    kernel<<<dim3(tiles, p.hkv, p.batch), RG * KG * 32, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// q dtype codes: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+cudaError_t dispatch(const void* q, void* out, const void* k_pages, const void* v_pages, const int* page_table,
+                     const int* pos, void* scratch, int batch, int chunk, int hq, int hkv, int head_dim,
+                     int num_pages, int page_size, int max_pages, int q_dtype, int window,
+                     float softcap, bool decode, cudaStream_t stream) {
+  const long long q_stride_c = (long long)hq * head_dim;
+  const float scale = (float)(1.0 / sqrt((double)head_dim));  // d ** -0.5, rounded once
+  if (q_dtype == 0) {
+    Params p;
+    p.q = q;
+    p.out = out;
+    p.k_pages = k_pages;
+    p.v_pages = v_pages;
+    p.page_table = page_table;
+    p.pos = pos;
+    p.q_stride_c = q_stride_c;
+    p.q_stride_b = q_stride_c * chunk;
+    p.num_pages = num_pages;
+    p.ps = page_size;
+    p.hkv = hkv;
+    p.group = hq / hkv;
+    p.chunk = chunk;
+    p.max_pages = max_pages;
+    p.window = window;
+    p.softcap = softcap;
+    p.scale = scale;
+    switch (head_dim) {
+      case 64: return launch<2>(p, batch, decode, stream);
+      case 128: return launch<4>(p, batch, decode, stream);
+      case 256: return launch<8>(p, batch, decode, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (q_dtype != 1) return cudaErrorInvalidValue;
+  tc::Params p;
+  p.q = static_cast<const tc::bf16*>(q);
+  p.out = static_cast<tc::bf16*>(out);
+  p.k_pages = static_cast<const tc::bf16*>(k_pages);
+  p.v_pages = static_cast<const tc::bf16*>(v_pages);
   p.page_table = page_table;
   p.pos = pos;
-  p.q_stride_c = (long long)hq * head_dim;
-  p.q_stride_b = p.q_stride_c * chunk;
+  p.q_stride_c = q_stride_c;
+  p.q_stride_b = q_stride_c * chunk;
+  p.batch = batch;
+  p.hq = hq;
   p.num_pages = num_pages;
   p.ps = page_size;
   p.hkv = hkv;
   p.group = hq / hkv;
   p.chunk = chunk;
   p.max_pages = max_pages;
+  const tc::DecodeLayout layout = tc::decode_layout(max_pages, page_size);
+  p.split_chunks = layout.split_chunks;
+  p.nsplit = layout.nsplit;
+  p.part_o = static_cast<float*>(scratch);
+  p.part_ml = reinterpret_cast<float2*>(p.part_o + (long long)batch * hq * p.nsplit * head_dim);
   p.window = window;
   p.softcap = softcap;
-  p.scale = (float)(1.0 / sqrt((double)head_dim));  // d ** -0.5, rounded once
-  return p;
+  p.scale = scale;
+  switch (head_dim) {
+    case 64: return tc::launch<64>(p, decode, stream);
+    case 128: return tc::launch<128>(p, decode, stream);
+    case 256: return tc::launch<256>(p, decode, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, out: (B, Hq, D). Returns a cudaError_t code (0 = launched).
+// Floats of the split scratch that paged_flash_decode takes for bf16 q:
+// each split's (o, m, l) per query row.
+long long paged_decode_scratch_floats(int batch, int hq, int head_dim, int max_pages, int page_size) {
+  return (long long)batch * hq * tc::decode_layout(max_pages, page_size).nsplit * (head_dim + 2);
+}
+
+// q, out: (B, Hq, D). scratch (bf16 q only): paged_decode_scratch_floats
+// floats. Returns a cudaError_t code (0 = launched).
 int paged_flash_decode(const void* q, void* out, const void* k_pages, const void* v_pages, const int* page_table,
-                       const int* positions, int batch, int hq, int hkv, int head_dim, int num_pages,
-                       int page_size, int max_pages, int q_dtype, int window, float softcap,
-                       void* stream) {
-  Params p = make_params(q, out, k_pages, v_pages, page_table, positions, hq, hkv, head_dim, num_pages,
-                         page_size, max_pages, 1, window, softcap);
-  return (int)dispatch(p, head_dim, q_dtype, batch, true, (cudaStream_t)stream);
+                       const int* positions, void* scratch, int batch, int hq, int hkv, int head_dim,
+                       int num_pages, int page_size, int max_pages, int q_dtype, int window,
+                       float softcap, void* stream) {
+  return (int)dispatch(q, out, k_pages, v_pages, page_table, positions, scratch, batch, 1, hq, hkv, head_dim,
+                       num_pages, page_size, max_pages, q_dtype, window, softcap, true, (cudaStream_t)stream);
 }
 
 // q, out: (B, C, Hq, D). Returns a cudaError_t code (0 = launched).
@@ -351,9 +946,17 @@ int paged_chunk_prefill(const void* q, void* out, const void* k_pages, const voi
                         const int* pos_start, int batch, int chunk, int hq, int hkv, int head_dim,
                         int num_pages, int page_size, int max_pages, int q_dtype, int window,
                         float softcap, void* stream) {
-  Params p = make_params(q, out, k_pages, v_pages, page_table, pos_start, hq, hkv, head_dim, num_pages,
-                         page_size, max_pages, chunk, window, softcap);
-  return (int)dispatch(p, head_dim, q_dtype, batch, false, (cudaStream_t)stream);
+  return (int)dispatch(q, out, k_pages, v_pages, page_table, pos_start, nullptr, batch, chunk, hq, hkv,
+                       head_dim, num_pages, page_size, max_pages, q_dtype, window, softcap, false,
+                       (cudaStream_t)stream);
 }
+
+#ifdef PAGED_CLOCK_STAMPS
+// The measurement build's stamps: (kernel: decode, prefill) x warp x section,
+// cycles.
+int paged_clock_stamps(long long* out) {
+  return cudaMemcpyFromSymbol(out, tc::g_stamps, sizeof(tc::g_stamps));
+}
+#endif
 
 }  // extern "C"

@@ -1,50 +1,69 @@
 """Bind and launch the hand-written CUDA kernels of the paged-decode family
 (sources in ``csrc/``), built and loaded by :mod:`repro_torch.kernels._cuda`.
 
-The launchers take CUDA tensors only and check device, type, shape and
-contiguity; they allocate the output and never fall back to the plain
-versions. ``ops`` adds the launch counters and the CPU path.
+The launchers take CUDA tensors only and check device, type, shape,
+contiguity and 16-byte alignment; they allocate the output (and the bf16
+decode's split scratch) and never fall back to the plain versions. ``ops``
+adds the launch counters and the CPU path. bf16 queries run the
+tensor-core kernels, f32 queries the CUDA-core ones.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._cuda import F as _F, I as _I, P as _P
 from repro_torch.kernels._cuda import check as _check, check_cuda as _check_cuda
-from repro_torch.kernels._cuda import launch as _launch, register
+from repro_torch.kernels._cuda import launch as _launch, query as _query, register
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _Q_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # pages are bf16
-RING_STAGES = 4  # pages of K and V staged in shared memory (kStages in paged_attention.cu)
+RING_STAGES = 4  # f32 route: pages of K and V staged in shared memory (kStages in paged_attention.cu)
 SHARED_MEMORY_BYTES = 227 * 1024  # what one block may use on sm_90
 register("paged_attention", CSRC / "paged_attention.cu", {
-    "paged_flash_decode": [_P] * 6 + [_I] * 9 + [_F],
+    "paged_flash_decode": [_P] * 7 + [_I] * 9 + [_F],
     "paged_chunk_prefill": [_P] * 6 + [_I] * 10 + [_F],
-})
+}, queries={"paged_decode_scratch_floats": ([_I] * 5, ctypes.c_longlong)})
 register("fused_sample", CSRC / "fused_sample.cu", {"fused_sample": [_P] * 5 + [_I] * 2})
+
+# The bf16 kernels' tiling (paged_attention.cu, namespace tc), stated for the
+# plain versions that follow those kernels step for step (ref.py) and for the
+# tests; the launchers take the decode's layout from the library itself.
+# Keys a chunk; decode: the warps that deal a split's chunks among them, and
+# splits a slot at most; prefill: query rows a block, and its warps.
+CHUNK_KEYS = 16
+DECODE_KEY_GROUPS = 2
+MAX_DECODE_SPLITS = 256
+PREFILL_TILE_ROWS = 32
+PREFILL_KEY_GROUPS = 4
 
 
 def _attention_checks(q, k_pages, v_pages, page_table, pos, *, head_axis: int):
     device = q.device
     _check_cuda(device, q=q, k_pages=k_pages, v_pages=v_pages, page_table=page_table, pos=pos)
-    _check(q.dtype in _Q_DTYPE_CODES, f"q must be float32 or bfloat16, got {q.dtype}")
+    _check(q.dtype in _Q_DTYPE_CODES, lambda: f"q must be float32 or bfloat16, got {q.dtype}")
     _check(k_pages.dtype == v_pages.dtype == torch.bfloat16,
-           f"k/v pages must be bfloat16, got {k_pages.dtype}/{v_pages.dtype}")
+           lambda: f"k/v pages must be bfloat16, got {k_pages.dtype}/{v_pages.dtype}")
     _check(page_table.dtype == torch.int32 and pos.dtype == torch.int32,
            "page_table and positions must be int32")
     _check(k_pages.ndim == 4 and v_pages.shape == k_pages.shape, "pages must be (P, ps, Hkv, D)")
     hq, d = q.shape[head_axis], q.shape[-1]
     hkv = k_pages.shape[2]
-    _check(k_pages.shape[3] == d and d in (64, 128, 256), f"head_dim {d} must be 64, 128 or 256")
-    _check(hq % hkv == 0, f"q heads {hq} % kv heads {hkv} != 0")
+    _check(k_pages.shape[3] == d and d in (64, 128, 256), lambda: f"head_dim {d} must be 64, 128 or 256")
+    _check(hq % hkv == 0, lambda: f"q heads {hq} % kv heads {hkv} != 0")
     ps = k_pages.shape[1]
-    ring = 2 * RING_STAGES * ps * d * k_pages.element_size() + 4 * 16 * (ps + d)  # + scores, queries
-    _check(ring <= SHARED_MEMORY_BYTES,
-           f"a ring of {RING_STAGES} pages of {ps} x {d} {k_pages.dtype} needs {ring} bytes "
-           f"of shared memory, more than a block has: use a smaller page size")
+    if q.dtype == torch.float32:  # the bf16 route stages 16-key chunks, whatever the page size
+        ring = 2 * RING_STAGES * ps * d * k_pages.element_size() + 4 * 16 * (ps + d)  # + scores, queries
+        _check(ring <= SHARED_MEMORY_BYTES,
+               lambda: f"a ring of {RING_STAGES} pages of {ps} x {d} {k_pages.dtype} needs {ring} bytes "
+                       f"of shared memory, more than a block has: use a smaller page size")
+    else:  # 16-byte vector loads of q, K and V
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+               "q and the k/v pages must start on a 16-byte boundary")
     b = q.shape[0]
     _check(page_table.ndim == 2 and page_table.shape[0] == b and pos.shape == (b,),
            "page_table must be (B, MP) and positions (B,)")
@@ -52,24 +71,44 @@ def _attention_checks(q, k_pages, v_pages, page_table, pos, *, head_axis: int):
 
 
 def _window_softcap(window: Optional[int], softcap: Optional[float]):
-    _check(window is None or window >= 1, f"sliding window must be >= 1, got {window}")
-    _check(softcap is None or softcap > 0, f"softcap must be > 0, got {softcap}")
+    _check(window is None or window >= 1, lambda: f"sliding window must be >= 1, got {window}")
+    _check(softcap is None or softcap > 0, lambda: f"softcap must be > 0, got {softcap}")
     return (0 if window is None else int(window)), (0.0 if softcap is None else float(softcap))
+
+
+def decode_layout(max_pages: int, page_size: int) -> Tuple[int, int]:
+    """(chunks a split, splits a slot) of the bf16 decode, from the table
+    width alone (tc::decode_layout): the fewest chunks a split, a multiple of
+    DECODE_KEY_GROUPS, that keep the splits within MAX_DECODE_SPLITS."""
+    chunks = -(-max_pages * page_size // CHUNK_KEYS)
+    per = max(1, -(-chunks // DECODE_KEY_GROUPS // MAX_DECODE_SPLITS))
+    split_chunks = per * DECODE_KEY_GROUPS
+    return split_chunks, max(1, -(-chunks // split_chunks))
+
+
+@functools.lru_cache(maxsize=256)
+def decode_scratch_floats(batch: int, hq: int, d: int, max_pages: int, page_size: int) -> int:
+    """Floats of the bf16 decode's split scratch, as the library lays it out."""
+    return _query("paged_attention", "paged_decode_scratch_floats", batch, hq, d, max_pages, page_size)
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, positions, *, window=None, softcap=None):
     """q: (B, Hq, D); pages: (P, ps, Hkv, D) bf16; page_table: (B, MP) int32;
     positions: (B,) int32. Returns (B, Hq, D) in q's type."""
-    _check(q.ndim == 3, f"q must be (B, Hq, D), got {tuple(q.shape)}")
+    _check(q.ndim == 3, lambda: f"q must be (B, Hq, D), got {tuple(q.shape)}")
     hq, hkv, d = _attention_checks(q, k_pages, v_pages, page_table, positions, head_axis=1)
     w, cap = _window_softcap(window, softcap)
+    b, mp = q.shape[0], page_table.shape[1]
     out = torch.empty_like(q)
+    scratch = None
+    if q.dtype == torch.bfloat16:  # each split's (o, m, l) per query row, f32
+        floats = decode_scratch_floats(b, hq, d, mp, k_pages.shape[1])
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     _launch(
         "paged_attention", "paged_flash_decode", q.device,
         q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), positions.data_ptr(),
-        q.shape[0], hq, hkv, d, k_pages.shape[0], k_pages.shape[1], page_table.shape[1],
-        _Q_DTYPE_CODES[q.dtype], w, cap,
+        page_table.data_ptr(), positions.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        b, hq, hkv, d, k_pages.shape[0], k_pages.shape[1], mp, _Q_DTYPE_CODES[q.dtype], w, cap,
     )
     return out
 
@@ -77,7 +116,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, positions, *, window=Non
 def paged_chunk_prefill(q, k_pages, v_pages, page_table, pos_start, *, window=None, softcap=None):
     """q: (B, C, Hq, D); pos_start: (B,) int32, the position of each chunk's
     first query; the rest as :func:`paged_flash_decode`. Returns (B, C, Hq, D)."""
-    _check(q.ndim == 4, f"q must be (B, C, Hq, D), got {tuple(q.shape)}")
+    _check(q.ndim == 4, lambda: f"q must be (B, C, Hq, D), got {tuple(q.shape)}")
     hq, hkv, d = _attention_checks(q, k_pages, v_pages, page_table, pos_start, head_axis=2)
     w, cap = _window_softcap(window, softcap)
     out = torch.empty_like(q)

@@ -4,6 +4,12 @@ Each mirrors the masking/scaling/softcap semantics of the CUDA kernel it
 stands beside, but materializes the table-gathered KV view, which the
 kernels exist to avoid. The CPU path of ``ops`` runs these; the CUDA path
 never does. Math is float32; outputs take the query's type.
+
+``paged_decode_split_ref`` and ``paged_prefill_tiled_ref`` instead follow
+the bf16 (tensor-core) kernels step for step: 16-key chunks read through the
+table, an online softmax per warp, partial (m, l, o) merged in a fixed
+order across warps and, for decode, across the splits of a slot. The tests
+hold them against the JAX package; they are not on any path.
 """
 from __future__ import annotations
 
@@ -11,7 +17,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.paged_decode.kernel import (
+    CHUNK_KEYS, DECODE_KEY_GROUPS, PREFILL_KEY_GROUPS, PREFILL_TILE_ROWS, decode_layout,
+)
+
 NEG_INF = -2.0e38  # the attention mask fill
+EMPTY = -1.0e30  # the kernels' running max before any visible key
 
 
 def _gather(leaf, page_table):
@@ -88,6 +99,152 @@ def paged_prefill_ref(
     k_pos = torch.arange(kg.shape[1], device=q.device)
     pr = _masked_softmax(s, q_pos[:, None, :, None], k_pos, sliding_window, softcap)
     return torch.einsum("bnqt,btnh->bqnh", pr, vg).to(q.dtype)
+
+
+def _visible_chunks(qlo: int, qhi: int, key_max: int, window: Optional[int]):
+    """Keys that query positions qlo..qhi may see, [key_lo, key_hi] (the
+    table addresses keys up to key_max), and their chunks [c_begin, c_end)."""
+    key_lo = max(qlo - window + 1, 0) if window else 0
+    key_hi = min(qhi, key_max)
+    c_begin = key_lo // CHUNK_KEYS
+    c_end = key_hi // CHUNK_KEYS + 1 if key_hi >= key_lo else c_begin
+    return key_lo, key_hi, c_begin, c_end
+
+
+def _chunk_kv(k_pages, v_pages, table_row, h, c, key_lo, key_hi):
+    """K and V rows (f32) of chunk c's keys for kv head h, each read through
+    the table (page index clamped into the pool); keys outside [key_lo,
+    key_hi] are zeros, never read. Returns (k, v, key positions)."""
+    keys = torch.arange(c * CHUNK_KEYS, (c + 1) * CHUNK_KEYS)
+    live = (keys >= key_lo) & (keys <= key_hi)
+    at = keys.clamp(key_lo, max(key_hi, key_lo))
+    ps = k_pages.shape[1]
+    page = table_row[at // ps].long().clamp(0, k_pages.shape[0] - 1)
+    k = torch.where(live[:, None], k_pages[page, at % ps, h].float(), 0.0)
+    v = torch.where(live[:, None], v_pages[page, at % ps, h].float(), 0.0)
+    return k, v, keys
+
+
+def walk_chunks(q, qlim, qwin, chunk_kv, chunks, scale: float, softcap: Optional[float]):
+    """One warp's online softmax: query rows q (R, D) f32 over the given
+    chunks, ``chunk_kv(c)`` -> (k, v, keys); row r sees key t iff qwin[r] <
+    t <= qlim[r]. Scores are scaled after the product, then soft-capped.
+    Returns the partial (m (R,), l (R,), o (R, D)); with no visible key it is
+    (EMPTY, 0, 0)."""
+    m = torch.full((q.shape[0],), EMPTY)
+    l = torch.zeros(q.shape[0])
+    o = torch.zeros(q.shape)
+    for c in chunks:
+        k, v, keys = chunk_kv(c)
+        s = (q @ k.T) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        seen = (keys[None, :] <= qlim[:, None]) & (keys[None, :] > qwin[:, None])
+        s = torch.where(seen, s, EMPTY)
+        m_new = torch.maximum(m, s.max(dim=1).values)
+        p = torch.where(seen, torch.exp(s - m_new[:, None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=1)
+        o = o * alpha[:, None] + p @ v
+        m = m_new
+    return m, l, o
+
+
+def merge_partials(parts):
+    """Partials (m, l, o) over disjoint keys, merged in their order as the
+    kernels merge warps and splits: M = max m, L = sum l exp(m - M), O = sum
+    o exp(m - M). A partial with no visible key adds exactly 0."""
+    big_m = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big_m = torch.maximum(big_m, m)
+    big_l, big_o = 0.0, 0.0
+    for m, l, o in parts:
+        f = torch.exp(m - big_m)
+        big_l = big_l + l * f
+        big_o = big_o + o * f[:, None]
+    return big_m, big_l, big_o
+
+
+def paged_decode_split_ref(q, k_pages, v_pages, page_table, positions, *, sliding_window=None,
+                           softcap=None, partials: Optional[list] = None):
+    """Decode as the bf16 kernels compute it: a slot's visible chunks in
+    the kernel's splits for this table width (``decode_layout``), each
+    split's chunks dealt to DECODE_KEY_GROUPS warps in turn and merged in
+    order, each live split's partial (m, l, o), then the live splits merged
+    in index order, out = O / max(L, 1e-30). Arguments as
+    :func:`paged_attention_ref`; ``partials`` collects (b, kv head, split,
+    m, l, o) of every live split."""
+    nb, hq, d = q.shape
+    hkv, ps, mp = k_pages.shape[2], k_pages.shape[1], page_table.shape[1]
+    group = hq // hkv
+    split_chunks = decode_layout(mp, ps)[0]
+    out = torch.empty((nb, hq, d))
+    for b in range(nb):
+        pos = int(positions[b])
+        key_lo, key_hi, c_begin, c_end = _visible_chunks(pos, pos, mp * ps - 1, sliding_window)
+        qlim = torch.full((group,), min(pos, key_hi))
+        qwin = torch.full((group,), pos - sliding_window if sliding_window else -1)
+        live = range(c_begin // split_chunks, (c_end - 1) // split_chunks + 1) if c_end > c_begin else []
+        for h in range(hkv):
+            qh = q[b, h * group:(h + 1) * group].float()
+
+            def chunk_kv(c):
+                return _chunk_kv(k_pages, v_pages, page_table[b], h, c, key_lo, key_hi)
+
+            splits = []
+            for s in live:
+                lo, hi = max(c_begin, s * split_chunks), min(c_end, (s + 1) * split_chunks)
+                warps = [walk_chunks(qh, qlim, qwin, chunk_kv, range(lo + w, hi, DECODE_KEY_GROUPS), d**-0.5,
+                                     softcap)
+                         for w in range(DECODE_KEY_GROUPS)]
+                splits.append(merge_partials(warps))
+                if partials is not None:
+                    partials.append((b, h, s) + splits[-1])
+            if splits:
+                _, big_l, big_o = merge_partials(splits)
+                out[b, h * group:(h + 1) * group] = big_o / big_l.clamp_min(1e-30)[:, None]
+            else:
+                out[b, h * group:(h + 1) * group] = 0.0
+    return out.to(q.dtype)
+
+
+def paged_prefill_tiled_ref(q, k_pages, v_pages, page_table, pos_start, *, sliding_window=None,
+                            softcap=None):
+    """Chunk prefill as the bf16 kernel computes it: per kv head h, query
+    rows r = c * G + g (head h * G + g at position pos_start + c) in tiles of
+    PREFILL_TILE_ROWS; a tile's visible chunks dealt to PREFILL_KEY_GROUPS
+    warps in turn (warp w takes chunks c_begin + w, c_begin + w +
+    PREFILL_KEY_GROUPS, ...),
+    each an online softmax, merged in order; out = O / max(L, 1e-30).
+    Arguments as :func:`paged_prefill_ref`."""
+    nb, chunk, hq, d = q.shape
+    hkv, ps, mp = k_pages.shape[2], k_pages.shape[1], page_table.shape[1]
+    group = hq // hkv
+    rows_total = group * chunk
+    out = torch.empty((nb, chunk, hq, d))
+    for b in range(nb):
+        pos0 = int(pos_start[b])
+        for h in range(hkv):
+            rows_q = q[b, :, h * group:(h + 1) * group].float().reshape(rows_total, d)
+            res = torch.empty((rows_total, d))
+            for r0 in range(0, rows_total, PREFILL_TILE_ROWS):
+                r1 = min(r0 + PREFILL_TILE_ROWS, rows_total)
+                qpos = pos0 + torch.arange(r0, r1) // group
+                key_lo, key_hi, c_begin, c_end = _visible_chunks(
+                    pos0 + r0 // group, pos0 + (r1 - 1) // group, mp * ps - 1, sliding_window)
+                qlim = qpos.clamp_max(key_hi)
+                qwin = qpos - sliding_window if sliding_window else torch.full_like(qpos, -1)
+
+                def chunk_kv(c):
+                    return _chunk_kv(k_pages, v_pages, page_table[b], h, c, key_lo, key_hi)
+
+                warps = [walk_chunks(rows_q[r0:r1], qlim, qwin, chunk_kv,
+                                     range(c_begin + w, c_end, PREFILL_KEY_GROUPS), d**-0.5, softcap)
+                         for w in range(PREFILL_KEY_GROUPS)]
+                _, big_l, big_o = merge_partials(warps)
+                res[r0:r1] = big_o / big_l.clamp_min(1e-30)[:, None]
+            out[b, :, h * group:(h + 1) * group] = res.reshape(chunk, group, d)
+    return out.to(q.dtype)
 
 
 def fused_sample_ref(logits, noise, temperature, top_k):

@@ -25,6 +25,19 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import embedding, norm
 
 
+_LATER_INPUTS = {
+    "vision_embeds": "the internvl2 slice",
+    "audio_embeds": "the whisper slice",
+}
+
+
+def check_batch(batch) -> None:
+    """Raise NotImplementedError for a batch input that a later slice ports."""
+    for key, slice_name in _LATER_INPUTS.items():
+        if key in batch:
+            raise NotImplementedError(f"{key!r} inputs come with {slice_name}")
+
+
 class LanguageModel:
     """Functional model: ``params = lm.init(seed)``, then ``forward`` or the
     serving steps."""
@@ -48,8 +61,11 @@ class LanguageModel:
     # -- train forward --------------------------------------------------------
     def forward(self, params, batch):
         """batch: {tokens (B, S) int}. Returns (logits (B, S, V) f32, aux loss
-        (a zero f32 scalar: the dense models have no router loss))."""
+        (a zero f32 scalar: the dense models have no router loss)). A batch
+        with vision or audio embeddings raises: those inputs come with later
+        slices, and dropping them would change the logits silently."""
         cfg = self.cfg
+        check_batch(batch)
         tokens = batch["tokens"]
         x = embedding.embed(params["embed"], tokens, cfg)
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]

@@ -28,6 +28,27 @@ def paged_setup(seed, *, slots, ps, mp, hkv, d, share=False, poison=False):
     return k, v, table, (lengths - 1).astype(np.int32)
 
 
+def paged_lengths_setup(seed, *, lengths, ps, hkv, d, mp, share=False, poison=True):
+    """Pools and per-slot tables for explicit lengths, as numpy: slot b
+    holds lengths[b] tokens, positions[b] = lengths[b] - 1; with ``share``
+    slot 1 aliases slot 0's first page; with ``poison`` scratch page 0 holds
+    1e4."""
+    rng = np.random.default_rng(seed)
+    pages = [math.ceil(n / ps) for n in lengths]
+    k = rng.normal(size=(1 + sum(pages), ps, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(1 + sum(pages), ps, hkv, d)).astype(np.float32)
+    if poison:
+        k[0], v[0] = 1e4, 1e4
+    table = np.zeros((len(lengths), mp), np.int32)
+    nxt = 1
+    for b, n in enumerate(pages):
+        table[b, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    if share:
+        table[1, 0] = table[0, 0]
+    return k, v, table, np.asarray(lengths, np.int32) - 1
+
+
 def sampler_inputs(seed, b, v, ties=False):
     rng = np.random.default_rng(seed)
     logits = rng.normal(size=(b, v)).astype(np.float32) * 4

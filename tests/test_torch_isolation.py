@@ -1,5 +1,5 @@
-"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``, importing the
+"""The port stands alone: ``src/repro_torch/``, ``chip_smoke.py`` and the
+measurement module it shares with the card's bench scripts import neither ``jax`` nor anything of the JAX package ``repro``, importing the
 port loads no JAX, and its entry points refuse to fall back to the CPU when
 CUDA is asked for and missing."""
 import ast
@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                    ROOT / "tools" / "cardbench.py"]
 
 
 def _imported_modules(path: Path):

@@ -8,9 +8,15 @@ device and skips without one. Run them on the card with
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine does not have; this file imports torch, numpy and the port only).
 Inputs are made with numpy from a seed; pages are bf16. Attention agrees
-within 2e-5 for f32 queries (f32 math on both sides) and within one bf16
-ulp for bf16 queries (both sides round an f32 result to bf16: rtol 2**-7,
-atol 1e-4 for values near 0); the sampler agrees exactly.
+within 2e-5 for f32 queries (f32 math on both sides; the CUDA-core kernels)
+and within one bf16 ulp for bf16 queries (both sides round an f32 result to
+bf16: rtol 2**-7, atol 1e-4 for values near 0; the tensor-core kernels,
+whose decode splits a slot's keys over blocks and merges the splits in a
+fixed order, so two calls give the same bits); the sampler agrees exactly.
+The split and tile cases cover slots that fill their splits exactly and
+ones that do not, one-token slots, windows that begin inside a split or
+skip whole splits, page sizes that straddle the 16-key chunks, G from 1 to
+16, D 64, 128 and 256, and grids of more blocks than the card has SMs.
 
 The training kernels: flash attention's forward agrees as paged attention
 does; its backward within 1e-5 of the tensor's largest value (f32) or two
@@ -42,9 +48,9 @@ from repro_torch.kernels.fused_optim import ops as optim_ops  # noqa: E402
 from repro_torch.kernels.fused_optim import ref as optim_ref  # noqa: E402
 from repro_torch.kernels.gla import ops as gla_ops  # noqa: E402
 from repro_torch.kernels.gla import ref as gla_ref  # noqa: E402
-from repro_torch.kernels.paged_decode import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_decode import kernel, ops, ref  # noqa: E402
 
-from _paged_inputs import paged_setup, sampler_inputs  # noqa: E402
+from _paged_inputs import paged_lengths_setup, paged_setup, sampler_inputs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -107,6 +113,85 @@ def test_chunk_prefill_kernel_matches_plain(cuda, chunk):
         out = ops.paged_chunk_prefill(qt, kt, vt, tt, pt, **kw)
         _close(out, ref.paged_prefill_ref(qt, kt, vt, tt, pt, **kw), atol=2e-5, rtol=2e-5)
     assert ops.LAUNCHES["paged_chunk_prefill"] == 2
+
+
+SPLIT_CASES = {
+    # name: (lengths, ps, mp, hkv, G)
+    "fills_splits_exactly": ([64, 32, 96], 16, 8, 2, 8),
+    # 64 splits x 2 kv heads x 8 slots: 1,024 blocks, more than the card's SMs
+    "ragged_long": ([1100, 544, 1, 300, 17, 33, 64, 595], 16, 128, 2, 8),
+    "g16": ([200, 45, 1], 16, 16, 2, 16),
+    "g1_mha": ([77, 130], 16, 16, 4, 1),
+    "g7_pages_straddle_chunks": ([29, 44, 3], 3, 20, 1, 7),
+    "g2_small_pages": ([37, 60], 4, 16, 2, 2),
+    # 16,384 positions: 256 splits of four chunks, each walked in two stages
+    "wide_table": ([12000, 33, 2100, 1], 16, 1024, 2, 8),
+}
+
+
+def _split_case(device, case, q_dtype, d, chunk=None):
+    """A prefill chunk ends at each slot's last token, and each slot holds at
+    least a chunk, as in the engine: no row sees scratch page 0 unmasked
+    (where its 1e4 keys would make f32 scores cancel beyond 2e-5)."""
+    lengths, ps, mp, hkv, group = SPLIT_CASES[case]
+    if chunk is not None:
+        lengths = [max(n, chunk) for n in lengths]
+    k, v, table, pos = paged_lengths_setup(sorted(SPLIT_CASES).index(case), lengths=lengths, ps=ps, hkv=hkv,
+                                           d=d, mp=mp, share=True)
+    if chunk is not None:
+        pos = (pos - (chunk - 1)).astype(np.int32)
+    shape = (len(lengths), hkv * group, d) if chunk is None else (len(lengths), chunk, hkv * group, d)
+    q = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    qt, kt, vt, tt, pt = _on(device, q, k, v, table, pos)
+    return qt.to(getattr(torch, q_dtype)), kt.to(torch.bfloat16), vt.to(torch.bfloat16), tt, pt
+
+
+# windows: none, one that begins inside a split, one that skips whole splits
+SPLIT_KWARGS = (dict(), dict(sliding_window=20, softcap=30.0), dict(sliding_window=70))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_split_edges_match_plain(cuda, case, q_dtype, d):
+    qt, kt, vt, tt, pt = _split_case(cuda, case, q_dtype, d)
+    tol = dict(atol=2e-5, rtol=2e-5) if q_dtype == "float32" else BF16_ULP
+    for kw in SPLIT_KWARGS:
+        out = ops.paged_flash_decode(qt, kt, vt, tt, pt, **kw)
+        assert out.dtype == qt.dtype and out.shape == qt.shape
+        _close(out, ref.paged_attention_ref(qt, kt, vt, tt, pt, **kw), **tol)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,chunk", [("fills_splits_exactly", 32), ("ragged_long", 256), ("g16", 37),
+                                        ("g16", 1), ("g1_mha", 64), ("g7_pages_straddle_chunks", 3),
+                                        ("g2_small_pages", 1), ("wide_table", 64)])
+def test_chunk_prefill_tiles_match_plain(cuda, case, chunk, q_dtype, d):
+    """ragged_long at C 256: 8 x 2 x 64 tiles of 32 rows, 1,024 blocks."""
+    qt, kt, vt, tt, pt = _split_case(cuda, case, q_dtype, d, chunk=chunk)
+    tol = dict(atol=2e-5, rtol=2e-5) if q_dtype == "float32" else BF16_ULP
+    for kw in SPLIT_KWARGS:
+        out = ops.paged_chunk_prefill(qt, kt, vt, tt, pt, **kw)
+        assert out.dtype == qt.dtype and out.shape == qt.shape
+        _close(out, ref.paged_prefill_ref(qt, kt, vt, tt, pt, **kw), **tol)
+
+
+def test_decode_layout_matches_the_library(cuda):
+    """kernel.decode_layout, which the step-for-step plain version follows,
+    splits a table as the library does: the scratch sizes agree."""
+    for mp, ps in [(0, 16), (1, 1), (5, 3), (128, 16), (512, 16), (513, 16), (2048, 16), (300, 32)]:
+        nsplit = kernel.decode_layout(mp, ps)[1]
+        assert kernel.decode_scratch_floats(3, 16, 128, mp, ps) == 3 * 16 * nsplit * (128 + 2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_paged_kernels_give_the_same_bits_twice(cuda, d):
+    for case, chunk in (("ragged_long", None), ("ragged_long", 256), ("wide_table", None)):
+        qt, kt, vt, tt, pt = _split_case(cuda, case, "bfloat16", d, chunk=chunk)
+        fn = ops.paged_flash_decode if chunk is None else ops.paged_chunk_prefill
+        for kw in SPLIT_KWARGS[:2]:
+            assert torch.equal(fn(qt, kt, vt, tt, pt, **kw), fn(qt, kt, vt, tt, pt, **kw))
 
 
 @pytest.mark.parametrize("seed,v,ties", [(0, 8, False), (1, 50, True), (2, 257, False),

@@ -233,3 +233,20 @@ def test_unported_blocks_raise():
     cfg = get_config("gemma2-9b", "smoke")
     with pytest.raises(NotImplementedError, match="gemma2 slice"):
         attention.apply({}, torch.zeros(1, 3, cfg.d_model), cfg, positions=torch.arange(3)[None])
+
+
+@pytest.mark.parametrize("key,slice_name", [("vision_embeds", "internvl2 slice"),
+                                            ("audio_embeds", "whisper slice")])
+def test_forward_refuses_unported_batch_inputs(models, key, slice_name):
+    """A batch with vision or audio embeddings raises instead of leaving them
+    out of the logits; lm_loss, which takes the training batch, raises too."""
+    from repro_torch.train.loss import lm_loss
+
+    _, _, tmodel, tparams, _ = models
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64), key: torch.zeros((1, 2, 8))}
+    with pytest.raises(NotImplementedError, match=slice_name):
+        tmodel.forward(tparams, batch)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        lm_loss(tmodel, tparams, batch)
+    logits, _ = tmodel.forward(tparams, {"tokens": batch["tokens"]})  # tokens alone still run
+    assert torch.isfinite(logits).all()

@@ -8,8 +8,11 @@ pages, KV ending on a page boundary, a poisoned scratch page, a one-token
 slot and window/softcap. Tolerances are those of
 ``tests/test_paged_decode_kernel.py``: 2e-5 in float32, 2e-2 with bf16
 pages. The sampler must equal ``fused_sample_ref`` and ``sample_tokens``
-exactly given the same noise. ``test_torch_kernels_gpu.py`` holds the CUDA
-kernels against the plain versions on the card.
+exactly given the same noise. The plain versions that follow the bf16
+kernels step for step (``paged_decode_split_ref``, ``paged_prefill_tiled_ref``)
+are held to the same oracles at 2e-5 across the kernels' split, window, page
+size and group edges. ``test_torch_kernels_gpu.py`` holds the CUDA kernels
+against the plain versions on the card.
 """
 import pytest
 
@@ -22,9 +25,9 @@ import numpy as np  # noqa: E402
 from repro.kernels.paged_decode import ops as jops  # noqa: E402
 from repro.kernels.paged_decode import ref as jref  # noqa: E402
 from repro.serve.step import sample_tokens as jax_sample_tokens  # noqa: E402
-from repro_torch.kernels.paged_decode import ops  # noqa: E402
+from repro_torch.kernels.paged_decode import kernel, ops, ref  # noqa: E402
 
-from _paged_inputs import paged_setup, sampler_inputs  # noqa: E402
+from _paged_inputs import paged_lengths_setup, paged_setup, sampler_inputs  # noqa: E402
 
 
 def _t(*arrays):
@@ -122,6 +125,104 @@ def test_chunk_prefill_bf16_pages():
     out = ops.paged_chunk_prefill(_t(q)[0].to(torch.bfloat16), kt, vt, *_t(table, pos_start))
     kj, vj, qj = (jnp.asarray(x, jnp.bfloat16) for x in (k, v, q))
     _close(out.float(), jref.paged_prefill_ref(qj, kj, vj, *_j(table, pos_start)), 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' passes, step for step (ref.paged_decode_split_ref and
+# ref.paged_prefill_tiled_ref), in f32: 16-key chunks through the table,
+# decode splits of two chunks (more in a table wider than 8,192 positions)
+# merged in order, prefill tiles of 32 rows with four warps dealing the chunks
+# ---------------------------------------------------------------------------
+
+SPLIT_CASES = {
+    # name: (lengths, ps, mp, hkv, G, d, window, softcap, share)
+    "fills_splits_exactly": ([64, 32], 16, 5, 2, 8, 64, None, None, False),
+    "ragged_splits": ([50, 17, 33], 16, 4, 2, 7, 128, None, None, True),
+    "one_token_slot": ([1, 40], 8, 6, 1, 2, 64, None, None, False),
+    "window_inside_a_split": ([70, 45], 16, 5, 2, 1, 64, 20, None, False),
+    "window_skips_splits": ([140, 100], 16, 9, 1, 8, 64, 10, None, True),
+    "softcap": ([37, 60], 4, 16, 2, 2, 128, None, 30.0, False),
+    "pages_straddle_chunks": ([29, 44], 3, 16, 2, 8, 64, 25, 20.0, True),
+    # 9,600 positions: 150 splits of four chunks, walked by two warps in turn
+    "wide_table": ([2100, 40], 16, 600, 1, 2, 64, 70, None, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_split_passes_match_jax(case):
+    lengths, ps, mp, hkv, group, d, window, softcap, share = SPLIT_CASES[case]
+    k, v, table, pos = paged_lengths_setup(sorted(SPLIT_CASES).index(case), lengths=lengths, ps=ps, hkv=hkv, d=d, mp=mp, share=share)
+    q = np.random.default_rng(3).normal(size=(len(lengths), hkv * group, d)).astype(np.float32)
+    kw = dict(sliding_window=window, softcap=softcap)
+    partials = []
+    out = ref.paged_decode_split_ref(*_t(q, k, v, table, pos), **kw, partials=partials)
+    assert np.isfinite(out.numpy()).all()
+    _close(out, jref.paged_attention_ref(*_j(q, k, v, table, pos), **kw), 2e-5)
+    _close(out, jops.paged_flash_decode(*_j(q, k, v, table, pos), **kw), 2e-5)  # Pallas, interpret
+    _close(out, ref.paged_attention_ref(*_t(q, k, v, table, pos), **kw), 2e-5)
+    # the live splits are those holding a visible key: from the split of the
+    # first visible chunk to that of the last
+    split_keys = kernel.decode_layout(mp, ps)[0] * kernel.CHUNK_KEYS
+    for b, n in enumerate(lengths):
+        first = max(n - window, 0) if window else 0
+        live = sorted({s for (bb, h, s, *_) in partials if bb == b and h == 0})
+        assert live == list(range(first // split_keys, (n - 1) // split_keys + 1))
+
+
+@pytest.mark.parametrize("max_pages,ps", [(0, 16), (1, 1), (5, 3), (128, 16), (512, 16), (513, 16),
+                                          (600, 16), (2048, 16), (300, 32)])
+def test_decode_layout_covers_the_table_in_at_most_256_splits(max_pages, ps):
+    split_chunks, nsplit = kernel.decode_layout(max_pages, ps)
+    chunks = -(-max_pages * ps // kernel.CHUNK_KEYS)
+    assert split_chunks % kernel.DECODE_KEY_GROUPS == 0 and 1 <= nsplit <= kernel.MAX_DECODE_SPLITS
+    assert nsplit * split_chunks >= chunks > (nsplit - 1) * split_chunks or chunks == 0
+    # the fewest chunks a split: one stage fewer would need more splits than allowed
+    if split_chunks > kernel.DECODE_KEY_GROUPS:
+        assert -(-chunks // (split_chunks - kernel.DECODE_KEY_GROUPS)) > kernel.MAX_DECODE_SPLITS
+
+
+def test_split_without_visible_key_adds_exactly_zero():
+    """A warp (or split) whose chunk holds no key its rows may see leaves
+    (EMPTY, 0, 0); merging it changes no bit and makes no NaN."""
+    k, v, table, pos = paged_lengths_setup(5, lengths=[40], ps=16, hkv=1, d=64, mp=4)
+    kt, vt, tt = _t(k, v, table)
+    q = torch.from_numpy(np.random.default_rng(6).normal(size=(4, 64)).astype(np.float32))
+    qlim, qwin = torch.full((4,), 39), torch.full((4,), 19)  # window 20 at position 39
+
+    def chunk_kv(c):
+        return ref._chunk_kv(kt, vt, tt[0], 0, c, 20, 39)
+
+    empty = ref.walk_chunks(q, qlim, qwin, chunk_kv, [0], 64**-0.5, None)  # keys 0-15: none visible
+    assert (empty[0] == ref.EMPTY).all() and (empty[1] == 0).all() and (empty[2] == 0).all()
+    seen = ref.walk_chunks(q, qlim, qwin, chunk_kv, [1, 2], 64**-0.5, None)
+    for parts in ([seen, empty], [empty, seen]):
+        merged = ref.merge_partials(parts)
+        assert all(torch.isfinite(x).all() for x in merged)
+        assert torch.equal(merged[0], seen[0]) and torch.equal(merged[1], seen[1])
+        assert torch.equal(merged[2], seen[2])
+
+
+PREFILL_TILE_CASES = {
+    # name: (lengths, chunk, ps, mp, hkv, G, d, window, softcap)
+    "g8_d64": ([70, 40], 24, 16, 5, 2, 8, 64, None, None),
+    "g7_d128_window": ([60, 33], 16, 16, 4, 1, 7, 128, 20, None),
+    "g2_softcap_straddle": ([45, 30], 9, 3, 16, 2, 2, 64, None, 30.0),
+    "g1_one_row": ([19, 1], 1, 4, 5, 2, 1, 128, None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_TILE_CASES))
+def test_prefill_tile_walk_matches_jax(case):
+    lengths, chunk, ps, mp, hkv, group, d, window, softcap = PREFILL_TILE_CASES[case]
+    k, v, table, pos = paged_lengths_setup(7, lengths=lengths, ps=ps, hkv=hkv, d=d, mp=mp, share=True)
+    pos_start = np.maximum(pos - (chunk - 1), 0).astype(np.int32)
+    q = np.random.default_rng(8).normal(size=(len(lengths), chunk, hkv * group, d)).astype(np.float32)
+    kw = dict(sliding_window=window, softcap=softcap)
+    out = ref.paged_prefill_tiled_ref(*_t(q, k, v, table, pos_start), **kw)
+    assert np.isfinite(out.numpy()).all()
+    _close(out, jref.paged_prefill_ref(*_j(q, k, v, table, pos_start), **kw), 2e-5)
+    _close(out, jops.paged_chunk_prefill(*_j(q, k, v, table, pos_start), **kw), 2e-5)
+    _close(out, ref.paged_prefill_ref(*_t(q, k, v, table, pos_start), **kw), 2e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,196 @@
+"""Measurement scaffolding shared by the scripts that check and time the
+port's kernels on a GPU (``chip_smoke.py``, ``tools/gla_bench.py``,
+``tools/paged_bench.py``): the card's name and power limit, L2-cold event
+timing, device time from a torch.profiler trace, the tensor-core
+instructions in a built library's SASS, the attention forwards' tolerance,
+paged K/V pools, and the clock stamps of a measurement build.
+
+torch and the port (``repro_torch``) are imported inside the functions, so
+a script may first put the tree it measures on ``sys.path``.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+from pathlib import Path
+
+L2_BYTES = 50 * 2**20
+# Attention outputs are bf16: the kernel and the plain version each round an
+# f32 result to bf16, so they may differ by one bf16 ulp, at most 2**-7 of
+# the value; ATTN_ATOL covers values near 0.
+ATTN_RTOL = 2.0**-7
+ATTN_ATOL = 1e-4
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def copies_for(size: int) -> int:
+    """Copies of inputs of ``size`` bytes that together exceed L2 twice over."""
+    return max(2, -(-2 * L2_BYTES // size))
+
+
+def timed(fn, arg_sets, iters: int) -> float:
+    """Mean ms per call of ``fn(*args)``, rotating over ``arg_sets`` (whose
+    inputs together exceed L2, so each call finds its inputs cold)."""
+    import torch
+
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_trace(run, tmp_dir: Path) -> dict:
+    """``run()`` under torch.profiler, tracing the device only (kernels,
+    copies, memsets): the run's wall ms, the device's busy ms (the union of
+    its activity intervals) and idle share, the number of activities, and
+    ``by_kernel``: name -> (ms, count), largest first. The trace passes
+    through ``tmp_dir`` and is deleted."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    path = tmp_dir / "profile.tmp.json"  # too large to keep
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    device = [ev for ev in events if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise RuntimeError("the traced run recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in device):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_kernel: dict = {}
+    for ev in device:
+        ms, n = by_kernel.get(ev["name"], (0.0, 0))
+        by_kernel[ev["name"]] = (ms + ev["dur"] / 1e3, n + 1)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "activities": len(device), "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0]))}
+
+
+def device_ms(fn, arg_sets, iters: int, tmp_dir: Path):
+    """(device busy ms a call, {kernel: device ms a call}) of ``fn(*args)``:
+    its kernels alone, without the host's gaps between calls, from one traced
+    run of ``iters`` calls rotating over ``arg_sets``."""
+    for args in arg_sets[:2]:
+        fn(*args)
+
+    def run():
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+
+    trace = device_trace(run, tmp_dir)
+    return trace["busy_ms"] / iters, {name: ms / iters for name, (ms, _) in trace["by_kernel"].items()}
+
+
+def excess(out, expect) -> float:
+    """Largest |out - expect| in units of its allowance, ATTN_ATOL +
+    ATTN_RTOL * |expect|: at most 1 passes."""
+    err = (out.float() - expect.float()).abs()
+    return (err / (ATTN_ATOL + ATTN_RTOL * expect.float().abs())).max().item()
+
+
+def sass_counts(lib: str, name_of=lambda mangled: mangled) -> dict:
+    """For each kernel of the built library ``lib`` (cuobjdump -sass):
+    name -> (tensor-core instructions, HMMA for mma.sync and HGMMA for
+    wgmma; all instructions). ``name_of(mangled name)`` names a kernel, or
+    gives None to skip it."""
+    from repro_torch.kernels import _cuda
+
+    tool = Path(_cuda.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = name_of(line.split("Function :")[1].strip())
+            if current:
+                counts[current] = [0, 0]
+        elif current and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[current][0] += bool(re.search(r"\bH(G)?MMA\b", line))
+            counts[current][1] += 1
+    return {name: tuple(c) for name, c in sorted(counts.items())}
+
+
+def build_report(lib: str) -> dict:
+    """Build ``lib``; print ptxas' registers and spills of each of its
+    kernels and the tensor-core instructions in each kernel's SASS. Returns
+    the SASS counts (:func:`sass_counts`)."""
+    from repro_torch.kernels import _cuda
+
+    _cuda.build([lib])
+    for line in _cuda.BUILD_LOGS.get(lib, "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas[{lib}]: {line.strip()}")
+    counts = sass_counts(lib)
+    for name, (tensor_ops, size) in counts.items():
+        print(f"sass[{lib}]: {tensor_ops:4d} HMMA/HGMMA of {size:6d} instructions  {name}")
+    return counts
+
+
+def paged_pool(gen, *, pages, ps, hkv, d, lengths, share_first_page=False, prefix_pages=0, width=2048):
+    """bf16 K/V pools of ``pages`` pages with scratch page 0 poisoned (1e4),
+    and tables ``width`` positions wide: slot b holds lengths[b] tokens in pages
+    of its own, except that with ``share_first_page`` slot 1's first page is
+    slot 0's (aliased copy-on-write), and every later slot's first
+    ``prefix_pages`` pages are slot 0's (a shared prefix)."""
+    import torch
+
+    k = torch.randn((pages, ps, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((pages, ps, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k[0] = 1e4
+    v[0] = 1e4
+    table = torch.zeros((len(lengths), width // ps), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        n_pages = -(-n // ps)
+        table[b, :n_pages] = torch.arange(nxt, nxt + n_pages, dtype=torch.int32)
+        nxt += n_pages
+    if share_first_page:
+        table[1, 0] = table[0, 0]
+    table[1:, :prefix_pages] = table[0, :prefix_pages]
+    return k, v, table.cuda()
+
+
+def read_stamps(lib: str, fn: str, count: int) -> list:
+    """The ``count`` clock64 cycle counts that C function ``fn`` of a
+    measurement build of ``lib`` copies out."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    read = getattr(_cuda._lib(lib), fn)
+    read.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    read.restype = ctypes.c_int
+    raw = (ctypes.c_longlong * count)()
+    if read(raw) != 0:
+        raise RuntimeError(f"{fn}: could not read the clock stamps")
+    return list(raw)

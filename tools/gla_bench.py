@@ -10,7 +10,7 @@ shape B 4, S 513, H 32, and its serving shape B 1, S 256 from a state) and
 backward (training shape) against the plain recurrence within
 chip_smoke.py's GLA_TOL, and times each through its ``ops`` wrapper:
 L2-cold ms a call (inputs rotating over copies larger than L2, CUDA
-events) and device ms a call (the sum of its kernels' durations under
+events) and device ms a call (its kernels' busy time under
 torch.profiler), with the time of each kernel of the call. The last line
 is one JSON object. To compare two trees on one card, run it for each in
 one command, in turns (old, new, new, old). With ``--stamps`` it builds
@@ -22,16 +22,15 @@ per-chunk pass, the cycles each warp spent in each section of the kernel
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 from pathlib import Path
 
+import cardbench as cb
+
 ROOT = Path(__file__).resolve().parents[1]
-L2_BYTES = 50 * 2**20
+OUT_DIR = ROOT / "chiprun_out"
 # chip_smoke.py's GLA_TOL: (relative, share of the largest value)
 TOL = {"float32": (1e-4, 1e-4), "y": (2.0**-7, 1e-3), "grad": (2.0**-6, 1e-3)}
 
@@ -48,32 +47,13 @@ def main() -> None:
         os.environ["REPRO_TORCH_NVCC_EXTRA"] = "-DGLA_CLOCK_STAMPS"
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import _cuda
     from repro_torch.kernels.gla import ops, ref
 
     if not torch.cuda.is_available():
         sys.exit("gla_bench: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    _cuda.build(["gla"])
-    for line in _cuda.BUILD_LOGS.get("gla", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"ptxas[gla]: {line.strip()}")
-    tool = Path(_cuda.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path("gla"))],
-                          capture_output=True, text=True, check=True).stdout
-    tensor_ops, size, current = {}, {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            current = line.split("Function :")[1].strip()
-            tensor_ops[current] = size[current] = 0
-        elif current and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            size[current] += 1
-            tensor_ops[current] += bool(re.search(r"\bH(G)?MMA\b", line))
-    for name, count in tensor_ops.items():
-        print(f"sass[gla]: {count:4d} HMMA/HGMMA of {size[name]:6d} instructions  {name}")
+    smi = cb.nvidia_smi()
+    cb.build_report("gla")
 
     gen = torch.Generator(device="cuda").manual_seed(6)
 
@@ -89,42 +69,8 @@ def main() -> None:
         err = (out.float() - expect.float()).abs()
         return (err / (rtol * expect.float().abs() + stol * expect.float().abs().max())).max().item()
 
-    def copies(*tensors):
-        n = sum(t.numel() * t.element_size() for t in tensors if t is not None)
-        return max(2, -(-2 * L2_BYTES // n))
-
-    def timed(fn, sets, iters):
-        for a in sets[:2]:
-            fn(*a)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def device(fn, sets, iters):
-        """(device ms a call, {kernel: device ms a call})"""
-        for a in sets[:2]:
-            fn(*a)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
-        per = {}
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = ev.cuda_time_total
-            if t > 0:
-                per[ev.key] = t / 1e3 / iters
-        return sum(per.values()), per
-
     if args.stamps:
-        clock_stamps(_cuda, ops, inputs, smi)
+        clock_stamps(ops, inputs, smi)
         return
     out = {"label": args.label, "tree": str(args.tree), "nvidia_smi": smi}
     fails = []
@@ -146,21 +92,23 @@ def main() -> None:
     expect = ref.gla_bwd_ref(q, k, v, lw, u, None, dy, None, include_current=False)
     record("bwd_train", {n: excess(g, e, "grad" if g.dtype == torch.bfloat16 else "float32")
                          for n, g, e in zip(("dq", "dk", "dv", "dlog_w", "du"), grads, expect)})
-    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u) for _ in range(copies(q, k, v, lw))]
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u) for _ in range(cb.copies_for(cb.nbytes(q, k, v, lw)))]
     bwd_sets = [(*x, None, states.clone(), final.clone(), dy.clone(), None) for x in sets]
     fwd = lambda *a: ops.forward(*a, include_current=False, save_states=True)
     bwd = lambda *a: ops.backward(*a, include_current=False)
-    out["fwd_train"] = {"ms": timed(fwd, sets, args.iters), "device": device(fwd, sets, 20)}
-    out["bwd_train"] = {"ms": timed(bwd, bwd_sets, args.iters), "device": device(bwd, bwd_sets, 20)}
+    out["fwd_train"] = {"ms": cb.timed(fwd, sets, args.iters), "device": cb.device_ms(fwd, sets, 20, OUT_DIR)}
+    out["bwd_train"] = {"ms": cb.timed(bwd, bwd_sets, args.iters),
+                         "device": cb.device_ms(bwd, bwd_sets, 20, OUT_DIR)}
     del sets, bwd_sets, grads, again, expect
     # serving shape: one 256-token prefill chunk from a carried state
     q, k, v, lw, u, s0, _ = inputs(1, 256, 32, True)
     y, final, _ = ops.forward(q, k, v, lw, u, s0, include_current=False)
     ey, ef = ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=False, initial_state=s0)
     record("fwd_serve", {"y": excess(y, ey, "y"), "final": excess(final, ef, "float32")})
-    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u, s0.clone()) for _ in range(copies(q, k, v, lw, s0))]
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u, s0.clone())
+            for _ in range(cb.copies_for(cb.nbytes(q, k, v, lw, s0)))]
     fwd = lambda *a: ops.forward(*a, include_current=False)
-    out["fwd_serve"] = {"ms": timed(fwd, sets, 2 * args.iters), "device": device(fwd, sets, 20)}
+    out["fwd_serve"] = {"ms": cb.timed(fwd, sets, 2 * args.iters), "device": cb.device_ms(fwd, sets, 20, OUT_DIR)}
     for key in ("fwd_train", "bwd_train", "fwd_serve"):
         ms, (dev, per) = out[key]["ms"], out[key]["device"]
         out[key] = {"ms": ms, "device_ms": dev, "kernels_device_ms": per}
@@ -184,7 +132,7 @@ STAMP_SECTIONS = {
 }
 
 
-def clock_stamps(_cuda, ops, inputs, smi) -> None:
+def clock_stamps(ops, inputs, smi) -> None:
     """One forward and backward at the training shape in the stamped build;
     print each warp's cycles per section for the stamped block of each
     pass."""
@@ -195,11 +143,8 @@ def clock_stamps(_cuda, ops, inputs, smi) -> None:
         y, final, states = ops.forward(q, k, v, lw, u, include_current=False, save_states=True)
         ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=False)
     torch.cuda.synchronize()
-    lib = _cuda._lib("gla")
     warps, slots = 4, 16  # kWarps, kStamps in gla.cu
-    raw = (ctypes.c_longlong * (3 * warps * slots))()
-    if lib.gla_clock_stamps(raw) != 0:
-        sys.exit("gla_bench: could not read the clock stamps")
+    raw = cb.read_stamps("gla", "gla_clock_stamps", 3 * warps * slots)
     out = {"nvidia_smi": smi, "note": "the local pass's stamps are the backward's (it runs last)"}
     for pi, name in enumerate(("fwd_out", "bwd_chunk", "local")):
         rows = {}
