@@ -36,7 +36,9 @@
    time comes from torch.profiler, as the flash kernels' does, and so does
    the paged kernels': decode at the ragged lengths and at the serving
    shape (8 slots of 544 tokens sharing a 256-token prefix), which must
-   also agree and give the same bits twice, chunk prefill and the sampler.
+   also agree and give the same bits twice, chunk prefill and the sampler,
+   whose tokens must equal the plain version's at 8 rows and at one row
+   of qwen2.5-3b's vocabulary and at 8 rows of rwkv6-1.6b's.
 4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
@@ -46,7 +48,7 @@
    input the card's greedy tokens equal those of the CPU path.
 6. Serves the same batch again under torch.profiler, tracing the device
    only, and prints the device's busy time, idle share, top kernels and
-   the paged decode and prefill kernels' share.
+   the paged decode and prefill kernels' and the sampler's share.
 7. Drives the training path: SEBSTrainer with pSGD (gamma 1e4, eta 1) on
    qwen2.5-3b at full width (SEBS b1 4, C1 16, rho 2, 3 stages, seq 512,
    microbatch 4: 12 updates at batch 4, 8 and 16), counters zeroed just
@@ -62,7 +64,8 @@
 10. Serves rwkv6-1.6b at full width through the same engine (8 requests
     of 512 + 32 tokens, 256-token chunks), counters zeroed just before and
     read just after: the GLA forward runs once a layer and chunk, the
-    sampler every tick, no prefix is shared; traces the same batch again;
+    sampler every tick, no prefix is shared; traces the same batch again
+    (the GLA kernels' and the sampler's share);
     greedy tokens on the card equal the CPU path's on rwkv6 smoke.
 11. Trains rwkv6-1.6b at full width with SEBS and pSGD on phase 7's
     schedule: the GLA forward runs twice a layer and microbatch (remat), the
@@ -89,8 +92,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from cardbench import (  # noqa: E402  (tools/cardbench.py: timing, traces, SASS, pools)
-    copies_for, device_trace, excess, nbytes, nvidia_smi, paged_pool, sass_counts, timed,
+from cardbench import (  # noqa: E402  (tools/cardbench.py: timing, traces, SASS, pools, sampler rows)
+    copies_for, device_trace, excess, nbytes, nvidia_smi, paged_pool, sampler_rows, sampler_work, sass_counts,
+    timed,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor-core flop/s
@@ -231,7 +235,7 @@ def kernel_checks(kernel_records: dict) -> dict:
     plain version at full width. Returns the decode's serving-shape timings."""
     import torch
 
-    from repro_torch.kernels.paged_decode import ops, ref
+    from repro_torch.kernels.paged_decode import kernel, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, hq, hkv, d, ps, pages = 8, 16, 2, 128, 16, 1025
@@ -314,32 +318,35 @@ def kernel_checks(kernel_records: dict) -> dict:
         bound=bound(io + kv, 4 * hq * d * visible, BF16_FLOPS),
     )
 
-    # -- fused sampler: greedy, t=0.8 with top_k in {0, 1, 50}, a duplicated
-    #    50th value, and a top_k above the vocabulary
-    vocab = 151936
-    logits = torch.randn((b, vocab), generator=gen, device="cuda") * 3
-    top = torch.randperm(vocab, generator=gen, device="cuda")[:60]
-    logits[5, top[:49]] = 20 + torch.arange(49, device="cuda", dtype=torch.float32)
-    logits[5, top[49:54]] = 19.5  # the 50th largest, five times
-    temperature = torch.tensor([0, 0, 0.8, 0.8, 0.8, 0.8, 0.8, 0.8], device="cuda")
-    top_k = torch.tensor([0, 50, 0, 1, 50, 50, 0, vocab + 7], dtype=torch.int32, device="cuda")
-    noise = -torch.log(-torch.log(torch.rand((b, vocab), generator=gen, device="cuda").clamp_min(1e-38)))
-    got = ops.fused_sample(logits, noise, temperature, top_k)
-    expect = ref.fused_sample_ref(logits, noise, temperature, top_k)
-    mismatched = int((got != expect).sum())
-    if mismatched:
-        fail(f"fused_sample: {mismatched} tokens differ from the plain version: "
-             f"{got.tolist()} vs {expect.tolist()}")
-    sets = [(logits.clone(), noise.clone(), temperature, top_k) for _ in range(copies_for(nbytes(logits, noise)))]
-    sampled = int((temperature > 0).sum())  # greedy rows read no noise
-    io = nbytes(logits, temperature, top_k) + 4 * vocab * sampled + 4 * b
-    kernel_records["fused_sample"] = dict(
-        max_abs_err=mismatched,  # tokens that differ
-        ms=timed(ops.fused_sample, sets, 100),
-        device_ms=device_ms(ops.fused_sample, sets, 20),
-        plain_ms=timed(ref.fused_sample_ref, sets, 20),
-        bound=bound(io, vocab * (b - sampled) + 4 * vocab * sampled, F32_FLOPS),
-    )
+    # -- fused sampler: 8 rows of qwen2.5-3b's vocabulary (greedy, t=0.8 with
+    #    top_k in {0, 1, 50}, a duplicated 50th value, a top_k above the
+    #    vocabulary), one row (a request's first token) and 8 rows of
+    #    rwkv6-1.6b's; every token must equal the plain version's. The bound
+    #    counts what these rows need: every logit once, and the noise of the
+    #    logits each row scores (all of a keep-all row's, a top-k row's kept
+    #    ones; greedy rows none) (cardbench.sampler_work).
+    shapes = {}
+    for name, rows, vocab in (("b8_v151936", 8, 151936), ("b1_v151936", 1, 151936), ("b8_v65536", 8, 65536)):
+        logits, noise, temperature, top_k = sampler_rows(gen, rows, vocab)
+        got = ops.fused_sample(logits, noise, temperature, top_k)
+        expect = ref.fused_sample_ref(logits, noise, temperature, top_k)
+        mismatched = int((got != expect).sum())
+        if mismatched:
+            fail(f"fused_sample ({name}): {mismatched} tokens differ from the plain version: "
+                 f"{got.tolist()} vs {expect.tolist()}")
+        sets = [(logits.clone(), noise.clone(), temperature, top_k)
+                for _ in range(copies_for(nbytes(logits, noise)))]
+        work_bytes, work_ops = sampler_work(logits, temperature, top_k)
+        shapes[name] = dict(
+            max_abs_err=mismatched,  # tokens that differ
+            ms=timed(ops.fused_sample, sets, 100),
+            device_ms=device_ms(ops.fused_sample, sets, 20),
+            plain_ms=timed(ref.fused_sample_ref, sets, 20),
+            bound=bound(work_bytes, work_ops, F32_FLOPS),
+            splits=kernel.sample_layout(rows, vocab)[1],
+        )
+        del sets
+    kernel_records["fused_sample"] = {**shapes["b8_v151936"], "shapes": shapes}
     return decode_serving
 
 
@@ -382,15 +389,18 @@ def small_input_agreement(arch: str) -> None:
 
 def device_profile(run) -> dict:
     """``run()`` under torch.profiler, tracing the device only
-    (cardbench.device_trace), with the GLA and the paged decode and prefill
-    kernels' ms and the 15 largest kernels."""
+    (cardbench.device_trace), with the GLA, the paged decode and prefill
+    kernels' and the sampler's ms, the sampler's launches, and the 15
+    largest kernels."""
     trace = device_trace(run, OUT_DIR)
     by_kernel = trace["by_kernel"]
+    sampler = [(ms, n) for name, (ms, n) in by_kernel.items() if SAMPLER_KERNEL_NAME in name]
     return {
         **trace,
         "gla_ms": sum(ms for name, (ms, _) in by_kernel.items() if any(k in name for k in GLA_KERNEL_NAMES)),
         **{f"{kind}_ms": sum(ms for name, (ms, _) in by_kernel.items() if paged_kind(name) == kind)
            for kind in ("paged_decode", "paged_prefill")},
+        "sampler_ms": sum(ms for ms, _ in sampler), "sampler_launches": sum(n for _, n in sampler),
         "by_kernel": dict(list(by_kernel.items())[:15]),
     }
 
@@ -408,6 +418,8 @@ def paged_kind(name: str):
     return None
 
 
+# the sampler's kernel in a trace (fused_sample.cu)
+SAMPLER_KERNEL_NAME = "sample_kernel"
 # the GLA kernels' names in a trace (gla.cu): the bf16 passes, the f32 route, du's sum
 GLA_KERNEL_NAMES = ("tc::local_kernel", "tc::fwd_scan_kernel", "tc::fwd_out_kernel", "tc::bwd_scan_kernel",
                     "tc::bwd_chunk_kernel", "du_reduce_kernel", "gla_fwd_kernel", "gla_bwd_kernel")
@@ -1093,7 +1105,8 @@ def serve_rwkv6(cfg) -> dict:
     )
     print(f"rwkv6 profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, "
           f"idle {100 * profile['idle_share']:.1f}% | {profile['activities']} device activities | GLA kernels "
-          f"{profile['gla_ms']:.2f} ms", flush=True)
+          f"{profile['gla_ms']:.2f} ms, sampler {profile['sampler_ms']:.3f} ms over {profile['sampler_launches']} "
+          f"launches", flush=True)
     for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
         print(f"rwkv6 profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
     del engine, params, results
@@ -1214,7 +1227,9 @@ def main() -> None:
           f"({records['paged_flash_decode']['device_ms']:.4f}), decode at the serving shape "
           f"{decode_serving['ms']:.4f} ({decode_serving['device_ms']:.4f}), prefill "
           f"{records['paged_chunk_prefill']['ms']:.4f} ({records['paged_chunk_prefill']['device_ms']:.4f}), "
-          f"sampler {records['fused_sample']['ms']:.4f} ({records['fused_sample']['device_ms']:.4f})", flush=True)
+          f"sampler " + ", ".join(f"{n} {r['ms']:.4f} ({r['device_ms']:.4f}, bound {r['bound'][0]:.5f}, "
+                                  f"{r['splits']} splits a row)"
+                                  for n, r in records["fused_sample"]["shapes"].items()), flush=True)
     print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
           f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
           f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
@@ -1291,7 +1306,8 @@ def main() -> None:
     print(f"profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, idle "
           f"{100 * profile['idle_share']:.1f}% | {profile['activities']} device activities | traced "
           f"run {profile['wall_ms'] / (wall * 1e3):.2f} x the untraced one | paged decode "
-          f"{profile['paged_decode_ms']:.2f} ms, prefill {profile['paged_prefill_ms']:.2f} ms", flush=True)
+          f"{profile['paged_decode_ms']:.2f} ms, prefill {profile['paged_prefill_ms']:.2f} ms, sampler "
+          f"{profile['sampler_ms']:.3f} ms over {profile['sampler_launches']} launches", flush=True)
     for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
         print(f"profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
 
@@ -1411,6 +1427,7 @@ def main() -> None:
         "paged_tensor_ops": paged_mma,
         "paged_device_ms": {n: records[n]["device_ms"] for n in ("paged_flash_decode", "paged_chunk_prefill",
                                                                   "fused_sample")},
+        "fused_sample_shapes": records["fused_sample"]["shapes"],
         "paged_flash_decode_serving_shape": {"ms": decode_serving["ms"], "device_ms": decode_serving["device_ms"],
                                              "plain_ms": decode_serving["plain_ms"],
                                              "bound_ms": decode_serving["bound"][0],

@@ -3,9 +3,10 @@
 
 The launchers take CUDA tensors only and check device, type, shape,
 contiguity and 16-byte alignment; they allocate the output (and the bf16
-decode's split scratch) and never fall back to the plain versions. ``ops``
-adds the launch counters and the CPU path. bf16 queries run the
-tensor-core kernels, f32 queries the CUDA-core ones.
+decode's split scratch; the sampler keeps its scratch and counters per
+stream) and never fall back to the plain versions. ``ops`` adds the launch
+counters and the CPU path. bf16 queries run the tensor-core kernels, f32
+queries the CUDA-core ones.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ register("paged_attention", CSRC / "paged_attention.cu", {
     "paged_flash_decode": [_P] * 7 + [_I] * 9 + [_F],
     "paged_chunk_prefill": [_P] * 6 + [_I] * 10 + [_F],
 }, queries={"paged_decode_scratch_floats": ([_I] * 5, ctypes.c_longlong)})
-register("fused_sample", CSRC / "fused_sample.cu", {"fused_sample": [_P] * 5 + [_I] * 2})
+register("fused_sample", CSRC / "fused_sample.cu", {"fused_sample": [_P] * 7 + [_I] * 2}, queries={
+    "fused_sample_splits": ([_I] * 2, ctypes.c_int),
+    "fused_sample_scratch_bytes": ([_I] * 2, ctypes.c_longlong),
+})
 
 # The bf16 kernels' tiling (paged_attention.cu, namespace tc), stated for the
 # plain versions that follow those kernels step for step (ref.py) and for the
@@ -40,6 +44,16 @@ DECODE_KEY_GROUPS = 2
 MAX_DECODE_SPLITS = 256
 PREFILL_TILE_ROWS = 32
 PREFILL_KEY_GROUPS = 4
+# The sampler's layout (fused_sample.cu), stated for its step-for-step plain
+# version: each row cut into slices of at most SAMPLE_MAX_SLICE values (a
+# multiple of 4), enough that batch x splits reaches SAMPLE_TARGET_BLOCKS
+# where slices of at least SAMPLE_MIN_SLICE values allow it; a top-k slice
+# stops its select once the bin holding its k-th largest adds at most
+# SAMPLE_SLACK values beyond k.
+SAMPLE_MAX_SLICE = 4096
+SAMPLE_MIN_SLICE = 1024
+SAMPLE_TARGET_BLOCKS = 264
+SAMPLE_SLACK = 16
 
 
 def _attention_checks(q, k_pages, v_pages, page_table, pos, *, head_axis: int):
@@ -130,19 +144,72 @@ def paged_chunk_prefill(q, k_pages, v_pages, page_table, pos_start, *, window=No
     return out
 
 
+def sample_slices(vocab: int, splits: int) -> Tuple[int, int]:
+    """(slice length, splits) of a row of ``vocab`` values cut into about
+    ``splits`` slices whose length is a multiple of 4: the last may be
+    shorter, none is empty. Asking again with the splits it gives returns
+    the same layout."""
+    per = -(-vocab // max(1, splits))
+    slice_len = -(-per // 4) * 4
+    return slice_len, -(-vocab // slice_len)
+
+
+def sample_layout(batch: int, vocab: int) -> Tuple[int, int]:
+    """(slice length, splits a row) of the sampler for (batch, vocab), as
+    the library cuts it (fused_sample.cu, layout)."""
+    want = -(-SAMPLE_TARGET_BLOCKS // batch)
+    splits = max(min(want, max(1, vocab // SAMPLE_MIN_SLICE)), -(-vocab // SAMPLE_MAX_SLICE))
+    return sample_slices(vocab, splits)
+
+
+@functools.lru_cache(maxsize=256)
+def sample_splits(batch: int, vocab: int) -> int:
+    """Splits a row of the library's sampler for (batch, vocab)."""
+    return _query("fused_sample", "fused_sample_splits", batch, vocab)
+
+
+@functools.lru_cache(maxsize=256)
+def sample_scratch_bytes(batch: int, vocab: int) -> int:
+    """Bytes of the sampler's scratch (partials and candidates), as the
+    library lays it out."""
+    return _query("fused_sample", "fused_sample_scratch_bytes", batch, vocab)
+
+
+#: (device index, stream) -> (scratch, counters) of the sampler: a 64-bit
+#: counter a row, 0 between calls (each call's merging blocks reset theirs);
+#: two calls that may run at once (other streams) never share them
+_SAMPLE_BUFFERS: dict = {}
+
+
+def _sample_buffers(device: torch.device, batch: int, vocab: int):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    scratch, counters = _SAMPLE_BUFFERS.get(key, (None, None))
+    need = sample_scratch_bytes(batch, vocab)
+    if scratch is None or scratch.numel() < need:
+        scratch = torch.empty(need, dtype=torch.uint8, device=device)
+    if counters is None or counters.numel() < batch:
+        counters = torch.zeros(batch, dtype=torch.int64, device=device)
+    _SAMPLE_BUFFERS[key] = (scratch, counters)
+    return scratch, counters
+
+
 def fused_sample(logits, noise, temperature, top_k):
     """logits, noise: (B, V) f32; temperature: (B,) f32; top_k: (B,) int32.
-    Returns (B,) int32 tokens."""
+    Returns (B,) int32 tokens. Rows that are 16-byte aligned with V % 4 == 0
+    take 16-byte loads, others one value at a time."""
     _check_cuda(logits.device, logits=logits, noise=noise, temperature=temperature, top_k=top_k)
     _check(logits.dtype == noise.dtype == temperature.dtype == torch.float32,
            "logits, noise and temperature must be float32")
     _check(top_k.dtype == torch.int32, "top_k must be int32")
+    _check(logits.ndim == 2 and logits.shape[0] >= 1 and logits.shape[1] >= 1,
+           lambda: f"logits must be (B, V) with B, V >= 1, got {tuple(logits.shape)}")
     b, v = logits.shape
     _check(noise.shape == (b, v) and temperature.shape == (b,) and top_k.shape == (b,),
            "noise must be (B, V), temperature and top_k (B,)")
     out = torch.empty((b,), dtype=torch.int32, device=logits.device)
+    scratch, counters = _sample_buffers(logits.device, b, v)
     _launch(
         "fused_sample", "fused_sample", logits.device, logits.data_ptr(), noise.data_ptr(),
-        temperature.data_ptr(), top_k.data_ptr(), out.data_ptr(), b, v,
+        temperature.data_ptr(), top_k.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), b, v,
     )
     return out

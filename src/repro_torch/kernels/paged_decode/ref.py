@@ -8,8 +8,10 @@ never does. Math is float32; outputs take the query's type.
 ``paged_decode_split_ref`` and ``paged_prefill_tiled_ref`` instead follow
 the bf16 (tensor-core) kernels step for step: 16-key chunks read through the
 table, an online softmax per warp, partial (m, l, o) merged in a fixed
-order across warps and, for decode, across the splits of a slot. The tests
-hold them against the JAX package; they are not on any path.
+order across warps and, for decode, across the splits of a slot;
+``fused_sample_split_ref`` follows the sampler's slices, per-slice
+candidates and merge. The tests hold them against the JAX package; they are
+not on any path.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_decode.kernel import (
-    CHUNK_KEYS, DECODE_KEY_GROUPS, PREFILL_KEY_GROUPS, PREFILL_TILE_ROWS, decode_layout,
+    CHUNK_KEYS, DECODE_KEY_GROUPS, PREFILL_KEY_GROUPS, PREFILL_TILE_ROWS, SAMPLE_SLACK, decode_layout,
+    sample_slices,
 )
 
 NEG_INF = -2.0e38  # the attention mask fill
@@ -262,3 +265,99 @@ def fused_sample_ref(logits, noise, temperature, top_k):
     scaled = masked / temperature.clamp_min(1e-6)[:, None]
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+
+
+def sample_keys(x: torch.Tensor) -> torch.Tensor:
+    """The sampler's order-preserving keys of f32 values, as int64 in [0,
+    2**32): larger value, larger key; +0.0 and -0.0 one key."""
+    u = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(x == 0, torch.full_like(key, 0x80000000), key)
+
+
+def key_value(key: int) -> torch.Tensor:
+    """The f32 value (a 0-d tensor) of a key of :func:`sample_keys`."""
+    u = key & 0x7FFFFFFF if key & 0x80000000 else key ^ 0xFFFFFFFF
+    return torch.tensor(u - (1 << 32) if u >= 1 << 31 else u, dtype=torch.int32).view(torch.float32)
+
+
+def sample_radix_select(keys: torch.Tensor, k: int, early: bool) -> int:
+    """The kernel's radix select, 8 bits a pass from the top: the k-th
+    largest of ``keys`` (1 <= k <= len), or, with ``early``, the floor of the
+    first bin that holds it and at most SAMPLE_SLACK keys beyond the k
+    largest."""
+    prefix, mask, remaining = 0, 0, k
+    for shift in (24, 16, 8, 0):
+        live = keys[(keys & mask) == prefix]
+        hist = torch.bincount((live >> shift) & 255, minlength=256)
+        at_or_above = hist.flip(0).cumsum(0).flip(0)
+        b = int((at_or_above >= remaining).nonzero().max())
+        prefix |= b << shift
+        remaining -= int(at_or_above[b] - hist[b])
+        mask |= 255 << shift
+        if early and int(hist[b]) - remaining <= SAMPLE_SLACK:
+            break
+    return prefix
+
+
+def _best(values: torch.Tensor, index: torch.Tensor):
+    """(value, index) that the kernels' reductions keep: the largest value,
+    its lowest index; NaN never wins; (-inf, 2**31 - 1) when nothing does."""
+    ok = ~torch.isnan(values)
+    if not bool(ok.any()):
+        return float("-inf"), 2**31 - 1
+    top = values[ok].max()
+    return float(top), int(index[ok & (values == top)].min())
+
+
+def _merge_best(parts):
+    best_v, best_i = float("-inf"), 2**31 - 1
+    for v, i in parts:
+        if v > best_v or (v == best_v and i < best_i):
+            best_v, best_i = v, i
+    return best_i
+
+
+def fused_sample_split_ref(logits, noise, temperature, top_k, splits: int):
+    """The sampler as the kernel computes it, in ``splits`` slices a row
+    (``sample_slices``). Greedy row: each slice's (max, first index), merged.
+    Keep-all row (top_k <= 0 or >= V): the same of x / t + noise. Top-k
+    row: each slice's radix select with the early stop (all its values when
+    it holds at most k), the values at or above its threshold as
+    candidates with their scores x / t + noise; then the exact k-th largest
+    among the candidates (the kernel's select starts below the bits they
+    all share and ranks the last 32 keys in a warp: the same key) and the
+    (max, first index) of the scores of the candidates not below it; where
+    that is not above -inf, or the k-th largest is NaN, the whole row as
+    :func:`fused_sample_ref`. Arguments as :func:`fused_sample_ref`."""
+    nb, v = logits.shape
+    device = logits.device
+    slice_len, nsplit = sample_slices(v, splits)
+    logits, noise = logits.float().cpu(), noise.float().cpu()
+    out = torch.empty((nb,), dtype=torch.int32)
+    for r in range(nb):
+        x, g = logits[r], noise[r]
+        t = temperature[r].float().cpu()
+        tt = t.clamp_min(1e-6)
+        k = int(top_k[r])
+        bounds = [(s * slice_len, min(v, (s + 1) * slice_len)) for s in range(nsplit)]
+        if not bool(t > 0) or k <= 0 or k >= v:
+            scores = x if not bool(t > 0) else x / tt + g
+            out[r] = _merge_best(_best(scores[lo:hi], torch.arange(lo, hi)) for lo, hi in bounds)
+            continue
+        cand = []
+        for lo, hi in bounds:
+            keys = sample_keys(x[lo:hi])
+            threshold = 0 if k >= hi - lo else sample_radix_select(keys, k, early=True)
+            cand.append(lo + (keys >= threshold).nonzero().flatten())
+        cand = torch.cat(cand)
+        kth = key_value(sample_radix_select(sample_keys(x[cand]), k, early=False))
+        best_v, best_i = float("-inf"), 2**31 - 1
+        if not bool(torch.isnan(kth)):
+            kept = cand[~(x[cand] < kth)]
+            best_v, best_i = _best(x[kept] / tt + g[kept], kept)
+        if not best_v > float("-inf"):
+            scores = torch.where(x < kth, float("-inf"), x) / tt + g
+            best_v, best_i = _best(scores, torch.arange(v))
+        out[r] = best_i
+    return out.to(device)

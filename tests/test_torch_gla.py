@@ -18,7 +18,9 @@ every exponent they evaluate is <= 0.
 Inputs are made with numpy from a seed. Tolerance: f32, atol 5e-5 and
 rtol 5e-4, the JAX tests' own bound for the kernel against the oracle
 (the same sums in another order); gradients 5e-5 of each gradient's
-largest value plus rtol 5e-4.
+largest value plus rtol 5e-4. Every test runs the port with torch's
+intra-op threads pinned to one (and restored after), so that its sums take
+one order whatever else the process runs beside it.
 """
 import pytest
 
@@ -33,6 +35,15 @@ from repro.kernels.gla.ref import gla_ref  # noqa: E402
 from repro_torch.kernels.gla import ops, ref  # noqa: E402
 
 ATOL, RTOL = 5e-5, 5e-4
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 CASES = [
     # (b, s, h, K, V, include_current, bonus, initial state, chunk of the JAX kernel)

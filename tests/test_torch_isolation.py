@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                    ROOT / "tools" / "cardbench.py"]
+                                                                    ROOT / "tools" / "cardbench.py",
+                                                                    ROOT / "tools" / "sample_bench.py"]
 
 
 def _imported_modules(path: Path):

@@ -12,7 +12,10 @@ within 2e-5 for f32 queries (f32 math on both sides; the CUDA-core kernels)
 and within one bf16 ulp for bf16 queries (both sides round an f32 result to
 bf16: rtol 2**-7, atol 1e-4 for values near 0; the tensor-core kernels,
 whose decode splits a slot's keys over blocks and merges the splits in a
-fixed order, so two calls give the same bits); the sampler agrees exactly.
+fixed order, so two calls give the same bits); the sampler agrees exactly
+with the plain version and with its step-for-step version (the kernel's
+slices, candidates and merge), at batch 1, 8 and 16, V 8 to 151,936, top_k
+up to 40,000, mass ties, rows of -inf and rows off a 16-byte boundary.
 The split and tile cases cover slots that fill their splits exactly and
 ones that do not, one-token slots, windows that begin inside a split or
 skip whole splits, page sizes that straddle the 16-key chunks, G from 1 to
@@ -194,16 +197,103 @@ def test_bf16_paged_kernels_give_the_same_bits_twice(cuda, d):
             assert torch.equal(fn(qt, kt, vt, tt, pt, **kw), fn(qt, kt, vt, tt, pt, **kw))
 
 
-@pytest.mark.parametrize("seed,v,ties", [(0, 8, False), (1, 50, True), (2, 257, False),
-                                         (3, 151936, False), (4, 151936, True)])
-def test_sampler_kernel_matches_plain(cuda, seed, v, ties):
-    logits, temp, top_k = sampler_inputs(seed, 16, v, ties)
-    noise = np.random.default_rng(seed).gumbel(size=logits.shape).astype(np.float32)
-    args = _on(cuda, logits, noise, temp, top_k)
+def _sampler_rows(kind, b, v, k, seed):
+    """(logits, temperature, top_k) of b rows: gaussian ("normal"), integers
+    0-3 ("ties"), all equal ("equal") or all -inf ("neginf"). One row is
+    sampled at t = 0.8 with top_k k; of 8 rows, row 0 is greedy, row 3 at
+    t = 1e-8, row 2 keeps every logit (top_k 0) and row 6 too (V + 7)."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(b, v)) * 4).astype(np.float32)
+    if kind == "ties":
+        logits = rng.integers(0, 4, size=(b, v)).astype(np.float32)
+    elif kind == "equal":
+        logits[:] = 1.5
+    elif kind == "neginf":
+        logits[:] = -np.inf
+    temp = np.full(b, 0.8, np.float32)
+    top_k = np.full(b, k, np.int32)
+    if b == 8:
+        temp[[0, 3, 5, 7]] = [0.0, 1e-8, 0.5, 1.0]
+        top_k[[2, 6]] = [0, v + 7]
+    return logits, temp, top_k
+
+
+def _hold_sampler(args, splits=None):
+    """The kernel's tokens (through ops, one launch) against fused_sample_ref
+    and fused_sample_split_ref (the kernel's own slices) exactly; the
+    counters are back at 0 after the call."""
+    logits, noise, temp, top_k = args
+    b, v = logits.shape
     ops.reset_launches()
-    np.testing.assert_array_equal(ops.fused_sample(*args).cpu().numpy(),
-                                  ref.fused_sample_ref(*args).cpu().numpy())
+    got = ops.fused_sample(*args)
     assert ops.LAUNCHES["fused_sample"] == 1
+    splits = splits or kernel.sample_layout(b, v)[1]
+    expect = ref.fused_sample_ref(*args).cpu().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), expect)
+    np.testing.assert_array_equal(ref.fused_sample_split_ref(*args, splits).cpu().numpy(), expect)
+    for _, counters in kernel._SAMPLE_BUFFERS.values():
+        assert int(counters.abs().sum()) == 0
+    return got
+
+
+SAMPLER_CARD_CASES = [
+    # (seed, b, v, kind, top_k); None: sampler_inputs' rows, top_k over 0, 1, 2, 5, V, V + 7
+    (0, 16, 8, "normal", None), (1, 16, 50, "ties", None), (2, 16, 257, "normal", None),
+    (3, 16, 151936, "normal", None), (4, 16, 151936, "ties", None),
+    (5, 1, 151936, "normal", 50), (6, 1, 151936, "ties", 1000), (7, 1, 65536, "normal", 40000),
+    (8, 8, 151936, "normal", 50), (9, 8, 151936, "normal", 1000), (10, 8, 151936, "ties", 40000),
+    (11, 8, 65536, "normal", 50), (12, 8, 65536, "ties", 1000), (13, 1, 65536, "equal", 50),
+    (14, 8, 151936, "equal", 1000), (15, 8, 151936, "neginf", 50), (16, 1, 151936, "neginf", 40000),
+]
+
+
+@pytest.mark.parametrize("seed,b,v,kind,k", SAMPLER_CARD_CASES)
+def test_sampler_kernel_matches_plain(cuda, seed, b, v, kind, k):
+    if k is None:
+        logits, temp, top_k = sampler_inputs(seed, b, v, kind == "ties")
+    else:
+        logits, temp, top_k = _sampler_rows(kind, b, v, k, seed)
+    noise = np.random.default_rng(seed).gumbel(size=logits.shape).astype(np.float32)
+    _hold_sampler(_on(cuda, logits, noise, temp, top_k))
+
+
+@pytest.mark.parametrize("b,v", [(8, 151936), (1, 65536), (8, 4099)])
+def test_sampler_rows_off_a_16_byte_boundary(cuda, b, v):
+    """(B, V) views that start one float into their buffers (and V = 4,099,
+    not a multiple of 4) take the one-value-at-a-time route."""
+    logits, temp, top_k = _sampler_rows("normal", b, v, 50, seed=v)
+    noise = np.random.default_rng(v).gumbel(size=logits.shape).astype(np.float32)
+    views = []
+    for a in (logits, noise):
+        buf = torch.empty(b * v + 1, device=cuda)
+        buf[1:] = torch.from_numpy(a).reshape(-1).to(cuda)
+        views.append(buf[1:].view(b, v))
+    assert views[0].data_ptr() % 16 == 4 and views[0].is_contiguous()
+    _hold_sampler((*views, *_on(cuda, temp, top_k)))
+
+
+def test_sampler_calls_in_a_row_agree(cuda):
+    """A call, another of another shape, then the first again: equal
+    tokens, so what a call leaves in the counters and scratch is clean."""
+    sets = []
+    for b, v, k in ((8, 151936, 50), (1, 151936, 1000)):
+        logits, temp, top_k = _sampler_rows("normal", b, v, k, seed=b)
+        noise = np.random.default_rng(b).gumbel(size=logits.shape).astype(np.float32)
+        sets.append(_on(cuda, logits, noise, temp, top_k))
+    first = _hold_sampler(sets[0])
+    _hold_sampler(sets[1])
+    assert torch.equal(_hold_sampler(sets[0]), first)
+    assert torch.equal(ops.fused_sample(*sets[0]), first)
+
+
+def test_sampler_layout_matches_the_library(cuda):
+    """kernel.sample_layout, which the step-for-step plain version follows,
+    cuts rows as the library does; every row of V >= 8,192 takes more than
+    one block."""
+    for b in (1, 2, 8, 16, 300):
+        for v in (1, 8, 4099, 8192, 65536, 151936, 262144):
+            assert kernel.sample_splits(b, v) == kernel.sample_layout(b, v)[1]
+            assert kernel.sample_layout(b, v)[1] > 1 or v < 8192
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -11,7 +11,10 @@ pages. The sampler must equal ``fused_sample_ref`` and ``sample_tokens``
 exactly given the same noise. The plain versions that follow the bf16
 kernels step for step (``paged_decode_split_ref``, ``paged_prefill_tiled_ref``)
 are held to the same oracles at 2e-5 across the kernels' split, window, page
-size and group edges. ``test_torch_kernels_gpu.py`` holds the CUDA kernels
+size and group edges, and the sampler's (``fused_sample_split_ref``) to
+them exactly, over slices that do not divide V, V not a multiple of 4, top_k
+from 0 past V, mass ties at the k-th largest, a row of -inf and a
+temperature of 1e-8. ``test_torch_kernels_gpu.py`` holds the CUDA kernels
 against the plain versions on the card.
 """
 import pytest
@@ -264,6 +267,72 @@ def test_sampler_duplicate_kth_value(k):
         np.testing.assert_array_equal(
             out, np.asarray(jax_sample_tokens(jnp.asarray(logits), key, *_j(temp, top_k)))
         )
+
+
+def _split_rows(kind, b, v, seed):
+    """(logits, temperature, top_k) of b rows: gaussian ("normal"),
+    integers 0-3 ("ties"; with 16 rows, rows 1, 5 all equal, row 9 all -inf
+    and row 13 -inf in its first half), all equal ("equal") or all -inf
+    ("neginf"); top_k running over 0, 1, 2, 5, 50, V - 1, V, V + 7 and
+    temperatures over sampled, 1e-8 and greedy."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(size=(b, v)) * 4).astype(np.float32)
+    if kind == "ties":
+        logits = rng.integers(0, 4, size=(b, v)).astype(np.float32)
+        if b >= 16:
+            logits[[1, 5]] = 1.5
+            logits[9] = -np.inf
+            logits[13, : v // 2] = -np.inf
+    elif kind == "equal":
+        logits[:] = 1.5
+    elif kind == "neginf":
+        logits[:] = -np.inf
+    top_k = np.resize(np.asarray([0, 1, 2, 5, 50, v - 1, v, v + 7], np.int32), b)
+    temp = np.resize(np.asarray([0.8, 1e-8, 1.0, 0.0, 0.3, 1.5, 0.7], np.float32), b)
+    return logits, temp, top_k
+
+
+def _hold_split_sampler(logits, temp, top_k, splits, seed):
+    key = jax.random.key(seed)
+    noise = np.asarray(jax.random.gumbel(key, logits.shape, jnp.float32))  # sample_tokens' own draw
+    out = ref.fused_sample_split_ref(*_t(logits, noise, temp, top_k), splits).numpy()
+    np.testing.assert_array_equal(out, np.asarray(jref.fused_sample_ref(*_j(logits, noise, temp, top_k))))
+    np.testing.assert_array_equal(out, np.asarray(jax_sample_tokens(*_j(logits), key, *_j(temp, top_k))))
+    assert out.dtype == np.int32
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("v", [8, 50, 257, 4099])
+@pytest.mark.parametrize("splits", [1, 2, 7, 32])
+def test_split_sampler_plain_matches_jax(splits, v, kind):
+    """The kernel's slices, per-slice candidates and merge, step for step,
+    equal JAX's sampler on 16 rows."""
+    _hold_split_sampler(*_split_rows(kind, 16, v, seed=v + splits), splits, seed=splits)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 5, 50, 4098, 4099, 4106])
+@pytest.mark.parametrize("kind", ["normal", "ties", "equal", "neginf"])
+def test_split_sampler_plain_one_row(kind, k):
+    """One row (a request's first token) over 32 slices of 132 values."""
+    logits, _, _ = _split_rows(kind, 1, 4099, seed=k)
+    _hold_split_sampler(logits, np.asarray([0.8], np.float32), np.asarray([k], np.int32), 32, seed=k)
+
+
+@pytest.mark.parametrize("b,v", [(1, 8), (1, 4099), (1, 8192), (8, 65536), (1, 151936), (8, 151936),
+                                 (16, 151936), (300, 262144)])
+def test_sampler_layout(b, v):
+    """Slices of a multiple of 4 and at most SAMPLE_MAX_SLICE values cover
+    the row, none empty; every row of V >= 8,192 takes more than one block,
+    and at a batch of one the grid covers the card's 132 SMs once a row
+    has 132 slices of SAMPLE_MIN_SLICE values."""
+    slice_len, splits = kernel.sample_layout(b, v)
+    assert slice_len % 4 == 0 and slice_len <= kernel.SAMPLE_MAX_SLICE
+    assert (splits - 1) * slice_len < v <= splits * slice_len
+    assert kernel.sample_slices(v, splits) == (slice_len, splits)
+    if v >= 8192:
+        assert splits > 1
+    if v >= 132 * kernel.SAMPLE_MIN_SLICE:
+        assert b * splits >= 132
 
 
 # ---------------------------------------------------------------------------

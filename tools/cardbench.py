@@ -1,9 +1,10 @@
 """Measurement scaffolding shared by the scripts that check and time the
 port's kernels on a GPU (``chip_smoke.py``, ``tools/gla_bench.py``,
-``tools/paged_bench.py``): the card's name and power limit, L2-cold event
-timing, device time from a torch.profiler trace, the tensor-core
-instructions in a built library's SASS, the attention forwards' tolerance,
-paged K/V pools, and the clock stamps of a measurement build.
+``tools/paged_bench.py``, ``tools/sample_bench.py``): the card's name and
+power limit, L2-cold event timing, device time from a torch.profiler trace,
+the tensor-core instructions in a built library's SASS, the attention
+forwards' tolerance, paged K/V pools, the sampler's rows and the work they
+need, and the clock stamps of a measurement build.
 
 torch and the port (``repro_torch``) are imported inside the functions, so
 a script may first put the tree it measures on ``sys.path``.
@@ -178,6 +179,43 @@ def paged_pool(gen, *, pages, ps, hkv, d, lengths, share_first_page=False, prefi
         table[1, 0] = table[0, 0]
     table[1:, :prefix_pages] = table[0, :prefix_pages]
     return k, v, table.cuda()
+
+
+def sampler_rows(gen, batch: int, vocab: int, top_k=None):
+    """Sampler inputs on the card (logits, gumbel noise, temperature,
+    top_k), chip_smoke.py phase 3's: 8 rows greedy (two), t = 0.8 with top_k
+    0, 1, 50 (three, one of them with its 50th largest value five times) and
+    V + 7; any other batch t = 0.8 and top_k 50. ``top_k`` replaces the 50s."""
+    import torch
+
+    k = 50 if top_k is None else top_k
+    logits = torch.randn((batch, vocab), generator=gen, device="cuda") * 3
+    if batch == 8:
+        top = torch.randperm(vocab, generator=gen, device="cuda")[:60]
+        logits[5, top[:49]] = 20 + torch.arange(49, device="cuda", dtype=torch.float32)
+        logits[5, top[49:54]] = 19.5  # the 50th largest, five times
+        temperature = torch.tensor([0, 0, 0.8, 0.8, 0.8, 0.8, 0.8, 0.8], device="cuda")
+        top_k = torch.tensor([0, k, 0, 1, k, k, 0, vocab + 7], dtype=torch.int32, device="cuda")
+    else:
+        temperature = torch.full((batch,), 0.8, device="cuda")
+        top_k = torch.full((batch,), k, dtype=torch.int32, device="cuda")
+    noise = -torch.log(-torch.log(torch.rand((batch, vocab), generator=gen, device="cuda").clamp_min(1e-38)))
+    return logits, noise, temperature, top_k
+
+
+def sampler_work(logits, temperature, top_k):
+    """(bytes, operations) that sampling these rows needs at least: every
+    logit read once (f32), temperature, top_k and the tokens; the noise of
+    every logit of a row that keeps them all (t > 0, top_k <= 0 or >= V)
+    and of the kept logits of a top-k row (those at or above its k-th
+    largest); one compare a logit, and a division, an addition and a
+    compare for each logit scored."""
+    b, v = logits.shape
+    keep_all = (temperature > 0) & ((top_k <= 0) | (top_k >= v))
+    top_rows = (temperature > 0) & ~keep_all
+    kth = logits.sort(dim=1, descending=True).values.gather(1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
+    scored = v * int(keep_all.sum()) + int((logits >= kth).sum(dim=1)[top_rows].sum())
+    return 4 * b * v + 4 * scored + nbytes(temperature, top_k) + 4 * b, b * v + 3 * scored
 
 
 def read_stamps(lib: str, fn: str, count: int) -> list:
