@@ -72,6 +72,27 @@
     backward once; traces a stage-2 update; on rwkv6 smoke the card agrees
     with the CPU path as in phase 8 (its SEBS run at eta 0.01, where the
     control run holds: see CARD_CPU_ETAS).
+12. Serves qwen2.5-3b at full width (phase 4's weights) through the dense
+    engines, right after phase 6: the continuous engine (8 slots, cache
+    1,024) on phase 4's requests, counters zeroed just before and read
+    just after (the flash forward once a layer and prefill, the sampler
+    once a tick and a first token, no paged kernel), traced again on the
+    device (the flash forward's and the sampler's share); the static
+    engine on the same 8 prompts, greedy (one batched prefill); agreement
+    of the two on the greedy requests is reported, not required. On
+    qwen2.5-3b and rwkv6-1.6b smoke in float32 both engines' greedy tokens
+    on the card equal the CPU path's.
+13. Kills and resumes training at full width cut to 4 layers (after phase
+    14): phase 7's schedule with pSGD, uninterrupted; then saving every 6
+    updates and stopped after 8; then a fresh trainer resuming from the
+    checkpoint (a temporary directory, removed after). Losses, stages and
+    final params must be bit-identical to the uninterrupted run; prints
+    the seconds of each save's copy to the host, each write and the
+    restore.
+14. Trains with AdamW, LARS and LAMB (plain PyTorch updates), each 4 SEBS
+    updates at full width on 8 layers (after phase 7b): finite losses; on
+    qwen2.5-3b smoke in float32 the card's losses within 1e-4 relative of
+    the CPU path's.
 
 Any failed phase exits non-zero. The last lines of standard output are the
 kernels' JSON record, the card's name and power limit as nvidia-smi gives
@@ -398,6 +419,7 @@ def device_profile(run) -> dict:
     return {
         **trace,
         "gla_ms": sum(ms for name, (ms, _) in by_kernel.items() if any(k in name for k in GLA_KERNEL_NAMES)),
+        "flash_fwd_ms": sum(ms for name, (ms, _) in by_kernel.items() if FLASH_FWD_KERNEL_NAME in name),
         **{f"{kind}_ms": sum(ms for name, (ms, _) in by_kernel.items() if paged_kind(name) == kind)
            for kind in ("paged_decode", "paged_prefill")},
         "sampler_ms": sum(ms for ms, _ in sampler), "sampler_launches": sum(n for _, n in sampler),
@@ -420,6 +442,8 @@ def paged_kind(name: str):
 
 # the sampler's kernel in a trace (fused_sample.cu)
 SAMPLER_KERNEL_NAME = "sample_kernel"
+# the flash forward kernels in a trace (flash_attention.cu: flash_fwd_tc_kernel, flash_fwd_kernel)
+FLASH_FWD_KERNEL_NAME = "flash_fwd"
 # the GLA kernels' names in a trace (gla.cu): the bf16 passes, the f32 route, du's sum
 GLA_KERNEL_NAMES = ("tc::local_kernel", "tc::fwd_scan_kernel", "tc::fwd_out_kernel", "tc::bwd_scan_kernel",
                     "tc::bwd_chunk_kernel", "du_reduce_kernel", "gla_fwd_kernel", "gla_bwd_kernel")
@@ -437,7 +461,11 @@ LIBRARY_NONE = "no single PyTorch call computes this update"
 # momentum, whose beta = 0.9 multiplies its steps up to tenfold. For
 # rwkv6-1.6b (all 24 layers) the same scan gave 11.5833 -> 11.3441 / 11.2839
 # / 17.4028 / NaN at 0.3 / 1 / 3 / 10 (on an H100 80GB HBM3 at 700 W).
-ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0}
+# The adaptive optimizers (phase 14) at rates usual for each: AdamW 1e-3
+# (its first steps move every weight by about eta), LAMB 1e-2 and LARS 1
+# (each leaf moves by eta times its own norm, scaled by 0.01 for LARS).
+ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0,
+        "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
 
 
 def excess_bwd(out, expect, rtol: float = BWD_RTOL, scale_tol: float = BWD_SCALE_TOL) -> float:
@@ -639,7 +667,9 @@ def leaf_shapes(cfg) -> list:
 def flash_checks(records: dict) -> None:
     """The flash kernels through their ops wrappers at the training path's
     shapes: qwen2.5-3b, microbatch 4 of 512 + 1 tokens (B 4, S 513, 16 query
-    and 2 KV heads, head_dim 128), bf16, causal."""
+    and 2 KV heads, head_dim 128), bf16, causal; and the forward at the
+    dense serving path's prefills (phase 12): B 1 (the continuous engine)
+    and B 8 (the static one) of 512 tokens, with no tail tile."""
     import torch
     import torch.nn.functional as F
 
@@ -660,6 +690,13 @@ def flash_checks(records: dict) -> None:
     fwd.append(check_close("flash_attention_fwd (window 100)",
                            ops.forward(q, k, v, sliding_window=100)[0],
                            ref.attention_ref(q, k, v, sliding_window=100)))
+    serving = {}
+    for sb in (1, 8):
+        sq, sk, sv = rand(sb, 512, hq, d), rand(sb, 512, hkv, d), rand(sb, 512, hkv, d)
+        reading = check_close(f"flash_attention_fwd (serving prefill, B {sb} S 512)", ops.forward(sq, sk, sv)[0],
+                              ref.attention_fwd_ref(sq, sk, sv)[0], ref.attention_ref(sq, sk[:, :-1], sv[:, :-1]))
+        fwd.append(reading)
+        serving[f"b{sb}_s512"] = reading
     grads = ops.backward(q, k, v, out, lse, d_out)
     expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out)
     fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out)  # Di left out
@@ -686,6 +723,7 @@ def flash_checks(records: dict) -> None:
     io = nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s
     records["flash_attention_fwd"] = dict(
         **merge(fwd),
+        serving_prefill=serving,
         ms=timed(ops.forward, sets, 50),
         plain_ms=timed(ref.attention_fwd_ref, sets, 5),
         bound=bound(io, 4 * d * pairs * b * hq, BF16_FLOPS),
@@ -849,10 +887,11 @@ def expected_ladder(schedule) -> tuple:
 
 
 def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: int, stages: int,
-             params=None):
+             params=None, **run_kw):
     """One SEBS run (rho 2, microbatch b1) from seed-0 weights (or
     ``params``), every launch counter zeroed just before and read just
-    after. Returns (log, wall s, launches, per-update seconds, state)."""
+    after; ``run_kw`` goes to ``SEBSTrainer.run`` (checkpointing). Returns
+    (log, wall s, launches, per-update seconds, state, trainer)."""
     import torch
 
     from repro_torch.core import SEBS, SEBSTrainer
@@ -880,13 +919,14 @@ def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: 
     for ops in (flash_ops, optim_ops, gla_ops):
         ops.reset_launches()
     t0 = time.perf_counter()
-    state, log = trainer.run(state, log_every=1)
+    state, log = trainer.run(state, log_every=1, **run_kw)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES, **gla_ops.LAUNCHES}
     updates = [ev["dur"] for ev in tracer.events if ev.get("name") == "train.update"]
-    if log.stages != expected_ladder(schedule)[0] or log.batch_sizes != expected_ladder(schedule)[1]:
+    if run_kw.get("stop_after_updates") is None and (
+            log.stages != expected_ladder(schedule)[0] or log.batch_sizes != expected_ladder(schedule)[1]):
         fail(f"{cfg.name}: stages {log.stages} / batches {log.batch_sizes} differ from the "
              f"schedule's ladder {expected_ladder(schedule)}")
     return log, wall, launches, updates, state, trainer
@@ -1153,6 +1193,249 @@ def train_rwkv6(cfg) -> dict:
             "untraced_update_ms": untraced_ms, "card_vs_cpu": agreement}
 
 
+def dense_small_input_agreement(arch: str) -> None:
+    """Greedy tokens of both dense engines on the card (the flash forward,
+    the sampler) equal the CPU path's on ``arch`` smoke in float32: the
+    static batch (4 prompts of 8) and the continuous ring (2 slots, prompts
+    of 1 to 8 tokens)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import ContinuousBatchingEngine, ServeEngine
+
+    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    static_prompts = rng.integers(0, cfg.vocab_size, (4, 8))
+    ring_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1, 5, 8, 3)]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        params = to_device(cpu_params, device)
+        static = ServeEngine(model, params, cache_len=32, device=device).generate(static_prompts, 6)
+        engine = ContinuousBatchingEngine(model, params, cache_len=32, max_slots=2, seed=0, device=device)
+        ids = [engine.submit(p, max_new_tokens=6) for p in ring_prompts]
+        out = engine.run()
+        streams[device] = (static.tolist(), [out[i].tolist() for i in ids])
+    if streams["cpu"] != streams["cuda"]:
+        fail(f"{arch} dense greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
+
+
+def serve_dense(cfg, model, params, prompts) -> dict:
+    """Phase 12: the dense engines serving ``cfg`` at full width. The
+    continuous engine (8 slots, cache 1,024) on phase 4's requests (8 x 512
+    prompt tokens + 32 new, half greedy, half t=0.8, top_k=50), counters
+    zeroed just before and read just after: the flash forward launches once
+    a layer and prefill, the sampler once a tick and a first token, no paged
+    kernel. Then the same batch traced on the device, the static engine on
+    the 8 prompts (greedy), and both engines on the card against the CPU
+    path on qwen2.5-3b and rwkv6-1.6b smoke."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.serve import ContinuousBatchingEngine, ServeEngine
+
+    n, new, cache_len = len(prompts), 32, 1024
+    engine = ContinuousBatchingEngine(model, params, max_slots=8, cache_len=cache_len, seed=0)
+
+    def submit_batch():
+        return [engine.submit(p, max_new_tokens=new, temperature=0.0 if i % 2 == 0 else 0.8,
+                              top_k=0 if i % 2 == 0 else 50) for i, p in enumerate(prompts)]
+
+    engine.submit(prompts[0][:64], max_new_tokens=4)  # warm-up
+    engine.run()
+    engine.reset_stats()
+    ids = submit_batch()
+    torch.cuda.synchronize()
+    flash_ops.reset_launches()
+    paged_ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**flash_ops.LAUNCHES, **paged_ops.LAUNCHES}
+    stats = copy.deepcopy(engine.stats)
+    for rid in ids:
+        gen_tokens = results[rid][len(prompts[0]):]
+        if len(gen_tokens) != new or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"dense request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    expect = {"flash_attention_fwd": cfg.num_layers * n, "fused_sample": stats["ticks"] + n,
+              "flash_attention_bwd": 0, "paged_flash_decode": 0, "paged_chunk_prefill": 0}
+    for kname, count in expect.items():
+        if launches[kname] != count:
+            fail(f"dense serving: {kname} launched {launches[kname]} times, not {count}")
+    submit_batch()
+    profile = device_profile(engine.run)
+    tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+
+    static = ServeEngine(model, params, cache_len=cache_len)
+    batch = np.stack(prompts)
+    static.generate(batch[:1, :64], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    flash_ops.reset_launches()
+    paged_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = static.generate(batch, max_new_tokens=new)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    static_launches = {**flash_ops.LAUNCHES, **paged_ops.LAUNCHES}
+    if static_launches["flash_attention_fwd"] != cfg.num_layers:
+        fail(f"static serving: flash_attention_fwd launched {static_launches['flash_attention_fwd']} "
+             f"times, not {cfg.num_layers} (one batched prefill)")
+    if out.shape != (n, batch.shape[1] + new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"static serving: bad output of shape {out.shape}")
+    # agreement of the greedy requests, reported only: random weights give
+    # near-tied logits, and a batch-1 bf16 prefill is not bit-equal to a batch-8 one
+    p = batch.shape[1]
+    greedy = [i for i in range(n) if i % 2 == 0]
+    agree = [float(np.mean(results[ids[i]][p:] == out[i][p:])) for i in greedy]
+    first_agree = sum(int(results[ids[i]][p] == out[i][p]) for i in greedy)
+    print(f"phase 12 dense continuous: {n} requests x {new} tokens in {wall:.3f} s | decode "
+          f"{stats['decoded_tokens']} tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | median tick "
+          f"{tick_ms:.2f} ms | {stats['ticks']} ticks | launches {launches}", flush=True)
+    print(f"phase 12 dense profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms "
+          f"wall, idle {100 * profile['idle_share']:.1f}% | flash forward {profile['flash_fwd_ms']:.2f} ms "
+          f"({100 * profile['flash_fwd_ms'] / profile['busy_ms']:.1f}% of busy), sampler "
+          f"{profile['sampler_ms']:.3f} ms ({100 * profile['sampler_ms'] / profile['busy_ms']:.2f}%) over "
+          f"{profile['sampler_launches']} launches", flush=True)
+    for kname, (ms, count) in list(profile["by_kernel"].items())[:8]:
+        print(f"phase 12 dense profile: {ms:9.2f} ms {count:6d} x  {kname[:100]}")
+    print(f"phase 12 dense static: {n} x {p} greedy prompts + {new} tokens in {static_wall:.3f} s = "
+          f"{n * new / static_wall:.1f} tok/s | launches {static_launches} | greedy tokens equal to the "
+          f"continuous engine's: {agree} (first token {first_agree}/{len(greedy)}), not required",
+          flush=True)
+    for arch in ("qwen2.5-3b", "rwkv6-1.6b"):
+        dense_small_input_agreement(arch)
+    print("phase 12 dense small input: greedy tokens of both dense engines on the card equal the CPU "
+          "path's on qwen2.5-3b and rwkv6-1.6b smoke (f32)", flush=True)
+    return {"wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
+            "median_decode_tick_ms": tick_ms, "launches": launches, "profile": profile,
+            "static": {"wall_s": static_wall, "launches": static_launches},
+            "greedy_agreement": agree, "first_token_agreement": first_agree}
+
+
+def resume_full_width(cfg) -> dict:
+    """Phase 13: kill and resume at full width (``cfg`` cut in depth) on
+    phase 7's schedule with pSGD: an uninterrupted run; a run saving every 6
+    updates and stopped after 8; a fresh trainer resuming from its
+    checkpoint. Losses, stages and final params must be bit-identical to the
+    uninterrupted run's. The checkpoints go to a temporary directory,
+    removed after the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    class TimedCheckpointManager(CheckpointManager):
+        """Times each disk write (in the writer thread)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.write_s = []
+
+        def _write_and_retain(self, path, arrays, meta):
+            t0 = time.perf_counter()
+            super()._write_and_retain(path, arrays, meta)
+            self.write_s.append(time.perf_counter() - t0)
+
+    kw = dict(eta=ETAS["psgd"], device="cuda", seq=512, b1=4, c1=16, stages=3)
+
+    def spans(trainer, name):
+        return [ev["dur"] for ev in trainer.tracer.events if ev.get("name") == name]
+
+    def uninterrupted():
+        log, wall, _, _, state, _ = run_sebs(cfg, make_optimizer("psgd", gamma=1e4), **kw)
+        return log, wall, state
+
+    ref_log, ref_wall, ref_state = uninterrupted()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with TimedCheckpointManager(directory, keep_last=2) as ckpt:
+            killed_log, _, _, _, state, trainer = run_sebs(
+                cfg, make_optimizer("psgd", gamma=1e4), checkpointer=ckpt, save_every=6,
+                stop_after_updates=8, **kw)
+            saves = spans(trainer, "train.save")
+            del state, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        with TimedCheckpointManager(directory, keep_last=2) as ckpt2:
+            log, wall, launches, _, state, trainer = run_sebs(
+                cfg, make_optimizer("psgd", gamma=1e4), checkpointer=ckpt2, save_every=6, resume=True, **kw)
+            restores, saves2 = spans(trainer, "train.restore"), spans(trainer, "train.save")
+        write_s = ckpt.write_s + ckpt2.write_s
+        size = sum(f.stat().st_size for f in Path(directory).rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(ref_state.params), tree_leaves(state.params)))
+    if killed_log.steps != list(range(1, 9)) or log.steps != ref_log.steps:
+        fail(f"resume: updates {killed_log.steps} then {log.steps}, not 1..8 then {ref_log.steps}")
+    if log.losses != ref_log.losses or log.stages != ref_log.stages or not same_params:
+        del state, trainer
+        again_log, _, again_state = uninterrupted()
+        twice = again_log.losses == ref_log.losses and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(ref_state.params), tree_leaves(again_state.params)))
+        fail(f"resume: the resumed run is not bit-identical to the uninterrupted one (losses {log.losses} "
+             f"vs {ref_log.losses}, params equal {same_params}); two uninterrupted runs agree: {twice}")
+    print(f"phase 13 resume: {cfg.num_layers} layers, {len(ref_log.steps)} updates, killed after 8 (saved at "
+          f"6), resumed: losses, stages and params bit-identical | uninterrupted {ref_wall:.1f} s, resumed "
+          f"{wall:.1f} s | checkpoint {size / 1e9:.2f} GB on disk (retained) | device->host copy "
+          + ", ".join(f"{x:.2f}" for x in saves + saves2) + " s a save | write "
+          + ", ".join(f"{x:.2f}" for x in write_s) + " s | restore "
+          + ", ".join(f"{x:.2f}" for x in restores) + f" s | resumed launches {launches}", flush=True)
+    return {"layers": cfg.num_layers, "losses": log.losses, "save_copy_s": saves + saves2,
+            "write_s": write_s, "restore_s": restores, "bytes_on_disk": size, "wall_s": wall,
+            "uninterrupted_wall_s": ref_wall, "launches": launches}
+
+
+ADAPTIVE_RTOL = 1e-4
+
+
+def adaptive_optimizers(cfg) -> dict:
+    """Phase 14: AdamW, LARS and LAMB (plain PyTorch updates) each take 4
+    SEBS updates (batch 4, 4, 8, 8) at full width on ``cfg`` (cut in
+    depth); losses must be finite. On qwen2.5-3b smoke in float32 the
+    card's losses are within 1e-4 relative of the CPU path's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_map
+
+    smoke = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
+    base = LanguageModel(smoke).init(seed=0, device="cpu")
+    out = {}
+    for name in ("adamw", "lars", "lamb"):
+        eta = ETAS[name]
+        log, wall, launches, _, state, _ = run_sebs(cfg, make_optimizer(name), eta=eta, device="cuda",
+                                                    seq=512, b1=4, c1=8, stages=2)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in log.losses):
+            fail(f"{name}: a loss is not finite: {log.losses}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = {device: run_sebs(smoke, make_optimizer(name), eta=eta, device=device, seq=32, b1=4, c1=8,
+                                   stages=2, params=tree_map(lambda x: x.to(device, copy=True), base))[0].losses
+                  for device in ("cpu", "cuda")}
+        worst = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses["cuda"]))
+        if worst > ADAPTIVE_RTOL:
+            fail(f"{name}: card and CPU losses differ by {worst:.2e} relative: {losses}")
+        print(f"phase 14 {name}: {cfg.num_layers} layers, eta {eta}, {len(log.steps)} updates in {wall:.1f} s | "
+              f"losses " + " ".join(f"{x:.4f}" for x in log.losses) + f" | peak memory {peak / 2**30:.1f} GiB "
+              f"| smoke f32 card vs cpu within {worst:.2e} relative | launches {launches}", flush=True)
+        out[name] = {"eta": eta, "losses": log.losses, "wall_s": wall, "peak_gib": peak / 2**30,
+                     "card_vs_cpu_max_rel": worst, "smoke_losses": losses}
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1165,6 +1448,15 @@ def main() -> None:
     from repro_torch.models import LanguageModel
     from repro_torch.optim import make_optimizer
     from repro_torch.serve import PagedContinuousBatchingEngine
+
+    phase_s: dict = {}  # wall seconds of each phase, in the order run
+    t_phase = time.perf_counter()
+
+    def phase_done(label: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[label] = now - t_phase
+        t_phase = now
 
     # 1. device
     smi = nvidia_smi()
@@ -1204,6 +1496,7 @@ def main() -> None:
         if paged_mma.get(kname, 0) == 0:
             fail(f"{kname} has no HMMA or HGMMA in its SASS: the bf16 paged route is not on the tensor cores")
 
+    phase_done("1-2 device, build")
     # 3. kernels against their plain versions
     cfg = get_config("qwen2.5-3b", "full")
     reduced = cfg.replace(segments=(SegmentSpec(body=cfg.segments[0].body, repeat=8),))
@@ -1222,7 +1515,10 @@ def main() -> None:
           f"({fwd_rec['device_ms']:.4f}), bwd {bwd_rec['ms']:.4f} ({bwd_rec['device_ms']:.4f})"
           f" | f32 route, in units of its allowance: " + ", ".join(
               f"D {d[1:]} fwd {r['fwd_excess']:.3f} bwd {r['bwd_excess']:.3f}"
-              for d, r in fwd_rec["f32_route"].items()), flush=True)
+              for d, r in fwd_rec["f32_route"].items())
+          + " | serving prefills (bf16), in units of the allowance: " + ", ".join(
+              f"{n} {r['excess']:.3f} vs planted fault {r['fault_excess']:.1f}"
+              for n, r in fwd_rec["serving_prefill"].items()), flush=True)
     print(f"paged, ms a call L2-cold (device ms in brackets): decode {records['paged_flash_decode']['ms']:.4f} "
           f"({records['paged_flash_decode']['device_ms']:.4f}), decode at the serving shape "
           f"{decode_serving['ms']:.4f} ({decode_serving['device_ms']:.4f}), prefill "
@@ -1241,6 +1537,7 @@ def main() -> None:
               f"{n} {r['elements']} elements in {r['leaves']} leaves"
               for n, r in records.items() if "elements" in r), flush=True)
 
+    phase_done("3 kernels")
     # 4. the serving path at full width
     model = LanguageModel(cfg)
     t0 = time.perf_counter()
@@ -1258,11 +1555,14 @@ def main() -> None:
     def prompt():
         return torch.cat([prefix, torch.randint(0, cfg.vocab_size, (256,), generator=rng)]).numpy()
 
+    served = []  # each batch's prompts: phase 12 serves the measured one again
+
     def submit_batch():
+        served.append([prompt() for _ in range(8)])
         return [
-            engine.submit(prompt(), max_new_tokens=32,
+            engine.submit(p, max_new_tokens=32,
                           temperature=0.0 if i % 2 == 0 else 0.8, top_k=0 if i % 2 == 0 else 50)
-            for i in range(8)
+            for i, p in enumerate(served[-1])
         ]
 
     # warm-up: one request publishes the shared prefix to the radix index
@@ -1324,10 +1624,18 @@ def main() -> None:
     )
     print(f"launches: {launches} | per decode tick {launches['paged_flash_decode'] / stats['ticks']:.0f}, "
           f"per chunk {launches['paged_chunk_prefill'] / stats['prefill_chunks']:.0f}", flush=True)
-    del engine, params, probe, results
+    del engine, probe, results
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("4-6 paged serving")
+    # 12. dense serving at full width (the same weights), the static and continuous engines
+    dense = serve_dense(cfg, model, params, served[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_done("12 dense serving")
     # 7. the training path: SEBS with pSGD at full width
     seq, b1 = 512, 4
     psgd = make_optimizer("psgd", gamma=1e4)
@@ -1345,6 +1653,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase_done("7, 9 psgd training")
     # 7b. momentum and AdaGrad-DA, full width at 8 layers
     runs = {"psgd": {"layers": cfg.num_layers, "eta": ETAS["psgd"], "losses": log.losses,
                      "wall_s": train_wall, "peak_gib": train_peak / 2**30,
@@ -1368,13 +1677,27 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase_done("7b momentum, adagrad_da")
+    # 14. the adaptive optimizers, full width at 8 layers
+    adaptive = adaptive_optimizers(reduced)
+
+    phase_done("14 adaptive")
+    # 13. kill and resume, full width at 4 layers
+    resume = resume_full_width(cfg.replace(segments=(SegmentSpec(body=cfg.segments[0].body, repeat=4),)))
+
+    phase_done("13 resume")
     # 8. card against CPU on a small input
     agreement = card_cpu_agreement("qwen2.5-3b")
 
+    phase_done("8 card vs cpu")
     # 10-11. rwkv6-1.6b at full width: served, then trained, through the GLA kernels
     rwkv = get_config("rwkv6-1.6b", "full")
     rwkv_serving = serve_rwkv6(rwkv)
+    phase_done("10 rwkv6 serving")
     rwkv_training = train_rwkv6(rwkv)
+    phase_done("11 rwkv6 training")
+    print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
+          + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
     replaces = {
         "paged_flash_decode": "src/repro/kernels/paged_decode/kernel.py:84",
@@ -1401,6 +1724,9 @@ def main() -> None:
         "gla_bwd": "gla/csrc/gla.cu",
     }
     all_launches = {**launches, **train_launches}
+    # the dense serving path (phase 12) runs the flash forward and the sampler too
+    for kname in ("flash_attention_fwd", "fused_sample"):
+        all_launches[kname] += dense["launches"][kname]
     # the GLA kernels run on both rwkv6 paths: serving (the forward) and training
     for kname in ("gla_fwd", "gla_bwd"):
         all_launches[kname] = rwkv_serving["launches"].get(kname, 0) + rwkv_training["launches"][kname]
@@ -1434,7 +1760,7 @@ def main() -> None:
                                              "bound_by": decode_serving["bound"][1]},
         "flash": {"hgmma": hgmma, **{n: {key: records[n][key] for key in (
             "device_ms", "library_backend", "library_ms_default", "library_device_ms",
-            "library_device_ms_default", "f32_route") if key in records[n]}
+            "library_device_ms_default", "f32_route", "serving_prefill") if key in records[n]}
             for n in ("flash_attention_fwd", "flash_attention_bwd")}},
         "gla_device_ms": {"gla_fwd": records["gla_fwd"]["device_ms"], "gla_bwd": records["gla_bwd"]["device_ms"],
                           "gla_fwd_serving_shape": gla_serving_shape["device_ms"]},
@@ -1442,6 +1768,7 @@ def main() -> None:
                                   "bound_ms": gla_serving_shape["bound"][0],
                                   "bound_by": gla_serving_shape["bound"][1]},
         "rwkv6": {"serving": rwkv_serving, "training": rwkv_training},
+        "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
             "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": decode_tick_ms,

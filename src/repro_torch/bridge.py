@@ -1,13 +1,17 @@
-"""Parameters from the JAX package into the port.
+"""Parameters between the JAX package and the port.
 
 :func:`params_from_numpy` takes the JAX package's ``LanguageModel.init``
 parameter tree with numpy (or torch) leaves and returns the port's tree: the
 same names and layouts (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, ...), with
 each segment's scanned ``layers`` axis unstacked into a list of per-layer
 trees. :func:`opt_state_from_numpy` does the same for an optimizer state
-(``stage`` and the parameter-shaped slots: pSGD's ``anchor``, momentum's
-``u``, AdaGrad's ``z`` and ``s2``), so both frameworks can start from one
-``TrainState``. :func:`load_checkpoint` reads the JAX package's checkpoint format
+(the integer slots ``stage`` and ``count``, and the parameter-shaped
+slots: pSGD's ``anchor``, momentum's and LARS's ``u``, AdaGrad's ``z`` and
+``s2``, Adam's and LAMB's ``m`` and ``v``), so both frameworks can start
+from one ``TrainState``. :func:`params_to_numpy` and
+:func:`opt_state_to_numpy` go the other way, re-stacking each segment's
+layers, so the port's state is written in the JAX package's layout
+(``repro_torch.checkpoint``). :func:`load_checkpoint` reads the JAX package's checkpoint format
 (``step_<N>/arrays.npz`` keyed by ``|``-joined tree paths, bfloat16 leaves
 stored as a uint16 view and named in ``meta.json["_dtypes"]``) without
 importing JAX, so a checkpoint written there serves here.
@@ -17,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +32,15 @@ SEP = "|"
 
 
 def _tensor(leaf, device) -> torch.Tensor:
-    if not isinstance(leaf, torch.Tensor):
-        leaf = torch.from_numpy(np.array(leaf))  # a writable copy
-    return leaf.to(device)
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
+    arr = np.asarray(leaf)
+    if torch.device(device).type == "cpu" or not arr.flags.writeable:
+        # the port updates its tensors in place: on the CPU a tensor made by
+        # from_numpy would rewrite the caller's array (and it needs a
+        # writable one); a copy to the card is a copy already
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
 
 
 def _convert(tree, device):
@@ -68,16 +78,78 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> 
     return params
 
 
+INT_SLOTS = ("stage", "count")
+
+
 def opt_state_from_numpy(state: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
-    """The port's optimizer state from the JAX package's: ``stage`` as a host
-    integer, each parameter-shaped slot as :func:`params_from_numpy` makes
-    it."""
+    """The port's optimizer state from the JAX package's: ``stage`` and
+    ``count`` as host integers, each parameter-shaped slot as
+    :func:`params_from_numpy` makes it."""
     out: Dict[str, Any] = {}
     for key, value in state.items():
         if isinstance(value, dict):
             out[key] = params_from_numpy(value, cfg, device)
-        elif key == "stage":
+        elif key in INT_SLOTS:
             out[key] = int(np.asarray(value))
+        else:
+            raise ValueError(f"optimizer state slot {key!r} is not ported")
+    return out
+
+
+def _host(t: torch.Tensor):
+    """A host copy that owns its memory: numpy, or a CPU tensor for
+    bfloat16 (which numpy lacks). On the CPU ``.numpy()`` alone would alias
+    the live tensor, which the optimizers update in place."""
+    t = t.detach().to("cpu", copy=True)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return _host(tree)
+
+
+def _stack(layers: List[Any], n: int):
+    """The layers stacked on a new leading axis, straight into one host
+    buffer: one copy of each layer, and no stacked copy on the device."""
+    if len(layers) != n:
+        raise ValueError(f"{len(layers)} layers != the segment's repeat {n}")
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers], n) for k in first}
+    out = torch.empty((n, *first.shape), dtype=first.dtype)
+    for i, t in enumerate(layers):
+        out[i].copy_(t.detach())
+    return out if out.dtype == torch.bfloat16 else out.numpy()
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX package's parameter tree from the port's: each segment's
+    per-layer lists stacked on a leading ``layers`` axis, host copies that
+    own their memory (numpy leaves, bfloat16 ones as CPU tensors)."""
+    out: Dict[str, Any] = {}
+    for key, sub in params.items():
+        m = re.fullmatch(r"seg(\d+)", key)
+        if m is None:
+            out[key] = _to_host(sub)
+            continue
+        repeat = cfg.segments[int(m.group(1))].repeat
+        out[key] = {name: _to_host(block) if name == "shared" else _stack(block, repeat)
+                    for name, block in sub.items()}
+    return out
+
+
+def opt_state_to_numpy(state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX package's optimizer state from the port's: ``stage`` and
+    ``count`` as 0-d int32 arrays, each parameter-shaped slot as
+    :func:`params_to_numpy` makes it."""
+    out: Dict[str, Any] = {}
+    for key, value in state.items():
+        if isinstance(value, dict):
+            out[key] = params_to_numpy(value, cfg)
+        elif key in INT_SLOTS:
+            out[key] = np.asarray(value, dtype=np.int32)
         else:
             raise ValueError(f"optimizer state slot {key!r} is not ported")
     return out

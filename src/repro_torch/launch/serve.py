@@ -1,6 +1,13 @@
-"""Serving launcher CLI: the paged continuous-batching engine.
+"""Serving launcher CLI: batched generation through the port's engines.
 
-    # on the GPU (the default device), full-width qwen2.5-3b, random weights
+    # static batch over a dense cache, on the CPU (the kernels' plain versions)
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine static --batch 4 --device cpu
+
+    # continuous batching over a dense cache with a stagewise admission ramp
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --requests 12 --slots 8 --b1 2 --rho 2.0 --device cpu
+
+    # paged, on the GPU (the default device), full-width qwen2.5-3b, random weights
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged --variant full \
         --requests 8 --slots 8 --prompt-len 512 --shared-prefix 256 \
         --new-tokens 32 --cache-len 2048 --chunk 256
@@ -10,10 +17,9 @@
 
 ``--arch`` takes the ported families: the dense decoders and rwkv6-1.6b
 (whose recurrent state rides per slot beside the page pool; prefix sharing
-is off for it, as in the JAX engine).
-
-The static, continuous and disaggregated engines of the JAX launcher come
-with later slices of the port; asking for them is an error.
+is off for it, as in the JAX engine); another family is an error naming
+its slice. The default engine is ``paged``; the disaggregated engine of
+the JAX launcher comes with a later slice, and asking for it is an error.
 """
 from __future__ import annotations
 
@@ -28,15 +34,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import LanguageModel
 from repro_torch.obs import MetricsRegistry, Tracer
-from repro_torch.serve import PagedContinuousBatchingEngine
+from repro_torch.serve import ContinuousBatchingEngine, PagedContinuousBatchingEngine, ServeEngine
 
 log = logging.getLogger("repro_torch.serve")
 
-_LATER_ENGINES = {
-    "static": "the dense-serving slice",
-    "continuous": "the dense-serving slice",
-    "disagg": "the disaggregated-serving slice",
-}
+_DISAGG = "the disaggregated-serving slice"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -46,7 +48,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--engine", choices=["static", "continuous", "paged", "disagg"], default="paged")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weights, prompts and sampling noise")
-    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4, help="static: batch size")
+    ap.add_argument("--requests", type=int, default=8, help="continuous, paged: request count")
     ap.add_argument("--slots", type=int, default=4, help="max slot-ring width")
     ap.add_argument("--b1", type=int, default=None,
                     help="initial slot budget (default: --slots, no ramp)")
@@ -74,10 +77,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="dump the metrics registry snapshot as JSON")
     args = ap.parse_args(argv)
 
-    if args.engine in _LATER_ENGINES:
-        ap.error(f"--engine {args.engine} comes with {_LATER_ENGINES[args.engine]} of the port; "
-                 "this one serves --engine paged")
+    if args.engine == "disagg":
+        ap.error(f"--engine disagg comes with {_DISAGG} of the port; "
+                 "this one serves --engine static, continuous and paged")
     for flag, value, low in (
+        ("--batch", args.batch, 1),
         ("--requests", args.requests, 1),
         ("--slots", args.slots, 1),
         ("--patience", args.patience, 1),
@@ -105,32 +109,66 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ap.error(f"--chunk sizes must be >= 1 (got {args.chunk})")
     if args.pages is not None and args.pages < 2:
         ap.error(f"--pages must be >= 2 (pool reserves scratch page 0; got {args.pages})")
+    if args.engine == "static" and args.b1 is not None:
+        ap.error("--b1 requires --engine continuous or paged")
+    if args.engine == "static" and (args.trace or args.metrics):
+        ap.error("--trace/--metrics require a scheduled engine (--engine continuous or paged)")
+    if args.engine != "paged":
+        for flag, given in (("--pages", args.pages is not None), ("--chunk", args.chunk is not None),
+                            ("--shared-prefix", args.shared_prefix > 0)):
+            if given:
+                ap.error(f"{flag} requires --engine paged")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
-    model = LanguageModel(cfg)
+    try:
+        model = LanguageModel(cfg)
+    except NotImplementedError as e:  # a family that a later slice ports
+        ap.error(f"--arch {args.arch}: {e}")
     params = model.init(args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed + 1)
+    sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
+
+    if args.engine == "static":
+        prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+        engine = ServeEngine(model, params, cache_len=args.cache_len, device=args.device)
+        sync()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=args.new_tokens)
+        sync()
+        wall = time.perf_counter() - t0
+        for i, row in enumerate(out):
+            log.info("req %d: %s -> %s", i, row[: args.prompt_len].tolist()[-8:],
+                     row[args.prompt_len:].tolist())
+        log.info("%d prompts in %.3f s | %d new tokens = %.1f tok/s", args.batch, wall,
+                 args.batch * args.new_tokens, args.batch * args.new_tokens / wall)
+        return dict(enumerate(out))
+
     tracer = Tracer() if args.trace else None
     metrics = MetricsRegistry() if args.metrics else None
-    engine = PagedContinuousBatchingEngine(
-        model, params, cache_len=args.cache_len, max_slots=args.slots,
-        b1=args.b1, rho=args.rho, patience=args.patience, seed=args.seed,
-        page_size=args.page_size, num_pages=args.pages, prefix_cache=args.prefix_cache,
-        prefill_chunks=tuple(args.chunk) if args.chunk else (32,),
-        tracer=tracer, metrics=metrics, device=args.device,
-    )
-    prompts = np.random.default_rng(args.seed + 1).integers(
-        0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32
-    )
+    if args.engine == "paged":
+        engine = PagedContinuousBatchingEngine(
+            model, params, cache_len=args.cache_len, max_slots=args.slots,
+            b1=args.b1, rho=args.rho, patience=args.patience, seed=args.seed,
+            page_size=args.page_size, num_pages=args.pages, prefix_cache=args.prefix_cache,
+            prefill_chunks=tuple(args.chunk) if args.chunk else (32,),
+            tracer=tracer, metrics=metrics, device=args.device,
+        )
+    else:
+        engine = ContinuousBatchingEngine(
+            model, params, cache_len=args.cache_len, max_slots=args.slots,
+            b1=args.b1, rho=args.rho, patience=args.patience, seed=args.seed,
+            tracer=tracer, metrics=metrics, device=args.device,
+        )
+    prompts = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
     prompts[:, : args.shared_prefix] = prompts[0, : args.shared_prefix]
     ids = [
         engine.submit(p, max_new_tokens=args.new_tokens, temperature=args.temperature, top_k=args.top_k)
         for p in prompts
     ]
-    sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
     results = engine.run()
@@ -140,17 +178,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         row = results[rid]
         log.info("req %d: %s -> %s", rid, row[: args.prompt_len].tolist()[-8:],
                  row[args.prompt_len:].tolist())
-    mem = engine.memory_stats()
     log.info("%d requests in %.3f s | %d decode tokens = %.1f tok/s", len(ids), wall,
              engine.stats["decoded_tokens"], engine.stats["decoded_tokens"] / wall)
-    log.info(
-        "admission ladder %s | peak width %d | %d decode ticks | %d tokens | pages peak %d/%d | "
-        "prefix hit-rate %.0f%% | prefill computed %d (%d reused) | kv peak %d KiB",
-        engine.admission.ladder, engine.stats["peak_width"], engine.stats["ticks"],
-        engine.stats["decoded_tokens"], mem["pages_peak"], mem["pages_capacity"],
-        100 * mem["prefix_hit_rate"], engine.stats["prefill_tokens_computed"],
-        engine.stats["prefix_tokens_reused"], mem["kv_bytes_peak"] // 1024,
-    )
+    if args.engine == "continuous":
+        log.info("admission ladder %s | peak width %d | %d decode ticks | %d tokens | "
+                 "decode widths %s", engine.admission.ladder, engine.stats["peak_width"],
+                 engine.stats["ticks"], engine.stats["decoded_tokens"], sorted(engine.decode_widths))
+    else:
+        mem = engine.memory_stats()
+        log.info(
+            "admission ladder %s | peak width %d | %d decode ticks | %d tokens | pages peak %d/%d | "
+            "prefix hit-rate %.0f%% | prefill computed %d (%d reused) | kv peak %d KiB",
+            engine.admission.ladder, engine.stats["peak_width"], engine.stats["ticks"],
+            engine.stats["decoded_tokens"], mem["pages_peak"], mem["pages_capacity"],
+            100 * mem["prefix_hit_rate"], engine.stats["prefill_tokens_computed"],
+            engine.stats["prefix_tokens_reused"], mem["kv_bytes_peak"] // 1024,
+        )
     if tracer is not None:
         tracer.dump_chrome(args.trace)
     if metrics is not None:

@@ -10,9 +10,14 @@ Runs on the CUDA device by default (and raises when there is none);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--seed``
 seeds the random weights and the data stream.
 
+Fault tolerance, as in the JAX launcher: ``--ckpt-dir`` + ``--ckpt-every N``
+snapshot the full run state every N updates (in the JAX package's format,
+so either launcher resumes the other's directory); ``--resume`` restarts
+from the latest checkpoint and is kill-equivalent; ``--stop-after``
+simulates a preemption.
+
 Not yet ported, each an error naming its slice: ``--mesh``, ``--dp-elastic``
-and its options (multi-worker training), ``--ckpt-*``, ``--resume`` and
-``--stop-after`` (checkpoint and resume), and the adaptive optimizers.
+and its options (multi-worker training).
 """
 from __future__ import annotations
 
@@ -23,18 +28,17 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import SEBS, AdaptiveSEBS, ClassicalStagewise, SEBSTrainer
 from repro_torch.data import DataPipeline, TokenDataset
 from repro_torch.models import LanguageModel
 from repro_torch.obs import MetricsRegistry, Tracer
-from repro_torch.optim import LATER as LATER_OPTIMIZERS, make_optimizer
+from repro_torch.optim import OPTIMIZERS, make_optimizer
 from repro_torch.train.state import init_train_state
 
 log = logging.getLogger("train")
-OPTIMIZERS = ("sgd", "psgd", "momentum", "msgd", "adagrad", "adagrad_da")
 _MULTI_WORKER = "multi-worker training comes with the multi-worker slice"
-_CHECKPOINT = "checkpoint and resume come with the checkpoint slice"
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -61,11 +65,16 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device-budget", type=int, default=None)
     ap.add_argument("--local-interval", type=int, default=4)
     ap.add_argument("--local-growth", type=float, default=1.0)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--ckpt-keep", type=int, default=3)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--stop-after", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (full run state, not just params)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a checkpoint every N optimizer updates (0: only at exit)")
+    ap.add_argument("--ckpt-keep", type=int, default=3,
+                    help="retain only the newest N checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--stop-after", type=int, default=None,
+                    help="exit after N updates WITHOUT a final save (simulated preemption)")
     ap.add_argument("--log-json", default=None,
                     help="dump the train log (losses, stages, GNS trajectory) as JSON")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -80,20 +89,21 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.dp_elastic or (args.sync_mode, args.device_budget, args.local_interval,
                            args.local_growth) != ("exact", None, 4, 1.0):
         ap.error(f"--dp-elastic and its options: {_MULTI_WORKER}")
-    if args.ckpt_dir or args.ckpt_every or args.ckpt_keep != 3 or args.resume:
-        ap.error(f"--ckpt-*/--resume: {_CHECKPOINT}")
-    if args.stop_after is not None:
-        ap.error(f"--stop-after (a simulated preemption for resume): {_CHECKPOINT}")
-    if args.optimizer in LATER_OPTIMIZERS:
-        ap.error(f"--optimizer {args.optimizer} comes with the adaptive-optimizer slice")
     if args.optimizer not in OPTIMIZERS:
         ap.error(f"unknown --optimizer {args.optimizer!r}; available: {sorted(OPTIMIZERS)}")
     for flag, value, low in (("--b1", args.b1, 1), ("--c1", args.c1, 1), ("--stages", args.stages, 1),
-                             ("--seq", args.seq, 1), ("--steps-log", args.steps_log, 1)):
+                             ("--seq", args.seq, 1), ("--ckpt-every", args.ckpt_every, 0),
+                             ("--ckpt-keep", args.ckpt_keep, 1), ("--steps-log", args.steps_log, 1)):
         if value < low:
             ap.error(f"{flag} must be >= {low} (got {value})")
     if args.rho <= 1.0 and args.schedule in ("sebs", "classical") and args.stages > 1:
         ap.error(f"--rho must be > 1.0 for a multi-stage {args.schedule} ladder")
+    if args.ckpt_every and not args.ckpt_dir:
+        ap.error("--ckpt-every has no effect without --ckpt-dir")
+    if args.stop_after is not None and args.stop_after < 1:
+        ap.error(f"--stop-after must be >= 1 (got {args.stop_after})")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
@@ -117,14 +127,23 @@ def main(argv: Optional[Sequence[str]] = None):
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=args.seed)
     trainer = SEBSTrainer(
         model, optimizer, schedule, DataPipeline(ds, device=args.device),
-        microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode,
+        microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode, seed=args.seed,
         tracer=tracer, metrics=metrics,
     )
     state = init_train_state(model, optimizer, seed=args.seed, device=args.device)
-    state, tlog = trainer.run(state, log_every=args.steps_log)
+    checkpointer = CheckpointManager(args.ckpt_dir, keep_last=args.ckpt_keep) if args.ckpt_dir else None
+    try:
+        state, tlog = trainer.run(state, log_every=args.steps_log, checkpointer=checkpointer,
+                                  save_every=args.ckpt_every, resume=args.resume,
+                                  stop_after_updates=args.stop_after)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
     for i in range(len(tlog.steps)):
         log.info("update %4d samples %6d stage %d batch %4d loss %.4f", tlog.steps[i],
                  tlog.samples[i], tlog.stages[i], tlog.batch_sizes[i], tlog.losses[i])
+    if checkpointer is not None:
+        log.info("checkpoints under %s (latest: update %s)", args.ckpt_dir, checkpointer.latest_step())
     if args.log_json:
         with open(args.log_json, "w") as f:
             json.dump(tlog.as_dict(), f)

@@ -6,7 +6,8 @@ JAX package scans the body over weights stacked on a leading ``layers``
 axis; here each body block holds a list of per-layer parameter (and cache)
 trees, and a Python loop walks them.
 
-Two modes: the full-sequence forward of training (no cache) and the paged
+Three modes: the full-sequence forward of training (no cache), the dense
+serving steps (prefill and decode against a per-row cache) and the paged
 serving steps. In training, ``cfg.remat`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
 package's ``jax.checkpoint`` with the ``nothing_saveable`` policy does per
@@ -15,9 +16,10 @@ scanned layer; the other JAX policies come with a later slice.
 Ported so far: attention mixers (``"attn"``, ``"swa"``) with the dense
 SwiGLU FFN, which is every block of the dense decoders, and RWKV6's
 time-mix (``"rwkv6"``) with its channel-mix FFN (``"rwkv_cmix"``). In the
-paged cache, attention KV lives in the shared page pool and RWKV6's O(1)
-recurrent state (wkv state and token shifts) stays per slot at
-``state_batch`` rows.
+dense cache every leaf has one row per batch row (attention KV at
+``cache_len`` positions, RWKV6's O(1) recurrent state: wkv state and token
+shifts). In the paged cache, attention KV lives in the shared page pool
+and RWKV6's state stays per slot at ``state_batch`` rows.
 """
 from __future__ import annotations
 
@@ -70,6 +72,23 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: SegmentSpec, devic
     }
 
 
+def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, cache_len: int, dtype,
+                     device="cuda"):
+    """A dense cache of ``batch`` rows: attention KV of ``cache_len``
+    positions, or RWKV6's recurrent state."""
+    if spec.mixer in ATTENTION_MIXERS:
+        return {"attn": attention.init_cache(cfg, batch, cache_len, dtype, device)}
+    return {"rwkv": rwkv6.init_cache(cfg, batch, dtype, device)}
+
+
+def init_segment_cache(cfg: ModelConfig, seg: SegmentSpec, batch: int, cache_len: int, dtype,
+                       device="cuda"):
+    return {
+        f"b{bi}": [init_block_cache(cfg, spec, batch, cache_len, dtype, device) for _ in range(seg.repeat)]
+        for bi, spec in enumerate(seg.body)
+    }
+
+
 def init_block_cache_paged(cfg: ModelConfig, spec: BlockSpec, num_pages: int, page_size: int,
                            state_batch: int, dtype, device="cuda"):
     """Attention KV lives in the shared page pool (a ``(num_pages,
@@ -94,9 +113,10 @@ def init_segment_cache_paged(cfg: ModelConfig, seg: SegmentSpec, num_pages: int,
 def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None,
                 page_table=None, cache_index=None):
     """Returns (x, new_cache). With ``cache`` None it is the full-sequence
-    (training) forward. A paged attention cache is updated in place and
-    returned; RWKV6's recurrent state comes back as new tensors, which the
-    caller writes into its slot rows (``LanguageModel.paged_state_merge``)."""
+    (training) forward. An attention cache (dense or paged) is updated in
+    place and returned; RWKV6's recurrent state comes back as new tensors
+    (which the paged engine writes into its slot rows,
+    ``LanguageModel.paged_state_merge``)."""
     h = norm.apply(params["norm1"], x, cfg.norm_eps)
     new_cache = cache
     if spec.mixer in ATTENTION_MIXERS:

@@ -2,7 +2,7 @@
 bias (qwen2.5), rotary embeddings, causal / sliding-window masks and
 attention-logit soft-capping.
 
-Three execution modes are ported:
+Five execution modes are ported:
 
 - full sequence (training; ``cache`` None): every query attends to the
   sequence under the causal/window mask, through kernels/flash_attention
@@ -12,18 +12,27 @@ Three execution modes are ported:
   always takes its kernel, and the tests show that the results agree.
   Soft-capping (gemma2) and cross-attention memory (whisper) come with
   their slices;
+- dense prefill (a dense ``cache``, ``s > 1``): the same attention through
+  the flash forward, and the whole K/V written into the zeroed cache;
+- dense decode (a dense ``cache``, ``s == 1``): the new K/V written at a
+  scalar ``cache_index`` (static batch) or a ``(B,)`` one (slot ring), and
+  the query attends over the cache up to its write position (and within
+  the window). The JAX package computes this with XLA's ``_sdpa``, outside
+  any Pallas kernel, so it is plain PyTorch here (products and softmax in
+  f32);
 - chunked prefill (``s > 1`` with a paged cache): the chunk's KV is written
   at its absolute positions and its queries attend through the page table
   to every earlier position plus the chunk itself;
-- paged decode (``s == 1``): one token per slot, each at its own depth.
+- paged decode (``s == 1`` with a paged cache): one token per slot, each at
+  its own depth.
 
-The paged modes go through kernels/paged_decode. The dense-cache decode
-mode comes with the dense-serving slice.
+A ``page_table`` names the cache paged; without one it is dense
+``(B, cache_len, hkv, hd)``, as in the JAX package. The paged modes go
+through kernels/paged_decode.
 
-The cache is updated in place. The JAX package donates the paged cache to
-each step and gets the updated buffer back; here each layer's
-``(num_pages, page_size, hkv, hd)`` pool is written with ``index_put_``,
-so a tick never copies the pool.
+The cache is updated in place. The JAX package donates the cache to each
+step and gets the updated buffer back; here each layer's buffers are
+written with ``copy_`` and ``index_put_``, so a step never copies a cache.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_decode import ops as paged_ops
 from repro_torch.models.layers import rope
+
+NEG_INF = -2.0e38
 
 
 def init(gen: torch.Generator, cfg, device="cuda"):
@@ -54,6 +65,15 @@ def init(gen: torch.Generator, cfg, device="cuda"):
         for name, heads in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             params[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
     return params
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype, device="cuda"):
+    """Dense KV cache: ``(batch, cache_len, hkv, hd)`` per leaf."""
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, dtype, device="cuda"):
@@ -101,6 +121,27 @@ def _project_qkv(params, x):
     return q, k, v
 
 
+def _dense_decode_attention(q, k_cache, v_cache, write_pos, cap, sliding_window):
+    """One query a row (q (B, 1, hq, hd)) over the dense cache
+    (B, T, hkv, hd), key positions ``<= write_pos`` (B, 1) and within the
+    window: the JAX package's ``_sdpa`` with its decode mask, the products
+    and the softmax in f32."""
+    b, _, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    qg = q[:, 0].float().reshape(b, hkv, hq // hkv, hd)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float()) * hd**-0.5
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    valid = k_pos <= write_pos
+    if sliding_window is not None:
+        valid = valid & (k_pos > write_pos - sliding_window)
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", probs, v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
 def apply(
     params,
     x,
@@ -112,32 +153,47 @@ def apply(
     cache_index=None,
     sliding_window: Optional[int] = None,
 ):
-    """Returns (out, cache); a paged ``cache`` is updated in place.
+    """Returns (out, cache); a ``cache`` is updated in place.
 
     full sequence: ``cache`` is None; ``positions`` (B, S) or (1, S).
+    dense prefill: a dense ``cache``, ``x`` (B, S, d), ``cache_index`` None,
+    ``positions`` ``arange(S)``.
     decode: ``x`` is (B, 1, d) and ``cache_index`` a scalar or (B,) int.
-    chunked prefill: ``x`` is (B, C, d), ``cache_index`` None, and
-    ``positions`` (B, C) are contiguous from each row's start.
+    chunked prefill: a paged cache, ``x`` (B, C, d), ``cache_index`` None,
+    and ``positions`` (B, C) contiguous from each row's start.
     """
     b, s, _ = x.shape
     decode = s == 1 and cache_index is not None
     cap = cfg.attn_logit_softcap
-    if cache is None and cap is not None:
+    prefill = cache is None or (page_table is None and not decode)
+    if prefill and cap is not None:
         raise NotImplementedError(
             "full-sequence attention with logit soft-capping comes with the gemma2 slice"
         )
-    if cache is not None and decode != (s == 1):
+    if page_table is not None and decode != (s == 1):
         raise ValueError("against a paged cache, a one-token step takes a cache_index and a "
                          "chunk (s > 1) takes none")
     q, k, v = _project_qkv(params, x)
     q = rope.apply_rope(q, positions, cfg.rope_theta)
 
-    if cache is None:  # full sequence
+    if prefill:  # full sequence, filling a dense cache if there is one
         k = rope.apply_rope(k, torch.arange(s, device=x.device)[None, :], cfg.rope_theta)
+        if cache is not None:
+            for name, val in (("k", k), ("v", v)):
+                cache[name].zero_()
+                cache[name][:, :s].copy_(val)
         out = flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
-        return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), None
+        return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), cache
 
     k = rope.apply_rope(k, positions, cfg.rope_theta)
+    if page_table is None:  # dense decode
+        idx = torch.as_tensor(cache_index, dtype=torch.long, device=x.device)
+        rows = torch.arange(b, device=x.device) if idx.ndim else slice(None)
+        for name, val in (("k", k), ("v", v)):
+            cache[name][rows, idx] = val[:, 0].to(cache[name].dtype)
+        write_pos = idx.expand(b)[:, None]
+        out = _dense_decode_attention(q, cache["k"], cache["v"], write_pos, cap, sliding_window)
+        return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), cache
     if not decode:  # chunked prefill
         write_pos = positions.expand(b, s)
         _paged_write(cache["k"], k, page_table, write_pos)

@@ -1,11 +1,17 @@
 """The language model: embeddings → segments → logits, for training (the
-full-sequence ``forward``) and for serving over a paged KV cache.
+full-sequence ``forward``) and for serving over a dense or a paged cache.
 
 Parameters are a plain tree of tensors with the JAX package's names and
 layouts (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, ...), except that each
 segment's scanned ``layers`` axis is unstacked into a list of per-layer
 trees. Weights stay at ``param_dtype`` and are cast to ``compute_dtype``
 where they are used, as in the JAX package.
+
+The dense cache mirrors the JAX tree with the layers as lists: per
+attention layer ``{"attn": {"k", "v"}}`` of ``(B, cache_len, hkv, hd)``,
+per RWKV6 layer ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` at B rows, so
+axis 0 of every leaf is the batch row (the slot); ``cache_insert`` and
+``cache_extract`` move rows between caches.
 
 The paged cache mirrors the JAX tree the same way. Per attention layer, a
 ``{"attn": {"k", "v"}}`` pair of ``(num_pages, page_size, hkv, hd)`` pools,
@@ -74,6 +80,30 @@ class LanguageModel:
         x = norm.apply(params["final_norm"], x, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return embedding.logits(params["embed"], x, cfg), aux
+
+    # -- dense cache ----------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16, device="cuda"):
+        return {
+            f"seg{i}": blocks.init_segment_cache(self.cfg, seg, batch, cache_len, dtype, device)
+            for i, seg in enumerate(self.cfg.segments)
+        }
+
+    def cache_insert(self, cache, slot_cache, slot: int):
+        """Write the rows of ``slot_cache`` (e.g. a batch-1 prefill, or a
+        whole narrower ring) into ``cache`` from row ``slot`` on, in place.
+        Returns ``cache``."""
+        def put(full, part):
+            full[slot:slot + part.shape[0]].copy_(part)
+            return full
+
+        return self._map_paged(put, put, cache, slot_cache)
+
+    def cache_extract(self, cache, slot: int):
+        """A batch-1 copy of row ``slot`` (the inverse of :meth:`cache_insert`)."""
+        def row(full):
+            return full[slot:slot + 1].clone()
+
+        return self._map_paged(row, row, cache)
 
     # -- paged KV cache -------------------------------------------------------
     # One merged tree: attention leaves live in the shared page pool (a page
@@ -179,12 +209,28 @@ class LanguageModel:
             )
         return x, new_cache
 
-    def decode_step(self, params, token, cache, cache_index, page_table):
-        """One-token decode. token: (B, 1) int; cache_index: scalar or (B,)
-        int, each slot's depth; page_table: (B, max_pages); ``cache`` holds B
-        state rows (``paged_state_slice``). Returns (logits (B, 1, V) f32,
-        new cache: the KV updated in place, new state rows for
-        ``paged_state_merge``)."""
+    def prefill(self, params, batch, cache):
+        """Full-sequence forward over ``batch["tokens"]`` (B, S), filling the
+        dense ``cache`` (B rows, zeroed first) in place. Returns (logits
+        (B, 1, V) f32 of the last position, cache: the KV updated in place,
+        new recurrent state)."""
+        cfg = self.cfg
+        check_batch(batch)
+        tokens = batch["tokens"]
+        x = embedding.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None)
+        x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        return embedding.logits(params["embed"], x, cfg), new_cache
+
+    def decode_step(self, params, token, cache, cache_index, page_table=None):
+        """One-token decode. token: (B, 1) int; cache_index: scalar int (all
+        rows at one depth) or (B,) int (each slot at its own). Without a
+        ``page_table`` the cache is dense (:meth:`init_cache`, B rows); with
+        one (B, max_pages) it is paged and holds B state rows
+        (``paged_state_slice``). Returns (logits (B, 1, V) f32, new cache:
+        the KV updated in place, new recurrent state rows, which the paged
+        engine writes back with ``paged_state_merge``)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], token, cfg)
         idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)

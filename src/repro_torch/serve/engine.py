@@ -1,11 +1,23 @@
-"""The paged continuous-batching engine.
+"""Serving engines.
 
-Requests enter a FIFO queue (:mod:`repro_torch.serve.scheduler`), are
-admitted into free slots of a fixed ring with an admission plan over the
-page pool (:mod:`repro_torch.serve.pages`), prefilled in fixed-size chunks
-interleaved with decode ticks, and decoded one token per tick at each
-slot's own depth. The active slot budget ramps stagewise (b₁ρˢ) under
-sustained load, the serving mirror of SEBS's stagewise batch enlargement.
+- :class:`ServeEngine`: the static-batch baseline: one fixed batch of
+  same-length prompts, prefilled together and decoded greedily in lockstep
+  over a dense cache.
+- :class:`ContinuousBatchingEngine`: requests enter a FIFO queue, are
+  prefilled one at a time and inserted into a freed row of the live dense
+  cache mid-decode-loop (``LanguageModel.cache_insert``), and a fixed-shape
+  decode tick advances every slot at its own depth with per-slot sampling
+  parameters; the ring widths it has decoded at, one a stage of the ramp,
+  in ``decode_widths``.
+- :class:`PagedContinuousBatchingEngine`, over a paged cache, below.
+
+The paged engine admits requests from the FIFO queue
+(:mod:`repro_torch.serve.scheduler`) into free slots of a fixed ring with
+an admission plan over the page pool (:mod:`repro_torch.serve.pages`),
+prefills them in fixed-size chunks interleaved with decode ticks, and
+decodes one token per tick at each slot's own depth. In both continuous
+engines the active slot budget ramps stagewise (b₁ρˢ) under sustained
+load, the serving mirror of SEBS's stagewise batch enlargement.
 """
 from __future__ import annotations
 
@@ -26,13 +38,247 @@ from repro_torch.serve.pages import (
     release_pages,
 )
 from repro_torch.serve.scheduler import DONE, AdmissionController, RequestScheduler
-from repro_torch.serve.slots import PagedSlotManager
+from repro_torch.serve.slots import PagedSlotManager, SlotManager
 from repro_torch.serve.step import (
     build_chunk_prefill_step,
     build_paged_decode_step,
+    build_slot_decode_step,
     gumbel_noise,
     sample_tokens,
 )
+
+
+def _engine_device(device, params) -> torch.device:
+    """The engine's device, once CUDA is known to be there (when asked for)
+    and ``params`` are known to lie on it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the engine runs on cuda by default, and CUDA is not available; "
+                           "pass device='cpu' to run the plain versions on the CPU")
+    table = params["embed"]["table"]
+    if table.device.type != device.type:
+        raise ValueError(f"params are on {table.device}, the engine on {device}")
+    return device
+
+
+def _put(array: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+
+class ServeEngine:
+    """Static batch: ``generate(prompts)`` prefills the (B, P) prompts
+    together and decodes greedily in lockstep over a dense cache of
+    ``cache_len`` positions, on ``device``, where ``params`` lie."""
+
+    def __init__(self, model: LanguageModel, params, cache_len: int = 256, device="cuda"):
+        self.device = _engine_device(device, params)
+        self.model = model
+        self.params = params
+        self.cache_len = cache_len
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new_tokens: int = 16) -> np.ndarray:
+        """prompts: (B, P) int. Greedy decode. Returns (B, P+new) int32."""
+        b, p = prompts.shape
+        if p + max_new_tokens > self.cache_len:
+            raise ValueError(f"prompt {p} + {max_new_tokens} new tokens exceed cache_len {self.cache_len}")
+        vocab = self.model.cfg.vocab_size
+        tokens = _put(np.asarray(prompts, np.int32), self.device)
+        cache = self.model.init_cache(b, self.cache_len, device=self.device)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        out = [tokens]
+        token = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32)
+        for i in range(max_new_tokens):
+            out.append(token)
+            if i == max_new_tokens - 1:
+                break
+            logits, cache = self.model.decode_step(self.params, token, cache, p + i)
+            token = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+
+class ContinuousBatchingEngine:
+    """Continuous batching over a dense cache, with a stagewise admission
+    ramp.
+
+    Usage: ``submit()`` any number of requests (mixed prompt lengths,
+    per-request ``max_new_tokens`` / ``temperature`` / ``top_k``), then
+    ``run()`` to completion. ``run`` returns ``{request_id: (P+new,) tokens}``.
+
+    ``b1``/``rho``/``max_slots``/``patience`` parameterize the admission
+    ramp; the default ``b1=None`` starts at ``max_slots`` (no ramp). With
+    ``b1 < max_slots`` the slot ring starts narrow and is enlarged
+    geometrically only under sustained queue pressure (the dense cache
+    grows with it); ``decode_widths`` holds the widths the decode tick has
+    run at, one a stage (the JAX engine compiles a decode variant for each).
+
+    The engine runs on ``device`` and takes ``params`` there. Prefill goes
+    through the flash forward and sampling through the fused sampler (the
+    kernels on a CUDA device); sampling noise comes from one
+    ``torch.Generator`` seeded with ``seed``.
+    """
+
+    def __init__(
+        self,
+        model: LanguageModel,
+        params,
+        cache_len: int = 256,
+        max_slots: int = 8,
+        b1: Optional[int] = None,
+        rho: float = 2.0,
+        patience: int = 2,
+        admission: Optional[AdmissionController] = None,
+        seed: int = 0,
+        tracer: Optional[Tracer] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        device="cuda",
+    ):
+        self.device = _engine_device(device, params)
+        self.model = model
+        self.params = params
+        self.cache_len = cache_len
+        self.admission = admission or AdmissionController(
+            b1=b1 if b1 is not None else max_slots, rho=rho, max_slots=max_slots, patience=patience,
+        )
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else NULL_METRICS
+        self._clock = self.tracer.clock
+        self.scheduler = RequestScheduler(clock=self._clock, tracer=self.tracer)
+        self._decode = build_slot_decode_step(model)
+        self.decode_widths: set = set()  # ring widths the decode tick has run at
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.stats: Dict[str, Any] = self._fresh_stats()
+
+    @staticmethod
+    def _fresh_stats() -> Dict[str, Any]:
+        return {
+            "ticks": 0,
+            "decoded_tokens": 0,
+            "peak_width": 0,
+            # bounded: a long-lived engine ticks indefinitely
+            "stage_history": deque(maxlen=4096),
+            # wall time of each decode tick, dispatch to tokens on the host
+            "decode_tick_s": deque(maxlen=4096),
+        }
+
+    def reset_stats(self) -> None:
+        """Zero every counter for a fresh measurement window, in place. The
+        decode variants and the admission ramp are untouched."""
+        self.stats.clear()
+        self.stats.update(self._fresh_stats())
+
+    # -- request intake ------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int = 16, temperature: float = 0.0,
+               top_k: int = 0, tag: str = "") -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size + max_new_tokens > self.cache_len:
+            raise ValueError(f"prompt {prompt.size} + {max_new_tokens} new tokens "
+                             f"exceed cache_len {self.cache_len}")
+        return self.scheduler.submit(
+            prompt, max_new_tokens, temperature=temperature, top_k=top_k, tag=tag
+        )
+
+    # -- device-state plumbing ----------------------------------------------
+    def _grow_cache(self, cache, new_width: int):
+        # the old ring is one wide "slot" written at row 0 of the wider cache
+        grown = self.model.init_cache(new_width, self.cache_len, device=self.device)
+        return self.model.cache_insert(grown, cache, 0)
+
+    def _prefill_request(self, req):
+        """Batch-1 prefill of one admitted request. Returns the sampled first
+        token and the request's batch-1 cache, ready for ``cache_insert``."""
+        cache = self.model.init_cache(1, self.cache_len, device=self.device)
+        logits, cache = self.model.prefill(self.params, {"tokens": _put(req.prompt[None, :], self.device)},
+                                          cache)
+        logits = logits[:, -1, : self.model.cfg.vocab_size].float().contiguous()
+        first = sample_tokens(
+            logits,
+            gumbel_noise(logits.shape, self._generator),
+            torch.tensor([req.temperature], dtype=torch.float32, device=self.device),
+            torch.tensor([req.top_k], dtype=torch.int32, device=self.device),
+        )
+        return int(first[0]), cache
+
+    # -- the serve loop ------------------------------------------------------
+    @torch.inference_mode()
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drive admission + decode until every submitted request is done.
+        Returns results for the requests completed during THIS call."""
+        completed: Dict[int, np.ndarray] = {}
+        width = self.admission.budget()
+        slots = SlotManager(width)
+        cache = self.model.init_cache(width, self.cache_len, device=self.device)
+
+        while self.scheduler.has_work():
+            # 1. stagewise ramp: enlarge the ring under sustained pressure
+            budget = self.admission.observe(self.scheduler.demand)
+            if budget > width:
+                cache = self._grow_cache(cache, budget)
+                slots.grow(budget)
+                width = budget
+            self.stats["peak_width"] = max(self.stats["peak_width"], width)
+
+            # 2. admit queued requests into freed slots (mid-decode-loop
+            #    cache insertion)
+            for i in slots.free_indices():
+                req = self.scheduler.pop_waiting()
+                if req is None:
+                    break
+                first, slot_cache = self._prefill_request(req)
+                cache = self.model.cache_insert(cache, slot_cache, i)
+                slots.admit(i, req, first)
+                # dense prefill is synchronous: handoff and first token land
+                # together at admission
+                self.scheduler.prefill_done(req)
+                self.scheduler.first_token(req)
+                if len(req.generated) >= req.max_new_tokens:
+                    self.scheduler.finish(req)
+                    completed[req.id] = req.tokens()
+                    slots.release(i)
+            if not slots.num_active():
+                continue
+
+            # 3. one fixed-shape decode tick over the whole ring
+            t_tick = self._clock()
+            self.decode_widths.add(width)
+            nxt, cache, _ = self._decode(
+                self.params,
+                _put(slots.tokens[:, None], self.device),
+                cache,
+                _put(slots.positions(), self.device),
+                _put(slots.active_mask(), self.device),
+                _put(slots.temperatures(), self.device),
+                _put(slots.top_ks(), self.device),
+                self._generator,
+            )
+            n_active = slots.num_active()
+            self.stats["ticks"] += 1
+            self.stats["decoded_tokens"] += n_active
+            self.stats["stage_history"].append(self.admission.stage)
+            nxt = nxt.cpu().numpy()  # block: the tick's tokens reach the host
+            t_now = self._clock()
+            self.stats["decode_tick_s"].append(t_now - t_tick)
+            self.tracer.complete("serve.decode_tick", t_tick, t_now, width=width, decoded=n_active)
+            if self.tracer.enabled:
+                self.tracer.counter(
+                    "serve.queue", waiting=self.scheduler.num_waiting, running=self.scheduler.num_running,
+                )
+                self.tracer.counter("serve.admission", stage=self.admission.stage, budget=width)
+            self.metrics.histogram("serve.decode_tick_s").observe(t_now - t_tick)
+            self.metrics.counter("serve.decoded_tokens").inc(n_active)
+            self.metrics.counter("serve.ticks").inc()
+
+            # 4. bookkeeping: collect finished requests, free their slots
+            for i in slots.advance(nxt):
+                req = slots.slots[i].request
+                self.scheduler.finish(req)
+                completed[req.id] = req.tokens()
+                slots.release(i)
+        return completed
+
+    def latencies(self) -> Dict[int, float]:
+        """Per-request wall-clock latency (submit → finish) for DONE requests."""
+        return {rid: req.latency for rid, req in self.scheduler.requests.items() if req.state == DONE}
 
 
 class PagedContinuousBatchingEngine:
@@ -76,13 +322,7 @@ class PagedContinuousBatchingEngine:
         metrics: Optional[MetricsRegistry] = None,
         device="cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("the engine runs on cuda by default, and CUDA is not available; "
-                               "pass device='cpu' to run the plain versions on the CPU")
-        table = params["embed"]["table"]
-        if table.device.type != self.device.type:
-            raise ValueError(f"params are on {table.device}, the engine on {self.device}")
+        self.device = _engine_device(device, params)
         self.model = model
         self.params = params
         self.cache_len = cache_len
@@ -165,7 +405,7 @@ class PagedContinuousBatchingEngine:
         return self._decodes[width]
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+        return _put(array, self.device)
 
     # -- admission -----------------------------------------------------------
     def _admit(self, slots: PagedSlotManager, i: int, req):

@@ -1,9 +1,14 @@
-"""Serving steps over the paged cache.
+"""Serving steps: the decode tick of the dense slot ring (continuous
+batching), and the paged decode tick and chunk prefill. The dense prefill
+and the static batch's decode are ``LanguageModel.prefill`` and
+``LanguageModel.decode_step`` themselves.
 
 The JAX package jits each step and donates the cache to it; here a step is
 a plain function that updates the cache in place and returns it. On a CUDA
-device every attention layer and the sampler go through the
-kernels/paged_decode kernels; on the CPU through their plain versions.
+device the paged steps' attention goes through the kernels/paged_decode
+kernels and the sampler through the fused sampler kernel; on the CPU
+through their plain versions. The dense decode's attention is plain
+PyTorch, as it is XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,6 +33,31 @@ def sample_tokens(logits, noise, temperature, top_k):
     decode step. The fused sampler kernel on a CUDA device, its plain
     version on the CPU."""
     return paged_ops.fused_sample(logits, noise, temperature, top_k)
+
+
+def build_slot_decode_step(model: LanguageModel):
+    """Fixed-shape decode tick over the dense slot ring (continuous
+    batching): every slot advances one token at its own cache depth; freed
+    slots ride along masked out (their sampled token is discarded and their
+    depth does not advance), so the step's shapes depend only on the ring
+    width.
+
+    Inputs per call: tokens (B, 1) int, cache, cache_pos (B,) int, active
+    (B,) bool, temperature (B,) f32, top_k (B,) int, and the
+    ``torch.Generator`` the sampling noise is drawn from.
+    Returns (next_token (B,), cache, new_pos (B,)).
+    """
+    vocab = model.cfg.vocab_size
+
+    def step(params, tokens, cache, cache_pos, active, temperature, top_k, generator):
+        logits, cache = model.decode_step(params, tokens, cache, cache_pos)
+        logits = logits[:, -1, :vocab].float().contiguous()
+        nxt = sample_tokens(logits, gumbel_noise(logits.shape, generator), temperature, top_k)
+        nxt = torch.where(active, nxt, tokens[:, 0])
+        new_pos = torch.where(active, cache_pos + 1, cache_pos)
+        return nxt, cache, new_pos
+
+    return step
 
 
 def build_paged_decode_step(model: LanguageModel, width: int):

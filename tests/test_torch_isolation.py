@@ -48,6 +48,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge\n"
         "import repro_torch.serve, repro_torch.core, repro_torch.train, repro_torch.optim\n"
+        "import repro_torch.checkpoint\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -83,8 +84,11 @@ def test_train_launcher_runs_on_cpu(tmp_path):
     assert all(np.isfinite(log.losses)) and (tmp_path / "log.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--dp-elastic"], ["--ckpt-dir", "x"],
-                                   ["--resume"], ["--stop-after", "2"], ["--optimizer", "adamw"]])
+# checkpoint/resume and the adaptive optimizers have come; what is left
+# waiting is multi-worker training (--mesh, --dp-elastic and its options)
+@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--dp-elastic"], ["--mesh", "multi"],
+                                   ["--sync-mode", "local"], ["--device-budget", "2"],
+                                   ["--local-interval", "2"]])
 def test_train_launcher_names_the_later_slice(flags, capsys):
     from repro_torch.launch import train as launcher
 

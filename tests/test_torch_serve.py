@@ -109,6 +109,36 @@ def test_launcher_serves_on_cpu():
 
 @pytest.mark.parametrize("engine", ["static", "continuous", "disagg"])
 def test_launcher_names_the_later_slice(engine, capsys):
+    """disagg waits for its slice; the static and continuous engines serve
+    the ported families and name the slice of a family that is not."""
+    argv = ["--engine", engine, "--device", "cpu"]
+    if engine != "disagg":
+        argv += ["--arch", "zamba2-2.7b"]
     with pytest.raises(SystemExit):
-        launcher.main(["--engine", engine, "--device", "cpu"])
+        launcher.main(argv)
     assert "comes with" in capsys.readouterr().err
+
+
+def test_engine_under_pool_pressure_matches_jax(weights):
+    """A pool of five usable pages for two slots: requests that find no
+    pages are requeued until a release; mixed budgets include a request that
+    ends at its first token and a one-token prompt."""
+    jmodel, jparams, tmodel, tparams = weights
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, 512, n).astype(np.int32), new) for n, new in ((1, 3), (6, 1), (8, 4), (5, 2))]
+    kw = dict(cache_len=32, max_slots=2, page_size=4, num_pages=6, prefill_chunks=(4,), seed=0)
+    engines = (JaxEngine(jmodel, jparams, kernel="xla", **kw),
+               PagedContinuousBatchingEngine(tmodel, tparams, device="cpu", **kw))
+    streams = []
+    for engine in engines:
+        ids = [engine.submit(p, max_new_tokens=new) for p, new in reqs]
+        out = engine.run()
+        engine.pool.check()
+        streams.append([out[i] for i in ids])
+    for i, (a, b) in enumerate(zip(*streams)):
+        np.testing.assert_array_equal(b, a, err_msg=f"request {i}")
+        assert len(b) == len(reqs[i][0]) + reqs[i][1]
+    for key in STATS:
+        assert engines[1].stats[key] == engines[0].stats[key], key
+    assert engines[1].memory_stats() == engines[0].memory_stats()
+    assert engines[1].memory_stats()["pages_peak"] == 5  # the pool ran full

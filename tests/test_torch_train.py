@@ -177,10 +177,36 @@ def test_sebs_run_matches_jax(np_params):
     assert tlog.losses[-1] < tlog.losses[0]
 
 
+@pytest.mark.parametrize("name,hp,eta,mode,accum_mode", [
+    ("psgd", {"gamma": 1e4}, 0.3, "reshape", "psum_each"),
+    ("momentum", {"beta": 0.9}, 0.3, "accumulate", "deferred"),
+    # plain AdaGrad at 0.01: at 0.3 both packages diverge (6.7 to 37 by the
+    # third update) and part
+    ("adagrad", {}, 0.01, "accumulate", "psum_each"),
+])
+def test_trainer_modes_and_optimizers_match_jax(np_params, name, hp, eta, mode, accum_mode):
+    """Batch growth by one larger batch (reshape), the deferred accumulation
+    mode and plain AdaGrad: b1 4, C1 8, rho 2, two stages, seq 16."""
+    jmodel, jparams, tmodel, tparams = _models(np_params)
+    sched = dict(b1=4, C1=8, rho=2.0, num_stages=2, eta=eta)
+    jopt, topt = jax_make_optimizer(name, **hp), make_optimizer(name, **hp)
+    jtrainer = JTrainer(jmodel, jopt, JSEBS(**sched), JPipeline(JTokenDataset(512, 16, 0)),
+                        microbatch=4, mode=mode, accum_mode=accum_mode)
+    _, jlog = jtrainer.run(JTrainState(jparams, jopt.init(jparams), jnp.zeros((), jnp.int32)),
+                           log_every=1)
+    ttrainer = SEBSTrainer(tmodel, topt, SEBS(**sched), DataPipeline(TokenDataset(512, 16, 0), "cpu"),
+                           microbatch=4, mode=mode, accum_mode=accum_mode)
+    _, tlog = ttrainer.run(TrainState(tparams, topt.init(tparams), 0), log_every=1)
+    assert tlog.batch_sizes == jlog.batch_sizes == [4, 4, 8, 8] and tlog.stages == jlog.stages
+    np.testing.assert_allclose(tlog.losses, jlog.losses, rtol=TOL)
+
+
 def test_trainer_refuses_a_checkpointer(np_params):
+    """Checkpointing is ported (tests/test_torch_checkpoint.py); what the
+    trainer refuses is a checkpointer that is not a CheckpointManager."""
     _, _, tmodel, tparams = _models(np_params)
     opt = make_optimizer("sgd")
     trainer = SEBSTrainer(tmodel, opt, SEBS(b1=2, C1=2, rho=2.0, num_stages=1, eta=0.1),
                           DataPipeline(TokenDataset(512, 8, 0), "cpu"))
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
+    with pytest.raises(TypeError, match="CheckpointManager"):
         trainer.run(TrainState(tparams, opt.init(tparams), 0), checkpointer=object())
