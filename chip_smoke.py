@@ -12,7 +12,8 @@
    ones, and the HMMA/HGMMA count of each GLA kernel, which must be above 0
    for the bf16 ones that hold products (GLA_TC_KERNELS), and of each
    paged-attention kernel, which must be above 0 for the bf16 ones
-   (namespace tc, PAGED_TC_KERNELS).
+   (namespace tc, PAGED_TC_KERNELS); the D 80 instantiations (zamba2's
+   shared attention) of the flash and paged kernels must be there.
 3. Holds each kernel's wrapper against its plain PyTorch version on the
    card, at the main paths' full-width shapes, and times both (L2-cold: the
    inputs rotate over copies that exceed the 50 MB L2 cache, or are larger
@@ -38,7 +39,14 @@
    shape (8 slots of 544 tokens sharing a 256-token prefix), which must
    also agree and give the same bits twice, chunk prefill and the sampler,
    whose tokens must equal the plain version's at 8 rows and at one row
-   of qwen2.5-3b's vocabulary and at 8 rows of rwkv6-1.6b's.
+   of qwen2.5-3b's vocabulary and at 8 rows of rwkv6-1.6b's. At zamba2's
+   shapes: the flash forward and backward at D 80 (B 4, S 513, 32/32
+   heads), the paged decode at D 80 and G 1 (8 slots of 544, the same bits
+   twice) and the chunk prefill at D 80, with the faults above; the GLA
+   forward and backward with the current token included at Mamba2's
+   training shape (B 4, S 513, 80 heads) and zamba2's decays, the planted
+   fault being the current token's term left out, and at a decay 8 times
+   steeper, finite and within GLA_TOL.
 4. Drives the serving path: the paged continuous-batching engine serving
    qwen2.5-3b at full width with random weights from a seeded generator,
    with every launch counter zeroed just before and read just after.
@@ -94,6 +102,24 @@
     qwen2.5-3b smoke in float32 the card's losses within 1e-4 relative of
     the CPU path's.
 
+15. Serves zamba2-2.7b at full width through the paged engine on phase 4's
+    traffic (no prefix reused: sharing is off for a hybrid model), counters
+    zeroed just before and read just after (GLA forward 54 a chunk, chunk
+    prefill 9 a chunk, decode 9 a tick: the shared attention at D 80),
+    traced on the device; the static engine on the same prompts (one
+    batched prefill: the flash forward at D 80 9 times, GLA 54); on zamba2
+    smoke with ssm_state 64 in float32 the greedy tokens of the paged and
+    both dense engines on the card equal the CPU path's.
+16. Trains zamba2-2.7b at full width with SEBS and pSGD (eta 0.3) on phase
+    7's schedule: GLA forward 2 x 54 and backward 54 a microbatch, flash
+    forward 2 x 9 and backward 9; traces a stage-2 update; on zamba2 smoke
+    (ssm_state 64) the card agrees with the CPU path as in phase 8.
+17. Trains gemma2-9b at full width cut to 8 of its 42 layers with SEBS and
+    pSGD: the soft-capped attention takes the plain _sdpa route (as in the
+    JAX package; no flash launch); on gemma2 smoke the card agrees with the
+    CPU path as in phase 8, and the paged and dense engines' greedy tokens
+    on the card equal the CPU's.
+
 Any failed phase exits non-zero. The last lines of standard output are the
 kernels' JSON record, the card's name and power limit as nvidia-smi gives
 them, and ``{"ok": true, "device": {...}}``. A copy of the record goes to
@@ -102,6 +128,7 @@ them, and ``{"ok": true, "device": {...}}``. A copy of the record goes to
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -229,8 +256,12 @@ def gla_tensor_op_counts() -> dict:
 
 # the bf16 paged-attention kernels, all of which hold products (decode's
 # combine pass only merges partials)
-PAGED_TC_KERNELS = tuple(f"tc::attend_kernel<{d}, {kind}>" for d in (64, 128, 256)
+PAGED_TC_KERNELS = tuple(f"tc::attend_kernel<{d}, {kind}>" for d in (64, 80, 128, 256)
                          for kind in ("decode", "prefill"))
+# the bf16 flash kernels that hold products, at every head_dim they take (80:
+# zamba2's shared attention)
+FLASH_TC_KERNELS = tuple(f"{kind}_tc_kernel<{d}>" for d in (64, 80, 128)
+                         for kind in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
 
 
 def paged_tensor_op_counts() -> dict:
@@ -379,16 +410,16 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def small_input_agreement(arch: str) -> None:
+def small_input_agreement(arch: str, smoke=None) -> None:
     """Greedy tokens of the engine on the card (kernels) equal the CPU
-    path's (plain versions) on ``arch`` smoke in float32."""
+    path's (plain versions) on ``arch`` smoke (or ``smoke``) in float32."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import LanguageModel
     from repro_torch.serve import PagedContinuousBatchingEngine
 
-    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    cfg = (smoke or get_config(arch, "smoke")).replace(compute_dtype="float32")
     model = LanguageModel(cfg)
     cpu_params = model.init(seed=0, device="cpu")
     rng = np.random.default_rng(0)
@@ -408,12 +439,13 @@ def small_input_agreement(arch: str) -> None:
         fail(f"{arch} small-input greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
 
 
-def device_profile(run) -> dict:
+def device_profile(run, prepare=None) -> dict:
     """``run()`` under torch.profiler, tracing the device only
-    (cardbench.device_trace), with the GLA, the paged decode and prefill
+    (cardbench.device_trace, which calls ``prepare()`` before each
+    attempt), with the GLA, the paged decode and prefill
     kernels' and the sampler's ms, the sampler's launches, and the 15
     largest kernels."""
-    trace = device_trace(run, OUT_DIR)
+    trace = device_trace(run, OUT_DIR, prepare)
     by_kernel = trace["by_kernel"]
     sampler = [(ms, n) for name, (ms, n) in by_kernel.items() if SAMPLER_KERNEL_NAME in name]
     return {
@@ -461,11 +493,16 @@ LIBRARY_NONE = "no single PyTorch call computes this update"
 # momentum, whose beta = 0.9 multiplies its steps up to tenfold. For
 # rwkv6-1.6b (all 24 layers) the same scan gave 11.5833 -> 11.3441 / 11.2839
 # / 17.4028 / NaN at 0.3 / 1 / 3 / 10 (on an H100 80GB HBM3 at 700 W).
+# zamba2-2.7b (all 54 layers): 10.8185 -> 10.7078 at 0.3, NaN by the eighth
+# update at 1 and the fifth at 3. gemma2-9b at 8 layers: from 22.0247 (its
+# embedding scaled by sqrt(d_model) into the final soft-cap of 30) 22.0003 /
+# 21.9404 / 21.6336 after 12 updates at 0.01 / 0.03 / 0.1, and 33.98 /
+# 32.22 / 33.47 at 0.3 / 1 / 3 (on an H100 80GB HBM3 at 700 W).
 # The adaptive optimizers (phase 14) at rates usual for each: AdamW 1e-3
 # (its first steps move every weight by about eta), LAMB 1e-2 and LARS 1
 # (each leaf moves by eta times its own norm, scaled by 0.01 for LARS).
 ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0,
-        "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
+        "zamba2_psgd": 0.3, "gemma2_psgd": 0.1, "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
 
 
 def excess_bwd(out, expect, rtol: float = BWD_RTOL, scale_tol: float = BWD_SCALE_TOL) -> float:
@@ -521,7 +558,7 @@ def gla_products(s: int, backward: bool) -> int:
     return total
 
 
-def dlog_w_without_chunk_totals(q, k, v, lw, u, dy, d_lw):
+def dlog_w_without_chunk_totals(q, k, v, lw, u, dy, d_lw, include_current: bool = False):
     """The planted backward fault: the plain dlog_w with each chunk's total
     decay term left out, i.e. minus rowsum(dS_{n+1} * S_{n+1}) on every row of
     chunk n, with S_{n+1} the state after the chunk and dS_{n+1} its gradient
@@ -537,7 +574,7 @@ def dlog_w_without_chunk_totals(q, k, v, lw, u, dy, d_lw):
         for t0 in range(0, s, 64):
             rows = slice(t0, t0 + 64)
             y, state = ref.gla_fwd_ref(q[:, rows], k[:, rows], v[:, rows], lw[:, rows], bonus_u=u,
-                                       include_current=False, initial_state=state)
+                                       include_current=include_current, initial_state=state)
             ys.append(y)
             ends.append(state)
         d_ends = torch.autograd.grad(torch.cat(ys, dim=1), ends, dy, allow_unused=True)
@@ -664,71 +701,57 @@ def leaf_shapes(cfg) -> list:
     return shapes
 
 
-def flash_checks(records: dict) -> None:
-    """The flash kernels through their ops wrappers at the training path's
-    shapes: qwen2.5-3b, microbatch 4 of 512 + 1 tokens (B 4, S 513, 16 query
-    and 2 KV heads, head_dim 128), bf16, causal; and the forward at the
-    dense serving path's prefills (phase 12): B 1 (the continuous engine)
-    and B 8 (the static one) of 512 tokens, with no tail tile."""
+def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, suffix: str = "") -> None:
+    """The flash kernels through their ops wrappers at one shape (bf16,
+    causal): the forward against its plain version with a planted fault
+    (each query's last visible key dropped), the backward with one (Di left
+    out), the same bits twice; L2-cold and device times, the plain
+    versions', the bound and SDPA's under a named backend and the default
+    dispatch. Into ``records["flash_attention_fwd" + suffix]`` and the
+    backward's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    b, s, hq, hkv, d = 4, 513, 16, 2, 128
-
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-    q, k, v, d_out = rand(b, s, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d), rand(b, s, hq, d)
+    name_fwd, name_bwd = "flash_attention_fwd" + suffix, "flash_attention_bwd" + suffix
+    q, k, v = flash_inputs(gen, b, s, hq, hkv, d)
+    d_out = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
     out, lse = ops.forward(q, k, v)
     expect, _ = ref.attention_fwd_ref(q, k, v)
     # planted fault: query i sees keys up to i - 1 (its last visible key dropped)
     dropped = ref.attention_ref(q, k[:, :-1], v[:, :-1])
-    fwd = [check_close("flash_attention_fwd", out, expect, dropped)]
-    fwd.append(check_close("flash_attention_fwd (window 100)",
-                           ops.forward(q, k, v, sliding_window=100)[0],
-                           ref.attention_ref(q, k, v, sliding_window=100)))
-    serving = {}
-    for sb in (1, 8):
-        sq, sk, sv = rand(sb, 512, hq, d), rand(sb, 512, hkv, d), rand(sb, 512, hkv, d)
-        reading = check_close(f"flash_attention_fwd (serving prefill, B {sb} S 512)", ops.forward(sq, sk, sv)[0],
-                              ref.attention_fwd_ref(sq, sk, sv)[0], ref.attention_ref(sq, sk[:, :-1], sv[:, :-1]))
-        fwd.append(reading)
-        serving[f"b{sb}_s512"] = reading
+    fwd = check_close(name_fwd, out, expect, dropped)
     grads = ops.backward(q, k, v, out, lse, d_out)
     expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out)
     fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out)  # Di left out
     again = ops.backward(q, k, v, out, lse, d_out)
     if not all(torch.equal(x, y) for x, y in zip(grads, again)):
-        fail("flash_attention_bwd: two runs on the same inputs differ")
+        fail(f"{name_bwd}: two runs on the same inputs differ")
     bwd = {"max_abs_err": 0.0, "excess": 0.0, "fault_excess": float("inf")}
     for name, g, e, f in zip(("dq", "dk", "dv"), grads, expect_grads, fault_grads):
         x = excess_bwd(g, e)
         if not torch.isfinite(g).all() or x > 1:
-            fail(f"flash_attention_bwd {name}: kernel disagrees with its plain version "
-                 f"({x:.2f} x the allowance)")
+            fail(f"{name_bwd} {name}: kernel disagrees with its plain version ({x:.2f} x the allowance)")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], (g.float() - e.float()).abs().max().item())
         bwd["excess"] = max(bwd["excess"], x)
         if name != "dv":  # dV does not read Di
             bwd["fault_excess"] = min(bwd["fault_excess"], excess_bwd(f, e))
     if bwd["fault_excess"] <= 1:
-        fail("flash_attention_bwd: the tolerance cannot tell a missing Di term from the right answer")
+        fail(f"{name_bwd}: the tolerance cannot tell a missing Di term from the right answer")
 
     n_sets = copies_for(nbytes(q, k, v, d_out, out))
     sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_sets)]
     bwd_sets = [(*x, out.clone(), lse.clone(), d_out.clone()) for x in sets]
     pairs = sum(min(i + 1, s) for i in range(s))  # visible (query, key) pairs, causal
     io = nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s
-    records["flash_attention_fwd"] = dict(
-        **merge(fwd),
-        serving_prefill=serving,
+    records[name_fwd] = dict(
+        **fwd,
         ms=timed(ops.forward, sets, 50),
         plain_ms=timed(ref.attention_fwd_ref, sets, 5),
         bound=bound(io, 4 * d * pairs * b * hq, BF16_FLOPS),
     )
-    records["flash_attention_bwd"] = dict(
+    records[name_bwd] = dict(
         **bwd,
         ms=timed(ops.backward, bwd_sets, 20),
         plain_ms=timed(ref.attention_bwd_ref, bwd_sets, 3),
@@ -769,13 +792,58 @@ def flash_checks(records: dict) -> None:
         named = yardstick()
     default = yardstick()
     for rec, (ms_named, dev_named), (ms_default, dev_default) in zip(
-            (records["flash_attention_fwd"], records["flash_attention_bwd"]), named, default):
+            (records[name_fwd], records[name_bwd]), named, default):
         rec.update(library_ms=ms_named, library_backend=backend.name, library_ms_default=ms_default,
                    library_device_ms=dev_named, library_device_ms_default=dev_default)
     # the kernels' own device time: the L2-cold loop above also holds the
     # host's time per call where that exceeds the kernels'
-    records["flash_attention_fwd"]["device_ms"] = device_ms(ops.forward, sets, 20)
-    records["flash_attention_bwd"]["device_ms"] = device_ms(ops.backward, bwd_sets, 10)
+    records[name_fwd]["device_ms"] = device_ms(ops.forward, sets, 20)
+    records[name_bwd]["device_ms"] = device_ms(ops.backward, bwd_sets, 10)
+
+
+def flash_inputs(gen, b: int, s: int, hq: int, hkv: int, d: int):
+    """bf16 q (B, S, hq, D) and k, v (B, S, hkv, D) on the card."""
+    import torch
+
+    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for h in (hq, hkv, hkv))
+
+
+def flash_serving_prefills(records: dict, name: str, gen, batches, hq: int, hkv: int, d: int) -> None:
+    """The flash forward at a dense serving engine's prefill (B of 512
+    tokens, no tail tile) against its plain version, the last visible key
+    dropped as the planted fault, for each B in ``batches``; folded into
+    ``records[name]``'s worst readings and kept under its
+    ``"serving_prefill"``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    serving = {}
+    for b in batches:
+        q, k, v = flash_inputs(gen, b, 512, hq, hkv, d)
+        serving[f"b{b}_s512"] = check_close(
+            f"{name} (serving prefill, B {b} S 512)", ops.forward(q, k, v)[0],
+            ref.attention_fwd_ref(q, k, v)[0], ref.attention_ref(q, k[:, :-1], v[:, :-1]))
+    records[name].update(merge([records[name], *serving.values()]), serving_prefill=serving)
+
+
+def flash_checks(records: dict) -> None:
+    """The flash kernels at the training path's shapes: qwen2.5-3b,
+    microbatch 4 of 512 + 1 tokens (B 4, S 513, 16 query and 2 KV heads,
+    head_dim 128), the forward also with a window of 100 and at the dense
+    serving path's prefills (phase 12): B 1 (the continuous engine) and B 8
+    (the static one); then the f32 route."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hq, hkv, d = 16, 2, 128
+    flash_shape(records, gen, 4, 513, hq, hkv, d)
+    q, k, v = flash_inputs(gen, 4, 513, hq, hkv, d)
+    window = check_close("flash_attention_fwd (window 100)", ops.forward(q, k, v, sliding_window=100)[0],
+                         ref.attention_ref(q, k, v, sliding_window=100))
+    records["flash_attention_fwd"].update(merge([records["flash_attention_fwd"], window]))
+    flash_serving_prefills(records, "flash_attention_fwd", gen, (1, 8), hq, hkv, d)
     f32_route_checks(records)
 
 
@@ -949,14 +1017,14 @@ def check_training(label: str, log, launches: dict, kernels) -> None:
 # at the rate used, and must stay within half the tolerance for the
 # comparison to mean anything; where the rate is below 0.3, the three runs
 # are also made at 0.3 and recorded, as the reason for the lower rate.
-CARD_CPU_ETAS = {"qwen2.5-3b": 0.3, "rwkv6-1.6b": 0.01}
+CARD_CPU_ETAS = {"qwen2.5-3b": 0.3, "rwkv6-1.6b": 0.01, "zamba2-2.7b": 0.3, "gemma2-9b": 0.3}
 CARD_CPU_REFERENCE_ETA = 0.3
 CARD_CPU_RTOL = 1e-4
 
 
-def card_cpu_agreement(arch: str) -> dict:
-    """``arch`` smoke in float32 from the same weights on the CPU (plain
-    versions) and on the card (kernels): the first update's gradients leaf
+def card_cpu_agreement(arch: str, smoke=None) -> dict:
+    """``arch`` smoke (or ``smoke``) in float32 from the same weights on the
+    CPU (plain versions) and on the card (kernels): the first update's gradients leaf
     by leaf (within 1e-4 of each leaf's norm), and the losses of a short
     SEBS run (within 1e-4 relative). A control run on the CPU from weights
     moved by 1e-7 relative shows how far rounding alone carries the losses."""
@@ -970,7 +1038,7 @@ def card_cpu_agreement(arch: str) -> dict:
     from repro_torch.train.step import _grads_over_microbatches
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    cfg = (smoke or get_config(arch, "smoke")).replace(compute_dtype="float32")
     model = LanguageModel(cfg)
     # the same seed-0 weights on both: made on the CPU, then moved
     base = model.init(seed=0, device="cpu")
@@ -1131,8 +1199,7 @@ def serve_rwkv6(cfg) -> dict:
              f"{stats['prefill_chunks']} prefill chunks")
     if launches["fused_sample"] <= 0:
         fail("rwkv6: fused_sample was not launched on the serving path")
-    submit_batch()
-    profile = device_profile(engine.run)
+    profile = device_profile(engine.run, submit_batch)
     engine.pool.check()
     decode_tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
     print(
@@ -1193,18 +1260,18 @@ def train_rwkv6(cfg) -> dict:
             "untraced_update_ms": untraced_ms, "card_vs_cpu": agreement}
 
 
-def dense_small_input_agreement(arch: str) -> None:
+def dense_small_input_agreement(arch: str, smoke=None) -> None:
     """Greedy tokens of both dense engines on the card (the flash forward,
-    the sampler) equal the CPU path's on ``arch`` smoke in float32: the
-    static batch (4 prompts of 8) and the continuous ring (2 slots, prompts
-    of 1 to 8 tokens)."""
+    the sampler) equal the CPU path's on ``arch`` smoke (or ``smoke``) in
+    float32: the static batch (4 prompts of 8) and the continuous ring (2
+    slots, prompts of 1 to 8 tokens)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import LanguageModel
     from repro_torch.serve import ContinuousBatchingEngine, ServeEngine
 
-    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    cfg = (smoke or get_config(arch, "smoke")).replace(compute_dtype="float32")
     model = LanguageModel(cfg)
     cpu_params = model.init(seed=0, device="cpu")
     rng = np.random.default_rng(0)
@@ -1267,8 +1334,7 @@ def serve_dense(cfg, model, params, prompts) -> dict:
     for kname, count in expect.items():
         if launches[kname] != count:
             fail(f"dense serving: {kname} launched {launches[kname]} times, not {count}")
-    submit_batch()
-    profile = device_profile(engine.run)
+    profile = device_profile(engine.run, submit_batch)
     tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
 
     static = ServeEngine(model, params, cache_len=cache_len)
@@ -1436,6 +1502,431 @@ def adaptive_optimizers(cfg) -> dict:
     return out
 
 
+# zamba2-2.7b's shapes: the shared attention's 32 heads of 80 (G 1), Mamba2's
+# 80 heads of K = V = 64 (d_in 5,120 / ssm_head_dim 64), and the smoke config
+# that the card-against-CPU checks run, its ssm_state raised from 16 to the
+# GLA kernels' K = 64
+ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, MAMBA2_HEADS = 32, 80, 80
+
+
+def zamba2_smoke():
+    from repro_torch.configs import get_config
+
+    return get_config("zamba2-2.7b", "smoke").replace(ssm_state=64)
+
+
+def paged_d80_checks(records: dict) -> None:
+    """The paged kernels at zamba2's shared attention (G 1: 32 query and 32
+    kv heads of 80; pages of 16): decode at the serving shape (8 slots of
+    544 tokens, no shared prefix: prefix sharing is off for zamba2), the
+    same bits twice, and a chunk prefill of 256 tokens at pos_start 0 and
+    256, each against its plain version with the last visible key dropped
+    as the planted fault. Into ``records["paged_flash_decode_d80"]`` and
+    ``records["paged_chunk_prefill_d80"]``."""
+    import torch
+
+    from repro_torch.kernels.paged_decode import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, d, ps, pages = 8, ZAMBA2_HEADS, ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, 16, 1025
+    lengths = [544] * b
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=lengths)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out = ops.paged_flash_decode(q, k, v, table, pos)
+    readings = [check_close("paged_flash_decode (D 80, serving shape)", out,
+                            ref.paged_attention_ref(q, k, v, table, pos),
+                            ref.paged_attention_ref(q, k, v, table, pos - 1))]
+    if not torch.equal(out, ops.paged_flash_decode(q, k, v, table, pos)):
+        fail("paged_flash_decode (D 80): two runs on the same inputs differ")
+    sets = [(q.clone(), k.clone(), v.clone(), table, pos) for _ in range(copies_for(nbytes(q, k, v)))]
+    io = nbytes(q) * 2 + nbytes(table, pos)
+    kv = kv_bytes_read(table, pos, ps, hkv, d, 2)
+    records["paged_flash_decode_d80"] = dict(
+        **merge(readings),
+        ms=timed(ops.paged_flash_decode, sets, 200),
+        device_ms=device_ms(ops.paged_flash_decode, sets, 50),
+        plain_ms=timed(ref.paged_attention_ref, sets, 20),
+        bound=bound(io + kv, 4 * hq * d * sum(lengths), BF16_FLOPS),
+        library_ms=None,
+    )
+    del k, v, sets
+    c = 256
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=[512])
+    q = torch.randn((1, c, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    readings = []
+    for start in (0, 256):
+        ps_t = torch.tensor([start], dtype=torch.int32, device="cuda")
+        fault = ref.paged_prefill_ref(q, k, v, table, ps_t - 1) if start else None
+        readings.append(check_close(f"paged_chunk_prefill (D 80, pos_start {start})",
+                                    ops.paged_chunk_prefill(q, k, v, table, ps_t),
+                                    ref.paged_prefill_ref(q, k, v, table, ps_t), fault))
+    ps_t = torch.tensor([256], dtype=torch.int32, device="cuda")
+    sets = [(q.clone(), k.clone(), v.clone(), table, ps_t) for _ in range(copies_for(nbytes(q, k, v)))]
+    visible = sum(256 + i + 1 for i in range(c))
+    io = nbytes(q) * 2 + nbytes(table, ps_t)
+    kv = kv_bytes_read(table, ps_t + c - 1, ps, hkv, d, 2)
+    records["paged_chunk_prefill_d80"] = dict(
+        **merge(readings),
+        ms=timed(ops.paged_chunk_prefill, sets, 50),
+        device_ms=device_ms(ops.paged_chunk_prefill, sets, 20),
+        plain_ms=timed(ref.paged_prefill_ref, sets, 10),
+        bound=bound(io + kv, 4 * hq * d * visible, BF16_FLOPS),
+        library_ms=None,
+    )
+
+
+def mamba2_gla_inputs(gen, b: int, s: int, steep: float = 1.0):
+    """GLA's operands as Mamba2 makes them at zamba2-2.7b's width, bf16 with
+    f32 log_w: q = C and k = B (B, S, 64) shared by the 80 heads, v = dt x,
+    log_w = -softplus(dt) exp(A_log) on every k channel with A_log =
+    log(linspace(1, 16, 80)) as initialized (``steep`` multiplies it) and
+    dt_bias 0; and a gradient dy."""
+    import torch
+    import torch.nn.functional as F
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    h = MAMBA2_HEADS
+    dtp = F.softplus(rand(b, s, h))
+    a = torch.linspace(1.0, 16.0, h, device="cuda") * steep
+    lw = (-dtp * a)[..., None].expand(b, s, h, 64).contiguous()
+    q, k = (rand(b, s, 1, 64).expand(b, s, h, 64).to(torch.bfloat16).contiguous() for _ in range(2))
+    v = (rand(b, s, h, 64) * dtp[..., None]).to(torch.bfloat16)
+    return q, k, v, lw, rand(b, s, h, 64).to(torch.bfloat16)
+
+
+def mamba2_gla_checks(records: dict) -> None:
+    """The GLA kernels with the current token included (Mamba2's route) at
+    zamba2-2.7b's decays, against the plain recurrence, within GLA_TOL: the
+    forward and backward at the training shape (microbatch 4 of 513 tokens,
+    80 heads), there again at a steeper planted decay (A x 8, a chunk's log
+    decay past -1e4); the forward at the paged engine's prefill chunk (B 1,
+    S 256, from the state a previous chunk left) and at the static engine's
+    prefill (B 8, S 512, from a zeroed state). Planted faults: the current
+    token's term q_t . (k_t v_t) left out of y, dq, dk and dv; each chunk's
+    total decay term left out of dlog_w; the initial state dropped (prefill
+    chunk). Into ``records["gla_fwd_mamba2"]`` and
+    ``records["gla_bwd_mamba2"]``, with the bound of the same work counted
+    from Mamba2's own operands (C, B and dt, before their broadcast over
+    heads and K) beside the kernels'."""
+    import torch
+
+    from repro_torch.kernels.gla import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    fwd, bwd = [], []
+
+    def without_current(q, k, v, expect_y):
+        """y with the current token's term q_t . (k_t v_t) left out."""
+        return expect_y.float() - (q.float() * k.float()).sum(-1, keepdim=True) * v.float()
+
+    for steep, tag in ((1.0, ""), (8.0, ", steep decay")):
+        q, k, v, lw, dy = mamba2_gla_inputs(gen, 4, 513, steep)
+        y, final, states = ops.forward(q, k, v, lw, include_current=True, save_states=True)
+        expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, include_current=True)
+        fwd.append(check_scaled(f"gla_fwd y (Mamba2, B 4, S 513, H 80{tag})", y, expect_y, "y",
+                                without_current(q, k, v, expect_y)))
+        fwd.append(check_scaled(f"gla_fwd final state (Mamba2{tag})", final, expect_final, "float32"))
+        grads = ops.backward(q, k, v, lw, None, None, states, final, dy, None, include_current=True)
+        expect = ref.gla_bwd_ref(q, k, v, lw, None, None, dy, None, include_current=True)
+        again = ops.backward(q, k, v, lw, None, None, states, final, dy, None, include_current=True)
+        if not all(torch.equal(x, y_) for x, y_ in zip(grads, again) if x is not None):
+            fail(f"gla_bwd (Mamba2{tag}): two runs on the same inputs differ")
+        qk = (q.float() * k.float()).sum(-1, keepdim=True)
+        dyv = (dy.float() * v.float()).sum(-1, keepdim=True)
+        faults = {"dq": expect[0].float() - k.float() * dyv, "dk": expect[1].float() - q.float() * dyv,
+                  "dv": expect[2].float() - qk * dy.float(),
+                  "dlog_w": dlog_w_without_chunk_totals(q, k, v, lw, None, dy, expect[3], include_current=True)}
+        for name, g, e in zip(("dq", "dk", "dv", "dlog_w"), grads, expect):
+            tol = "grad" if g.dtype == torch.bfloat16 else "float32"
+            bwd.append(check_scaled(f"gla_bwd {name} (Mamba2{tag})", g, e, tol, faults[name]))
+        if steep != 1.0:
+            continue
+        sets = [(q.clone(), k.clone(), v.clone(), lw.clone()) for _ in range(copies_for(nbytes(q, k, v, lw)))]
+        bwd_sets = [(*x, None, None, states.clone(), final.clone(), dy.clone(), None) for x in sets]
+        b, s, h = q.shape[:3]
+        # Mamba2's own operands: C and B (B, S, 64) bf16 and dt (B, S, H) f32,
+        # which the layer broadcasts over heads and K into q, k and log_w
+        own = 2 * nbytes(q[:, :, 0]) + 4 * b * s * h
+        fwd_ops, bwd_ops = b * h * gla_products(s, backward=False), b * h * gla_products(s, backward=True)
+        records["gla_fwd_mamba2"] = dict(
+            ms=timed(lambda *a: ops.forward(*a, include_current=True, save_states=True), sets, 50),
+            device_ms=device_ms(lambda *a: ops.forward(*a, include_current=True, save_states=True), sets, 20),
+            plain_ms=timed(lambda *a: ref.gla_fwd_ref(*a, include_current=True), sets, 2),
+            # reads q, k, v and log_w; writes y and the final state
+            bound=bound(nbytes(q, k, v, lw) + nbytes(v) + 4 * b * h * 64 * 64, fwd_ops, BF16_FLOPS),
+            bound_own_operands=bound(own + nbytes(v) * 2 + 4 * b * h * 64 * 64, fwd_ops, BF16_FLOPS),
+            library_ms=None,
+        )
+        records["gla_bwd_mamba2"] = dict(
+            ms=timed(lambda *a: ops.backward(*a, include_current=True), bwd_sets, 20),
+            device_ms=device_ms(lambda *a: ops.backward(*a, include_current=True), bwd_sets, 10),
+            plain_ms=timed(lambda *a: ref.gla_bwd_ref(*a[:6], a[8], a[9], include_current=True), bwd_sets, 1),
+            # reads q, k, v, dy and log_w; writes dq, dk, dv and dlog_w
+            bound=bound(nbytes(q, k, v, dy, lw) + nbytes(q, k, v, lw), bwd_ops, BF16_FLOPS),
+            # reads C, B, dt, v and dy; writes their gradients
+            bound_own_operands=bound(2 * own + nbytes(v, dy) + nbytes(v), bwd_ops, BF16_FLOPS),
+            library_ms=None,
+        )
+        del sets, bwd_sets
+    del q, k, v, lw, dy, y, final, states, grads, again, expect, faults
+    # the paged engine's prefill chunk (phase 15): 256 tokens of one request
+    # from the state its previous chunk left in the slot
+    q, k, v, lw, _ = mamba2_gla_inputs(gen, 1, 256)
+    s0 = ref.gla_fwd_ref(*mamba2_gla_inputs(gen, 1, 256)[:4], include_current=True)[1]
+    y, final, _ = ops.forward(q, k, v, lw, None, s0, include_current=True)
+    expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, include_current=True, initial_state=s0)
+    dropped = ref.gla_fwd_ref(q, k, v, lw, include_current=True)[0]
+    fwd.append(check_scaled("gla_fwd y (Mamba2, B 1, S 256, initial state)", y, expect_y, "y", dropped))
+    fwd.append(check_scaled("gla_fwd final state (Mamba2, B 1, S 256)", final, expect_final, "float32"))
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), None, s0.clone())
+            for _ in range(copies_for(nbytes(q, k, v, lw, s0)))]
+    b, s, h = q.shape[:3]
+    records["gla_fwd_mamba2"]["serving_chunk"] = dict(
+        ms=timed(lambda *a: ops.forward(*a, include_current=True), sets, 100),
+        device_ms=device_ms(lambda *a: ops.forward(*a, include_current=True), sets, 20),
+        # reads q, k, v, log_w and the state; writes y and the state
+        bound=bound(nbytes(q, k, v, lw, s0) + nbytes(v, s0), b * h * gla_products(s, backward=False),
+                    BF16_FLOPS),
+    )
+    del q, k, v, lw, s0, y, final, sets
+    # the static engine's prefill (phase 15): 8 prompts of 512 tokens from a zeroed cache
+    q, k, v, lw, _ = mamba2_gla_inputs(gen, 8, 512)
+    s0 = torch.zeros((8, MAMBA2_HEADS, 64, 64), device="cuda")
+    expect_y = ref.gla_fwd_ref(q, k, v, lw, include_current=True, initial_state=s0)[0]
+    fwd.append(check_scaled("gla_fwd y (Mamba2, B 8, S 512)",
+                            ops.forward(q, k, v, lw, None, s0, include_current=True)[0], expect_y, "y",
+                            without_current(q, k, v, expect_y)))
+    records["gla_fwd_mamba2"].update(merge(fwd))
+    records["gla_bwd_mamba2"].update(merge(bwd))
+
+
+def zamba2_kernel_checks(records: dict) -> None:
+    """Phase 3 at zamba2-2.7b's shapes: the flash kernels at D 80 (B 4,
+    S 513, 32/32 heads; the forward also at the static engine's prefill,
+    B 8 of 512 tokens), the paged kernels at D 80, GLA as Mamba2 runs it."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    flash_shape(records, gen, 4, 513, ZAMBA2_HEADS, ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, suffix="_d80")
+    flash_serving_prefills(records, "flash_attention_fwd_d80", gen, (8,), ZAMBA2_HEADS, ZAMBA2_HEADS,
+                           ZAMBA2_HEAD_DIM)
+    paged_d80_checks(records)
+    mamba2_gla_checks(records)
+
+
+def serve_zamba2(cfg) -> dict:
+    """Phase 15: the paged engine serving zamba2-2.7b at full width on phase
+    4's traffic (8 slots, cache 2048, pages of 16, 256-token chunks; 8
+    requests of 512 prompt tokens, the first 256 shared, and 32 new, half
+    greedy, half t=0.8, top_k=50), counters zeroed just before and read just
+    after. Prefix sharing is off for a hybrid model, so nothing is reused;
+    every chunk launches the GLA forward once a Mamba2 layer (54) and the
+    chunk prefill once a shared-attention application (9), every tick the
+    decode 9 times and the sampler once. Then the same batch traced on the
+    device; the static engine on the 8 prompts (greedy: one batched prefill,
+    the flash forward at D 80 9 times and the GLA forward 54 times); and on
+    zamba2 smoke (ssm_state 64) in float32 the greedy tokens of the paged and
+    both dense engines on the card equal the CPU path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import PagedContinuousBatchingEngine, ServeEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    shared = sum(seg.repeat for seg in cfg.segments if seg.shared_attn)
+    model = LanguageModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {cfg.name} full, {sum(w.numel() for w in tree_leaves(params))} params ({cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16, cache_len=2048, prefill_chunks=(256,), seed=0,
+    )
+    rng = torch.Generator().manual_seed(9)
+    prefix = torch.randint(0, cfg.vocab_size, (256,), generator=rng)
+    prompts = []
+
+    def submit_batch():
+        prompts.append([torch.cat([prefix, torch.randint(0, cfg.vocab_size, (256,), generator=rng)]).numpy()
+                        for _ in range(8)])
+        return [engine.submit(p, max_new_tokens=32, temperature=0.0 if i % 2 == 0 else 0.8,
+                              top_k=0 if i % 2 == 0 else 50) for i, p in enumerate(prompts[-1])]
+
+    engine.submit(prefix.numpy(), max_new_tokens=4)  # warm-up
+    engine.run()
+    engine.reset_stats()
+    ids = submit_batch()
+    torch.cuda.synchronize()
+    for ops in (paged_ops, gla_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **gla_ops.LAUNCHES, **flash_ops.LAUNCHES}
+    for rid in ids:
+        gen_tokens = results[rid][512:]
+        if len(gen_tokens) != 32 or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"zamba2 request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    engine.pool.check()
+    stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    if engine.prefix_sharing or stats["prefix_tokens_reused"] != 0:
+        fail("zamba2: prefix sharing must be off for a hybrid model")
+    expect = {"gla_fwd": cfg.num_layers * stats["prefill_chunks"],
+              "paged_chunk_prefill": shared * stats["prefill_chunks"],
+              "paged_flash_decode": shared * stats["ticks"], "fused_sample": stats["ticks"] + len(ids),
+              "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gla_bwd": 0}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"zamba2 serving: {kname} launched {launches[kname]} times, not {n}")
+    with torch.inference_mode():
+        probe, _ = model.decode_step(
+            params, torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+            model.paged_state_slice(engine.cache, 1), torch.zeros((1,), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, engine.max_pages), dtype=torch.int32, device="cuda"),
+        )
+    if probe.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(probe).all():
+        fail("zamba2: full-width decode logits are not finite")
+    profile = device_profile(engine.run, submit_batch)
+    engine.pool.check()
+    tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+    print(
+        f"phase 15 zamba2 paged: {len(ids)} requests x 32 tokens in {wall:.3f} s | decode "
+        f"{stats['decoded_tokens']} tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | median decode tick "
+        f"{tick_ms:.2f} ms | {stats['ticks']} ticks, {stats['prefill_chunks']} chunks | prefix reused "
+        f"{stats['prefix_tokens_reused']} | kv bytes a page {model.paged_kv_bytes_per_page(16)}, peak "
+        f"{mem['kv_bytes_peak']} | peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | "
+        f"launches {launches}", flush=True)
+    print(f"phase 15 zamba2 profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms "
+          f"wall, idle {100 * profile['idle_share']:.1f}% | GLA kernels {profile['gla_ms']:.2f} ms, paged decode "
+          f"{profile['paged_decode_ms']:.2f} ms, prefill {profile['paged_prefill_ms']:.2f} ms, sampler "
+          f"{profile['sampler_ms']:.3f} ms over {profile['sampler_launches']} launches", flush=True)
+    for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
+        print(f"phase 15 zamba2 profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    del engine, results, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    static = ServeEngine(model, params, cache_len=1024)
+    batch = np.stack(prompts[0])
+    static.generate(batch[:1, :64], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    for ops in (paged_ops, gla_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    out = static.generate(batch, max_new_tokens=32)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    static_launches = {**paged_ops.LAUNCHES, **gla_ops.LAUNCHES, **flash_ops.LAUNCHES}
+    for kname, n in (("flash_attention_fwd", shared), ("gla_fwd", cfg.num_layers), ("paged_flash_decode", 0)):
+        if static_launches[kname] != n:
+            fail(f"zamba2 static serving: {kname} launched {static_launches[kname]} times, not {n} "
+                 f"(one batched prefill)")
+    if out.shape != (8, 512 + 32) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"zamba2 static serving: bad output of shape {out.shape}")
+    print(f"phase 15 zamba2 static: 8 x 512 greedy prompts + 32 tokens in {static_wall:.3f} s = "
+          f"{8 * 32 / static_wall:.1f} tok/s | launches {static_launches}", flush=True)
+    del static, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = zamba2_smoke()
+    small_input_agreement("zamba2-2.7b", small)
+    dense_small_input_agreement("zamba2-2.7b", small)
+    print("phase 15 zamba2 small input: greedy tokens of the paged and both dense engines on the card "
+          "equal the CPU path's on zamba2 smoke (ssm_state 64, f32)", flush=True)
+    return {"wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
+            "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": tick_ms,
+            "kv_bytes_per_page": model.paged_kv_bytes_per_page(16), "launches": launches,
+            "profile": profile, "static": {"wall_s": static_wall, "launches": static_launches}}
+
+
+def train_zamba2(cfg) -> dict:
+    """Phase 16: SEBSTrainer with pSGD on zamba2-2.7b at full width, on phase
+    7's schedule (12 updates at batch 4, 8, 16 by 1, 2 and 4 microbatches of
+    4 x 513 tokens), counters zeroed just before and read just after: the
+    GLA forward runs twice a Mamba2 layer and microbatch (remat) and its
+    backward once, the flash forward twice a shared-attention application
+    and its backward once. Then one stage-2 update traced on the device, and
+    the card's losses against the CPU path's on zamba2 smoke (ssm_state 64)."""
+    import torch
+
+    from repro_torch.optim import make_optimizer
+
+    seq, b1 = 512, 4
+    shared = sum(seg.repeat for seg in cfg.segments if seg.shared_attn)
+    psgd = make_optimizer("psgd", gamma=1e4)
+    eta = ETAS["zamba2_psgd"]
+    log, wall, launches, updates, state, trainer = run_sebs(
+        cfg, psgd, eta=eta, device="cuda", seq=seq, b1=b1, c1=16, stages=3)
+    peak = torch.cuda.max_memory_allocated()
+    check_training("zamba2 psgd, full width", log, launches,
+                   ("gla_fwd", "gla_bwd", "flash_attention_fwd", "flash_attention_bwd", "fused_psgd"))
+    micro = sum(bs // b1 for bs in log.batch_sizes)
+    expect = {"gla_fwd": cfg.num_layers * 2 * micro, "gla_bwd": cfg.num_layers * micro,
+              "flash_attention_fwd": shared * 2 * micro, "flash_attention_bwd": shared * micro,
+              "fused_psgd": len(log.steps)}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"zamba2 training: {kname} launched {launches[kname]} times, not {n}")
+    stages = stage_table(log, updates, seq)
+    print_training("zamba2 psgd", log, wall, peak, launches, stages, seq)
+    profile, untraced_ms = trace_update("zamba2 train", trainer, state, psgd, eta)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = card_cpu_agreement("zamba2-2.7b", zamba2_smoke())
+    return {"layers": cfg.num_layers, "eta": eta, "losses": log.losses, "wall_s": wall,
+            "peak_gib": peak / 2**30, "launches": launches, "stages": stages, "profile": profile,
+            "untraced_update_ms": untraced_ms, "card_vs_cpu": agreement}
+
+
+def train_gemma2(cfg) -> dict:
+    """Phase 17: SEBSTrainer with pSGD on gemma2-9b at full width cut to
+    ``cfg``'s depth, on phase 7's schedule: the soft-capped attention runs
+    the plain ``_sdpa`` route as in the JAX package (no flash launch), the
+    fused pSGD once an update. Then the card's losses against the CPU
+    path's on gemma2 smoke, and the greedy tokens of the paged engine (the
+    paged kernels with the soft-cap, G 2, D 64) and of both dense engines
+    there."""
+    import torch
+
+    from repro_torch.optim import make_optimizer
+
+    seq, b1 = 512, 4
+    psgd = make_optimizer("psgd", gamma=1e4)
+    eta = ETAS["gemma2_psgd"]
+    log, wall, launches, updates, state, _ = run_sebs(
+        cfg, psgd, eta=eta, device="cuda", seq=seq, b1=b1, c1=16, stages=3)
+    peak = torch.cuda.max_memory_allocated()
+    check_training("gemma2 psgd", log, launches, ("fused_psgd",))
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        if launches[kname] != 0:
+            fail(f"gemma2 training: {kname} launched {launches[kname]} times: the soft-capped attention "
+                 "takes _sdpa")
+    stages = stage_table(log, updates, seq)
+    print_training(f"gemma2 psgd, {cfg.num_layers} layers", log, wall, peak, launches, stages, seq)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = card_cpu_agreement("gemma2-9b")
+    small_input_agreement("gemma2-9b")
+    dense_small_input_agreement("gemma2-9b")
+    print("phase 17 gemma2 small input: greedy tokens of the paged and both dense engines on the card "
+          "equal the CPU path's on gemma2 smoke (f32)", flush=True)
+    return {"layers": cfg.num_layers, "params": cfg.param_counts()["total"], "eta": eta,
+            "losses": log.losses, "wall_s": wall, "peak_gib": peak / 2**30, "launches": launches,
+            "stages": stages, "card_vs_cpu": agreement}
+
+
 def main() -> None:
     import torch
 
@@ -1484,6 +1975,9 @@ def main() -> None:
     for kname, count in hgmma.items():
         if "_tc_kernel" in kname and count == 0:
             fail(f"{kname} has no HGMMA in its SASS: the bf16 route is not on the tensor cores")
+    for kname in FLASH_TC_KERNELS:
+        if hgmma.get(kname, 0) == 0:
+            fail(f"{kname} is missing or has no HGMMA in its SASS")
     gla_mma = gla_tensor_op_counts()
     print("sass HMMA/HGMMA per GLA kernel: " + ", ".join(f"{n} {c}" for n, c in gla_mma.items()), flush=True)
     for kname in GLA_TC_KERNELS:
@@ -1506,6 +2000,7 @@ def main() -> None:
     fused_checks(records, {"fused_psgd": leaf_shapes(cfg), "fused_momentum": leaf_shapes(reduced),
                            "fused_adagrad_da": leaf_shapes(reduced)})
     gla_serving_shape = gla_checks(records)
+    zamba2_kernel_checks(records)
     fwd_rec, bwd_rec = records["flash_attention_fwd"], records["flash_attention_bwd"]
     print(f"flash yardstick, ms a call (device ms in brackets): SDPA ({fwd_rec['library_backend']}) fwd "
           f"{fwd_rec['library_ms']:.4f} ({fwd_rec['library_device_ms']:.4f}), bwd {bwd_rec['library_ms']:.4f} "
@@ -1526,6 +2021,18 @@ def main() -> None:
           f"sampler " + ", ".join(f"{n} {r['ms']:.4f} ({r['device_ms']:.4f}, bound {r['bound'][0]:.5f}, "
                                   f"{r['splits']} splits a row)"
                                   for n, r in records["fused_sample"]["shapes"].items()), flush=True)
+    chunk = records["gla_fwd_mamba2"]["serving_chunk"]
+    print("zamba2's shapes, ms a call L2-cold (device ms in brackets; bound): " + ", ".join(
+        f"{n} {records[n]['ms']:.4f} ({records[n]['device_ms']:.4f}; {records[n]['bound'][0]:.5f})"
+        for n in ("flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
+                  "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2"))
+          + f" | SDPA ({records['flash_attention_fwd_d80']['library_backend']}) D 80 fwd "
+          f"{records['flash_attention_fwd_d80']['library_ms']:.4f}, bwd "
+          f"{records['flash_attention_bwd_d80']['library_ms']:.4f} | bound from Mamba2's own operands: fwd "
+          f"{records['gla_fwd_mamba2']['bound_own_operands'][0]:.5f}, bwd "
+          f"{records['gla_bwd_mamba2']['bound_own_operands'][0]:.5f} | Mamba2 GLA fwd at the paged prefill "
+          f"chunk (B 1, S 256) {chunk['ms']:.4f} ({chunk['device_ms']:.4f}; {chunk['bound'][0]:.5f})",
+          flush=True)
     print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
           f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
           f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
@@ -1600,8 +2107,7 @@ def main() -> None:
         fail("full-width decode logits are not finite")
 
     # 6. where the time goes: the same batch again, traced on the device
-    submit_batch()
-    profile = device_profile(engine.run)
+    profile = device_profile(engine.run, submit_batch)
     engine.pool.check()
     print(f"profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, idle "
           f"{100 * profile['idle_share']:.1f}% | {profile['activities']} device activities | traced "
@@ -1696,6 +2202,18 @@ def main() -> None:
     phase_done("10 rwkv6 serving")
     rwkv_training = train_rwkv6(rwkv)
     phase_done("11 rwkv6 training")
+    # 15-16. zamba2-2.7b at full width: served, then trained (Mamba2 through the GLA
+    # kernels with the current token included, the shared attention at D 80)
+    zamba2 = get_config("zamba2-2.7b", "full")
+    zamba2_serving = serve_zamba2(zamba2)
+    phase_done("15 zamba2 serving")
+    zamba2_training = train_zamba2(zamba2)
+    phase_done("16 zamba2 training")
+    # 17. gemma2-9b training at full width, cut to 8 of its 42 layers
+    gemma2 = get_config("gemma2-9b", "full")
+    gemma2 = gemma2.replace(segments=(dataclasses.replace(gemma2.segments[0], repeat=4),))
+    gemma2_training = train_gemma2(gemma2)
+    phase_done("17 gemma2 training")
     print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
           + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -1711,6 +2229,10 @@ def main() -> None:
         "gla_fwd": "src/repro/kernels/gla/kernel.py:81",
         "gla_bwd": "no TPU counterpart (the JAX package differentiates gla_scan)",
     }
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "paged_flash_decode", "paged_chunk_prefill"):
+        replaces[f"{kname}_d80"] = replaces[kname]
+    for kname in ("gla_fwd", "gla_bwd"):
+        replaces[f"{kname}_mamba2"] = replaces[kname]
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
         "paged_chunk_prefill": "paged_decode/csrc/paged_attention.cu",
@@ -1723,6 +2245,7 @@ def main() -> None:
         "gla_fwd": "gla/csrc/gla.cu",
         "gla_bwd": "gla/csrc/gla.cu",
     }
+    sources.update({f"{n}{suffix}": sources[n] for n in list(sources) for suffix in ("_d80", "_mamba2")})
     all_launches = {**launches, **train_launches}
     # the dense serving path (phase 12) runs the flash forward and the sampler too
     for kname in ("flash_attention_fwd", "fused_sample"):
@@ -1730,6 +2253,14 @@ def main() -> None:
     # the GLA kernels run on both rwkv6 paths: serving (the forward) and training
     for kname in ("gla_fwd", "gla_bwd"):
         all_launches[kname] = rwkv_serving["launches"].get(kname, 0) + rwkv_training["launches"][kname]
+    # zamba2's paths (phases 15-16) launch the D 80 attention kernels and GLA with the
+    # current token included
+    zamba2_paths = (zamba2_serving["launches"], zamba2_serving["static"]["launches"],
+                    zamba2_training["launches"])
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "paged_flash_decode", "paged_chunk_prefill"):
+        all_launches[f"{kname}_d80"] = sum(run.get(kname, 0) for run in zamba2_paths)
+    for kname in ("gla_fwd", "gla_bwd"):
+        all_launches[f"{kname}_mamba2"] = sum(run.get(kname, 0) for run in zamba2_paths)
     kernels = []
     for kname, rec in records.items():
         bound_ms, bound_by = rec["bound"]
@@ -1761,13 +2292,23 @@ def main() -> None:
         "flash": {"hgmma": hgmma, **{n: {key: records[n][key] for key in (
             "device_ms", "library_backend", "library_ms_default", "library_device_ms",
             "library_device_ms_default", "f32_route", "serving_prefill") if key in records[n]}
-            for n in ("flash_attention_fwd", "flash_attention_bwd")}},
+            for n in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_d80",
+                      "flash_attention_bwd_d80")}},
+        "zamba2_device_ms": {n: records[n]["device_ms"] for n in (
+            "flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
+            "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2")},
+        "mamba2_bound_own_operands_ms": {n: records[n]["bound_own_operands"][0]
+                                         for n in ("gla_fwd_mamba2", "gla_bwd_mamba2")},
+        "gla_fwd_mamba2_serving_chunk": {"ms": chunk["ms"], "device_ms": chunk["device_ms"],
+                                         "bound_ms": chunk["bound"][0], "bound_by": chunk["bound"][1]},
         "gla_device_ms": {"gla_fwd": records["gla_fwd"]["device_ms"], "gla_bwd": records["gla_bwd"]["device_ms"],
                           "gla_fwd_serving_shape": gla_serving_shape["device_ms"]},
         "gla_fwd_serving_shape": {"ms": gla_serving_shape["ms"], "plain_ms": gla_serving_shape["plain_ms"],
                                   "bound_ms": gla_serving_shape["bound"][0],
                                   "bound_by": gla_serving_shape["bound"][1]},
         "rwkv6": {"serving": rwkv_serving, "training": rwkv_training},
+        "zamba2": {"serving": zamba2_serving, "training": zamba2_training},
+        "gemma2": {"training": gemma2_training},
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

@@ -24,7 +24,9 @@
 //   - Products: every one is a wgmma. S = Q K^T and dP = dO V^T (and their
 //     transposes in dK/dV) take both operands K-major from shared memory
 //     (m64n64k16); P V, P^T dO, dS^T Q and dS K take P or dS as register
-//     fragments and the other operand MN-major (m64n128k16 for D = 128).
+//     fragments and the other operand MN-major (m64n128k16 for D = 128,
+//     and for D = 80, zamba2's shared attention, whose rows TMA pads with
+//     zeros to two 64-column sub-tiles: see subtiles()).
 //   - Tiles stay bf16 in shared memory, 128-byte swizzled, and arrive by TMA
 //     (cp.async.bulk.tensor) with an mbarrier per slot: a block's own tile
 //     once, the streamed tiles through rings of two slots, so the next
@@ -519,6 +521,12 @@ constexpr int kStatsBytes = kRows * 16;     // (lse log2 e, Di, 0, 0) of 64 quer
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// 64-column sub-tiles of a D-wide row. D = 80 (zamba2's shared attention)
+// takes two, as D = 128 does: TMA fills columns 80-127 of the second with
+// zeros, the products over D run 5 k-steps, the 128-wide products (P V and
+// the backward's) carry 48 zero columns, and the stores write 80.
+__host__ __device__ constexpr int subtiles(int d) { return (d + 63) / 64; }
+
 struct Params {
   int b, sq, sk, hq, hkv;
   int causal;
@@ -782,13 +790,13 @@ __device__ __forceinline__ void split(const float (&x)[32], uint32_t (&hi)[4][4]
 // acc[c] += A B for the 64 x 64 operand A (split hi/lo) and the 64 x D tile
 // B at ``tile`` (sub-tiles of 64 columns, read MN-major).
 template <int D>
-__device__ __forceinline__ void mma_split(float (&acc)[D / 64][32], const uint32_t (&hi)[4][4],
+__device__ __forceinline__ void mma_split(float (&acc)[subtiles(D)][32], const uint32_t (&hi)[4][4],
                                           const uint32_t (&lo)[4][4], const uint8_t* tile) {
   const uint64_t b0 = desc(tile);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t b = b0 + ((kk * 16 * 128) >> 4);  // the address field counts 16 bytes
-    if constexpr (D == 128) {
+    if constexpr (subtiles(D) == 2) {
       wgmma_rs_n128(acc[0], acc[1], hi[kk], b);
       wgmma_rs_n128(acc[0], acc[1], lo[kk], b);
     } else {
@@ -814,7 +822,7 @@ template <int D>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap& map, int h, int row, int b,
                                           uint64_t* bar) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_rows(dst + c * kSubBytes, map, 64 * c, h, row, b, bar);
+  for (int c = 0; c < subtiles(D); ++c) tma_rows(dst + c * kSubBytes, map, 64 * c, h, row, b, bar);
 }
 
 // -- the kernels --
@@ -831,7 +839,7 @@ template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 2)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  constexpr int kSub = D / 64, kTile = kSub * kSubBytes;
+  constexpr int kSub = subtiles(D), kTile = kSub * kSubBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align_1k(smem_raw);
   uint8_t* sK = sQ + kTile;
@@ -1001,8 +1009,9 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int e = 4 * j + 2 * r;
-        *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j + c0) =
-            bf16x2(__fdiv_rn(o[c][e], denom), __fdiv_rn(o[c][e + 1], denom));
+        if (64 * c + 8 * j < D)
+          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j + c0) =
+              bf16x2(__fdiv_rn(o[c][e], denom), __fdiv_rn(o[c][e + 1], denom));
       }
     if (lane % 4 == 0) p.lse[(size_t)bh * p.sq + qi] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
   }
@@ -1044,7 +1053,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                              const __grid_constant__ CUtensorMap tm_stats, const Params p) {
-  constexpr int kSub = D / 64, kTile = kSub * kSubBytes;
+  constexpr int kSub = subtiles(D), kTile = kSub * kSubBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align_1k(smem_raw);
   uint8_t* sV = sK + kTile;
@@ -1162,6 +1171,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int e = 4 * j + 2 * r, col = 64 * c + 8 * j + c0;
+        if (64 * c + 8 * j >= D) continue;
         *reinterpret_cast<float2*>(dk_row + col) = make_float2(dk[c][e], dk[c][e + 1]);
         *reinterpret_cast<float2*>(dv_row + col) = make_float2(dv[c][e], dv[c][e + 1]);
       }
@@ -1203,7 +1213,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                            const __grid_constant__ CUtensorMap tm_stats, const Params p) {
-  constexpr int kSub = D / 64, kTile = kSub * kSubBytes;
+  constexpr int kSub = subtiles(D), kTile = kSub * kSubBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align_1k(smem_raw);
   uint8_t* sdO = sQ + kTile;
@@ -1307,8 +1317,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int e = 4 * j + 2 * r;
-        *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j + c0) =
-            bf16x2(__fmul_rn(dq[c][e], p.scale), __fmul_rn(dq[c][e + 1], p.scale));
+        if (64 * c + 8 * j < D)
+          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j + c0) =
+              bf16x2(__fmul_rn(dq[c][e], p.scale), __fmul_rn(dq[c][e + 1], p.scale));
       }
   }
 }
@@ -1366,7 +1377,7 @@ cudaError_t stats_map(CUtensorMap* map, const Params& p) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.stats, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-constexpr size_t tile_bytes(int d) { return (size_t)(d / 64) * kSubBytes; }
+constexpr size_t tile_bytes(int d) { return (size_t)subtiles(d) * kSubBytes; }
 constexpr size_t kBarBytes = 8 * (1 + kStages);
 constexpr size_t fwd_smem(int d) {
   return 1024 + (1 + 2 * kStages) * tile_bytes(d) + 8 * (1 + 4 * kStages);
@@ -1438,17 +1449,25 @@ cudaError_t backward(const Params& p, const void* q, const void* k, const void* 
 
 extern "C" {
 
-// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim 64 or
-// 128 (checked by the caller).
+// Whether the route of dtype (0 float32 on the CUDA cores, 1 bfloat16 on the
+// tensor cores) takes head_dim d: both take 64 and 128, bf16 also 80.
+static bool takes(int d, int dtype) {
+  return (dtype == 0 && (d == 64 || d == 128)) || (dtype == 1 && (d == 64 || d == 80 || d == 128));
+}
+
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim as
+// takes() (checked by the caller).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int b,
                         int sq, int sk, int hq, int hkv, int d, int dtype, int causal, int window,
                         float scale, cudaStream_t stream) {
-  if ((d != 64 && d != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (!takes(d, dtype)) return cudaErrorInvalidValue;
   if (dtype == 1) {
     tc::Params p = tc::make_params(b, sq, sk, hq, hkv, causal, window, scale);
     p.out = static_cast<__nv_bfloat16*>(out);
     p.lse = lse;
-    return d == 64 ? tc::forward<64>(p, q, k, v, stream) : tc::forward<128>(p, q, k, v, stream);
+    return d == 64 ? tc::forward<64>(p, q, k, v, stream)
+           : d == 80 ? tc::forward<80>(p, q, k, v, stream)
+                     : tc::forward<128>(p, q, k, v, stream);
   }
   Params p = make_params(q, k, v, b, sq, sk, hq, hkv, causal, window, scale);
   p.out = out;
@@ -1463,7 +1482,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
                         const float* lse, float* workspace, void* dq, void* dk, void* dv, int b, int sq,
                         int sk, int hq, int hkv, int d, int dtype, int causal, int window, float scale,
                         cudaStream_t stream) {
-  if ((d != 64 && d != 128) || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (!takes(d, dtype)) return cudaErrorInvalidValue;
   if (dtype == 1) {
     tc::Params p = tc::make_params(b, sq, sk, hq, hkv, causal, window, scale);
     p.lse = const_cast<float*>(lse);
@@ -1475,7 +1494,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
     p.dq = static_cast<__nv_bfloat16*>(dq);
     p.dk = static_cast<__nv_bfloat16*>(dk);
     p.dv = static_cast<__nv_bfloat16*>(dv);
-    return d == 64 ? tc::backward<64>(p, q, k, v, stream) : tc::backward<128>(p, q, k, v, stream);
+    return d == 64 ? tc::backward<64>(p, q, k, v, stream)
+           : d == 80 ? tc::backward<80>(p, q, k, v, stream)
+                     : tc::backward<128>(p, q, k, v, stream);
   }
   Params p = make_params(q, k, v, b, sq, sk, hq, hkv, causal, window, scale);
   p.o = o;

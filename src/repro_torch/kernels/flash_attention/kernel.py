@@ -20,7 +20,10 @@ from repro_torch.kernels._cuda import F, I, P, check, check_cuda, launch, regist
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+#: head_dims each route takes: the f32 CUDA-core kernels hold a row as D / 64
+#: groups of 64 columns; the bf16 tensor-core kernels pad a row to 64-column
+#: sub-tiles, which takes zamba2's 80 too
+HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (64, 80, 128)}
 register("flash_attention", CSRC / "flash_attention.cu", {
     "flash_attention_fwd": [P] * 5 + [I] * 9 + [F],
     "flash_attention_bwd": [P] * 10 + [I] * 9 + [F],
@@ -38,7 +41,8 @@ def _checks(q, k, v, window: Optional[int], **more):
     check(q.ndim == 4 and k.ndim == 4 and v.shape == k.shape, "q must be (B, Sq, Hq, D), k and v (B, Sk, Hkv, D)")
     b, sq, hq, d = q.shape
     check(k.shape[0] == b and k.shape[3] == d, lambda: f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    check(d in HEAD_DIMS, lambda: f"head_dim {d} must be one of {HEAD_DIMS}")
+    check(d in HEAD_DIMS[q.dtype],
+          lambda: f"head_dim {d} is outside the {q.dtype} flash kernels: they take {HEAD_DIMS[q.dtype]}")
     check(hq % k.shape[2] == 0, lambda: f"q heads {hq} % kv heads {k.shape[2]} != 0")
     check(window is None or window >= 1, lambda: f"sliding window must be >= 1, got {window}")
     return b, sq, k.shape[1], hq, k.shape[2], d

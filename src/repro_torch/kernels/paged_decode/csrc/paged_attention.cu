@@ -60,6 +60,10 @@
 //   3. K/V reuse. A prefill tile holds every head of its positions, so each
 //      chunk it stages serves all G heads that share the kv head, instead of
 //      one head a tile.
+// Head dims: 64, 80 (zamba2's shared attention: 5 k-steps of Q K^T, 10
+// n-tiles of P V, each row moved in 10 pieces of 16 bytes; the combine gives
+// lanes 0-19 four columns each), 128 and 256 on the bf16 route; the f32
+// route's lanes hold D / 32 columns, so it takes 64, 128 and 256.
 // Masking is the TPU kernel's: causal on positions, with the optional sliding
 // window and logit softcap; masked keys get probability exactly 0, so scratch
 // page 0 is never read unmasked; each row ends with o / max(l, 1e-30).
@@ -764,7 +768,9 @@ __global__ void __launch_bounds__(RG * KG * 32) attend_kernel(const Params p) {
 // splits at a time, all loads of a batch in flight together.
 template <int D>
 __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(const Params p) {
-  constexpr int kPer = D / 32;  // output columns a lane
+  // output columns a lane: D / 32 for D = 64, 128, 256; for D = 80 four, on
+  // lanes 0-19 (the others hold none)
+  constexpr int kPer = 2 * ((D + 63) / 64);
   constexpr int kBatch = 8;
   const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= p.batch * p.hq) return;
@@ -778,6 +784,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(const Param
   auto ml_of = [&](int s) {
     return s <= s_hi ? p.part_ml[base + (long long)s * p.group] : make_float2(kNegInf, 0.f);
   };
+  const bool cols = lane * kPer < D;  // this lane holds output columns
   const float2 first = ml_of(s_lo + lane);
   float M = first.x;
   for (int s = s_lo + 32 + lane; s <= s_hi; s += 32) M = fmaxf(M, ml_of(s).x);
@@ -797,7 +804,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(const Param
         const float* src = p.part_o + (base + (long long)(s0 + j0 + j) * p.group) * D + lane * kPer;
 #pragma unroll
         for (int i = 0; i < kPer; i += 2) {
-          const float2 v = j0 + j < n ? *reinterpret_cast<const float2*>(src + i) : make_float2(0.f, 0.f);
+          const float2 v = cols && j0 + j < n ? *reinterpret_cast<const float2*>(src + i) : make_float2(0.f, 0.f);
           x[j][i] = v.x, x[j][i + 1] = v.y;
         }
       }
@@ -812,6 +819,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32) combine_kernel(const Param
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (!cols) return;
   __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.out + b * p.q_stride_b + (long long)head * D + lane * kPer);
 #pragma unroll
   for (int i = 0; i < kPer / 2; ++i) dst[i] = __floats2bfloat162_rn(acc[2 * i] * inv, acc[2 * i + 1] * inv);
@@ -915,6 +923,7 @@ cudaError_t dispatch(const void* q, void* out, const void* k_pages, const void* 
   p.scale = scale;
   switch (head_dim) {
     case 64: return tc::launch<64>(p, decode, stream);
+    case 80: return tc::launch<80>(p, decode, stream);  // zamba2's shared attention
     case 128: return tc::launch<128>(p, decode, stream);
     case 256: return tc::launch<256>(p, decode, stream);
     default: return cudaErrorInvalidValue;

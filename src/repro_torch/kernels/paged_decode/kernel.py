@@ -25,6 +25,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 _Q_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # pages are bf16
 RING_STAGES = 4  # f32 route: pages of K and V staged in shared memory (kStages in paged_attention.cu)
 SHARED_MEMORY_BYTES = 227 * 1024  # what one block may use on sm_90
+#: head_dims each route takes: the f32 CUDA-core kernels give a lane D / 32
+#: columns of a row; the bf16 tensor-core kernels step 16 columns, which also
+#: takes zamba2's 80
+HEAD_DIMS = {torch.float32: (64, 128, 256), torch.bfloat16: (64, 80, 128, 256)}
 register("paged_attention", CSRC / "paged_attention.cu", {
     "paged_flash_decode": [_P] * 7 + [_I] * 9 + [_F],
     "paged_chunk_prefill": [_P] * 6 + [_I] * 10 + [_F],
@@ -67,7 +71,9 @@ def _attention_checks(q, k_pages, v_pages, page_table, pos, *, head_axis: int):
     _check(k_pages.ndim == 4 and v_pages.shape == k_pages.shape, "pages must be (P, ps, Hkv, D)")
     hq, d = q.shape[head_axis], q.shape[-1]
     hkv = k_pages.shape[2]
-    _check(k_pages.shape[3] == d and d in (64, 128, 256), lambda: f"head_dim {d} must be 64, 128 or 256")
+    _check(k_pages.shape[3] == d, lambda: f"pages of head_dim {k_pages.shape[3]} do not fit q's {d}")
+    _check(d in HEAD_DIMS[q.dtype],
+           lambda: f"head_dim {d} is outside the {q.dtype} paged kernels: they take {HEAD_DIMS[q.dtype]}")
     _check(hq % hkv == 0, lambda: f"q heads {hq} % kv heads {hkv} != 0")
     ps = k_pages.shape[1]
     if q.dtype == torch.float32:  # the bf16 route stages 16-key chunks, whatever the page size

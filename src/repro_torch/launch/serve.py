@@ -15,10 +15,11 @@
     # on the CPU (the kernels' plain versions), smoke width
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged --device cpu
 
-``--arch`` takes the ported families: the dense decoders and rwkv6-1.6b
-(whose recurrent state rides per slot beside the page pool; prefix sharing
-is off for it, as in the JAX engine); another family is an error naming
-its slice. The default engine is ``paged``; the disaggregated engine of
+``--arch`` takes the ported families: the dense decoders (gemma2-9b's
+soft-capped attention included), rwkv6-1.6b and zamba2-2.7b (whose
+recurrent state rides per slot beside the page pool; prefix sharing is off
+for them, as in the JAX engine); another family (MoE, whisper) is an error
+naming its slice. The default engine is ``paged``; the disaggregated engine of
 the JAX launcher comes with a later slice, and asking for it is an error.
 """
 from __future__ import annotations
@@ -43,7 +44,9 @@ _DISAGG = "the disaggregated-serving slice"
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b's "
+                         "text), rwkv6-1.6b, zamba2-2.7b; not yet: the MoE and whisper families")
     ap.add_argument("--variant", default="smoke")
     ap.add_argument("--engine", choices=["static", "continuous", "paged", "disagg"], default="paged")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

@@ -9,11 +9,15 @@ Five execution modes are ported:
   (forward and backward kernels for a CUDA tensor, the plain versions for a
   CPU tensor). The JAX package runs its ``_sdpa`` (or ``_sdpa_chunked``
   above ``attn_chunk``) here unless ``use_flash_kernel`` is set; the port
-  always takes its kernel, and the tests show that the results agree.
-  Soft-capping (gemma2) and cross-attention memory (whisper) come with
-  their slices;
-- dense prefill (a dense ``cache``, ``s > 1``): the same attention through
-  the flash forward, and the whole K/V written into the zeroed cache;
+  takes its kernel, and the tests show that the results agree. With a
+  logit soft-cap (gemma2) the JAX package never takes its flash kernel,
+  and neither does the port: the configuration routes it to
+  :func:`_sdpa` / :func:`_sdpa_chunked`, plain PyTorch as XLA computes
+  them there, differentiated by autograd. Cross-attention memory (whisper)
+  comes with its slice;
+- dense prefill (a dense ``cache``, ``s > 1``): the same attention (the
+  flash forward, or ``_sdpa`` with a soft-cap), and the whole K/V written
+  into the zeroed cache;
 - dense decode (a dense ``cache``, ``s == 1``): the new K/V written at a
   scalar ``cache_index`` (static batch) or a ``(B,)`` one (slot ring), and
   the query attends over the cache up to its write position (and within
@@ -121,6 +125,60 @@ def _project_qkv(params, x):
     return q, k, v
 
 
+def _mask(q_pos, k_pos, window: Optional[int]):
+    """Causal boolean mask (.., q, k), within the window if there is one:
+    True = attend."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m = m & (k_pos[..., None, :] > q_pos[..., :, None] - window)
+    return m
+
+
+def _sdpa(q, k, v, mask, cfg):
+    """Scaled-dot-product GQA attention as the JAX package's ``_sdpa``: KV
+    heads repeated up to the query heads, the logits in f32, scaled,
+    soft-capped and masked, the probabilities in q's type. q (B, S, hq, hd),
+    k and v (B, T, hkv, hd), mask (B or 1, S, T)."""
+    hq, hd = q.shape[2], q.shape[3]
+    hkv = k.shape[2]
+    if hkv != hq:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
+    logits = torch.einsum("bsnh,btnh->bnst", q, k).float() * hd**-0.5
+    cap = cfg.attn_logit_softcap
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    logits = logits.masked_fill(~mask[:, None, :, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnh->bsnh", probs, v)
+
+
+def _sdpa_chunked(q, k, v, cfg, *, chunk: int, window: Optional[int]):
+    """:func:`_sdpa` over blocks of ``chunk`` queries, the whole K/V
+    resident: (B, heads, chunk, S) logits at a time instead of (B, heads,
+    S, S), as the JAX package's ``_sdpa_chunked``; S a multiple of
+    ``chunk``."""
+    pos = torch.arange(q.shape[1], device=q.device)[None, :]
+    outs = []
+    for i in range(q.shape[1] // chunk):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        outs.append(_sdpa(q[:, rows], k, v, _mask(pos[:, rows], pos, window), cfg))
+    return torch.cat(outs, dim=1)
+
+
+def _full_attention(q, k, v, cfg, positions, sliding_window):
+    """The full-sequence (training and dense prefill) attention: the flash
+    kernels, or with a logit soft-cap the JAX package's ``_sdpa_chunked``
+    (above ``attn_chunk`` positions, in whole chunks) or ``_sdpa``."""
+    if cfg.attn_logit_softcap is None:
+        return flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
+    s, chunk = q.shape[1], cfg.attn_chunk
+    if chunk is not None and s > chunk and s % chunk == 0:
+        return _sdpa_chunked(q, k, v, cfg, chunk=chunk, window=sliding_window)
+    mask = _mask(positions, torch.arange(s, device=q.device)[None, :], sliding_window)
+    return _sdpa(q, k, v, mask, cfg)
+
+
 def _dense_decode_attention(q, k_cache, v_cache, write_pos, cap, sliding_window):
     """One query a row (q (B, 1, hq, hd)) over the dense cache
     (B, T, hkv, hd), key positions ``<= write_pos`` (B, 1) and within the
@@ -166,10 +224,6 @@ def apply(
     decode = s == 1 and cache_index is not None
     cap = cfg.attn_logit_softcap
     prefill = cache is None or (page_table is None and not decode)
-    if prefill and cap is not None:
-        raise NotImplementedError(
-            "full-sequence attention with logit soft-capping comes with the gemma2 slice"
-        )
     if page_table is not None and decode != (s == 1):
         raise ValueError("against a paged cache, a one-token step takes a cache_index and a "
                          "chunk (s > 1) takes none")
@@ -182,7 +236,7 @@ def apply(
             for name, val in (("k", k), ("v", v)):
                 cache[name].zero_()
                 cache[name][:, :s].copy_(val)
-        out = flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
+        out = _full_attention(q, k, v, cfg, positions, sliding_window)
         return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), cache
 
     k = rope.apply_rope(k, positions, cfg.rope_theta)

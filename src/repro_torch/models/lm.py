@@ -9,14 +9,16 @@ where they are used, as in the JAX package.
 
 The dense cache mirrors the JAX tree with the layers as lists: per
 attention layer ``{"attn": {"k", "v"}}`` of ``(B, cache_len, hkv, hd)``,
-per RWKV6 layer ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` at B rows, so
-axis 0 of every leaf is the batch row (the slot); ``cache_insert`` and
-``cache_extract`` move rows between caches.
+per RWKV6 layer ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` and per Mamba2
+layer ``{"mamba": {"ssm", "conv"}}`` at B rows, so axis 0 of every leaf is
+the batch row (the slot); ``cache_insert`` and ``cache_extract`` move rows
+between caches. zamba2's shared attention block has a cache of its own per
+repeat, under the segment's ``"shared"`` key.
 
-The paged cache mirrors the JAX tree the same way. Per attention layer, a
-``{"attn": {"k", "v"}}`` pair of ``(num_pages, page_size, hkv, hd)`` pools,
-one page id indexing every layer at once, which the steps update in place.
-Per RWKV6 layer, ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` recurrent
+The paged cache mirrors the JAX tree the same way. Per attention layer
+(the shared block's included), a ``{"attn": {"k", "v"}}`` pair of
+``(num_pages, page_size, hkv, hd)`` pools, one page id indexing every
+layer at once, which the steps update in place. Per recurrent layer, its
 state at ``state_batch`` rows (one per slot), which a step computes anew
 and the ``paged_state_*`` helpers write back into the slot rows.
 """

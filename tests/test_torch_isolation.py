@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                     ROOT / "tools" / "cardbench.py",
-                                                                    ROOT / "tools" / "sample_bench.py"]
+                                                                    ROOT / "tools" / "sample_bench.py",
+                                                                    ROOT / "tools" / "trace_check.py"]
 
 
 def _imported_modules(path: Path):

@@ -19,14 +19,17 @@ up to 40,000, mass ties, rows of -inf and rows off a 16-byte boundary.
 The split and tile cases cover slots that fill their splits exactly and
 ones that do not, one-token slots, windows that begin inside a split or
 skip whole splits, page sizes that straddle the 16-key chunks, G from 1 to
-16, D 64, 128 and 256, and grids of more blocks than the card has SMs.
+16, D 64, 80 (zamba2's shared attention; bf16 queries only: the f32 route
+refuses it by name), 128 and 256, and grids of more blocks than the card
+has SMs.
 
 The training kernels: flash attention's forward agrees as paged attention
 does; its backward within 1e-5 of the tensor's largest value (f32) or two
 bf16 ulps plus 1e-3 of that value (bf16: dS = P (dP - Di) cancels, so an
 element near zero carries the f32 error of the tensor's scale), and is the
 same bit for bit from run to run. f32 inputs take the CUDA-core kernels,
-bf16 inputs the tensor-core ones. The fused pSGD, momentum and AdaGrad-DA
+bf16 inputs the tensor-core ones, which also take D 80 (the f32 ones
+refuse it by name). The fused pSGD, momentum and AdaGrad-DA
 (nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
 nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
 
@@ -37,8 +40,10 @@ and the fast exp), one bf16 ulp (y) or two (dq, dk, dv) plus 1e-3 of the
 largest value for bf16 inputs; the backward is the same bit for bit from
 run to run. f32 inputs take the CUDA-core kernels, bf16 inputs the
 chunk-parallel tensor-core passes; the cases cover S across the 16-row
-sub-chunk and 64-position chunk edges, strong decay, and more (batch, head,
-chunk) blocks than the card has SMs.
+sub-chunk and 64-position chunk edges, strong decay, more (batch, head,
+chunk) blocks than the card has SMs, and Mamba2's own inputs (80 heads, C
+and B shared by every head, a decay per head from zamba2's A_log and dt,
+the current token included).
 """
 import numpy as np
 import pytest
@@ -86,7 +91,15 @@ def _close(out, expect, atol, rtol):
                                atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+def _refused_by_name(q_dtype, d):
+    """The f32 routes hold a row as D / 32 or D / 64 columns a thread and take
+    no D 80: there the wrapper must raise, naming the width."""
+    if q_dtype == "float32" and d == 80:
+        return pytest.raises(ValueError, match="head_dim 80 is outside")
+    return None
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_decode_kernel_matches_plain(cuda, case, q_dtype, d):
@@ -95,6 +108,11 @@ def test_decode_kernel_matches_plain(cuda, case, q_dtype, d):
     q = np.random.default_rng(1).normal(size=(len(pos), hq, d)).astype(np.float32)
     qt, kt, vt, tt, pt = _on(cuda, q, k, v, table, pos)
     qt, kt, vt = qt.to(getattr(torch, q_dtype)), kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+    refused = _refused_by_name(q_dtype, d)
+    if refused is not None:
+        with refused:
+            ops.paged_flash_decode(qt, kt, vt, tt, pt)
+        return
     tol = dict(atol=2e-5, rtol=2e-5) if q_dtype == "float32" else BF16_ULP
     ops.reset_launches()
     for kw in (dict(), dict(sliding_window=5, softcap=30.0)):
@@ -153,11 +171,16 @@ def _split_case(device, case, q_dtype, d, chunk=None):
 SPLIT_KWARGS = (dict(), dict(sliding_window=20, softcap=30.0), dict(sliding_window=70))
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(SPLIT_CASES))
 def test_decode_split_edges_match_plain(cuda, case, q_dtype, d):
     qt, kt, vt, tt, pt = _split_case(cuda, case, q_dtype, d)
+    refused = _refused_by_name(q_dtype, d)
+    if refused is not None:
+        with refused:
+            ops.paged_flash_decode(qt, kt, vt, tt, pt)
+        return
     tol = dict(atol=2e-5, rtol=2e-5) if q_dtype == "float32" else BF16_ULP
     for kw in SPLIT_KWARGS:
         out = ops.paged_flash_decode(qt, kt, vt, tt, pt, **kw)
@@ -165,7 +188,7 @@ def test_decode_split_edges_match_plain(cuda, case, q_dtype, d):
         _close(out, ref.paged_attention_ref(qt, kt, vt, tt, pt, **kw), **tol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case,chunk", [("fills_splits_exactly", 32), ("ragged_long", 256), ("g16", 37),
                                         ("g16", 1), ("g1_mha", 64), ("g7_pages_straddle_chunks", 3),
@@ -173,6 +196,11 @@ def test_decode_split_edges_match_plain(cuda, case, q_dtype, d):
 def test_chunk_prefill_tiles_match_plain(cuda, case, chunk, q_dtype, d):
     """ragged_long at C 256: 8 x 2 x 64 tiles of 32 rows, 1,024 blocks."""
     qt, kt, vt, tt, pt = _split_case(cuda, case, q_dtype, d, chunk=chunk)
+    refused = _refused_by_name(q_dtype, d)
+    if refused is not None:
+        with refused:
+            ops.paged_chunk_prefill(qt, kt, vt, tt, pt)
+        return
     tol = dict(atol=2e-5, rtol=2e-5) if q_dtype == "float32" else BF16_ULP
     for kw in SPLIT_KWARGS:
         out = ops.paged_chunk_prefill(qt, kt, vt, tt, pt, **kw)
@@ -188,7 +216,7 @@ def test_decode_layout_matches_the_library(cuda):
         assert kernel.decode_scratch_floats(3, 16, 128, mp, ps) == 3 * 16 * nsplit * (128 + 2)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_bf16_paged_kernels_give_the_same_bits_twice(cuda, d):
     for case, chunk in (("ragged_long", None), ("ragged_long", 256), ("wide_table", None)):
         qt, kt, vt, tt, pt = _split_case(cuda, case, "bfloat16", d, chunk=chunk)
@@ -334,6 +362,11 @@ FLASH_CASES = {
     "s128_not_causal": (1, 128, 128, 4, 4, 128, False, None),
     "s129": (1, 129, 129, 8, 1, 64, True, None),
     "s513_window_100": (1, 513, 513, 8, 1, 128, True, 100),
+    # D 80: zamba2's shared attention at its training shape, and ragged edges
+    "d80_zamba2": (4, 513, 513, 32, 32, 80, True, None),
+    "d80_ragged_gqa": (2, 77, 77, 4, 2, 80, True, None),
+    "d80_window": (1, 130, 130, 2, 1, 80, True, 17),
+    "d80_sq_lt_sk": (2, 50, 129, 4, 4, 80, True, 40),
 }
 
 
@@ -355,6 +388,11 @@ def _close_to_scale(out, expect, rtol, scale_tol):
 def test_flash_attention_matches_plain(cuda, case, dtype):
     dt = getattr(torch, dtype)
     (q, k, v, d_out), kw = _flash_inputs(cuda, case, dt)
+    refused = _refused_by_name(dtype, q.shape[-1])
+    if refused is not None:
+        with refused:
+            flash_ops.forward(q, k, v, **kw)
+        return
     flash_ops.reset_launches()
     out, lse = flash_ops.forward(q, k, v, **kw)
     expect, expect_lse = flash_ref.attention_fwd_ref(q, k, v, **kw)
@@ -523,6 +561,49 @@ def test_gla_matches_plain(cuda, case, dtype):
     again = gla_ops.backward(q, k, v, lw, u, s0, states, final, dy, d_final, include_current=inc)
     assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again)), "not deterministic"
     assert gla_ops.LAUNCHES == {"gla_fwd": 1, "gla_bwd": 2}
+
+
+def _mamba2_gla_inputs(device, b, s, seed=0, heads=80, steep=1.0):
+    """GLA as Mamba2 drives it at zamba2-2.7b's width: q = C and k = B
+    shared by every head, v = dt x, and the head's log decay -softplus(dt)
+    exp(A_log) on every k channel, A_log = log(linspace(1, 16, heads)) as
+    initialized (``steep`` multiplies it: a steeper planted decay)."""
+    rng = np.random.default_rng(seed)
+    c, bm = (rng.standard_normal((b, s, 1, 64)).astype(np.float32) for _ in range(2))
+    dtp = np.log1p(np.exp(rng.standard_normal((b, s, heads)).astype(np.float32)))
+    a = np.linspace(1.0, 16.0, heads, dtype=np.float32) * steep
+    lw = np.broadcast_to((-dtp * a)[..., None], (b, s, heads, 64)).copy()
+    v = (rng.standard_normal((b, s, heads, 64)) * dtp[..., None]).astype(np.float32)
+    dy = rng.standard_normal((b, s, heads, 64)).astype(np.float32)
+    s0 = 0.3 * rng.standard_normal((b, heads, 64, 64)).astype(np.float32)
+    d_final = rng.standard_normal((b, heads, 64, 64)).astype(np.float32)
+    q, k = (np.broadcast_to(x, (b, s, heads, 64)).copy() for x in (c, bm))
+    return _on(device, q, k, v, lw, s0, dy, d_final)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("steep", [1.0, 8.0])
+def test_gla_at_mamba2_decay_matches_plain(cuda, dtype, steep):
+    """zamba2's decays reach -16 softplus(dt) a step, so a chunk's cumulative
+    log decay runs to -1e2 .. -1e3 (x8 planted): outputs and gradients stay
+    finite (underflow to 0 is right, a NaN from 0 x inf is not) and within
+    the file's GLA tolerances."""
+    dt = getattr(torch, dtype)
+    q, k, v, lw, s0, dy, d_final = _mamba2_gla_inputs(cuda, 2, 200, steep=steep)
+    q, k, v, dy = (t.to(dt) for t in (q, k, v, dy))
+    y, final, states = gla_ops.forward(q, k, v, lw, None, s0, include_current=True, save_states=True)
+    expect_y, expect_final = gla_ref.gla_fwd_ref(q, k, v, lw, include_current=True, initial_state=s0)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+    _close_to_scale(y, expect_y, **_gla_tol(dt))
+    _close_to_scale(final, expect_final, **_gla_tol(torch.float32))
+    grads = gla_ops.backward(q, k, v, lw, None, s0, states, final, dy, d_final, include_current=True)
+    expect = gla_ref.gla_bwd_ref(q, k, v, lw, None, s0, dy, d_final, include_current=True)
+    for name, g, e in zip(("dq", "dk", "dv", "dlog_w", "du", "ds0"), grads, expect):
+        if e is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        _close_to_scale(g, e, **_gla_tol(g.dtype, grad=True))
 
 
 def test_gla_autograd_on_the_card(cuda):

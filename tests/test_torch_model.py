@@ -225,14 +225,22 @@ def test_attention_decode_branch_matches_jax(models, cfgs):
 
 
 def test_unported_blocks_raise():
-    with pytest.raises(NotImplementedError, match="zamba2 slice"):
-        LanguageModel(get_config("zamba2-2.7b", "smoke"))
+    """MoE blocks wait for their slice and raise. zamba2's blocks (Mamba2,
+    the shared attention block) and gemma2's soft-capped full-sequence
+    attention raised until their slice; now their logits equal JAX's."""
     with pytest.raises(NotImplementedError, match="MoE"):
         LanguageModel(get_config("dbrx-132b", "smoke"))
-    # full-sequence attention is ported (training); its soft-capped form is not
-    cfg = get_config("gemma2-9b", "smoke")
-    with pytest.raises(NotImplementedError, match="gemma2 slice"):
-        attention.apply({}, torch.zeros(1, 3, cfg.d_model), cfg, positions=torch.arange(3)[None])
+    tokens = np.random.default_rng(1).integers(0, 512, (2, 9)).astype(np.int32)
+    for arch in ("zamba2-2.7b", "gemma2-9b"):
+        jcfg = jax_config(arch, "smoke").replace(compute_dtype="float32")
+        tcfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+        jmodel = build_model(jcfg)
+        tree = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0))[0])
+        jlogits, _ = jax.jit(jmodel.forward)(jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(tokens)})
+        with torch.no_grad():
+            tlogits, _ = LanguageModel(tcfg).forward(bridge.params_from_numpy(tree, tcfg, device="cpu"),
+                                                     {"tokens": torch.from_numpy(tokens)})
+        _close(tlogits, jlogits)
 
 
 @pytest.mark.parametrize("key,slice_name", [("vision_embeds", "internvl2 slice"),

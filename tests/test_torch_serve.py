@@ -110,10 +110,10 @@ def test_launcher_serves_on_cpu():
 @pytest.mark.parametrize("engine", ["static", "continuous", "disagg"])
 def test_launcher_names_the_later_slice(engine, capsys):
     """disagg waits for its slice; the static and continuous engines serve
-    the ported families and name the slice of a family that is not."""
+    the ported families and name the slice of a family that is not (MoE)."""
     argv = ["--engine", engine, "--device", "cpu"]
     if engine != "disagg":
-        argv += ["--arch", "zamba2-2.7b"]
+        argv += ["--arch", "dbrx-132b"]
     with pytest.raises(SystemExit):
         launcher.main(argv)
     assert "comes with" in capsys.readouterr().err

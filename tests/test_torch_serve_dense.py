@@ -1,9 +1,11 @@
-"""The port's dense serving path against the JAX package's, on qwen2.5-3b
-and rwkv6-1.6b smoke in float32 on the CPU, with the JAX weights carried
-over by ``repro_torch.bridge`` (rwkv6's with non-zero bonus ``u`` and a
-spread of decay rates, so that the test sees them): the attention layer's
-dense prefill and decode branches (a scalar and a per-row cache index, a
-sliding window, logit soft-capping), ``LanguageModel.prefill`` and the dense
+"""The port's dense serving path against the JAX package's, on qwen2.5-3b,
+rwkv6-1.6b and zamba2-2.7b smoke in float32 on the CPU (zamba2's rows
+carry Mamba2's SSM state and conv window and the shared block's KV), with
+the JAX weights carried over by ``repro_torch.bridge`` (rwkv6's with
+non-zero bonus ``u`` and a spread of decay rates, so that the test sees
+them): the attention layer's dense prefill and decode branches (a scalar
+and a per-row cache index, a sliding window, logit soft-capping, which
+routes the prefill to ``_sdpa``), ``LanguageModel.prefill`` and the dense
 ``decode_step``, ``cache_insert``/``cache_extract``, and the greedy token
 streams of ``ServeEngine`` and ``ContinuousBatchingEngine`` (slot
 recycling, the admission ramp's one decode width per stage, mixed prompt
@@ -37,7 +39,7 @@ from repro_torch.serve import ContinuousBatchingEngine, ServeEngine  # noqa: E40
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 TOL = 1e-4
-ARCHS = ("qwen2.5-3b", "rwkv6-1.6b")
+ARCHS = ("qwen2.5-3b", "rwkv6-1.6b", "zamba2-2.7b")
 _WEIGHTS: dict = {}
 _JAX_RUNS: dict = {}
 
@@ -212,19 +214,12 @@ def test_attention_dense_branches_match_jax(window, cap):
     jcache = jattention.init_cache(jcfg, b, 16, jnp.bfloat16)
     tcache = attention.init_cache(tcfg, b, 16, torch.bfloat16, device="cpu")
     pos = np.arange(s)[None, :]
-    if cap is None:  # the prefill (flash) has no soft-capping, as in training
-        jy, jcache = japply(layer, jnp.asarray(x), jcfg, positions=jnp.asarray(pos), cache=jcache,
-                            sliding_window=window)
-        ty, _ = attention.apply(tlayer, torch.from_numpy(x), tcfg, positions=torch.from_numpy(pos),
-                                cache=tcache, sliding_window=window)
-        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL, rtol=TOL)
-    else:
-        with pytest.raises(NotImplementedError, match="gemma2 slice"):
-            attention.apply(tlayer, torch.from_numpy(x), tcfg, positions=torch.from_numpy(pos),
-                            cache=tcache)
-        kv = {n: rng.standard_normal((b, 16) + jcache[n].shape[2:]).astype(np.float32) for n in "kv"}
-        jcache = {n: jnp.asarray(kv[n], jnp.bfloat16) for n in "kv"}
-        tcache = {n: torch.from_numpy(kv[n]).to(torch.bfloat16) for n in "kv"}
+    # the prefill: the flash forward, or with a soft-cap _sdpa as in JAX
+    jy, jcache = japply(layer, jnp.asarray(x), jcfg, positions=jnp.asarray(pos), cache=jcache,
+                        sliding_window=window)
+    ty, _ = attention.apply(tlayer, torch.from_numpy(x), tcfg, positions=torch.from_numpy(pos),
+                            cache=tcache, sliding_window=window)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL, rtol=TOL)
     for n in "kv":
         np.testing.assert_allclose(tcache[n].float().numpy(), np.asarray(jcache[n], np.float32), atol=1e-6)
     for idx in (np.int32(s), np.asarray([s, s + 2], np.int32)):

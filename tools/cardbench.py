@@ -1,10 +1,10 @@
 """Measurement scaffolding shared by the scripts that check and time the
 port's kernels on a GPU (``chip_smoke.py``, ``tools/gla_bench.py``,
-``tools/paged_bench.py``, ``tools/sample_bench.py``): the card's name and
-power limit, L2-cold event timing, device time from a torch.profiler trace,
-the tensor-core instructions in a built library's SASS, the attention
-forwards' tolerance, paged K/V pools, the sampler's rows and the work they
-need, and the clock stamps of a measurement build.
+``tools/paged_bench.py``, ``tools/sample_bench.py``, ``tools/trace_check.py``):
+the card's name and power limit, L2-cold event timing, device time from a
+torch.profiler trace, the tensor-core instructions in a built library's
+SASS, the attention forwards' tolerance, paged K/V pools, the sampler's rows
+and the work they need, and the clock stamps of a measurement build.
 
 torch and the port (``repro_torch``) are imported inside the functions, so
 a script may first put the tree it measures on ``sys.path``.
@@ -14,9 +14,12 @@ from __future__ import annotations
 import json
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 L2_BYTES = 50 * 2**20
+# Idle seconds on each side of a traced run, inside the profiler's window.
+TRACE_PAD_S = 0.05
 # Attention outputs are bf16: the kernel and the plain version each round an
 # f32 result to bf16, so they may differ by one bf16 ulp, at most 2**-7 of
 # the value; ATTN_ATOL covers values near 0.
@@ -59,12 +62,37 @@ def timed(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_trace(run, tmp_dir: Path) -> dict:
+def device_trace(run, tmp_dir: Path, prepare=None, attempts: int = 3) -> dict:
     """``run()`` under torch.profiler, tracing the device only (kernels,
     copies, memsets): the run's wall ms, the device's busy ms (the union of
     its activity intervals) and idle share, the number of activities, and
     ``by_kernel``: name -> (ms, count), largest first. The trace passes
-    through ``tmp_dir`` and is deleted."""
+    through ``tmp_dir`` and is deleted.
+
+    The profiler keeps only the device records inside its capture window,
+    and a run of a few milliseconds traced without a margin loses some or
+    all of them now and then, with no error (``tools/trace_check.py`` on an
+    H100 at 700 W, torch 2.11: of 180 such traces 2 came back empty and 3
+    short; with the padding, none of 180). So the window is padded with
+    TRACE_PAD_S of idle time on each side, outside the wall time measured;
+    and a trace that still holds no device record is taken again, at most
+    ``attempts`` times in all, calling ``prepare()`` (if given) before each,
+    as a run that consumes its inputs (an engine's queue) needs. After that
+    it raises."""
+    for attempt in range(1, attempts + 1):
+        if prepare is not None:
+            prepare()
+        trace = _trace_once(run, tmp_dir)
+        if trace is not None:
+            return trace
+        print(f"cardbench: traced run {attempt} of {attempts} recorded no device activity", file=sys.stderr,
+              flush=True)
+    raise RuntimeError(f"the traced run recorded no device activity in {attempts} attempts")
+
+
+def _trace_once(run, tmp_dir: Path, pad_s: float = TRACE_PAD_S):
+    """One traced ``run()`` (:func:`device_trace`), ``pad_s`` of idle time
+    on each side, or None when the trace holds no device record."""
     import time
 
     import torch
@@ -72,10 +100,12 @@ def device_trace(run, tmp_dir: Path) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(pad_s)
     tmp_dir.mkdir(parents=True, exist_ok=True)
     path = tmp_dir / "profile.tmp.json"  # too large to keep
     prof.export_chrome_trace(str(path))
@@ -83,7 +113,7 @@ def device_trace(run, tmp_dir: Path) -> dict:
     path.unlink()
     device = [ev for ev in events if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device:
-        raise RuntimeError("the traced run recorded no device activity")
+        return None
     busy, end = 0.0, float("-inf")
     for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in device):
         if e > end:

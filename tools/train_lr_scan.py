@@ -5,7 +5,8 @@
                                    [--etas 0.3 1 3 10]
 
 Builds the kernels, then runs chip_smoke.py's training run (``--arch`` at
-full width, cut to ``--layers`` layers, 0 for all of them; SEBS b1 4, C1
+full width, cut to ``--layers`` layers, a whole number of repeats of its
+body, 0 for all of them; SEBS b1 4, C1
 16, rho 2, three stages, seq 512, microbatch 4: 12 updates) once per
 learning rate from the same seed-0 weights, and prints each run's losses.
 chip_smoke.py's ETAS were chosen with it. Needs a CUDA device.
@@ -13,6 +14,7 @@ chip_smoke.py's ETAS were chosen with it. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import sys
 from pathlib import Path
@@ -34,7 +36,6 @@ def main() -> None:
 
     import chip_smoke
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import SegmentSpec
     from repro_torch.kernels import _cuda
     from repro_torch.optim import make_optimizer
 
@@ -44,7 +45,10 @@ def main() -> None:
     _cuda.build()
     cfg = get_config(args.arch, "full")
     if args.layers:
-        cfg = cfg.replace(segments=(SegmentSpec(body=cfg.segments[0].body, repeat=args.layers),))
+        seg = cfg.segments[0]
+        if args.layers % len(seg.body):
+            sys.exit(f"train_lr_scan: --layers must be a multiple of {cfg.name}'s body of {len(seg.body)}")
+        cfg = cfg.replace(segments=(dataclasses.replace(seg, repeat=args.layers // len(seg.body)),))
     hp = {"psgd": {"gamma": 1e4}, "momentum": {"beta": 0.9}, "adagrad_da": {}}[args.optimizer]
     print(chip_smoke.nvidia_smi())
     for eta in args.etas:
