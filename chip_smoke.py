@@ -120,6 +120,36 @@
     CPU path as in phase 8, and the paged and dense engines' greedy tokens
     on the card equal the CPU's.
 
+18. Serves dbrx-132b at full width cut to 4 of its 40 layers (13.65 B f32
+    parameters, 54.6 GB) through the paged engine on phase 4's traffic
+    (decode 4 a tick, chunk prefill 4 a chunk at G 6, the sampler every
+    tick at V 100,352; the shared prefix reused), traced on the device with
+    the MoE layers' share (moe_breakdown: router, dispatch, the dispatch and
+    combine products, the expert products, the weight casts); then the
+    continuous and static engines on the same prompts; on dbrx smoke in
+    float32 the greedy tokens of the three engines on the card equal the
+    CPU path's.
+19. Trains dbrx-132b at full width cut to 1 of its 40 layers with SEBS and
+    pSGD on phase 7's schedule (flash forward 2 and backward 1 a
+    microbatch, pSGD 1 an update): finite, falling losses, the stage ladder
+    exact, the traced stage-2 update's router loss finite, positive and at
+    most E x k; on dbrx and arctic smoke the card agrees with the CPU path
+    as in phase 8, each path's expert choices reported and every routing
+    flip printed with its probability gap.
+20. Serves arctic-480b at full width cut to 1 of its 35 layers (55.4 GB;
+    each 17.8 GB expert tensor cast to bf16 only for its product) through
+    the paged engine on phase 4's traffic (G 7, V 32,000) and then the
+    static engine, peak memory below the card's; on arctic smoke the greedy
+    tokens of the three engines on the card equal the CPU path's; on
+    internvl2 smoke with vision_embeds the card's loss and gradients equal
+    the CPU path's.
+
+Phase 3 also holds the MoE family's shapes: the flash forward and backward
+at G 6 (B 4, S 513, 48/8 heads), the forward at dbrx's dense prefills and
+at G 7 (B 8, S 512, 56/8), the paged decode and chunk prefill at G 6 and G
+7, the sampler at 8 rows of 100,352 and 32,000, and the fused pSGD bit for
+bit over one dbrx layer's expert tensors.
+
 Any failed phase exits non-zero. The last lines of standard output are the
 kernels' JSON record, the card's name and power limit as nvidia-smi gives
 them, and ``{"ok": true, "device": {...}}``. A copy of the record goes to
@@ -127,6 +157,7 @@ them, and ``{"ok": true, "device": {...}}``. A copy of the record goes to
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -377,29 +408,38 @@ def kernel_checks(kernel_records: dict) -> dict:
     #    counts what these rows need: every logit once, and the noise of the
     #    logits each row scores (all of a keep-all row's, a top-k row's kept
     #    ones; greedy rows none) (cardbench.sampler_work).
-    shapes = {}
-    for name, rows, vocab in (("b8_v151936", 8, 151936), ("b1_v151936", 1, 151936), ("b8_v65536", 8, 65536)):
-        logits, noise, temperature, top_k = sampler_rows(gen, rows, vocab)
-        got = ops.fused_sample(logits, noise, temperature, top_k)
-        expect = ref.fused_sample_ref(logits, noise, temperature, top_k)
-        mismatched = int((got != expect).sum())
-        if mismatched:
-            fail(f"fused_sample ({name}): {mismatched} tokens differ from the plain version: "
-                 f"{got.tolist()} vs {expect.tolist()}")
-        sets = [(logits.clone(), noise.clone(), temperature, top_k)
-                for _ in range(copies_for(nbytes(logits, noise)))]
-        work_bytes, work_ops = sampler_work(logits, temperature, top_k)
-        shapes[name] = dict(
-            max_abs_err=mismatched,  # tokens that differ
-            ms=timed(ops.fused_sample, sets, 100),
-            device_ms=device_ms(ops.fused_sample, sets, 20),
-            plain_ms=timed(ref.fused_sample_ref, sets, 20),
-            bound=bound(work_bytes, work_ops, F32_FLOPS),
-            splits=kernel.sample_layout(rows, vocab)[1],
-        )
-        del sets
+    shapes = {name: sampler_reading(name, gen, rows, vocab) for name, rows, vocab in (
+        ("b8_v151936", 8, 151936), ("b1_v151936", 1, 151936), ("b8_v65536", 8, 65536))}
     kernel_records["fused_sample"] = {**shapes["b8_v151936"], "shapes": shapes}
     return decode_serving
+
+
+def sampler_reading(name: str, gen, rows: int, vocab: int) -> dict:
+    """The sampler's wrapper on ``rows`` rows of ``vocab`` logits (greedy,
+    t=0.8 with top_k in {0, 1, 50}, a duplicated 50th value, a top_k above
+    the vocabulary: cardbench.sampler_rows): every token must equal the
+    plain version's. Timed L2-cold, on the device and plain; the bound
+    counts what these rows need (cardbench.sampler_work)."""
+    from repro_torch.kernels.paged_decode import kernel, ops, ref
+
+    logits, noise, temperature, top_k = sampler_rows(gen, rows, vocab)
+    got = ops.fused_sample(logits, noise, temperature, top_k)
+    expect = ref.fused_sample_ref(logits, noise, temperature, top_k)
+    mismatched = int((got != expect).sum())
+    if mismatched:
+        fail(f"fused_sample ({name}): {mismatched} tokens differ from the plain version: "
+             f"{got.tolist()} vs {expect.tolist()}")
+    sets = [(logits.clone(), noise.clone(), temperature, top_k)
+            for _ in range(copies_for(nbytes(logits, noise)))]
+    work_bytes, work_ops = sampler_work(logits, temperature, top_k)
+    return dict(
+        max_abs_err=mismatched,  # tokens that differ
+        ms=timed(ops.fused_sample, sets, 100),
+        device_ms=device_ms(ops.fused_sample, sets, 20),
+        plain_ms=timed(ref.fused_sample_ref, sets, 20),
+        bound=bound(work_bytes, work_ops, F32_FLOPS),
+        splits=kernel.sample_layout(rows, vocab)[1],
+    )
 
 
 def to_device(tree, device):
@@ -498,11 +538,17 @@ LIBRARY_NONE = "no single PyTorch call computes this update"
 # embedding scaled by sqrt(d_model) into the final soft-cap of 30) 22.0003 /
 # 21.9404 / 21.6336 after 12 updates at 0.01 / 0.03 / 0.1, and 33.98 /
 # 32.22 / 33.47 at 0.3 / 1 / 3 (on an H100 80GB HBM3 at 700 W).
+# dbrx-132b at 1 of its 40 layers (phase 19), from 11.9921: 12.0271 / 12.0103
+# / 11.9952 / 11.9657 / 12.0340 after 12 updates at 0.1 / 0.3 / 0.5 / 0.7 /
+# 1, NaN by the ninth update at 1.5, 2 and 3 and earlier at 10, 30 and 100
+# (run_sebs, as tools/train_lr_scan.py --arch dbrx-132b --layers 1 runs it;
+# on an H100 80GB HBM3 at 700 W): 0.7 is the one rate that ended below its
+# start, by 0.026, where one batch's loss moves ~0.02 from the next.
 # The adaptive optimizers (phase 14) at rates usual for each: AdamW 1e-3
 # (its first steps move every weight by about eta), LAMB 1e-2 and LARS 1
 # (each leaf moves by eta times its own norm, scaled by 0.01 for LARS).
 ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0,
-        "zamba2_psgd": 0.3, "gemma2_psgd": 0.1, "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
+        "zamba2_psgd": 0.3, "gemma2_psgd": 0.1, "dbrx_psgd": 0.7, "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
 
 
 def excess_bwd(out, expect, rtol: float = BWD_RTOL, scale_tol: float = BWD_SCALE_TOL) -> float:
@@ -900,7 +946,7 @@ def fused_checks(records: dict, trees: dict) -> None:
     for kname, shapes in trees.items():
         n = sum(math.prod(s) for s in shapes)
         w, g = leaves(shapes), leaves(shapes)
-        if kname == "fused_psgd":
+        if kname.startswith("fused_psgd"):
             state = [leaves(shapes)]
             wrapper = lambda w_, g_, a_: ops.psgd_update(w_, g_, a_, lr=lr, gamma=gamma)
             plain = lambda w_, g_, a_: [ref.psgd_ref(*x, lr=lr, gamma=gamma) for x in zip(w_, g_, a_)]
@@ -922,7 +968,7 @@ def fused_checks(records: dict, trees: dict) -> None:
             outputs = lambda w_, st: [w_, st[1], st[2]]
             moved = 28 * n  # g, anchor, z, s2 read; w, z, s2 written (w is not read)
         expect = plain(w, g, *state)
-        expect = [expect] if kname == "fused_psgd" else expect
+        expect = [expect] if kname.startswith("fused_psgd") else expect
         wrapper(w, g, *state)
         torch.cuda.synchronize()
         mismatched, max_err = 0, 0.0
@@ -1017,9 +1063,61 @@ def check_training(label: str, log, launches: dict, kernels) -> None:
 # at the rate used, and must stay within half the tolerance for the
 # comparison to mean anything; where the rate is below 0.3, the three runs
 # are also made at 0.3 and recorded, as the reason for the lower rate.
-CARD_CPU_ETAS = {"qwen2.5-3b": 0.3, "rwkv6-1.6b": 0.01, "zamba2-2.7b": 0.3, "gemma2-9b": 0.3}
+CARD_CPU_ETAS = {"qwen2.5-3b": 0.3, "rwkv6-1.6b": 0.01, "zamba2-2.7b": 0.3, "gemma2-9b": 0.3,
+                 "dbrx-132b": 0.3, "arctic-480b": 0.3}
 CARD_CPU_REFERENCE_ETA = 0.3
 CARD_CPU_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def capture_routing():
+    """Records, on the host, the router probabilities and the experts chosen
+    at every routing that models/layers/moe.py makes inside the block (each
+    MoE layer's forward, and again at its recomputation under remat)."""
+    from repro_torch.models.layers import moe
+
+    calls: list = []
+    choose = moe.top_experts
+
+    def recording(probs, top_k):
+        chosen = choose(probs, top_k)
+        calls.append((probs.detach().float().cpu(), chosen.cpu()))
+        return chosen
+
+    moe.top_experts = recording
+    try:
+        yield calls
+    finally:
+        moe.top_experts = choose
+
+
+def routing_report(arch: str, cpu: list, card: list, cfg) -> dict:
+    """The expert choices of the CPU path and the card's, each counted per
+    expert, and every token whose chosen set differs between them (a flip),
+    printed with the CPU's probability gap between its k-th and (k+1)-th
+    expert: a flip at a near-tie is rounding, one at a wide gap a fault."""
+    import torch
+
+    if len(cpu) != len(card):
+        fail(f"{arch}: {len(cpu)} routings on the CPU, {len(card)} on the card")
+    k, e = cfg.top_k, cfg.num_experts
+    counts = {"cpu": torch.zeros(e, dtype=torch.int64), "card": torch.zeros(e, dtype=torch.int64)}
+    flips, tokens = [], 0
+    for call, ((probs, a), (_, c)) in enumerate(zip(cpu, card)):
+        counts["cpu"] += torch.bincount(a.flatten(), minlength=e)
+        counts["card"] += torch.bincount(c.flatten(), minlength=e)
+        same = (a.sort(-1).values == c.sort(-1).values).all(-1)
+        tokens += same.numel()
+        for where in (~same).nonzero().tolist():
+            ranked = probs[tuple(where)].sort(descending=True).values
+            flips.append({"call": call, "token": where, "gap": (ranked[k - 1] - ranked[k]).item()})
+    print(f"card vs cpu: {arch} routing over {len(cpu)} routings of {tokens} tokens (top-{k} of {e}): "
+          f"expert choices cpu {counts['cpu'].tolist()}, card {counts['card'].tolist()}; "
+          f"{len(flips)} tokens chose other experts" + "".join(
+              f" | flip at routing {f['call']}, token {f['token']}: probability gap {f['gap']:.3e}"
+              for f in flips), flush=True)
+    return {"routings": len(cpu), "tokens": tokens, "cpu": counts["cpu"].tolist(),
+            "card": counts["card"].tolist(), "flips": flips}
 
 
 def card_cpu_agreement(arch: str, smoke=None) -> dict:
@@ -1046,13 +1144,15 @@ def card_cpu_agreement(arch: str, smoke=None) -> dict:
     def copy_to(tree, device):  # the runs update their weights in place
         return tree_map(lambda x: x.detach().to(device, copy=True), tree)
 
-    grads = {}
+    grads, routing = {}, {}
     for device in ("cpu", "cuda"):
         params = copy_to(base, device)
         for w in tree_leaves(params):
             w.requires_grad_(True)
-        g, _ = _grads_over_microbatches(model, params, {"tokens": tokens.to(device)}, 1, 0.0)
+        with capture_routing() as routing[device]:
+            g, _ = _grads_over_microbatches(model, params, {"tokens": tokens.to(device)}, 1, 0.0)
         grads[device] = [x.detach().cpu() for x in g]
+    routes = routing_report(arch, routing["cpu"], routing["cuda"], cfg) if cfg.num_experts else None
     grad_worst = max((torch.linalg.vector_norm(c - a) / torch.linalg.vector_norm(a)).item()
                      for a, c in zip(grads["cpu"], grads["cuda"]))
     if grad_worst > CARD_CPU_RTOL:
@@ -1083,7 +1183,7 @@ def card_cpu_agreement(arch: str, smoke=None) -> dict:
           f"leaf's norm; {len(losses['cpu'])} updates at eta {eta}, losses within "
           f"{worst:.2e} relative (control run from weights moved by 1e-7: {control:.2e})", flush=True)
     out = {"cpu": losses["cpu"], "cuda": losses["cuda"], "max_rel": worst, "control_max_rel": control,
-           "grad_max_rel": grad_worst, "eta": eta}
+           "grad_max_rel": grad_worst, "eta": eta, "routing": routes}
     if eta < CARD_CPU_REFERENCE_ETA:
         _, worst_ref, control_ref = gaps(CARD_CPU_REFERENCE_ETA)
         print(f"card vs cpu: {arch} at eta {CARD_CPU_REFERENCE_ETA} (not held, the reason for eta "
@@ -1118,7 +1218,8 @@ def print_training(label: str, log, wall: float, peak: int, launches: dict, stag
 
 def trace_update(label: str, trainer, state, optimizer, lr: float):
     """One stage-2 update (4 microbatches of 4) traced on the device, after
-    an untraced one timed for comparison. Returns (profile, untraced ms)."""
+    an untraced one timed for comparison. Returns (profile, untraced ms,
+    the untraced update's metrics)."""
     import torch
 
     from repro_torch.train import build_train_step
@@ -1129,7 +1230,7 @@ def trace_update(label: str, trainer, state, optimizer, lr: float):
     step(state, batch, lr, 2)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(state, batch, lr, 2)
+    _, metrics = step(state, batch, lr, 2)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3
     prof = device_profile(lambda: step(state, batch, lr, 2))
@@ -1139,7 +1240,7 @@ def trace_update(label: str, trainer, state, optimizer, lr: float):
           f"{prof['gla_ms']:.2f} ms", flush=True)
     for kname, (ms, n) in list(prof["by_kernel"].items())[:10]:
         print(f"{label} profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
-    return prof, untraced_ms
+    return prof, untraced_ms, metrics
 
 
 def serve_rwkv6(cfg) -> dict:
@@ -1250,7 +1351,7 @@ def train_rwkv6(cfg) -> dict:
             fail(f"rwkv6 training: {kname} launched {launches[kname]} times, not {n}")
     stages = stage_table(log, updates, seq)
     print_training("rwkv6 psgd", log, wall, peak, launches, stages, seq)
-    profile, untraced_ms = trace_update("rwkv6 train", trainer, state, psgd, eta)
+    profile, untraced_ms, _ = trace_update("rwkv6 train", trainer, state, psgd, eta)
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1515,34 +1616,36 @@ def zamba2_smoke():
     return get_config("zamba2-2.7b", "smoke").replace(ssm_state=64)
 
 
-def paged_d80_checks(records: dict) -> None:
-    """The paged kernels at zamba2's shared attention (G 1: 32 query and 32
-    kv heads of 80; pages of 16): decode at the serving shape (8 slots of
-    544 tokens, no shared prefix: prefix sharing is off for zamba2), the
-    same bits twice, and a chunk prefill of 256 tokens at pos_start 0 and
-    256, each against its plain version with the last visible key dropped
-    as the planted fault. Into ``records["paged_flash_decode_d80"]`` and
-    ``records["paged_chunk_prefill_d80"]``."""
+def paged_shape_checks(records: dict, suffix: str, hq: int, hkv: int, d: int, seed: int,
+                       prefix_pages: int = 0) -> None:
+    """The paged kernels at one model's attention shape (pages of 16):
+    decode at the serving shape (8 slots of 544 tokens, the first
+    ``prefix_pages`` pages shared by every slot), the same bits twice, and a
+    chunk prefill of 256 tokens at pos_start 0 and 256, each against its
+    plain version with the last visible key dropped as the planted fault.
+    Into ``records["paged_flash_decode" + suffix]`` and
+    ``records["paged_chunk_prefill" + suffix]``."""
     import torch
 
     from repro_torch.kernels.paged_decode import ops, ref
 
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    b, hq, hkv, d, ps, pages = 8, ZAMBA2_HEADS, ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, 16, 1025
+    label = suffix.lstrip("_").upper()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, ps, pages = 8, 16, 1025
     lengths = [544] * b
-    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=lengths)
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=lengths, prefix_pages=prefix_pages)
     pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device="cuda")
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
     out = ops.paged_flash_decode(q, k, v, table, pos)
-    readings = [check_close("paged_flash_decode (D 80, serving shape)", out,
+    readings = [check_close(f"paged_flash_decode ({label}, serving shape)", out,
                             ref.paged_attention_ref(q, k, v, table, pos),
                             ref.paged_attention_ref(q, k, v, table, pos - 1))]
     if not torch.equal(out, ops.paged_flash_decode(q, k, v, table, pos)):
-        fail("paged_flash_decode (D 80): two runs on the same inputs differ")
+        fail(f"paged_flash_decode ({label}): two runs on the same inputs differ")
     sets = [(q.clone(), k.clone(), v.clone(), table, pos) for _ in range(copies_for(nbytes(q, k, v)))]
     io = nbytes(q) * 2 + nbytes(table, pos)
     kv = kv_bytes_read(table, pos, ps, hkv, d, 2)
-    records["paged_flash_decode_d80"] = dict(
+    records["paged_flash_decode" + suffix] = dict(
         **merge(readings),
         ms=timed(ops.paged_flash_decode, sets, 200),
         device_ms=device_ms(ops.paged_flash_decode, sets, 50),
@@ -1558,7 +1661,7 @@ def paged_d80_checks(records: dict) -> None:
     for start in (0, 256):
         ps_t = torch.tensor([start], dtype=torch.int32, device="cuda")
         fault = ref.paged_prefill_ref(q, k, v, table, ps_t - 1) if start else None
-        readings.append(check_close(f"paged_chunk_prefill (D 80, pos_start {start})",
+        readings.append(check_close(f"paged_chunk_prefill ({label}, pos_start {start})",
                                     ops.paged_chunk_prefill(q, k, v, table, ps_t),
                                     ref.paged_prefill_ref(q, k, v, table, ps_t), fault))
     ps_t = torch.tensor([256], dtype=torch.int32, device="cuda")
@@ -1566,7 +1669,7 @@ def paged_d80_checks(records: dict) -> None:
     visible = sum(256 + i + 1 for i in range(c))
     io = nbytes(q) * 2 + nbytes(table, ps_t)
     kv = kv_bytes_read(table, ps_t + c - 1, ps, hkv, d, 2)
-    records["paged_chunk_prefill_d80"] = dict(
+    records["paged_chunk_prefill" + suffix] = dict(
         **merge(readings),
         ms=timed(ops.paged_chunk_prefill, sets, 50),
         device_ms=device_ms(ops.paged_chunk_prefill, sets, 20),
@@ -1713,7 +1816,9 @@ def zamba2_kernel_checks(records: dict) -> None:
     flash_shape(records, gen, 4, 513, ZAMBA2_HEADS, ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, suffix="_d80")
     flash_serving_prefills(records, "flash_attention_fwd_d80", gen, (8,), ZAMBA2_HEADS, ZAMBA2_HEADS,
                            ZAMBA2_HEAD_DIM)
-    paged_d80_checks(records)
+    # zamba2's shared attention: G 1, 32 kv heads of 80, no shared prefix
+    # (prefix sharing is off for zamba2)
+    paged_shape_checks(records, "_d80", ZAMBA2_HEADS, ZAMBA2_HEADS, ZAMBA2_HEAD_DIM, seed=11)
     mamba2_gla_checks(records)
 
 
@@ -1879,7 +1984,7 @@ def train_zamba2(cfg) -> dict:
             fail(f"zamba2 training: {kname} launched {launches[kname]} times, not {n}")
     stages = stage_table(log, updates, seq)
     print_training("zamba2 psgd", log, wall, peak, launches, stages, seq)
-    profile, untraced_ms = trace_update("zamba2 train", trainer, state, psgd, eta)
+    profile, untraced_ms, _ = trace_update("zamba2 train", trainer, state, psgd, eta)
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1925,6 +2030,487 @@ def train_gemma2(cfg) -> dict:
     return {"layers": cfg.num_layers, "params": cfg.param_counts()["total"], "eta": eta,
             "losses": log.losses, "wall_s": wall, "peak_gib": peak / 2**30, "launches": launches,
             "stages": stages, "card_vs_cpu": agreement}
+
+
+# The MoE family (phases 18-20). dbrx-132b: 48 query heads over 8 kv heads of
+# 128 (G 6), 16 experts top-4, vocabulary 100,352; arctic-480b: 56 over 8
+# (G 7), 128 experts top-2 beside a dense residual MLP, vocabulary 32,000.
+# Neither fits one card at full width in f32: dbrx is served at 4 of its 40
+# layers (13.65 B parameters, 54.6 GB) and trained at 1 (3.88 B: the
+# weights, pSGD's anchor, the gradient sum and the bf16 expert copies),
+# arctic is served at 1 of its 35 (13.8 B, 55.4 GB; one expert tensor is
+# 4.46 B elements).
+MOE_SHAPES = {"dbrx-132b": (48, 8, 128), "arctic-480b": (56, 8, 128)}
+MOE_LAYERS = {"dbrx_serving": 4, "dbrx_training": 1, "arctic_serving": 1}
+
+
+def moe_cut(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, "full")
+    return cfg.replace(segments=(dataclasses.replace(cfg.segments[0], repeat=layers),))
+
+
+def flash_forward_reading(records: dict, name: str, gen, b: int, s: int, hq: int, hkv: int, d: int) -> None:
+    """The flash forward alone at one shape (bf16, causal) against its plain
+    version, each query's last visible key dropped as the planted fault;
+    L2-cold, device and plain times, the bound and SDPA's (flash backend
+    where it takes GQA, else memory-efficient). Into ``records[name]``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v = flash_inputs(gen, b, s, hq, hkv, d)
+    out, _ = ops.forward(q, k, v)
+    reading = check_close(name, out, ref.attention_fwd_ref(q, k, v)[0], ref.attention_ref(q, k[:, :-1], v[:, :-1]))
+    sets = [(q.clone(), k.clone(), v.clone()) for _ in range(copies_for(nbytes(q, k, v)))]
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=True)
+
+    backend = SDPBackend.FLASH_ATTENTION
+    try:
+        with sdpa_kernel(backend):
+            sdpa(*lib_sets[0])
+    except RuntimeError:
+        backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        library_ms = timed(sdpa, lib_sets, 50)
+    pairs = sum(min(i + 1, s) for i in range(s))
+    records[name] = dict(
+        **reading,
+        ms=timed(ops.forward, sets, 50),
+        device_ms=device_ms(ops.forward, sets, 20),
+        plain_ms=timed(ref.attention_fwd_ref, sets, 5),
+        bound=bound(nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s, 4 * d * pairs * b * hq, BF16_FLOPS),
+        library_ms=library_ms, library_backend=backend.name,
+    )
+
+
+def moe_kernel_checks(records: dict) -> None:
+    """Phase 3 at the MoE family's shapes: the flash forward and backward at
+    dbrx's training shape (B 4, S 513, 48/8 heads: G 6), its forward also
+    at dbrx's dense prefills (B 1 and B 8 of 512) and at arctic's static
+    prefill (B 8, S 512, 56/8: G 7); the paged decode and chunk prefill at G
+    6 and G 7 (8 slots of 544 sharing a 256-token prefix); the sampler's
+    tokens at 8 rows of 100,352 and of 32,000; the fused pSGD bit for bit
+    over one dbrx layer's three expert tensors (1.06 B elements each)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    hq, hkv, d = MOE_SHAPES["dbrx-132b"]
+    flash_shape(records, gen, 4, 513, hq, hkv, d, suffix="_g6")
+    flash_serving_prefills(records, "flash_attention_fwd_g6", gen, (1, 8), hq, hkv, d)
+    hq7, hkv7, d7 = MOE_SHAPES["arctic-480b"]
+    flash_forward_reading(records, "flash_attention_fwd_g7", gen, 8, 512, hq7, hkv7, d7)
+    paged_shape_checks(records, "_g6", hq, hkv, d, seed=13, prefix_pages=16)
+    paged_shape_checks(records, "_g7", hq7, hkv7, d7, seed=14, prefix_pages=16)
+    for name, vocab in (("fused_sample_v100352", 100352), ("fused_sample_v32000", 32000)):
+        records[name] = sampler_reading(name, gen, 8, vocab)
+    cfg = moe_cut("dbrx-132b", 1)
+    experts = [(cfg.num_experts, cfg.d_model, cfg.d_ff)] * 2 + [(cfg.num_experts, cfg.d_ff, cfg.d_model)]
+    fused_checks(records, {"fused_psgd_dbrx": experts})
+
+
+def moe_breakdown(layer, x, cfg) -> dict:
+    """Device ms of each step of the MoE layer (models/layers/moe.py
+    ``apply``, its steps in its order) on ``layer``'s weights at ``x``'s
+    shape: the router (logits, softmax), the dispatch and combine tensors,
+    the dispatch product, the bf16 casts of the three expert tensors (each
+    released after its product), the expert products with the SwiGLU, the
+    combine product. Events between the steps, all enqueued behind a device
+    sleep, so no host gap falls between them; the output must equal
+    ``moe.apply``'s bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import moe
+
+    b, s, d = x.shape
+    gs = min(moe.GROUP_SIZE, s)
+    n, capacity, dt = s // gs, moe.capacity_of(cfg, gs), x.dtype
+    with torch.inference_mode():
+        expect, _ = moe.apply(layer, x, cfg)
+        torch.cuda.synchronize()
+        marks = []
+
+        def mark(label):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append((label, event))
+
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: the host enqueues every step meanwhile
+        mark("start")
+        xg = x.reshape(b, n, gs, d)
+        probs = torch.softmax(torch.einsum("bngd,de->bnge", xg.float(), layer["router"]), dim=-1)
+        mark("router")
+        disp, combine = moe.dispatch_tensors(probs, cfg.top_k, capacity)
+        disp, combine = disp.to(dt), combine.to(dt)
+        mark("dispatch")
+        xe = torch.einsum("bngec,bngd->bnecd", disp, xg)
+        mark("dispatch_product")
+        products = {}
+        for name in ("w_gate", "w_up"):
+            w = layer[name].to(dt)
+            mark("casts")
+            products[name] = torch.einsum("bnecd,edf->bnecf", xe, w)
+            del w
+            mark("expert_products")
+        h = F.silu(products["w_gate"]) * products["w_up"]
+        w = layer["w_down"].to(dt)
+        mark("casts")
+        ye = torch.einsum("bnecf,efd->bnecd", h, w)
+        del w
+        mark("expert_products")
+        y = torch.einsum("bngec,bnecd->bngd", combine, ye).reshape(b, s, d)
+        mark("combine_product")
+        torch.cuda.synchronize()
+    if not torch.equal(y, expect):
+        fail(f"{cfg.name}: the MoE breakdown's steps do not give moe.apply's output")
+    ms: dict = {}
+    for (_, before), (label, after) in zip(marks, marks[1:]):
+        ms[label] = ms.get(label, 0.0) + before.elapsed_time(after)
+    ms["total"] = sum(ms.values())
+    return ms
+
+
+def moe_input(cfg, b: int, s: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def serve_moe_paged(cfg, label: str) -> tuple:
+    """The paged engine serving ``cfg`` at full width (its layers cut) on
+    phase 4's traffic (8 slots, cache 2048, pages of 16, 256-token chunks; 8
+    requests of 512 prompt tokens, the first 256 shared, and 32 new, half
+    greedy, half t=0.8, top_k=50), counters zeroed just before and read just
+    after: the decode once a layer and tick, the chunk prefill once a layer
+    and chunk, the sampler every tick (and for a first token); the prefix
+    is reused (sharing stays on for MoE, as in JAX). Then the same batch
+    traced on the device, and the MoE layer's device ms at a decode tick
+    (8 x 1 token: 8 routing groups of one) and at a chunk (one group of
+    256) from ``moe_breakdown``, against the trace's busy time. Returns
+    (model, params, the measured batch's prompts, record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import PagedContinuousBatchingEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    model = LanguageModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in tree_leaves(params))
+    print(f"init: {cfg.name} full width, {cfg.num_layers} layers, {n_params} params ({cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16, cache_len=2048, prefill_chunks=(256,), seed=0,
+    )
+    rng = torch.Generator().manual_seed(2)
+    prefix = torch.randint(0, cfg.vocab_size, (256,), generator=rng)
+    prompts = []
+
+    def prompt():
+        return torch.cat([prefix, torch.randint(0, cfg.vocab_size, (256,), generator=rng)]).numpy()
+
+    def submit_batch():
+        prompts.append([prompt() for _ in range(8)])
+        return [engine.submit(p, max_new_tokens=32, temperature=0.0 if i % 2 == 0 else 0.8,
+                              top_k=0 if i % 2 == 0 else 50) for i, p in enumerate(prompts[-1])]
+
+    engine.submit(prompt(), max_new_tokens=4)  # warm-up: publishes the shared prefix
+    engine.run()
+    engine.reset_stats()
+    ids = submit_batch()
+    torch.cuda.synchronize()
+    for ops in (paged_ops, gla_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **gla_ops.LAUNCHES, **flash_ops.LAUNCHES}
+    for rid in ids:
+        gen_tokens = results[rid][512:]
+        if len(gen_tokens) != 32 or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"{label} request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    engine.pool.check()
+    stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    if not engine.prefix_sharing or stats["prefix_tokens_reused"] <= 0:
+        fail(f"{label}: no prefix tokens were reused (sharing stays on for MoE)")
+    layers = cfg.num_layers
+    expect = {"paged_flash_decode": layers * stats["ticks"], "paged_chunk_prefill": layers * stats["prefill_chunks"],
+              "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gla_fwd": 0, "gla_bwd": 0}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"{label} paged serving: {kname} launched {launches[kname]} times, not {n}")
+    if not stats["ticks"] <= launches["fused_sample"] <= stats["ticks"] + len(ids):
+        fail(f"{label} paged serving: the sampler launched {launches['fused_sample']} times in "
+             f"{stats['ticks']} ticks for {len(ids)} requests")
+    with torch.inference_mode():
+        probe, _ = model.decode_step(
+            params, torch.zeros((1, 1), dtype=torch.int32, device="cuda"), model.paged_state_slice(engine.cache, 1),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, engine.max_pages), dtype=torch.int32, device="cuda"),
+        )
+    if probe.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(probe).all():
+        fail(f"{label}: full-width decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(engine.run, submit_batch)
+    engine.pool.check()
+    tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+    del engine, results, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = params["seg0"]["b0"][0]["moe"]
+    breakdown = {"decode_tick": moe_breakdown(layer, moe_input(cfg, 8, 1, 1), cfg),
+                 "chunk": moe_breakdown(layer, moe_input(cfg, 1, 256, 2), cfg)}
+    moe_ms = layers * (stats["ticks"] * breakdown["decode_tick"]["total"]
+                       + stats["prefill_chunks"] * breakdown["chunk"]["total"])
+    print(f"{label} paged: {len(ids)} requests x 32 tokens in {wall:.3f} s | decode {stats['decoded_tokens']} "
+          f"tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | median decode tick {tick_ms:.2f} ms | "
+          f"{stats['ticks']} ticks, {stats['prefill_chunks']} chunks | prefix reused {stats['prefix_tokens_reused']} "
+          f"| pages peak {mem['pages_peak']}/{mem['pages_capacity']} | peak memory {peak / 2**30:.1f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} | launches {launches}", flush=True)
+    print(f"{label} profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, idle "
+          f"{100 * profile['idle_share']:.1f}% | paged decode {profile['paged_decode_ms']:.2f} ms, prefill "
+          f"{profile['paged_prefill_ms']:.2f} ms, sampler {profile['sampler_ms']:.3f} ms over "
+          f"{profile['sampler_launches']} launches | MoE layers ~{moe_ms:.1f} ms "
+          f"({100 * moe_ms / profile['busy_ms']:.1f}% of busy) from their device ms a layer: " + "; ".join(
+              f"{where} " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) for where, ms in breakdown.items()),
+          flush=True)
+    for kname, (ms, n) in list(profile["by_kernel"].items())[:8]:
+        print(f"{label} profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    record = {"layers": layers, "params": n_params, "wall_s": wall, "decoded_tokens": stats["decoded_tokens"],
+              "tok_s": stats["decoded_tokens"] / wall, "ticks": stats["ticks"],
+              "prefill_chunks": stats["prefill_chunks"], "prefix_tokens_reused": stats["prefix_tokens_reused"],
+              "median_decode_tick_ms": tick_ms, "peak_gib": peak / 2**30, "launches": launches,
+              "profile": profile, "moe_breakdown_ms": breakdown, "moe_ms": moe_ms}
+    return model, params, np.stack(prompts[0]), record
+
+
+def serve_static_moe(cfg, model, params, batch, label: str) -> dict:
+    """The static engine on the 8 prompts (greedy, one batched prefill of 8
+    routing groups of 512: the flash forward once a layer), counters zeroed
+    just before and read just after."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.serve import ServeEngine
+
+    static = ServeEngine(model, params, cache_len=1024)
+    static.generate(batch[:1, :64], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (paged_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    out = static.generate(batch, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **flash_ops.LAUNCHES}
+    for kname, n in (("flash_attention_fwd", cfg.num_layers), ("paged_flash_decode", 0),
+                     ("fused_sample", 0)):
+        if launches[kname] != n:
+            fail(f"{label} static serving: {kname} launched {launches[kname]} times, not {n}")
+    if out.shape != (8, 512 + 32) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{label} static serving: bad output of shape {out.shape}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} static: 8 x 512 greedy prompts + 32 tokens in {wall:.3f} s = {8 * 32 / wall:.1f} tok/s | "
+          f"peak memory {peak / 2**30:.1f} GiB | launches {launches}", flush=True)
+    return {"wall_s": wall, "tok_s": 8 * 32 / wall, "peak_gib": peak / 2**30, "launches": launches}
+
+
+def serve_dbrx(cfg) -> dict:
+    """Phase 18: dbrx-132b at full width, cut to ``cfg``'s 4 of 40 layers,
+    served by the paged engine on phase 4's traffic (serve_moe_paged), then
+    by the continuous engine (8 slots, cache 1,024; the flash forward once
+    a layer and batch-1 prefill, the sampler once a tick and a first token)
+    and the static engine on the same prompts; on dbrx smoke in float32 the
+    greedy tokens of the three engines on the card equal the CPU path's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    label = "phase 18 dbrx"
+    model, params, batch, record = serve_moe_paged(cfg, label)
+    n, new = len(batch), 32
+    engine = ContinuousBatchingEngine(model, params, max_slots=8, cache_len=1024, seed=0)
+    engine.submit(batch[0][:64], max_new_tokens=4)  # warm-up
+    engine.run()
+    engine.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    ids = [engine.submit(p, max_new_tokens=new, temperature=0.0 if i % 2 == 0 else 0.8,
+                         top_k=0 if i % 2 == 0 else 50) for i, p in enumerate(batch)]
+    torch.cuda.synchronize()
+    flash_ops.reset_launches()
+    paged_ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**flash_ops.LAUNCHES, **paged_ops.LAUNCHES}
+    stats = engine.stats
+    for rid in ids:
+        gen_tokens = results[rid][512:]
+        if len(gen_tokens) != new or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"{label} continuous request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    expect = {"flash_attention_fwd": cfg.num_layers * n, "fused_sample": stats["ticks"] + n,
+              "paged_flash_decode": 0, "paged_chunk_prefill": 0}
+    for kname, count in expect.items():
+        if launches[kname] != count:
+            fail(f"{label} continuous serving: {kname} launched {launches[kname]} times, not {count}")
+    tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} continuous: {n} requests x {new} tokens in {wall:.3f} s | decode {stats['decoded_tokens']} "
+          f"tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | median decode tick {tick_ms:.2f} ms | peak "
+          f"memory {peak / 2**30:.1f} GiB | launches {launches}", flush=True)
+    record["continuous"] = {"wall_s": wall, "tok_s": stats["decoded_tokens"] / wall, "median_decode_tick_ms": tick_ms,
+                            "peak_gib": peak / 2**30, "launches": launches}
+    del engine, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["static"] = serve_static_moe(cfg, model, params, batch, label)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_input_agreement("dbrx-132b")
+    dense_small_input_agreement("dbrx-132b")
+    print(f"{label} small input: greedy tokens of the paged and both dense engines on the card equal the CPU "
+          "path's on dbrx smoke (f32)", flush=True)
+    return record
+
+
+def train_dbrx(cfg) -> dict:
+    """Phase 19: SEBSTrainer with pSGD on dbrx-132b at full width, cut to
+    ``cfg``'s 1 of 40 layers, on phase 7's schedule (12 updates at batch 4,
+    8, 16 by 1, 2 and 4 microbatches of 4 x 513 tokens: one routing group
+    of 513 a row, capacity 161), counters zeroed just before and read just
+    after: the flash forward twice a layer and microbatch (remat), its
+    backward once, the fused pSGD once an update. Then one stage-2 update
+    traced on the device, whose router loss (averaged over its
+    microbatches) must be finite, positive and at most E x k a layer; the
+    MoE layer's forward device ms at a microbatch (moe_breakdown); and on
+    dbrx and arctic smoke the card's gradients (the router's included) and
+    losses against the CPU path's, as in phase 8, with each path's expert
+    choices reported."""
+    import torch
+
+    from repro_torch.optim import make_optimizer
+
+    seq, b1 = 512, 4
+    psgd = make_optimizer("psgd", gamma=1e4)
+    eta = ETAS["dbrx_psgd"]
+    log, wall, launches, updates, state, trainer = run_sebs(
+        cfg, psgd, eta=eta, device="cuda", seq=seq, b1=b1, c1=16, stages=3)
+    peak = torch.cuda.max_memory_allocated()
+    check_training("dbrx psgd, full width", log, launches, ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"))
+    micro = sum(bs // b1 for bs in log.batch_sizes)
+    layers = cfg.num_layers
+    expect = {"flash_attention_fwd": layers * 2 * micro, "flash_attention_bwd": layers * micro,
+              "fused_psgd": len(log.steps), "gla_fwd": 0, "gla_bwd": 0}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"dbrx training: {kname} launched {launches[kname]} times, not {n}")
+    stages = stage_table(log, updates, seq)
+    print_training(f"dbrx psgd, {layers} layer", log, wall, peak, launches, stages, seq)
+    profile, untraced_ms, metrics = trace_update("dbrx train", trainer, state, psgd, eta)
+    aux = float(metrics["aux"])
+    if not 0 < aux <= layers * cfg.num_experts * cfg.top_k:
+        fail(f"dbrx training: router loss {aux} is not in (0, {layers * cfg.num_experts * cfg.top_k}]")
+    layer = state.params["seg0"]["b0"][0]["moe"]
+    breakdown = moe_breakdown(layer, moe_input(cfg, b1, seq + 1, 3), cfg)
+    print(f"dbrx train: router loss of the stage-2 update {aux:.4f} (at most {cfg.num_experts * cfg.top_k} a "
+          f"layer) | MoE forward device ms a layer at a microbatch (4 x 513): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()), flush=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = {arch: card_cpu_agreement(arch) for arch in ("dbrx-132b", "arctic-480b")}
+    return {"layers": layers, "eta": eta, "losses": log.losses, "wall_s": wall, "peak_gib": peak / 2**30,
+            "launches": launches, "stages": stages, "profile": profile, "untraced_update_ms": untraced_ms,
+            "aux": aux, "moe_breakdown_ms": breakdown, "card_vs_cpu": agreement}
+
+
+def vision_card_cpu_agreement() -> dict:
+    """internvl2 smoke in float32 with ``vision_embeds``: the loss and every
+    gradient (``vision_proj``'s included) of one microbatch on the card
+    equal the CPU path's, within 1e-4 relative and 1e-4 of each leaf's norm."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.train.step import _grads_over_microbatches
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("internvl2-1b", "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    base = model.init(seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))),
+             "vision_embeds": torch.from_numpy(rng.standard_normal((4, cfg.num_vision_tokens, 1024)).astype(np.float32))}
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.to(device, copy=True), base)
+        for w in tree_leaves(params):
+            w.requires_grad_(True)
+        g, m = _grads_over_microbatches(model, params, {k: v.to(device) for k, v in batch.items()}, 1, 0.0)
+        out[device] = ([x.detach().cpu() for x in g], float(m["loss"]), params)
+    params = out["cpu"][2]
+    proj = {id(w) for w in tree_leaves(params["vision_proj"])}
+    if not all(torch.linalg.vector_norm(g) > 0 for w, g in zip(tree_leaves(params), out["cpu"][0]) if id(w) in proj):
+        fail("internvl2: the projector has no gradient")
+    grad_worst = max((torch.linalg.vector_norm(c - a) / torch.linalg.vector_norm(a)).item()
+                     for a, c in zip(out["cpu"][0], out["cuda"][0]))
+    loss_rel = abs(out["cpu"][1] - out["cuda"][1]) / abs(out["cpu"][1])
+    if grad_worst > CARD_CPU_RTOL or loss_rel > CARD_CPU_RTOL:
+        fail(f"internvl2: card and CPU differ: gradients {grad_worst:.2e} of a leaf's norm, loss {loss_rel:.2e}")
+    print(f"card vs cpu: internvl2 smoke f32 with vision_embeds, loss within {loss_rel:.2e} relative, "
+          f"gradients (vision_proj's included) within {grad_worst:.2e} of a leaf's norm", flush=True)
+    return {"loss_rel": loss_rel, "grad_max_rel": grad_worst}
+
+
+def serve_arctic(cfg) -> dict:
+    """Phase 20: arctic-480b at full width, cut to ``cfg``'s 1 of 35 layers
+    (one expert tensor of 4.46 B elements; each cast to bf16, 8.9 GB, just
+    before its product and released after it), served by the paged engine
+    on phase 4's traffic (serve_moe_paged), then by the static engine on the
+    same prompts (the flash forward at G 7); peak memory below the card's.
+    On arctic smoke in float32 the greedy tokens of the paged and both dense
+    engines on the card equal the CPU path's; internvl2 smoke with
+    ``vision_embeds`` on the card equals the CPU path
+    (vision_card_cpu_agreement)."""
+    import torch
+
+    label = "phase 20 arctic"
+    model, params, batch, record = serve_moe_paged(cfg, label)
+    record["static"] = serve_static_moe(cfg, model, params, batch, label)
+    total = torch.cuda.get_device_properties(0).total_memory
+    if max(record["peak_gib"], record["static"]["peak_gib"]) * 2**30 >= total:
+        fail(f"{label}: peak memory at the card's {total / 2**30:.1f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_input_agreement("arctic-480b")
+    dense_small_input_agreement("arctic-480b")
+    print(f"{label} small input: greedy tokens of the paged and both dense engines on the card equal the CPU "
+          "path's on arctic smoke (f32)", flush=True)
+    record["vision_card_vs_cpu"] = vision_card_cpu_agreement()
+    return record
 
 
 def main() -> None:
@@ -2001,6 +2587,7 @@ def main() -> None:
                            "fused_adagrad_da": leaf_shapes(reduced)})
     gla_serving_shape = gla_checks(records)
     zamba2_kernel_checks(records)
+    moe_kernel_checks(records)
     fwd_rec, bwd_rec = records["flash_attention_fwd"], records["flash_attention_bwd"]
     print(f"flash yardstick, ms a call (device ms in brackets): SDPA ({fwd_rec['library_backend']}) fwd "
           f"{fwd_rec['library_ms']:.4f} ({fwd_rec['library_device_ms']:.4f}), bwd {bwd_rec['library_ms']:.4f} "
@@ -2033,6 +2620,18 @@ def main() -> None:
           f"{records['gla_bwd_mamba2']['bound_own_operands'][0]:.5f} | Mamba2 GLA fwd at the paged prefill "
           f"chunk (B 1, S 256) {chunk['ms']:.4f} ({chunk['device_ms']:.4f}; {chunk['bound'][0]:.5f})",
           flush=True)
+    print("the MoE family's shapes, ms a call L2-cold (device ms in brackets; bound; plain): " + ", ".join(
+        f"{n} {records[n]['ms']:.4f} ({records[n]['device_ms']:.4f}; {records[n]['bound'][0]:.5f}; "
+        f"{records[n]['plain_ms']:.3f})"
+        for n in ("flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7",
+                  "paged_flash_decode_g6", "paged_flash_decode_g7", "paged_chunk_prefill_g6",
+                  "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000"))
+          + f" | SDPA ({records['flash_attention_fwd_g6']['library_backend']}) G 6 fwd "
+          f"{records['flash_attention_fwd_g6']['library_ms']:.4f}, bwd {records['flash_attention_bwd_g6']['library_ms']:.4f}"
+          f"; ({records['flash_attention_fwd_g7']['library_backend']}) G 7 fwd "
+          f"{records['flash_attention_fwd_g7']['library_ms']:.4f} | fused pSGD over dbrx's expert tensors "
+          f"{records['fused_psgd_dbrx']['ms']:.3f} ms ({records['fused_psgd_dbrx']['elements']} elements; bound "
+          f"{records['fused_psgd_dbrx']['bound'][0]:.3f})", flush=True)
     print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
           f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
           f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
@@ -2154,7 +2753,7 @@ def main() -> None:
     print_training(f"psgd {cfg.name}", log, train_wall, train_peak, train_launches, train_stages, seq)
 
     # 9. where the time goes: one stage-2 update (4 microbatches), traced on the device
-    train_profile, untraced_ms = trace_update("train", trainer, state, psgd, ETAS["psgd"])
+    train_profile, untraced_ms, _ = trace_update("train", trainer, state, psgd, ETAS["psgd"])
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2214,6 +2813,13 @@ def main() -> None:
     gemma2 = gemma2.replace(segments=(dataclasses.replace(gemma2.segments[0], repeat=4),))
     gemma2_training = train_gemma2(gemma2)
     phase_done("17 gemma2 training")
+    # 18-20. the MoE family at full width, layers cut to fit one card
+    dbrx_serving = serve_dbrx(moe_cut("dbrx-132b", MOE_LAYERS["dbrx_serving"]))
+    phase_done("18 dbrx serving")
+    dbrx_training = train_dbrx(moe_cut("dbrx-132b", MOE_LAYERS["dbrx_training"]))
+    phase_done("19 dbrx training")
+    arctic_serving = serve_arctic(moe_cut("arctic-480b", MOE_LAYERS["arctic_serving"]))
+    phase_done("20 arctic serving")
     print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
           + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -2233,6 +2839,10 @@ def main() -> None:
         replaces[f"{kname}_d80"] = replaces[kname]
     for kname in ("gla_fwd", "gla_bwd"):
         replaces[f"{kname}_mamba2"] = replaces[kname]
+    for kname in ("flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7",
+                  "paged_flash_decode_g6", "paged_flash_decode_g7", "paged_chunk_prefill_g6",
+                  "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000", "fused_psgd_dbrx"):
+        replaces[kname] = replaces[kname.rsplit("_", 1)[0]]
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
         "paged_chunk_prefill": "paged_decode/csrc/paged_attention.cu",
@@ -2245,7 +2855,8 @@ def main() -> None:
         "gla_fwd": "gla/csrc/gla.cu",
         "gla_bwd": "gla/csrc/gla.cu",
     }
-    sources.update({f"{n}{suffix}": sources[n] for n in list(sources) for suffix in ("_d80", "_mamba2")})
+    sources.update({f"{n}{suffix}": sources[n] for n in list(sources)
+                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_v100352", "_v32000", "_dbrx")})
     all_launches = {**launches, **train_launches}
     # the dense serving path (phase 12) runs the flash forward and the sampler too
     for kname in ("flash_attention_fwd", "fused_sample"):
@@ -2261,6 +2872,21 @@ def main() -> None:
         all_launches[f"{kname}_d80"] = sum(run.get(kname, 0) for run in zamba2_paths)
     for kname in ("gla_fwd", "gla_bwd"):
         all_launches[f"{kname}_mamba2"] = sum(run.get(kname, 0) for run in zamba2_paths)
+    # the MoE family's paths (phases 18-20): dbrx's G 6 and vocabulary of 100,352,
+    # arctic's G 7 and 32,000
+    dbrx_paths = (dbrx_serving["launches"], dbrx_serving["continuous"]["launches"],
+                  dbrx_serving["static"]["launches"], dbrx_training["launches"])
+    arctic_paths = (arctic_serving["launches"], arctic_serving["static"]["launches"])
+    for suffix, paths in (("_g6", dbrx_paths), ("_g7", arctic_paths)):
+        for kname in ("flash_attention_fwd", "flash_attention_bwd", "paged_flash_decode", "paged_chunk_prefill"):
+            if kname + suffix in records:
+                all_launches[kname + suffix] = sum(run.get(kname, 0) for run in paths)
+    all_launches["fused_sample_v100352"] = sum(run.get("fused_sample", 0) for run in dbrx_paths)
+    all_launches["fused_sample_v32000"] = sum(run.get("fused_sample", 0) for run in arctic_paths)
+    all_launches["fused_psgd_dbrx"] = dbrx_training["launches"]["fused_psgd"]
+    unlaunched = [kname for kname in records if all_launches.get(kname, 0) <= 0]
+    if unlaunched:
+        fail(f"kernels not launched on their main paths: {unlaunched}")
     kernels = []
     for kname, rec in records.items():
         bound_ms, bound_by = rec["bound"]
@@ -2293,7 +2919,8 @@ def main() -> None:
             "device_ms", "library_backend", "library_ms_default", "library_device_ms",
             "library_device_ms_default", "f32_route", "serving_prefill") if key in records[n]}
             for n in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_d80",
-                      "flash_attention_bwd_d80")}},
+                      "flash_attention_bwd_d80", "flash_attention_fwd_g6", "flash_attention_bwd_g6",
+                      "flash_attention_fwd_g7")}},
         "zamba2_device_ms": {n: records[n]["device_ms"] for n in (
             "flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
             "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2")},
@@ -2309,6 +2936,11 @@ def main() -> None:
         "rwkv6": {"serving": rwkv_serving, "training": rwkv_training},
         "zamba2": {"serving": zamba2_serving, "training": zamba2_training},
         "gemma2": {"training": gemma2_training},
+        "dbrx": {"serving": dbrx_serving, "training": dbrx_training}, "arctic": {"serving": arctic_serving},
+        "moe_device_ms": {n: records[n]["device_ms"] for n in (
+            "flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7", "paged_flash_decode_g6",
+            "paged_flash_decode_g7", "paged_chunk_prefill_g6", "paged_chunk_prefill_g7", "fused_sample_v100352",
+            "fused_sample_v32000")},
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

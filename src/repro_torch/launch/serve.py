@@ -18,9 +18,11 @@
 ``--arch`` takes the ported families: the dense decoders (gemma2-9b's
 soft-capped attention included), rwkv6-1.6b and zamba2-2.7b (whose
 recurrent state rides per slot beside the page pool; prefix sharing is off
-for them, as in the JAX engine); another family (MoE, whisper) is an error
-naming its slice. The default engine is ``paged``; the disaggregated engine of
-the JAX launcher comes with a later slice, and asking for it is an error.
+for them, as in the JAX engine) and the MoE family (dbrx-132b,
+arctic-480b; a prefill chunk is one routing group, a decoded token a group
+of its own); whisper is an error naming its slice. The default engine is
+``paged``; the disaggregated engine of the JAX launcher comes with a later
+slice, and asking for it is an error.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ _DISAGG = "the disaggregated-serving slice"
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b's "
-                         "text), rwkv6-1.6b, zamba2-2.7b; not yet: the MoE and whisper families")
+                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
+                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); not yet: "
+                         "whisper-tiny")
     ap.add_argument("--variant", default="smoke")
     ap.add_argument("--engine", choices=["static", "continuous", "paged", "disagg"], default="paged")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

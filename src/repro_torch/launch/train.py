@@ -6,9 +6,10 @@
         --c1 256 --seq 64 --steps-log 5 [--device cpu]
 
 ``--arch`` takes the ported families: the dense decoders (gemma2-9b's
-soft-capped attention included), rwkv6-1.6b and the hybrid zamba2-2.7b
-(Mamba2 with the weight-tied shared attention block); the MoE and whisper
-families are an error naming their slice.
+soft-capped attention included), rwkv6-1.6b, the hybrid zamba2-2.7b
+(Mamba2 with the weight-tied shared attention block) and the MoE family
+(dbrx-132b, arctic-480b; the router's aux loss enters the loss at weight
+0.01, as in the JAX package); whisper is an error naming its slice.
 Runs on the CUDA device by default (and raises when there is none);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--seed``
 seeds the random weights and the data stream.
@@ -47,8 +48,9 @@ _MULTI_WORKER = "multi-worker training comes with the multi-worker slice"
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b's "
-                         "text), rwkv6-1.6b, zamba2-2.7b; not yet: the MoE and whisper families")
+                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
+                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); not yet: "
+                         "whisper-tiny")
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--schedule", default="sebs", choices=["sebs", "classical", "adaptive"])
     ap.add_argument("--optimizer", default="psgd")

@@ -14,7 +14,9 @@ package's ``jax.checkpoint`` with the ``nothing_saveable`` policy does per
 scanned layer; the other JAX policies come with a later slice.
 
 Ported so far: attention mixers (``"attn"``, ``"swa"``) with the dense
-SwiGLU FFN, which is every block of the dense decoders; RWKV6's time-mix
+SwiGLU FFN, which is every block of the dense decoders, or with the MoE
+FFN (``"moe"``: dbrx; arctic adds a dense residual MLP beside it, under
+``"mlp"``, where ``cfg.moe_dense_residual`` is set); RWKV6's time-mix
 (``"rwkv6"``) with its channel-mix FFN (``"rwkv_cmix"``); and Mamba2
 (``"mamba2"``) with no FFN (``"none"``: no ``norm2``), with zamba2's
 weight-tied shared attention block (``SHARED_SPEC``, one set of weights
@@ -25,6 +27,12 @@ O(1) recurrent state: RWKV6's wkv state and token shifts, Mamba2's SSM
 state and conv window). In the paged cache, attention KV lives in the
 shared page pool and the recurrent state stays per slot at
 ``state_batch`` rows.
+
+Each block also returns its router's load-balance loss (the MoE FFN's aux;
+0.0 for a block without a router), which ``apply_segment`` sums over the
+layers; under remat it is an output of the rematerialized block, so the
+router's gradient flows through the recomputation, as the JAX scan's
+``(h, aux)`` carry does. The serving paths compute it and drop it.
 """
 from __future__ import annotations
 
@@ -32,12 +40,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, SegmentSpec
-from repro_torch.models.layers import attention, mamba2, mlp, norm, rwkv6
+from repro_torch.models.layers import attention, mamba2, mlp, moe, norm, rwkv6
 
 # the block kinds of the slices still to come
 _LATER = {
     "cross_attn_block": "the whisper slice",
-    "moe": "the MoE (dbrx/arctic) slice",
 }
 ATTENTION_MIXERS = ("attn", "swa")
 # zamba2's shared block: attention and the dense FFN, one set of weights for
@@ -67,6 +74,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec, device="
         params["norm2"] = norm.init(cfg.d_model, dtype, device)
     if spec.ffn == "dense":
         params["mlp"] = mlp.init(gen, cfg, device)
+    elif spec.ffn == "moe":
+        params["moe"] = moe.init(gen, cfg, device)
+        if cfg.moe_dense_residual:
+            params["mlp"] = mlp.init(gen, cfg, device)
     elif spec.ffn == "rwkv_cmix":
         params["cmix"] = rwkv6.init_channel_mix(gen, cfg, device)
     return params
@@ -139,7 +150,7 @@ def init_segment_cache_paged(cfg: ModelConfig, seg: SegmentSpec, num_pages: int,
 
 def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None,
                 page_table=None, cache_index=None):
-    """Returns (x, new_cache). With ``cache`` None it is the full-sequence
+    """Returns (x, new_cache, aux). With ``cache`` None it is the full-sequence
     (training) forward. An attention cache (dense or paged) is updated in
     place and returned; recurrent state (RWKV6's, Mamba2's) comes back as
     new tensors (which the paged engine writes into its slot rows,
@@ -168,26 +179,33 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
         y, wkv, shift_t = rwkv6.apply_time_mix(params["tmix"], h, cfg, cache=rc, decode=decode)
     x = x + y
     if spec.ffn == "none":
-        return x, new_cache
+        return x, new_cache, 0.0
     h = norm.apply(params["norm2"], x, cfg.norm_eps)
     if spec.ffn == "dense":
-        return x + mlp.apply(params["mlp"], h), new_cache
+        return x + mlp.apply(params["mlp"], h), new_cache, 0.0
+    if spec.ffn == "moe":
+        y, aux = moe.apply(params["moe"], h, cfg)
+        if cfg.moe_dense_residual:
+            y = y + mlp.apply(params["mlp"], h)
+        return x + y, new_cache, aux
     y, shift_c = rwkv6.apply_channel_mix(params["cmix"], h, cfg, cache=rc)
     if cache is not None:
         new_cache = {"rwkv": {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}}
-    return x + y, new_cache
+    return x + y, new_cache, 0.0
 
 
 def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions):
-    return apply_block(params, x, cfg, spec, positions=positions)[0]
+    x, _, aux = apply_block(params, x, cfg, spec, positions=positions)
+    return x, aux
 
 
 def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, cache=None,
                   page_table=None, cache_index=None):
-    """Run the segment's layers in order. Returns (x, new_cache); with
-    ``cache`` None it is the full-sequence (training) forward,
-    rematerialized per block (the shared block's every application too)
-    when ``cfg.remat`` is set."""
+    """Run the segment's layers in order. Returns (x, new_cache, aux: the
+    layers' router losses summed); with ``cache`` None it is the
+    full-sequence (training) forward, rematerialized per block (the shared
+    block's every application too) when ``cfg.remat`` is set."""
+    aux = 0.0
     if cache is None:
         remat = cfg.remat and torch.is_grad_enabled()
         if remat and cfg.remat_policy != "nothing_saveable":
@@ -199,16 +217,18 @@ def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, c
             for name, spec in _segment_blocks(seg):
                 p = params[name] if name == "shared" else params[name][r]
                 if remat:
-                    x = checkpoint(_train_block, p, x, cfg, spec, positions, use_reentrant=False)
+                    x, a = checkpoint(_train_block, p, x, cfg, spec, positions, use_reentrant=False)
                 else:
-                    x = _train_block(p, x, cfg, spec, positions)
-        return x, None
+                    x, a = _train_block(p, x, cfg, spec, positions)
+                aux = aux + a
+        return x, None, aux
     new_cache = {name: list(layers) for name, layers in cache.items()}
     for r in range(seg.repeat):
         for name, spec in _segment_blocks(seg):
             p = params[name] if name == "shared" else params[name][r]
-            x, new_cache[name][r] = apply_block(
+            x, new_cache[name][r], a = apply_block(
                 p, x, cfg, spec, positions=positions, cache=cache[name][r],
                 page_table=page_table, cache_index=cache_index,
             )
-    return x, new_cache
+            aux = aux + a
+    return x, new_cache, aux

@@ -27,14 +27,14 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import VISION_EMBED_DIM, ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.layers import embedding, norm
 
 
 _LATER_INPUTS = {
-    "vision_embeds": "the internvl2 slice",
     "audio_embeds": "the whisper slice",
 }
 
@@ -63,24 +63,48 @@ class LanguageModel:
         params = {"embed": embedding.init(gen, cfg, device)}
         for i, seg in enumerate(cfg.segments):
             params[f"seg{i}"] = blocks.init_segment(gen, cfg, seg, device)
-        params["final_norm"] = norm.init(cfg.d_model, getattr(torch, cfg.param_dtype), device)
+        dtype = getattr(torch, cfg.param_dtype)
+        params["final_norm"] = norm.init(cfg.d_model, dtype, device)
+        if cfg.num_vision_tokens:
+            d = cfg.d_model
+            params["vision_proj"] = {
+                "w1": torch.randn((VISION_EMBED_DIM, d), generator=gen, dtype=dtype, device=device)
+                * VISION_EMBED_DIM**-0.5,
+                "w2": torch.randn((d, d), generator=gen, dtype=dtype, device=device) * d**-0.5,
+            }
         return params
+
+    def _embed_inputs(self, params, batch):
+        """Token embeddings; with ``vision_embeds`` (B, P, 1024) in the batch
+        (internvl2's stubbed vision frontend), the first ``num_vision_tokens``
+        positions are their projections instead (two products with a tanh
+        GELU between, as ``jax.nn.gelu``)."""
+        cfg = self.cfg
+        check_batch(batch)
+        x = embedding.embed(params["embed"], batch["tokens"], cfg)
+        if cfg.num_vision_tokens and "vision_embeds" in batch:
+            proj = params["vision_proj"]
+            h = batch["vision_embeds"].to(x.dtype) @ proj["w1"].to(x.dtype)
+            h = F.gelu(h, approximate="tanh") @ proj["w2"].to(x.dtype)
+            nv = cfg.num_vision_tokens
+            x = torch.cat([h[:, :nv], x[:, nv:]], dim=1)
+        return x
 
     # -- train forward --------------------------------------------------------
     def forward(self, params, batch):
-        """batch: {tokens (B, S) int}. Returns (logits (B, S, V) f32, aux loss
-        (a zero f32 scalar: the dense models have no router loss)). A batch
-        with vision or audio embeddings raises: those inputs come with later
-        slices, and dropping them would change the logits silently."""
+        """batch: {tokens (B, S) int, [vision_embeds (B, P, 1024)]}. Returns
+        (logits (B, S, V) f32, aux loss: the router losses summed over the
+        layers, an f32 scalar, 0 for a model without a router). A batch with
+        audio embeddings raises: they come with a later slice, and dropping
+        them would change the logits silently."""
         cfg = self.cfg
-        check_batch(batch)
-        tokens = batch["tokens"]
-        x = embedding.embed(params["embed"], tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-        for i, seg in enumerate(cfg.segments):
-            x, _ = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions)
-        x = norm.apply(params["final_norm"], x, cfg.norm_eps)
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, seg in enumerate(cfg.segments):
+            x, _, a = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions)
+            aux = aux + a
+        x = norm.apply(params["final_norm"], x, cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), aux
 
     # -- dense cache ----------------------------------------------------------
@@ -205,7 +229,7 @@ class LanguageModel:
     def _segments(self, params, x, cache, *, positions, page_table, cache_index=None):
         new_cache = {}
         for i, seg in enumerate(self.cfg.segments):
-            x, new_cache[f"seg{i}"] = blocks.apply_segment(
+            x, new_cache[f"seg{i}"], _ = blocks.apply_segment(
                 params[f"seg{i}"], x, self.cfg, seg, positions=positions,
                 cache=cache[f"seg{i}"], page_table=page_table, cache_index=cache_index,
             )
@@ -217,10 +241,8 @@ class LanguageModel:
         (B, 1, V) f32 of the last position, cache: the KV updated in place,
         new recurrent state)."""
         cfg = self.cfg
-        check_batch(batch)
-        tokens = batch["tokens"]
-        x = embedding.embed(params["embed"], tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None)
         x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), new_cache

@@ -8,11 +8,15 @@ the same branch for all three when ``mesh is None``). The port runs in one
 process, so it accepts all three and runs that computation: a Python loop
 over the microbatches.
 
-Memory at full width (``qwen2.5-3b``, f32 weights): a microbatch's
-gradients are taken with ``torch.autograd.grad`` and added into an f32 sum
-that the first microbatch's gradients become, so the step holds the
-weights, the sum and one microbatch's gradients (plus the optimizer state)
-and never a second copy of the parameters.
+Memory at full width (f32 weights): each leaf's gradient is taken from the
+leaf as the backward pass finishes it (a post-accumulate hook), added into
+an f32 sum that the first microbatch's gradients become, and freed, so the
+step holds the weights, the sum and one leaf's gradient of the microbatch
+at a time (plus the optimizer state), never a second set of gradients:
+at dbrx-132b's width one layer's gradients are 15.5 GB. The sums are those
+of ``torch.autograd.grad`` leaf for leaf, bit for bit. A leaf that the
+loss does not reach (internvl2's projector on a batch of tokens alone)
+gets a zero gradient, as under ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -49,28 +53,50 @@ def _grads_over_microbatches(model, params, batch, accum_steps: int, z_loss: flo
     """Mean grads (a list in ``tree_leaves(params)`` order) and metrics over
     the (accum, micro, ...) leading axes of ``batch``."""
     leaves = tree_leaves(params)
+    index = {id(w): i for i, w in enumerate(leaves)}
+    gsum: List = [None] * len(leaves)
+    dots: List = [None] * len(leaves)  # a microbatch's ‖g‖² per leaf
 
-    def grads_of(mb):
-        total, metrics = lm_loss(model, params, mb, z_loss=z_loss)
-        grads = torch.autograd.grad(total, leaves)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}
-
-    if accum_steps == 1:
-        return grads_of(batch)
-    gsum = None
-    lsum = asum = sqsum = 0.0
-    for i in range(accum_steps):
-        grads, m = grads_of({k: v[i] for k, v in batch.items()})
-        # per-microbatch squared grad norm: feeds the gradient-noise-scale
-        # estimator (core/noise_scale.py)
-        sqsum = sqsum + _sq_norm(grads)
-        lsum, asum = lsum + m["loss"], asum + m["aux"]
-        if gsum is None:
-            gsum = [g if g.dtype == torch.float32 else g.float() for g in grads]
+    def take(w):
+        """A leaf's gradient of the current microbatch, into the sum."""
+        i, g = index[id(w)], w.grad
+        w.grad = None
+        if accum_steps == 1:
+            gsum[i] = g
+            return
+        flat = g.reshape(-1).float()
+        dots[i] = torch.dot(flat, flat)
+        if gsum[i] is None:
+            gsum[i] = g if g.dtype == torch.float32 else g.float()
         else:
-            for s, g in zip(gsum, grads):
-                s.add_(g)
-        del grads
+            gsum[i].add_(g)
+
+    hooks = [w.register_post_accumulate_grad_hook(take) for w in leaves]
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    lsum = asum = sqsum = 0.0
+    try:
+        for w in leaves:
+            w.grad = None
+        for i in range(accum_steps):
+            mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
+            total, m = lm_loss(model, params, mb, z_loss=z_loss)
+            dots[:] = [zero] * len(leaves)
+            torch.autograd.backward(total, inputs=leaves)
+            del total
+            m = {k: v.detach() for k, v in m.items()}
+            if accum_steps > 1:
+                # per-microbatch squared grad norm, summed in leaf order:
+                # feeds the gradient-noise-scale estimator (core/noise_scale.py)
+                sqsum = sqsum + sum(dots)
+                lsum, asum = lsum + m["loss"], asum + m["aux"]
+    finally:
+        for h in hooks:
+            h.remove()
+    for i, w in enumerate(leaves):
+        if gsum[i] is None:  # not reached by the loss
+            gsum[i] = torch.zeros_like(w, dtype=w.dtype if accum_steps == 1 else torch.float32)
+    if accum_steps == 1:
+        return gsum, m
     for s in gsum:
         s.mul_(1.0 / accum_steps)
     metrics = {

@@ -19,7 +19,7 @@ up to 40,000, mass ties, rows of -inf and rows off a 16-byte boundary.
 The split and tile cases cover slots that fill their splits exactly and
 ones that do not, one-token slots, windows that begin inside a split or
 skip whole splits, page sizes that straddle the 16-key chunks, G from 1 to
-16, D 64, 80 (zamba2's shared attention; bf16 queries only: the f32 route
+16 (G 6 and 7 at the MoE family's serving shape too), D 64, 80 (zamba2's shared attention; bf16 queries only: the f32 route
 refuses it by name), 128 and 256, and grids of more blocks than the card
 has SMs.
 
@@ -29,7 +29,9 @@ bf16 ulps plus 1e-3 of that value (bf16: dS = P (dP - Di) cancels, so an
 element near zero carries the f32 error of the tensor's scale), and is the
 same bit for bit from run to run. f32 inputs take the CUDA-core kernels,
 bf16 inputs the tensor-core ones, which also take D 80 (the f32 ones
-refuse it by name). The fused pSGD, momentum and AdaGrad-DA
+refuse it by name); the cases include the MoE family's shapes (dbrx-132b
+training, B 4, S 513, 48/8 heads; arctic-480b's static prefill, B 8, S
+512, 56/8). The fused pSGD, momentum and AdaGrad-DA
 (nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
 nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
 
@@ -208,6 +210,37 @@ def test_chunk_prefill_tiles_match_plain(cuda, case, chunk, q_dtype, d):
         _close(out, ref.paged_prefill_ref(qt, kt, vt, tt, pt, **kw), **tol)
 
 
+# the MoE family's attention: query heads over 8 kv heads of 128
+MOE_GROUPS = {"g6_dbrx": 48, "g7_arctic": 56}
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("case", sorted(MOE_GROUPS))
+def test_paged_kernels_at_the_moe_groups_match_plain(cuda, case, kind):
+    """The MoE family's serving shape: 8 slots of 544 positions whose first
+    16 pages hold one shared 256-token prefix, G 6 (dbrx-132b) and G 7
+    (arctic-480b); decode one token a slot, or a 256-token chunk at
+    pos_start 256 and 288 (its 32-row tiles hold the heads of 5 1/3 or
+    4 4/7 tokens, so rows straddle tokens); the same bits twice."""
+    hq = MOE_GROUPS[case]
+    k, v, table, pos = paged_lengths_setup(hq, lengths=[544] * 8, ps=16, hkv=8, d=128, mp=128)
+    table[1:, :16] = table[0, :16]
+    rng = np.random.default_rng(hq + 1)
+    if kind == "decode":
+        q = rng.normal(size=(8, hq, 128)).astype(np.float32)
+        fn, plain = ops.paged_flash_decode, ref.paged_attention_ref
+    else:
+        q = rng.normal(size=(2, 256, hq, 128)).astype(np.float32)
+        table, pos = table[:2], np.array([256, 288], np.int32)
+        fn, plain = ops.paged_chunk_prefill, ref.paged_prefill_ref
+    qt, kt, vt, tt, pt = _on(cuda, q, k, v, table, pos)
+    qt, kt, vt = qt.to(torch.bfloat16), kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+    out = fn(qt, kt, vt, tt, pt)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, plain(qt, kt, vt, tt, pt), **BF16_ULP)
+    assert torch.equal(out, fn(qt, kt, vt, tt, pt))
+
+
 def test_decode_layout_matches_the_library(cuda):
     """kernel.decode_layout, which the step-for-step plain version follows,
     splits a table as the library does: the scratch sizes agree."""
@@ -272,6 +305,8 @@ SAMPLER_CARD_CASES = [
     (8, 8, 151936, "normal", 50), (9, 8, 151936, "normal", 1000), (10, 8, 151936, "ties", 40000),
     (11, 8, 65536, "normal", 50), (12, 8, 65536, "ties", 1000), (13, 1, 65536, "equal", 50),
     (14, 8, 151936, "equal", 1000), (15, 8, 151936, "neginf", 50), (16, 1, 151936, "neginf", 40000),
+    # the MoE family's vocabularies: dbrx-132b's 100,352 and arctic-480b's 32,000
+    (17, 8, 100352, "normal", 50), (18, 8, 100352, "ties", 1000), (19, 8, 32000, "normal", 50),
 ]
 
 
@@ -367,6 +402,10 @@ FLASH_CASES = {
     "d80_ragged_gqa": (2, 77, 77, 4, 2, 80, True, None),
     "d80_window": (1, 130, 130, 2, 1, 80, True, 17),
     "d80_sq_lt_sk": (2, 50, 129, 4, 4, 80, True, 40),
+    # the MoE family: dbrx-132b's training shape (G 6) and arctic-480b's
+    # static prefill (G 7)
+    "g6_dbrx": (4, 513, 513, 48, 8, 128, True, None),
+    "g7_arctic": (8, 512, 512, 56, 8, 128, True, None),
 }
 
 

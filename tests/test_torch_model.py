@@ -225,11 +225,12 @@ def test_attention_decode_branch_matches_jax(models, cfgs):
 
 
 def test_unported_blocks_raise():
-    """MoE blocks wait for their slice and raise. zamba2's blocks (Mamba2,
-    the shared attention block) and gemma2's soft-capped full-sequence
-    attention raised until their slice; now their logits equal JAX's."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LanguageModel(get_config("dbrx-132b", "smoke"))
+    """whisper's cross-attention blocks wait for their slice and raise.
+    zamba2's blocks (Mamba2, the shared attention block) and gemma2's
+    soft-capped full-sequence attention raised until their slice; now their
+    logits equal JAX's (the MoE blocks' too: tests/test_torch_moe.py)."""
+    with pytest.raises(NotImplementedError, match="whisper"):
+        LanguageModel(get_config("whisper-tiny", "smoke"))
     tokens = np.random.default_rng(1).integers(0, 512, (2, 9)).astype(np.int32)
     for arch in ("zamba2-2.7b", "gemma2-9b"):
         jcfg = jax_config(arch, "smoke").replace(compute_dtype="float32")
@@ -243,11 +244,10 @@ def test_unported_blocks_raise():
         _close(tlogits, jlogits)
 
 
-@pytest.mark.parametrize("key,slice_name", [("vision_embeds", "internvl2 slice"),
-                                            ("audio_embeds", "whisper slice")])
+@pytest.mark.parametrize("key,slice_name", [("audio_embeds", "whisper slice")])
 def test_forward_refuses_unported_batch_inputs(models, key, slice_name):
-    """A batch with vision or audio embeddings raises instead of leaving them
-    out of the logits; lm_loss, which takes the training batch, raises too."""
+    """A batch with audio embeddings raises instead of leaving them out of
+    the logits; lm_loss, which takes the training batch, raises too."""
     from repro_torch.train.loss import lm_loss
 
     _, _, tmodel, tparams, _ = models
@@ -258,3 +258,66 @@ def test_forward_refuses_unported_batch_inputs(models, key, slice_name):
         lm_loss(tmodel, tparams, batch)
     logits, _ = tmodel.forward(tparams, {"tokens": batch["tokens"]})  # tokens alone still run
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("with_vision", [True, False])
+def test_vision_projector_matches_jax(with_vision):
+    """internvl2 smoke: with ``vision_embeds`` (B, 8, 1024) the projector's
+    tanh-GELU MLP replaces the first 8 token embeddings, and the logits,
+    loss, gradients (``vision_proj``'s included) and a dense prefill's
+    logits equal JAX's, its bf16 KV within one bf16 ulp; on tokens alone the projector gets a zero
+    gradient, as under ``jax.grad``."""
+    from repro.train.loss import lm_loss as jax_lm_loss
+    from repro.train.step import _grads_over_microbatches as jax_grads
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import _grads_over_microbatches
+    from repro_torch.utils.tree import tree_leaves
+
+    jcfg = jax_config("internvl2-1b", "smoke").replace(compute_dtype="float32")
+    tcfg = get_config("internvl2-1b", "smoke").replace(compute_dtype="float32")
+    jmodel, tmodel = build_model(jcfg), LanguageModel(tcfg)
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0))[0])
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tparams = bridge.params_from_numpy(tree, tcfg, device="cpu")
+    assert tuple(tparams["vision_proj"]["w1"].shape) == (1024, tcfg.d_model)
+    init = tmodel.init(0, device="cpu")["vision_proj"]
+    assert {k: tuple(v.shape) for k, v in init.items()} == {k: v.shape for k, v in tree["vision_proj"].items()}
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, 512, (2, 13)).astype(np.int32)}
+    if with_vision:
+        batch["vision_embeds"] = rng.standard_normal((2, tcfg.num_vision_tokens, 1024)).astype(np.float32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jlogits, _ = jax.jit(jmodel.forward)(jparams, jbatch)
+    jtotal, _ = jax.jit(lambda p, b: jax_lm_loss(jmodel, p, b))(jparams, jbatch)
+    with torch.no_grad():
+        tlogits, _ = tmodel.forward(tparams, tbatch)
+        total, _ = lm_loss(tmodel, tparams, tbatch)
+    _close(tlogits, jlogits)
+    np.testing.assert_allclose(float(total), float(jtotal), rtol=TOL)
+
+    jg, _ = jax.jit(lambda p, b: jax_grads(jmodel, p, b, 1, 0.0))(jparams, jbatch)
+    leaves = tree_leaves(tparams)
+    for w in leaves:
+        w.requires_grad_(True)
+    try:
+        tg, _ = _grads_over_microbatches(tmodel, tparams, tbatch, 1, 0.0)
+    finally:
+        for w in leaves:
+            w.requires_grad_(False)
+    expect_tree = bridge.params_from_numpy(jax.tree.map(np.asarray, jg), tcfg, device="cpu")
+    proj = torch.linalg.vector_norm(expect_tree["vision_proj"]["w1"])
+    assert (proj > 0) == with_vision
+    for got, e in zip(tg, tree_leaves(expect_tree)):
+        assert torch.linalg.vector_norm(got - e) <= TOL * torch.linalg.vector_norm(e) + 1e-9
+
+    jcache = jmodel.init_cache(2, 16, jnp.bfloat16)
+    jl, jc = jax.jit(jmodel.prefill)(jparams, jbatch, jcache)
+    with torch.no_grad():
+        tl, tc = tmodel.prefill(tparams, tbatch, tmodel.init_cache(2, 16, torch.bfloat16, device="cpu"))
+    _close(tl, jl)
+    for r, layer in enumerate(tc["seg0"]["b0"]):  # bf16 KV: within one bf16 ulp of JAX's
+        for n in ("k", "v"):
+            np.testing.assert_allclose(layer["attn"][n].float().numpy(),
+                                       np.asarray(jc["seg0"]["b0"]["attn"][n][r], np.float32),
+                                       rtol=2**-7, atol=1e-6)

@@ -110,10 +110,11 @@ def test_launcher_serves_on_cpu():
 @pytest.mark.parametrize("engine", ["static", "continuous", "disagg"])
 def test_launcher_names_the_later_slice(engine, capsys):
     """disagg waits for its slice; the static and continuous engines serve
-    the ported families and name the slice of a family that is not (MoE)."""
+    the ported families and name the slice of a family that is not
+    (whisper)."""
     argv = ["--engine", engine, "--device", "cpu"]
     if engine != "disagg":
-        argv += ["--arch", "dbrx-132b"]
+        argv += ["--arch", "whisper-tiny"]
     with pytest.raises(SystemExit):
         launcher.main(argv)
     assert "comes with" in capsys.readouterr().err

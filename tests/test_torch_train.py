@@ -4,7 +4,9 @@ qwen2.5-3b smoke in float32 with the JAX parameters carried over by
 (also with ``attn_chunk`` below S, so that JAX's ``_sdpa_chunked`` is
 compared), gradients per leaf against ``jax.value_and_grad``, the
 accumulated microbatch metrics, the optimizer state carried over by the
-bridge, the data stream bit for bit, and a short SEBS run step for step.
+bridge, the data stream bit for bit, and a short SEBS run step for step;
+and the train step's gradient sums (taken leaf by leaf as the backward
+finishes each) bit for bit against ``torch.autograd.grad``'s.
 
 Tolerances (f32, the same formulas summed in other orders): logits and
 loss 1e-4; gradients 1e-4 of each leaf's norm; the SEBS run's losses 1e-4
@@ -210,3 +212,33 @@ def test_trainer_refuses_a_checkpointer(np_params):
                           DataPipeline(TokenDataset(512, 8, 0), "cpu"))
     with pytest.raises(TypeError, match="CheckpointManager"):
         trainer.run(TrainState(tparams, opt.init(tparams), 0), checkpointer=object())
+
+
+@pytest.mark.parametrize("arch,accum", [("qwen2.5-3b", 1), ("qwen2.5-3b", 3), ("dbrx-132b", 3)])
+def test_microbatch_sums_equal_autograd_grad(arch, accum):
+    """The step takes each leaf's gradient as the backward finishes it and
+    adds it into the sum: the gradients and metrics equal, bit for bit,
+    those of ``torch.autograd.grad`` over each microbatch summed in order."""
+    from repro_torch.train.step import _sq_norm
+
+    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    params = model.init(0, device="cpu")
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(accum).integers(0, 512, (accum, 2, 17)))
+    grads, metrics = _grads_over_microbatches(model, params, {"tokens": tokens if accum > 1 else tokens[0]},
+                                              accum, 1e-4)
+    expect, sq, loss, aux = None, 0.0, 0.0, 0.0
+    for i in range(accum):
+        total, m = lm_loss(model, params, {"tokens": tokens[i]}, z_loss=1e-4)
+        g = list(torch.autograd.grad(total, leaves))
+        sq, loss, aux = sq + _sq_norm(g), loss + m["loss"].detach(), aux + m["aux"].detach()
+        expect = g if expect is None else [e.add_(x) for e, x in zip(expect, g)]
+    if accum > 1:
+        expect = [e.mul_(1.0 / accum) for e in expect]
+        assert torch.equal(metrics["grad_sq_small"], sq / accum)
+    assert all(torch.equal(a, b) for a, b in zip(grads, expect))
+    assert torch.equal(metrics["loss"], loss / accum) and torch.equal(metrics["aux"], aux / accum)
+    assert all(w.grad is None for w in leaves)

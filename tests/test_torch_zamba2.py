@@ -213,8 +213,8 @@ def test_shared_block_matches_jax(head_dim):
     jy, _, _ = jblocks.apply_block(shared_np, jnp.asarray(x), jmodel.cfg, jblocks.SHARED_SPEC,
                                    positions=jnp.asarray(pos))
     with torch.no_grad():
-        ty, _ = blocks.apply_block(tparams["seg0"]["shared"], _t(x)[0], tmodel.cfg, blocks.SHARED_SPEC,
-                                   positions=_t(pos)[0])
+        ty, _, _ = blocks.apply_block(tparams["seg0"]["shared"], _t(x)[0], tmodel.cfg, blocks.SHARED_SPEC,
+                                      positions=_t(pos)[0])
     assert tparams["seg0"]["shared"]["attn"]["wq"].shape[-1] == head_dim
     _close(ty, jy)
 
