@@ -144,6 +144,35 @@
     internvl2 smoke with vision_embeds the card's loss and gradients equal
     the CPU path's.
 
+21. The kernels at whisper-tiny's shapes: the flash forward and backward
+    non-causal at the encoder's (B 4, S 1500 = 23 x 64 + 28, 6/6 heads, D
+    64) on the bf16 and the f32 routes, the planted faults (a key dropped,
+    a causal mask where none belongs, Di left out) outside; causal at the
+    decoder's (B 4, S 448); the paged decode and chunk prefill at D 64, G
+    1; the sampler at whisper's 51,865 logits; the fused updates bit for
+    bit over Fig. 3's ResNet leaves. SDPA's times beside the flash ones.
+22. Serves whisper-tiny at full width (4 + 4 layers) through the paged
+    engine (8 slots, cache 448, pages of 16, 64-token chunks): 8 requests,
+    each with its own (1, 1500, 384) audio, half with the 4-token start
+    sequence as the prompt and half with 128 previous-text tokens before
+    it, 96 new tokens, half greedy; launches exact (an encoding, 4 flash
+    forwards, an admission; decode 4 a tick; chunk prefill 4 a chunk;
+    sampler 1 a tick), traced on the device; then the continuous and the
+    static engines.
+23. Trains whisper-tiny at full width with SEBS and pSGD on phase 7's
+    schedule (rows of 449 tokens with their audio): flash forward 2 x 8
+    and backward 8 a microbatch (encoder non-causal, decoder causal);
+    finite, falling losses; a stage-2 update traced.
+24. On whisper smoke in float32 the card agrees with the CPU path as in
+    phase 8 (batches with audio), and the greedy tokens of the three
+    engines with per-request audio are equal.
+25. The paper's experiments: Fig. 3 at the JAX file's settings (all 8
+    methods; update counts and batch paths as the schedules give them; a
+    fused update's kernel launched once an update), Fig. 2's b*(x) at both
+    rates over the full grid with the correlation, adaptive SEBS, and
+    ResNet-20 at its real shape card against CPU (forward, backward, a
+    pSGD update).
+
 Phase 3 also holds the MoE family's shapes: the flash forward and backward
 at G 6 (B 4, S 513, 48/8 heads), the forward at dbrx's dense prefills and
 at G 7 (B 8, S 512, 56/8), the paged decode and chunk prefill at G 6 and G
@@ -160,7 +189,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
+import itertools
 import json
 import math
 import sys
@@ -548,7 +579,8 @@ LIBRARY_NONE = "no single PyTorch call computes this update"
 # (its first steps move every weight by about eta), LAMB 1e-2 and LARS 1
 # (each leaf moves by eta times its own norm, scaled by 0.01 for LARS).
 ETAS = {"psgd": 1.0, "momentum": 0.3, "adagrad_da": 1.0, "rwkv6_psgd": 1.0,
-        "zamba2_psgd": 0.3, "gemma2_psgd": 0.1, "dbrx_psgd": 0.7, "adamw": 1e-3, "lars": 1.0, "lamb": 1e-2}
+        "zamba2_psgd": 0.3, "gemma2_psgd": 0.1, "dbrx_psgd": 0.7, "whisper_psgd": 0.3, "adamw": 1e-3, "lars": 1.0,
+        "lamb": 1e-2}
 
 
 def excess_bwd(out, expect, rtol: float = BWD_RTOL, scale_tol: float = BWD_SCALE_TOL) -> float:
@@ -747,14 +779,16 @@ def leaf_shapes(cfg) -> list:
     return shapes
 
 
-def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, suffix: str = "") -> None:
+def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, suffix: str = "",
+                causal: bool = True) -> None:
     """The flash kernels through their ops wrappers at one shape (bf16,
-    causal): the forward against its plain version with a planted fault
-    (each query's last visible key dropped), the backward with one (Di left
-    out), the same bits twice; L2-cold and device times, the plain
-    versions', the bound and SDPA's under a named backend and the default
-    dispatch. Into ``records["flash_attention_fwd" + suffix]`` and the
-    backward's."""
+    causal or not): the forward against its plain version with a planted
+    fault (each query's last visible key dropped; without the causal mask
+    also the causal mask where none belongs, the worse-hidden of the two
+    held), the backward with one (Di left out), the same bits twice;
+    L2-cold and device times, the plain versions', the bound and SDPA's
+    under a named backend and the default dispatch. Into
+    ``records["flash_attention_fwd" + suffix]`` and the backward's."""
     import torch
     import torch.nn.functional as F
 
@@ -763,15 +797,18 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
     name_fwd, name_bwd = "flash_attention_fwd" + suffix, "flash_attention_bwd" + suffix
     q, k, v = flash_inputs(gen, b, s, hq, hkv, d)
     d_out = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    out, lse = ops.forward(q, k, v)
-    expect, _ = ref.attention_fwd_ref(q, k, v)
+    out, lse = ops.forward(q, k, v, causal=causal)
+    expect, _ = ref.attention_fwd_ref(q, k, v, causal=causal)
     # planted fault: query i sees keys up to i - 1 (its last visible key dropped)
-    dropped = ref.attention_ref(q, k[:, :-1], v[:, :-1])
+    dropped = ref.attention_ref(q, k[:, :-1], v[:, :-1], causal=causal)
     fwd = check_close(name_fwd, out, expect, dropped)
-    grads = ops.backward(q, k, v, out, lse, d_out)
-    expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out)
-    fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out)  # Di left out
-    again = ops.backward(q, k, v, out, lse, d_out)
+    if not causal:  # and a causal mask where none belongs
+        masked = check_close(name_fwd, out, expect, ref.attention_ref(q, k, v, causal=True))
+        fwd["fault_excess"] = min(fwd["fault_excess"], masked["fault_excess"])
+    grads = ops.backward(q, k, v, out, lse, d_out, causal=causal)
+    expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out, causal=causal)
+    fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out, causal=causal)  # Di left out
+    again = ops.backward(q, k, v, out, lse, d_out, causal=causal)
     if not all(torch.equal(x, y) for x, y in zip(grads, again)):
         fail(f"{name_bwd}: two runs on the same inputs differ")
     bwd = {"max_abs_err": 0.0, "excess": 0.0, "fault_excess": float("inf")}
@@ -789,18 +826,21 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
     n_sets = copies_for(nbytes(q, k, v, d_out, out))
     sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_sets)]
     bwd_sets = [(*x, out.clone(), lse.clone(), d_out.clone()) for x in sets]
-    pairs = sum(min(i + 1, s) for i in range(s))  # visible (query, key) pairs, causal
+    # visible (query, key) pairs
+    pairs = sum(min(i + 1, s) for i in range(s)) if causal else s * s
     io = nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s
+    fwd_fn = functools.partial(ops.forward, causal=causal)
+    bwd_fn = functools.partial(ops.backward, causal=causal)
     records[name_fwd] = dict(
         **fwd,
-        ms=timed(ops.forward, sets, 50),
-        plain_ms=timed(ref.attention_fwd_ref, sets, 5),
+        ms=timed(fwd_fn, sets, 50),
+        plain_ms=timed(functools.partial(ref.attention_fwd_ref, causal=causal), sets, 5),
         bound=bound(io, 4 * d * pairs * b * hq, BF16_FLOPS),
     )
     records[name_bwd] = dict(
         **bwd,
-        ms=timed(ops.backward, bwd_sets, 20),
-        plain_ms=timed(ref.attention_bwd_ref, bwd_sets, 3),
+        ms=timed(bwd_fn, bwd_sets, 20),
+        plain_ms=timed(functools.partial(ref.attention_bwd_ref, causal=causal), bwd_sets, 3),
         # reads q, k, v, out, dO and lse; writes dq, dk, dv; the four
         # products of the gradient (dV, dP, dQ, dK), the recomputation of
         # P being the kernel's choice
@@ -815,7 +855,7 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]
 
     def sdpa(q_, k_, v_):
-        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal, enable_gqa=True)
 
     def sdpa_bwd(o, leaves, grad):
         return torch.autograd.grad(o, leaves, grad, retain_graph=True)
@@ -843,8 +883,8 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
                    library_device_ms=dev_named, library_device_ms_default=dev_default)
     # the kernels' own device time: the L2-cold loop above also holds the
     # host's time per call where that exceeds the kernels'
-    records[name_fwd]["device_ms"] = device_ms(ops.forward, sets, 20)
-    records[name_bwd]["device_ms"] = device_ms(ops.backward, bwd_sets, 10)
+    records[name_fwd]["device_ms"] = device_ms(fwd_fn, sets, 20)
+    records[name_bwd]["device_ms"] = device_ms(bwd_fn, bwd_sets, 10)
 
 
 def flash_inputs(gen, b: int, s: int, hq: int, hkv: int, d: int):
@@ -855,20 +895,27 @@ def flash_inputs(gen, b: int, s: int, hq: int, hkv: int, d: int):
                  for h in (hq, hkv, hkv))
 
 
-def flash_serving_prefills(records: dict, name: str, gen, batches, hq: int, hkv: int, d: int) -> None:
-    """The flash forward at a dense serving engine's prefill (B of 512
-    tokens, no tail tile) against its plain version, the last visible key
-    dropped as the planted fault, for each B in ``batches``; folded into
+def flash_serving_prefills(records: dict, name: str, gen, batches, hq: int, hkv: int, d: int,
+                           seqs=(512,), causal: bool = True) -> None:
+    """The flash forward at a serving engine's prefills, B of S tokens for
+    each B in ``batches`` and S in ``seqs`` (by default 512: no tail tile),
+    causal or not, against its plain version with flash_shape's planted
+    faults (each query's last visible key dropped; without the causal mask
+    also the causal mask where none belongs); folded into
     ``records[name]``'s worst readings and kept under its
     ``"serving_prefill"``."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     serving = {}
-    for b in batches:
-        q, k, v = flash_inputs(gen, b, 512, hq, hkv, d)
-        serving[f"b{b}_s512"] = check_close(
-            f"{name} (serving prefill, B {b} S 512)", ops.forward(q, k, v)[0],
-            ref.attention_fwd_ref(q, k, v)[0], ref.attention_ref(q, k[:, :-1], v[:, :-1]))
+    for b, s in itertools.product(batches, seqs):
+        q, k, v = flash_inputs(gen, b, s, hq, hkv, d)
+        label = f"{name} (serving prefill, B {b} S {s})"
+        out, expect = ops.forward(q, k, v, causal=causal)[0], ref.attention_fwd_ref(q, k, v, causal=causal)[0]
+        reading = check_close(label, out, expect, ref.attention_ref(q, k[:, :-1], v[:, :-1], causal=causal))
+        if not causal:
+            masked = check_close(label, out, expect, ref.attention_ref(q, k, v, causal=True))
+            reading["fault_excess"] = min(reading["fault_excess"], masked["fault_excess"])
+        serving[f"b{b}_s{s}"] = reading
     records[name].update(merge([records[name], *serving.values()]), serving_prefill=serving)
 
 
@@ -952,7 +999,7 @@ def fused_checks(records: dict, trees: dict) -> None:
             plain = lambda w_, g_, a_: [ref.psgd_ref(*x, lr=lr, gamma=gamma) for x in zip(w_, g_, a_)]
             outputs = lambda w_, st: [w_]
             moved = 16 * n  # w, g, anchor read; w written
-        elif kname == "fused_momentum":
+        elif kname.startswith("fused_momentum"):
             state = [leaves(shapes)]
             wrapper = lambda w_, g_, u_: ops.momentum_update(w_, g_, u_, lr=lr, beta=beta)
             plain = lambda w_, g_, u_: list(zip(*[ref.momentum_ref(*x, lr=lr, beta=beta)
@@ -982,6 +1029,7 @@ def fused_checks(records: dict, trees: dict) -> None:
         records[kname] = dict(
             max_abs_err=max_err, elements=n, leaves=len(shapes),
             ms=timed(wrapper, [(w, g, *state)], 10),
+            device_ms=device_ms(wrapper, [(w, g, *state)], 5),
             plain_ms=timed(plain, [(w, g, *state)], 2),
             bound=bound(moved, 6 * n, F32_FLOPS),
             library_ms=None,
@@ -1000,12 +1048,21 @@ def expected_ladder(schedule) -> tuple:
     return stages, batches
 
 
+def flash_launches() -> dict:
+    """The flash kernels' launch counts, and under ``<kernel>_noncausal``
+    those of them made without the causal mask."""
+    from repro_torch.kernels.flash_attention import ops
+
+    return {**ops.LAUNCHES, **{f"{n}_noncausal": c for n, c in ops.LAUNCHES_NONCAUSAL.items()}}
+
+
 def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: int, stages: int,
-             params=None, **run_kw):
+             params=None, dataset=None, **run_kw):
     """One SEBS run (rho 2, microbatch b1) from seed-0 weights (or
-    ``params``), every launch counter zeroed just before and read just
-    after; ``run_kw`` goes to ``SEBSTrainer.run`` (checkpointing). Returns
-    (log, wall s, launches, per-update seconds, state, trainer)."""
+    ``params``) on the seed-0 token stream (or ``dataset``), every launch
+    counter zeroed just before and read just after; ``run_kw`` goes to
+    ``SEBSTrainer.run`` (checkpointing). Returns (log, wall s, launches,
+    per-update seconds, state, trainer)."""
     import torch
 
     from repro_torch.core import SEBS, SEBSTrainer
@@ -1021,7 +1078,7 @@ def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: 
     schedule = SEBS(b1=b1, C1=c1, rho=2.0, num_stages=stages, eta=eta)
     tracer = Tracer()
     trainer = SEBSTrainer(model, optimizer, schedule,
-                          DataPipeline(TokenDataset(cfg.vocab_size, seq, seed=0), device=device),
+                          DataPipeline(dataset or TokenDataset(cfg.vocab_size, seq, seed=0), device=device),
                           microbatch=b1, mode="accumulate", accum_mode="psum_each", tracer=tracer)
     if params is None:
         state = init_train_state(model, optimizer, seed=0, device=device)
@@ -1037,7 +1094,7 @@ def run_sebs(cfg, optimizer, *, eta: float, device: str, seq: int, b1: int, c1: 
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES, **gla_ops.LAUNCHES}
+    launches = {**flash_launches(), **optim_ops.LAUNCHES, **gla_ops.LAUNCHES}
     updates = [ev["dur"] for ev in tracer.events if ev.get("name") == "train.update"]
     if run_kw.get("stop_after_updates") is None and (
             log.stages != expected_ladder(schedule)[0] or log.batch_sizes != expected_ladder(schedule)[1]):
@@ -1617,14 +1674,14 @@ def zamba2_smoke():
 
 
 def paged_shape_checks(records: dict, suffix: str, hq: int, hkv: int, d: int, seed: int,
-                       prefix_pages: int = 0) -> None:
+                       prefix_pages: int = 0, lengths=None, chunk: int = 256) -> None:
     """The paged kernels at one model's attention shape (pages of 16):
-    decode at the serving shape (8 slots of 544 tokens, the first
-    ``prefix_pages`` pages shared by every slot), the same bits twice, and a
-    chunk prefill of 256 tokens at pos_start 0 and 256, each against its
-    plain version with the last visible key dropped as the planted fault.
-    Into ``records["paged_flash_decode" + suffix]`` and
-    ``records["paged_chunk_prefill" + suffix]``."""
+    decode at the serving shape (8 slots of ``lengths`` tokens, 544 each by
+    default, the first ``prefix_pages`` pages shared by every slot), the
+    same bits twice, and a chunk prefill of ``chunk`` tokens at pos_start 0
+    and ``chunk``, each against its plain version with the last visible key
+    dropped as the planted fault. Into ``records["paged_flash_decode" +
+    suffix]`` and ``records["paged_chunk_prefill" + suffix]``."""
     import torch
 
     from repro_torch.kernels.paged_decode import ops, ref
@@ -1632,7 +1689,7 @@ def paged_shape_checks(records: dict, suffix: str, hq: int, hkv: int, d: int, se
     label = suffix.lstrip("_").upper()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, ps, pages = 8, 16, 1025
-    lengths = [544] * b
+    lengths = lengths or [544] * b
     k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=lengths, prefix_pages=prefix_pages)
     pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device="cuda")
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1654,19 +1711,19 @@ def paged_shape_checks(records: dict, suffix: str, hq: int, hkv: int, d: int, se
         library_ms=None,
     )
     del k, v, sets
-    c = 256
-    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=[512])
+    c = chunk
+    k, v, table = paged_pool(gen, pages=pages, ps=ps, hkv=hkv, d=d, lengths=[2 * c])
     q = torch.randn((1, c, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
     readings = []
-    for start in (0, 256):
+    for start in (0, c):
         ps_t = torch.tensor([start], dtype=torch.int32, device="cuda")
         fault = ref.paged_prefill_ref(q, k, v, table, ps_t - 1) if start else None
         readings.append(check_close(f"paged_chunk_prefill ({label}, pos_start {start})",
                                     ops.paged_chunk_prefill(q, k, v, table, ps_t),
                                     ref.paged_prefill_ref(q, k, v, table, ps_t), fault))
-    ps_t = torch.tensor([256], dtype=torch.int32, device="cuda")
+    ps_t = torch.tensor([c], dtype=torch.int32, device="cuda")
     sets = [(q.clone(), k.clone(), v.clone(), table, ps_t) for _ in range(copies_for(nbytes(q, k, v)))]
-    visible = sum(256 + i + 1 for i in range(c))
+    visible = sum(c + i + 1 for i in range(c))
     io = nbytes(q) * 2 + nbytes(table, ps_t)
     kv = kv_bytes_read(table, ps_t + c - 1, ps, hkv, d, 2)
     records["paged_chunk_prefill" + suffix] = dict(
@@ -2513,6 +2570,582 @@ def serve_arctic(cfg) -> dict:
     return record
 
 
+# -- whisper-tiny (phases 21-24) ---------------------------------------------
+
+# whisper's start sequence (<|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|>) and <|startofprev|>, which opens the previous text
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+WHISPER_PREV = 50361
+WHISPER_TEXT_VOCAB = 50257  # the text tokens lie below the special ones
+# (B, S, query heads, kv heads, D): the encoder's self-attention in training
+# (4 a microbatch of 1,500 frames, non-causal) and the decoder's (4 rows of
+# 448, causal)
+WHISPER_ENC = (4, 1500, 6, 6, 64)
+WHISPER_DEC = (4, 448, 6, 6, 64)
+WHISPER_SERVE = {"slots": 8, "cache_len": 448, "page_size": 16, "chunk": 64, "new_tokens": 96, "prev": 128}
+
+
+def f32_noncausal_check(record: dict, name: str, gen, b: int, s: int, hq: int, hkv: int, d: int) -> None:
+    """The f32 route (CUDA cores) without the causal mask at one shape: the
+    forward within 2e-5 and the backward within 1e-5 of the plain version,
+    with the planted faults of the bf16 check (a key dropped, a causal mask
+    where none belongs; Di left out) outside. Into ``record["f32_route"]``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda")
+                      for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+
+    def fwd_allowance(o, e):
+        return ((o - e).abs() / (F32_FWD_TOL * (1 + e.abs()))).max().item()
+
+    def bwd_allowance(o, e):
+        return excess_bwd(o, e, F32_BWD_TOL, F32_BWD_TOL)
+
+    out, lse = ops.forward(q, k, v, causal=False)
+    expect, _ = ref.attention_fwd_ref(q, k, v, causal=False)
+    readings = [check_close(f"{name} (f32)", out, expect, fault, allowance=fwd_allowance)
+                for fault in (ref.attention_ref(q, k[:, :-1], v[:, :-1], causal=False),
+                              ref.attention_ref(q, k, v, causal=True))]
+    grads = ops.backward(q, k, v, out, lse, d_out, causal=False)
+    expect_grads = ref.attention_bwd_ref(q, k, v, out, lse, d_out, causal=False)
+    fault_grads = ref.attention_bwd_ref(q, k, v, torch.zeros_like(out), lse, d_out, causal=False)
+    bwd = [check_close(f"{name} bwd {g_name} (f32)", g, e, f if g_name != "dv" else None, allowance=bwd_allowance)
+           for g_name, g, e, f in zip(("dq", "dk", "dv"), grads, expect_grads, fault_grads)]
+    record["f32_route"] = {
+        "fwd_excess": max(r["excess"] for r in readings), "fwd_fault_excess": min(r["fault_excess"] for r in readings),
+        "bwd_excess": max(r["excess"] for r in bwd), "bwd_fault_excess": min(r["fault_excess"] for r in bwd[:2]),
+    }
+
+
+def resnet_leaf_shapes(cfg) -> list:
+    """Shapes of the ResNet's parameter leaves, in ``tree_leaves`` order."""
+    from repro_torch.models import vision
+    from repro_torch.utils.tree import tree_leaves
+
+    return [tuple(w.shape) for w in tree_leaves(vision.init(0, cfg, device="cpu"))]
+
+
+def whisper_kernel_checks(records: dict) -> None:
+    """Phase 21, the kernels at whisper-tiny's shapes: the flash forward and
+    backward non-causal at the encoder's (B 4, S 1500 = 23 x 64 + 28, 6/6
+    heads, D 64) on the bf16 tensor-core route and the f32 route, and at
+    each serving admission's (B 1); causal at the decoder's (B 4, S 448)
+    and at its dense serving prefills (B 1 and 4 of 4 and 132 tokens); the
+    paged decode and chunk prefill at D 64,
+    G 1 (8 slots of 228 and 100 tokens, 64-token chunks); the sampler at 8
+    rows of whisper's 51,865 logits; and the fused updates bit for bit over
+    the leaves of Fig. 3's ResNet (sizes down to 8 elements)."""
+    import torch
+
+    from repro_torch.experiments import fig3_stagewise
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, s, hq, hkv, d = WHISPER_ENC
+    flash_shape(records, gen, b, s, hq, hkv, d, suffix="_whisper_enc", causal=False)
+    f32_noncausal_check(records["flash_attention_fwd_whisper_enc"], "flash_attention_fwd_whisper_enc", gen,
+                        b, s, hq, hkv, d)
+    # serving: each admission's encoding (B 1; the static engine's batch of 4
+    # is the shape above)
+    flash_serving_prefills(records, "flash_attention_fwd_whisper_enc", gen, (1,), hq, hkv, d, seqs=(s,),
+                           causal=False)
+    b, s, hq, hkv, d = WHISPER_DEC
+    flash_shape(records, gen, b, s, hq, hkv, d, suffix="_whisper_dec")
+    # the decoder's dense prefills of the 4- and 132-token prompts: B 1 (the
+    # continuous engine) and B 4 (the static one), each in one ragged tile
+    prompts = (len(WHISPER_SOT), len(WHISPER_SOT) + WHISPER_SERVE["prev"])
+    flash_serving_prefills(records, "flash_attention_fwd_whisper_dec", gen, (1, 4), hq, hkv, d, seqs=prompts)
+    long_len = len(WHISPER_SOT) + WHISPER_SERVE["prev"] + WHISPER_SERVE["new_tokens"]
+    short_len = len(WHISPER_SOT) + WHISPER_SERVE["new_tokens"]
+    paged_shape_checks(records, "_whisper", hq, hkv, d, seed=22, lengths=[long_len, short_len] * 4,
+                       chunk=WHISPER_SERVE["chunk"])
+    records["fused_sample_v51865"] = sampler_reading("fused_sample_v51865", gen, 8, 51865)
+    shapes = resnet_leaf_shapes(fig3_stagewise.CFG)
+    fused_checks(records, {"fused_psgd_resnet": shapes, "fused_momentum_resnet": shapes,
+                           "fused_adagrad_da_resnet": shapes})
+    enc, enc_bwd = records["flash_attention_fwd_whisper_enc"], records["flash_attention_bwd_whisper_enc"]
+    prefills = {**{f"encoder {k}": r for k, r in enc["serving_prefill"].items()},
+                **{f"decoder {k}": r for k, r in records["flash_attention_fwd_whisper_dec"]["serving_prefill"].items()}}
+    print("whisper's shapes, ms a call L2-cold (device ms in brackets; bound; plain): " + ", ".join(
+        f"{n} {records[n]['ms']:.4f} ({records[n]['device_ms']:.4f}; "
+        f"{records[n]['bound'][0]:.5f}; {records[n]['plain_ms']:.3f})"
+        for n in ("flash_attention_fwd_whisper_enc", "flash_attention_bwd_whisper_enc",
+                  "flash_attention_fwd_whisper_dec", "flash_attention_bwd_whisper_dec", "paged_flash_decode_whisper",
+                  "paged_chunk_prefill_whisper", "fused_sample_v51865", "fused_psgd_resnet",
+                  "fused_momentum_resnet", "fused_adagrad_da_resnet"))
+          + f" | SDPA ({enc['library_backend']}) encoder fwd {enc['library_ms']:.4f} (device "
+          f"{enc['library_device_ms']:.4f}), bwd {enc_bwd['library_ms']:.4f} ({enc_bwd['library_device_ms']:.4f}); "
+          f"default dispatch fwd {enc['library_ms_default']:.4f} ({enc['library_device_ms_default']:.4f}), bwd "
+          f"{enc_bwd['library_ms_default']:.4f} ({enc_bwd['library_device_ms_default']:.4f}) | encoder f32 route, in "
+          f"units of its allowance: fwd {enc['f32_route']['fwd_excess']:.3f} (faults "
+          f"{enc['f32_route']['fwd_fault_excess']:.1f}), bwd {enc['f32_route']['bwd_excess']:.3f} (fault "
+          f"{enc['f32_route']['bwd_fault_excess']:.1f}) | serving prefills, in units of the allowance (fault): "
+          + ", ".join(f"{k} {r['excess']:.3f} ({r['fault_excess']:.1f})" for k, r in prefills.items())
+          + f" | ResNet leaves {len(shapes)}, "
+          f"{records['fused_psgd_resnet']['elements']} elements", flush=True)
+
+
+def whisper_requests(cfg, seed: int):
+    """Phase 22's 8 requests: half with whisper's 4-token start sequence as
+    the prompt, half with 128 previous-text tokens (``<|startofprev|>`` and
+    127 text tokens) before it; each with its own (1, 1500, 384) audio from
+    the seed; odd requests sampled (t 0.8, top_k 50), even ones greedy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    requests = []
+    for i in range(8):
+        prompt = np.asarray(WHISPER_SOT, np.int32)
+        if i >= 4:
+            prev = rng.integers(0, WHISPER_TEXT_VOCAB, WHISPER_SERVE["prev"] - 1)
+            prompt = np.concatenate([[WHISPER_PREV], prev, prompt]).astype(np.int32)
+        audio = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda")
+        requests.append((prompt, audio, 0.0 if i % 2 == 0 else 0.8, 0 if i % 2 == 0 else 50))
+    return requests
+
+
+def encode_ms(model, params, audio, iters: int = 5) -> float:
+    """Median device-clocked ms of one request's encoding (the encoder's 4
+    layers over 1,500 frames: what each admission costs)."""
+    import torch
+
+    times = []
+    with torch.inference_mode():
+        for _ in range(iters + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model._encode(params, {"audio_embeds": audio})
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return sorted(times[1:])[iters // 2]
+
+
+def serve_whisper(cfg) -> dict:
+    """Phase 22: whisper-tiny at full width (4 + 4 layers, the whole model)
+    served by the paged engine (8 slots, cache 448, pages of 16, 64-token
+    chunks) on 8 requests (whisper_requests) of 96 new tokens each, counters
+    zeroed just before and read just after: each admission encodes its
+    audio (the flash forward non-causal once an encoder layer), every chunk
+    launches the chunk prefill and every tick the decode once a decoder
+    layer, and the sampler once a tick (the prompts' tails ride the ticks
+    teacher-forced, so no first token is sampled apart). The same batch
+    traced on the device; then the continuous engine (the flash forward
+    once an encoder and once a decoder layer a request, the sampler once a
+    tick and once a first token) and the static engine (greedy: the short
+    prompts, then the long ones, one batch each)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import ContinuousBatchingEngine, PagedContinuousBatchingEngine, ServeEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    layers, enc_layers, new = cfg.num_layers, cfg.encoder_layers, WHISPER_SERVE["new_tokens"]
+    model = LanguageModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {cfg.name} full, {sum(w.numel() for w in tree_leaves(params))} params ({cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine = PagedContinuousBatchingEngine(
+        model, params, max_slots=WHISPER_SERVE["slots"], page_size=WHISPER_SERVE["page_size"],
+        cache_len=WHISPER_SERVE["cache_len"], prefill_chunks=(WHISPER_SERVE["chunk"],), seed=0,
+    )
+    batches = []
+
+    def submit_batch(eng=engine, seed=None):
+        batches.append(whisper_requests(cfg, 30 + len(batches) if seed is None else seed))
+        return [eng.submit(p, max_new_tokens=new, temperature=t, top_k=k, memory=a)
+                for p, a, t, k in batches[-1]]
+
+    warm = whisper_requests(cfg, 29)[4]
+    engine.submit(warm[0], max_new_tokens=4, memory=warm[1])  # warm-up
+    engine.run()
+    engine.reset_stats()
+    ids = submit_batch()
+    requests = batches[-1]
+    torch.cuda.synchronize()
+    for ops in (paged_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **flash_launches()}
+    for rid, (prompt, *_) in zip(ids, requests):
+        gen_tokens = results[rid][len(prompt):]
+        if len(gen_tokens) != new or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"whisper request {rid}: bad generated tokens {gen_tokens.tolist()}")
+    engine.pool.check()
+    stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    if engine.prefix_sharing:
+        fail("whisper: prefix sharing must be off for an encoder-decoder model")
+    chunk = WHISPER_SERVE["chunk"]
+    first_sampled = sum(1 for p, *_ in requests if len(p) >= chunk and len(p) % chunk == 0)
+    expect = {"flash_attention_fwd": enc_layers * len(ids), "flash_attention_fwd_noncausal": enc_layers * len(ids),
+              "flash_attention_bwd": 0, "paged_chunk_prefill": layers * stats["prefill_chunks"], "paged_flash_decode": layers * stats["ticks"],
+              "fused_sample": stats["ticks"] + first_sampled}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"whisper paged serving: {kname} launched {launches[kname]} times, not {n}")
+    encode = encode_ms(model, params, requests[0][1])
+    profile = device_profile(engine.run, submit_batch)
+    engine.pool.check()
+    tick_ms = sorted(stats["decode_tick_s"])[len(stats["decode_tick_s"]) // 2] * 1e3
+    print(
+        f"phase 22 whisper paged: {len(ids)} requests (4 of 4 prompt tokens, 4 of 132) x {new} tokens in "
+        f"{wall:.3f} s | decode {stats['decoded_tokens']} tokens = {stats['decoded_tokens'] / wall:.1f} tok/s | "
+        f"median decode tick {tick_ms:.2f} ms | {stats['ticks']} ticks, {stats['prefill_chunks']} chunks | encode "
+        f"{encode:.3f} ms an admission (device) | pages peak {mem['pages_peak']}/{mem['pages_capacity']} | peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {launches}", flush=True)
+    print(f"phase 22 whisper profile: device busy {profile['busy_ms']:.1f} ms of {profile['wall_ms']:.1f} ms wall, "
+          f"idle {100 * profile['idle_share']:.1f}% | flash forward {profile['flash_fwd_ms']:.2f} ms, paged decode "
+          f"{profile['paged_decode_ms']:.2f} ms, prefill {profile['paged_prefill_ms']:.2f} ms, sampler "
+          f"{profile['sampler_ms']:.3f} ms over {profile['sampler_launches']} launches", flush=True)
+    for kname, (ms, n) in list(profile["by_kernel"].items())[:10]:
+        print(f"phase 22 whisper profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
+    del engine, results
+    gc.collect()
+
+    continuous = ContinuousBatchingEngine(model, params, cache_len=WHISPER_SERVE["cache_len"],
+                                          max_slots=WHISPER_SERVE["slots"], seed=0)
+    continuous.submit(warm[0], max_new_tokens=4, memory=warm[1])  # warm-up
+    continuous.run()
+    continuous.reset_stats()
+    cids = [continuous.submit(p, max_new_tokens=new, temperature=t, top_k=k, memory=a) for p, a, t, k in requests]
+    torch.cuda.synchronize()
+    for ops in (paged_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    cresults = continuous.run()
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    claunches = {**paged_ops.LAUNCHES, **flash_launches()}
+    cstats = copy.deepcopy(continuous.stats)
+    expect = {"flash_attention_fwd": (enc_layers + layers) * len(cids),
+              "flash_attention_fwd_noncausal": enc_layers * len(cids), "paged_flash_decode": 0,
+              "paged_chunk_prefill": 0, "fused_sample": cstats["ticks"] + len(cids)}
+    for kname, n in expect.items():
+        if claunches[kname] != n:
+            fail(f"whisper continuous serving: {kname} launched {claunches[kname]} times, not {n}")
+    for rid, (prompt, *_) in zip(cids, requests):
+        gen_tokens = cresults[rid][len(prompt):]
+        if len(gen_tokens) != new or gen_tokens.min() < 0 or gen_tokens.max() >= cfg.vocab_size:
+            fail(f"whisper continuous request {rid}: bad generated tokens")
+    ctick = sorted(cstats["decode_tick_s"])[len(cstats["decode_tick_s"]) // 2] * 1e3
+    print(f"phase 22 whisper continuous: {cstats['decoded_tokens']} decode tokens in {cwall:.3f} s = "
+          f"{cstats['decoded_tokens'] / cwall:.1f} tok/s | median tick {ctick:.2f} ms | launches {claunches}",
+          flush=True)
+    del continuous, cresults
+
+    static = ServeEngine(model, params, cache_len=WHISPER_SERVE["cache_len"])
+    static.generate(warm[0][None, :], max_new_tokens=2, memory=warm[1])  # warm-up
+    static_runs = {}
+    for label, group in (("short", requests[:4]), ("long", requests[4:])):
+        prompts = np.stack([p for p, *_ in group])
+        audio = torch.cat([a for _, a, *_ in group])
+        torch.cuda.synchronize()
+        for ops in (paged_ops, flash_ops):
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        out = static.generate(prompts, max_new_tokens=new, memory=audio)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        slaunches = {**paged_ops.LAUNCHES, **flash_launches()}
+        if (slaunches["flash_attention_fwd"] != enc_layers + layers
+                or slaunches["flash_attention_fwd_noncausal"] != enc_layers or slaunches["paged_flash_decode"]):
+            fail(f"whisper static serving ({label}): launches {slaunches}, not one encoding and one prefill")
+        if out.shape != (4, prompts.shape[1] + new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"whisper static serving ({label}): bad output of shape {out.shape}")
+        static_runs[label] = {"wall_s": swall, "tok_per_s": 4 * new / swall, "launches": slaunches}
+    print("phase 22 whisper static: " + ", ".join(
+        f"{n} prompts 4 x {new} greedy tokens in {r['wall_s']:.3f} s = {r['tok_per_s']:.1f} tok/s"
+        for n, r in static_runs.items()), flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    paths = (launches, claunches, *(r["launches"] for r in static_runs.values()))
+    del static, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],
+            "prefill_chunks": stats["prefill_chunks"], "median_decode_tick_ms": tick_ms,
+            "encode_ms": encode, "launches": launches, "profile": profile, "peak_gib": peak / 2**30,
+            # the flash forward by part over the three engines, as counted: the encoder's
+            # launches non-causal, the decoder's causal
+            "encoder_fwd": sum(run["flash_attention_fwd_noncausal"] for run in paths),
+            "decoder_fwd": sum(run["flash_attention_fwd"] - run["flash_attention_fwd_noncausal"] for run in paths),
+            "continuous": {"wall_s": cwall, "decoded_tokens": cstats["decoded_tokens"], "ticks": cstats["ticks"],
+                           "median_decode_tick_ms": ctick, "launches": claunches},
+            "static": static_runs}
+
+
+class AudioRows:
+    """A token stream with audio beside it: ``TokenDataset`` rows, and row
+    ``i``'s (frames, d) audio embeddings from ``default_rng((seed, i))``,
+    both pure in the sample index."""
+
+    def __init__(self, vocab: int, seq: int, frames: int, d: int, seed: int = 0):
+        from repro_torch.data import TokenDataset
+
+        self.tokens = TokenDataset(vocab, seq, seed=seed)
+        self.frames, self.d, self.seed = frames, d, seed
+
+    def batch(self, offset: int, batch_size: int) -> dict:
+        import numpy as np
+
+        audio = np.stack([np.random.default_rng((self.seed, offset + i)).standard_normal(
+            (self.frames, self.d), dtype=np.float32) for i in range(batch_size)])
+        return {**self.tokens.batch(offset, batch_size), "audio_embeds": audio}
+
+
+def train_whisper(cfg) -> dict:
+    """Phase 23: SEBSTrainer with pSGD on whisper-tiny at full width, on
+    phase 7's schedule (12 updates at batch 4, 8, 16 by 1, 2 and 4
+    microbatches of 4 rows of 449 tokens, each with its (1500, 384) audio;
+    remat), counters zeroed just before and read just after: the flash
+    forward runs twice a layer and microbatch (remat; the encoder's
+    non-causal, the decoder's causal) and the backward once. Then one
+    stage-2 update traced on the device."""
+    import torch
+
+    from repro_torch.optim import make_optimizer
+
+    seq, b1 = WHISPER_DEC[1], 4
+    layers = cfg.num_layers + cfg.encoder_layers
+    psgd = make_optimizer("psgd", gamma=1e4)
+    eta = ETAS["whisper_psgd"]
+    log, wall, launches, updates, state, trainer = run_sebs(
+        cfg, psgd, eta=eta, device="cuda", seq=seq, b1=b1, c1=16, stages=3,
+        dataset=AudioRows(cfg.vocab_size, seq, cfg.encoder_seq, cfg.d_model))
+    peak = torch.cuda.max_memory_allocated()
+    check_training("whisper psgd, full width", log, launches,
+                   ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"))
+    micro = sum(bs // b1 for bs in log.batch_sizes)
+    expect = {"flash_attention_fwd": layers * 2 * micro, "flash_attention_bwd": layers * micro,
+              "flash_attention_fwd_noncausal": cfg.encoder_layers * 2 * micro,
+              "flash_attention_bwd_noncausal": cfg.encoder_layers * micro, "fused_psgd": len(log.steps)}
+    for kname, n in expect.items():
+        if launches[kname] != n:
+            fail(f"whisper training: {kname} launched {launches[kname]} times, not {n}")
+    stages = stage_table(log, updates, seq)
+    print_training("whisper psgd", log, wall, peak, launches, stages, seq)
+    profile, untraced_ms, _ = trace_update("whisper train", trainer, state, psgd, eta)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"eta": eta, "losses": log.losses, "wall_s": wall, "peak_gib": peak / 2**30, "launches": launches,
+            "microbatches": micro, "stages": stages, "profile": profile, "untraced_update_ms": untraced_ms,
+            # by part, as counted: the encoder's launches non-causal, the decoder's causal
+            **{f"{part}_{kind}": launches[f"flash_attention_{kind}_noncausal"] if part == "encoder"
+               else launches[f"flash_attention_{kind}"] - launches[f"flash_attention_{kind}_noncausal"]
+               for part in ("encoder", "decoder") for kind in ("fwd", "bwd")}}
+
+
+def whisper_card_cpu_agreement() -> dict:
+    """Phase 24, whisper-tiny smoke (2 + 2 layers, 64 frames) in float32
+    from the same weights on the CPU (plain versions) and on the card
+    (kernels): the first update's gradients leaf by leaf within 1e-4 of
+    each leaf's norm, the losses of a short SEBS run whose batches carry
+    audio within 1e-4 relative (a control run on the CPU from weights moved
+    by 1e-7 shows how far rounding alone carries them), and the greedy
+    tokens of the paged, continuous and static engines with per-request
+    audio equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serve import ContinuousBatchingEngine, PagedContinuousBatchingEngine, ServeEngine
+    from repro_torch.train.step import _grads_over_microbatches
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("whisper-tiny", "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    base = model.init(seed=0, device="cpu")
+    rows = AudioRows(cfg.vocab_size, 32, cfg.encoder_seq, cfg.d_model, seed=1).batch(0, 4)
+
+    def copy_to(tree, device):  # the runs update their weights in place
+        return tree_map(lambda x: x.detach().to(device, copy=True), tree)
+
+    grads = {}
+    for device in ("cpu", "cuda"):
+        params = copy_to(base, device)
+        for w in tree_leaves(params):
+            w.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
+        g, _ = _grads_over_microbatches(model, params, batch, 1, 0.0)
+        grads[device] = [x.detach().cpu() for x in g]
+    grad_worst = max((torch.linalg.vector_norm(c - a) / torch.linalg.vector_norm(a)).item()
+                     for a, c in zip(grads["cpu"], grads["cuda"]))
+    if grad_worst > CARD_CPU_RTOL:
+        fail(f"whisper: card and CPU gradients differ by {grad_worst:.2e} of a leaf's norm")
+    gen = torch.Generator().manual_seed(1)
+    moved = tree_map(lambda x: x * (1 + 1e-7 * torch.randn(x.shape, generator=gen)), base)
+    eta = CARD_CPU_REFERENCE_ETA
+    losses = {}
+    for label, device, weights in (("cpu", "cpu", base), ("cuda", "cuda", base), ("control", "cpu", moved)):
+        log = run_sebs(cfg, make_optimizer("psgd", gamma=1e4), eta=eta, device=device, seq=32, b1=4, c1=8,
+                       stages=2, params=copy_to(weights, device),
+                       dataset=AudioRows(cfg.vocab_size, 32, cfg.encoder_seq, cfg.d_model, seed=1))[0]
+        losses[label] = log.losses
+    worst, control = (max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"], losses[other]))
+                      for other in ("cuda", "control"))
+    if control > CARD_CPU_RTOL / 2:
+        fail(f"whisper: the control run moves {control:.2e}: the comparison cannot hold {CARD_CPU_RTOL:.0e}")
+    if worst > CARD_CPU_RTOL:
+        fail(f"whisper: card and CPU losses differ by {worst:.2e} relative: {losses}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (4, 9, 4, 6)]
+    audio = torch.from_numpy(rng.standard_normal((4, 1, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    streams = {}
+    for device in ("cpu", "cuda"):
+        params = copy_to(base, device)
+        runs = {}
+        for name, engine in (
+                ("paged", PagedContinuousBatchingEngine(model, params, cache_len=32, max_slots=2, page_size=4,
+                                                        prefill_chunks=(4,), seed=0, device=device)),
+                ("continuous", ContinuousBatchingEngine(model, params, cache_len=32, max_slots=2, seed=0,
+                                                        device=device))):
+            ids = [engine.submit(p, max_new_tokens=6, memory=audio[i].to(device)) for i, p in enumerate(prompts)]
+            out = engine.run()
+            runs[name] = [out[i].tolist() for i in ids]
+        runs["static"] = ServeEngine(model, params, cache_len=32, device=device).generate(
+            np.stack([prompts[0], prompts[2]]), 6, memory=torch.cat([audio[0], audio[2]]).to(device)).tolist()
+        streams[device] = runs
+    if streams["cpu"] != streams["cuda"]:
+        fail(f"whisper smoke greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
+    print(f"phase 24 card vs cpu: whisper smoke f32, first-update gradients within {grad_worst:.2e} of a leaf's "
+          f"norm; {len(losses['cpu'])} SEBS updates at eta {eta}, losses within {worst:.2e} relative (control "
+          f"{control:.2e}); greedy tokens of the paged, continuous and static engines equal", flush=True)
+    return {"grad_max_rel": grad_worst, "max_rel": worst, "control_max_rel": control, "eta": eta,
+            "cpu": losses["cpu"], "cuda": losses["cuda"]}
+
+
+# -- the paper's own experiments (phase 25) ----------------------------------
+
+FIG3_FUSED = {"psgd": "fused_psgd", "momentum": "fused_momentum", "adagrad_da": "fused_adagrad_da"}
+RESNET_RTOL = 1e-4
+
+
+def resnet_card_cpu() -> dict:
+    """ResNet-20 at its real shape (width 16, 3 blocks a stage, 32 px, batch
+    16) from the same weights on the CPU and the card: the logits and the
+    loss within 1e-4 relative, the gradients within 1e-4 of each leaf's
+    norm, and one pSGD update's weights within 1e-4 of each leaf's norm."""
+    import torch
+
+    from repro_torch.data import ImageClassDataset
+    from repro_torch.data.synthetic import key
+    from repro_torch.models import vision
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = vision.VisionConfig()
+    base = vision.init(0, cfg, device="cpu")
+    batch = ImageClassDataset(n=4000, image_size=32, noise=1.2, seed=0).train_batch(key(5), 16, device="cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.to(device, copy=True), base)
+        leaves = tree_leaves(params)
+        for w in leaves:
+            w.requires_grad_(True)
+        x, y = batch["image"].to(device), batch["label"].to(device)
+        logits = vision.apply(params, x, cfg)
+        loss = -torch.log_softmax(logits, -1).gather(-1, y[:, None]).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        opt = make_optimizer("psgd", gamma=1e4)
+        state = opt.init(params)
+        opt.update(list(grads), state, params, lr=0.15, stage=0)
+        out[device] = (logits.detach().cpu(), float(loss.detach()), [g.cpu() for g in grads],
+                       [w.detach().cpu() for w in leaves])
+    (lc, fc, gc_, wc), (lg, fg, gg, wg) = out["cpu"], out["cuda"]
+    reading = {
+        "logits_max_rel": ((lg - lc).abs().max() / lc.abs().max()).item(),
+        "loss_rel": abs(fg - fc) / abs(fc),
+        "grad_max_rel": max((torch.linalg.vector_norm(b - a) / torch.linalg.vector_norm(a)).item()
+                            for a, b in zip(gc_, gg)),
+        "weights_max_rel": max((torch.linalg.vector_norm(b - a) / torch.linalg.vector_norm(a)).item()
+                               for a, b in zip(wc, wg)),
+    }
+    if max(reading.values()) > RESNET_RTOL:
+        fail(f"ResNet-20 card against CPU: {reading}")
+    return reading
+
+
+def paper_experiments() -> dict:
+    """Phase 25: the paper's experiments on the card. Fig. 3 at the JAX
+    file's settings (n 4,000, 16 px, width 8, 10 epochs, b1 32, rho 4, all 8
+    methods), each method's counters zeroed before its run and read after:
+    its update count and logged batches equal its schedule's plan, and the
+    methods that update through a fused kernel launch it once an update.
+    Fig. 2's b*(x) at both rates over the full grid, with the correlation;
+    adaptive SEBS; ResNet-20 at its real shape, card against CPU."""
+    import torch
+
+    from repro_torch.experiments import adaptive_sebs, fig2_optimal_batch, fig3_stagewise
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+
+    out_dir = str(OUT_DIR / "experiments")
+    fig3, fig3_launches = {}, {}
+    t0 = time.perf_counter()
+    for name, (schedule, opt_name, opt_kwargs) in fig3_stagewise.methods().items():
+        path = fig3_stagewise.batch_path(schedule)
+        optim_ops.reset_launches()
+        t1 = time.perf_counter()
+        res = fig3_stagewise._train(schedule, opt_name, opt_kwargs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(optim_ops.LAUNCHES)
+        if res["updates"] != len(path) or res["log"]["batch"] != path[9::10]:
+            fail(f"fig3 {name}: {res['updates']} updates / logged batches differ from the schedule's "
+                 f"{len(path)} updates")
+        fused = FIG3_FUSED.get(opt_name) if opt_kwargs.get("gamma") != float("inf") else None
+        expect = {k: (res["updates"] if k == fused else 0) for k in optim_ops.LAUNCHES}
+        if launches != expect:
+            fail(f"fig3 {name}: fused launches {launches}, not {expect}")
+        if not all(math.isfinite(x) for x in res["log"]["loss"]):
+            fail(f"fig3 {name}: a loss is not finite")
+        fig3[name] = {"updates": res["updates"], "test_acc": res["test_acc"], "final_loss": res["log"]["loss"][-1],
+                      "wall_s": wall, "optimizer": opt_name, "launches": launches}
+        fig3_launches[name] = launches
+        print(f"phase 25 fig3 {name}: {res['updates']} updates ({opt_name}) in {wall:.1f} s | test acc "
+              f"{res['test_acc']:.4f} | final loss {res['log']['loss'][-1]:.4f} | fused launches {launches}",
+              flush=True)
+    fig3_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qp = fig2_optimal_batch.QuadraticProblem(n=10_000, d=100)
+    best, table = fig2_optimal_batch.optimal_batches(qp, device="cuda")
+    torch.cuda.synchronize()
+    fig2_wall = time.perf_counter() - t0
+    corr = {lr: fig2_optimal_batch.correlation(opt) for lr, opt in best.items()}
+    for lr, opt in best.items():
+        print(f"phase 25 fig2 lr {lr}: b*(x) {opt} | corr(log b*, log x) {corr[lr]:.3f}", flush=True)
+    t0 = time.perf_counter()
+    adaptive_records = adaptive_sebs.run(out_dir, device="cuda")
+    adaptive_wall = time.perf_counter() - t0
+    adaptive = {r.name: r.value for r in adaptive_records}
+    schedule_path = next(r.context["batch_path"] for r in adaptive_records
+                         if r.name == "adaptive_adaptive_sebs_updates")
+    print(f"phase 25 adaptive SEBS: " + ", ".join(f"{k} {v:.6g}" for k, v in adaptive.items())
+          + f" | adaptive batch path {schedule_path} | {adaptive_wall:.1f} s", flush=True)
+    resnet = resnet_card_cpu()
+    print(f"phase 25 ResNet-20 (width 16, 32 px) card vs cpu: {resnet} | fig3 {fig3_wall:.1f} s, fig2 (full grid) "
+          f"{fig2_wall:.1f} s", flush=True)
+    return {"fig3": fig3, "fig3_wall_s": fig3_wall, "fig2": {"optimal": {str(k): v for k, v in best.items()},
+                                                           "corr": {str(k): v for k, v in corr.items()},
+                                                           "scores": {str(k): v for k, v in table.items()},
+                                                           "wall_s": fig2_wall},
+            "adaptive": adaptive, "adaptive_batch_path": schedule_path, "adaptive_wall_s": adaptive_wall,
+            "resnet_card_vs_cpu": resnet}
+
+
 def main() -> None:
     import torch
 
@@ -2820,6 +3453,20 @@ def main() -> None:
     phase_done("19 dbrx training")
     arctic_serving = serve_arctic(moe_cut("arctic-480b", MOE_LAYERS["arctic_serving"]))
     phase_done("20 arctic serving")
+    # 21-24. whisper-tiny: the kernels at its shapes, then served and trained
+    # at full width (the whole model), then card against CPU on its smoke
+    whisper_kernel_checks(records)
+    phase_done("21 whisper kernels")
+    whisper = get_config("whisper-tiny", "full")
+    whisper_serving = serve_whisper(whisper)
+    phase_done("22 whisper serving")
+    whisper_training = train_whisper(whisper)
+    phase_done("23 whisper training")
+    whisper_agreement = whisper_card_cpu_agreement()
+    phase_done("24 whisper card vs cpu")
+    # 25. the paper's own experiments: Fig. 3, Fig. 2, adaptive SEBS, ResNet-20
+    experiments = paper_experiments()
+    phase_done("25 the paper's experiments")
     print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
           + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -2884,6 +3531,28 @@ def main() -> None:
     all_launches["fused_sample_v100352"] = sum(run.get("fused_sample", 0) for run in dbrx_paths)
     all_launches["fused_sample_v32000"] = sum(run.get("fused_sample", 0) for run in arctic_paths)
     all_launches["fused_psgd_dbrx"] = dbrx_training["launches"]["fused_psgd"]
+    # whisper's paths (phases 22-23): the encoder's flash launches, counted
+    # apart as the non-causal ones, and the decoder's, the causal rest
+    for part in ("encoder", "decoder"):
+        suffix = "_whisper_enc" if part == "encoder" else "_whisper_dec"
+        all_launches["flash_attention_fwd" + suffix] = (whisper_serving[f"{part}_fwd"]
+                                                        + whisper_training[f"{part}_fwd"])
+        all_launches["flash_attention_bwd" + suffix] = whisper_training[f"{part}_bwd"]
+    for kname in ("paged_flash_decode", "paged_chunk_prefill"):
+        all_launches[kname + "_whisper"] = whisper_serving["launches"][kname]
+    all_launches["fused_sample_v51865"] = (whisper_serving["launches"]["fused_sample"]
+                                           + whisper_serving["continuous"]["launches"]["fused_sample"])
+    for kname in ("fused_psgd", "fused_momentum", "fused_adagrad_da"):
+        all_launches[kname + "_resnet"] = sum(m["launches"][kname] for m in experiments["fig3"].values())
+    for kname, base in (("flash_attention_fwd_whisper_enc", "flash_attention_fwd"),
+                        ("flash_attention_bwd_whisper_enc", "flash_attention_bwd"),
+                        ("flash_attention_fwd_whisper_dec", "flash_attention_fwd"),
+                        ("flash_attention_bwd_whisper_dec", "flash_attention_bwd"),
+                        ("paged_flash_decode_whisper", "paged_flash_decode"),
+                        ("paged_chunk_prefill_whisper", "paged_chunk_prefill"),
+                        ("fused_sample_v51865", "fused_sample"), ("fused_psgd_resnet", "fused_psgd"),
+                        ("fused_momentum_resnet", "fused_momentum"), ("fused_adagrad_da_resnet", "fused_adagrad_da")):
+        replaces[kname], sources[kname] = replaces[base], sources[base]
     unlaunched = [kname for kname in records if all_launches.get(kname, 0) <= 0]
     if unlaunched:
         fail(f"kernels not launched on their main paths: {unlaunched}")
@@ -2941,6 +3610,13 @@ def main() -> None:
             "flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7", "paged_flash_decode_g6",
             "paged_flash_decode_g7", "paged_chunk_prefill_g6", "paged_chunk_prefill_g7", "fused_sample_v100352",
             "fused_sample_v32000")},
+        "whisper": {"serving": whisper_serving, "training": whisper_training, "card_vs_cpu": whisper_agreement,
+                    "device_ms": {n: records[n].get("device_ms") for n in records if "whisper" in n},
+                    "f32_route": records["flash_attention_fwd_whisper_enc"]["f32_route"],
+                    "library": {n: {key: records[n][key] for key in (
+                        "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
+                        for n in records if n.startswith("flash_attention") and "whisper" in n}},
+        "experiments": experiments,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

@@ -4,7 +4,8 @@
 parameter tree with numpy (or torch) leaves and returns the port's tree: the
 same names and layouts (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, ...), with
 each segment's scanned ``layers`` axis unstacked into a list of per-layer
-trees. :func:`opt_state_from_numpy` does the same for an optimizer state
+trees (the ``seg<i>`` segments, and an encoder-decoder model's
+``encoder``, of ``encoder_layers`` layers). :func:`opt_state_from_numpy` does the same for an optimizer state
 (the integer slots ``stage`` and ``count``, and the parameter-shaped
 slots: pSGD's ``anchor``, momentum's and LARS's ``u``, AdaGrad's ``z`` and
 ``s2``, Adam's and LAMB's ``m`` and ``v``), so both frameworks can start
@@ -57,25 +58,40 @@ def _unstack(tree, n: int, i: int):
     return tree[i]
 
 
+def _repeat(key: str, cfg: ModelConfig):
+    """The layer count of the segment that top-level ``key`` names (a
+    ``seg<i>``, or an encoder-decoder model's ``encoder``), else None."""
+    if key == "encoder" and cfg.is_encoder_decoder:
+        return cfg.encoder_layers
+    m = re.fullmatch(r"seg(\d+)", key)
+    return None if m is None else cfg.segments[int(m.group(1))].repeat
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
     """The port's parameter tree (tensors on ``device``, dtypes kept) from
     the JAX package's ``LanguageModel.init`` tree."""
     params = {}
     for key, sub in tree.items():
-        m = re.fullmatch(r"seg(\d+)", key)
-        if m is None:
+        repeat = _repeat(key, cfg)
+        if repeat is None:
             params[key] = _convert(sub, device)
             continue
-        seg = cfg.segments[int(m.group(1))]
         params[key] = {
             name: (
                 _convert(block, device)  # zamba2's weight-tied shared block
                 if name == "shared"
-                else [_convert(_unstack(block, seg.repeat, r), device) for r in range(seg.repeat)]
+                else [_convert(_unstack(block, repeat, r), device) for r in range(repeat)]
             )
             for name, block in sub.items()
         }
     return params
+
+
+def vision_params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's ResNet parameters (``models.vision``) from the JAX
+    package's ``vision.init`` tree: the same names and layouts (HWIO
+    convolutions), as tensors on ``device``."""
+    return _convert(tree, device)
 
 
 INT_SLOTS = ("stage", "count")
@@ -130,11 +146,10 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     own their memory (numpy leaves, bfloat16 ones as CPU tensors)."""
     out: Dict[str, Any] = {}
     for key, sub in params.items():
-        m = re.fullmatch(r"seg(\d+)", key)
-        if m is None:
+        repeat = _repeat(key, cfg)
+        if repeat is None:
             out[key] = _to_host(sub)
             continue
-        repeat = cfg.segments[int(m.group(1))].repeat
         out[key] = {name: _to_host(block) if name == "shared" else _stack(block, repeat)
                     for name, block in sub.items()}
     return out

@@ -7,7 +7,9 @@ lie on the CPU: a CUDA tensor launches its kernel or raises, with no
 fallback. :data:`LAUNCHES` counts, per kernel, the launches since the last
 :func:`reset_launches`; a count is raised where the kernel is launched and
 nowhere else, so a run can show that its main path went through the
-kernels.
+kernels. :data:`LAUNCHES_NONCAUSAL` counts, of those, the launches made
+without the causal mask, so that a model with both kinds (an encoder's
+self-attention and a decoder's) shows which ran which.
 """
 from __future__ import annotations
 
@@ -19,11 +21,20 @@ from repro_torch.kernels.flash_attention import kernel, ref
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+#: of :data:`LAUNCHES`, the launches made with ``causal=False``
+LAUNCHES_NONCAUSAL = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LAUNCHES_NONCAUSAL):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, causal: bool) -> None:
+    LAUNCHES[name] += 1
+    if not causal:
+        LAUNCHES_NONCAUSAL[name] += 1
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -40,7 +51,7 @@ def forward(q, k, v, *, causal: bool = True, sliding_window: Optional[int] = Non
         return ref.attention_fwd_ref(q, k, v, causal=causal, sliding_window=sliding_window)
     out = kernel.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                      causal=causal, window=sliding_window)
-    LAUNCHES["flash_attention_fwd"] += 1
+    _count("flash_attention_fwd", causal)
     return out
 
 
@@ -51,7 +62,7 @@ def backward(q, k, v, out, lse, d_out, *, causal: bool = True, sliding_window: O
                                      sliding_window=sliding_window)
     grads = kernel.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
                                        d_out.contiguous(), causal=causal, window=sliding_window)
-    LAUNCHES["flash_attention_bwd"] += 1
+    _count("flash_attention_bwd", causal)
     return grads
 
 

@@ -20,7 +20,10 @@ soft-capped attention included), rwkv6-1.6b and zamba2-2.7b (whose
 recurrent state rides per slot beside the page pool; prefix sharing is off
 for them, as in the JAX engine) and the MoE family (dbrx-132b,
 arctic-480b; a prefill chunk is one routing group, a decoded token a group
-of its own); whisper is an error naming its slice. The default engine is
+of its own). whisper-tiny runs in the engines, which take each request's
+audio embeddings (``submit(..., memory=...)``); this launcher, like the JAX
+package's, makes no audio, so ``--arch whisper-tiny`` is an error naming
+the missing input. The default engine is
 ``paged``; the disaggregated engine of the JAX launcher comes with a later
 slice, and asking for it is an error.
 """
@@ -47,9 +50,9 @@ _DISAGG = "the disaggregated-serving slice"
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
-                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); not yet: "
-                         "whisper-tiny")
+                    help="the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
+                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); whisper-tiny "
+                         "needs per-request audio, which this launcher does not make (use the engine API)")
     ap.add_argument("--variant", default="smoke")
     ap.add_argument("--engine", choices=["static", "continuous", "paged", "disagg"], default="paged")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -130,10 +133,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
-    try:
-        model = LanguageModel(cfg)
-    except NotImplementedError as e:  # a family that a later slice ports
-        ap.error(f"--arch {args.arch}: {e}")
+    if cfg.is_encoder_decoder:
+        # the JAX launcher reaches its engines' "requires audio memory" error here
+        ap.error(f"--arch {args.arch}: the encoder-decoder model requires per-request audio memory "
+                 f"(audio_embeds (1, {cfg.encoder_seq}, {cfg.d_model}) a request), which this launcher "
+                 "does not make; submit requests with memory= through the engine API")
+    model = LanguageModel(cfg)
     params = model.init(args.seed, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)

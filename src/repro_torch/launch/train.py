@@ -9,7 +9,10 @@
 soft-capped attention included), rwkv6-1.6b, the hybrid zamba2-2.7b
 (Mamba2 with the weight-tied shared attention block) and the MoE family
 (dbrx-132b, arctic-480b; the router's aux loss enters the loss at weight
-0.01, as in the JAX package); whisper is an error naming its slice.
+0.01, as in the JAX package). whisper-tiny trains through ``SEBSTrainer``
+on batches that carry ``audio_embeds``; this launcher's token stream, like
+the JAX launcher's, has none, so ``--arch whisper-tiny`` is an error naming
+the missing input.
 Runs on the CUDA device by default (and raises when there is none);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--seed``
 seeds the random weights and the data stream.
@@ -48,9 +51,9 @@ _MULTI_WORKER = "multi-worker training comes with the multi-worker slice"
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    help="ported: the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
-                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); not yet: "
-                         "whisper-tiny")
+                    help="the dense decoders (qwen2.5-3b, deepseek-7b/67b, gemma2-9b, internvl2-1b), "
+                         "rwkv6-1.6b, zamba2-2.7b, the MoE family (dbrx-132b, arctic-480b); whisper-tiny "
+                         "needs audio_embeds in each batch, which this launcher's token stream lacks")
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--schedule", default="sebs", choices=["sebs", "classical", "adaptive"])
     ap.add_argument("--optimizer", default="psgd")
@@ -117,6 +120,11 @@ def main(argv: Optional[Sequence[str]] = None):
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
+    if cfg.is_encoder_decoder:
+        # the JAX launcher fails on the missing audio_embeds at its first update
+        ap.error(f"--arch {args.arch}: the encoder-decoder model trains on batches with audio_embeds "
+                 f"(B, {cfg.encoder_seq}, {cfg.d_model}), and this launcher's token stream has none; "
+                 "drive SEBSTrainer with a pipeline whose batches carry them")
     model = LanguageModel(cfg)
     opt_kwargs = {"gamma": args.gamma} if args.optimizer == "psgd" else {}
     optimizer = make_optimizer(args.optimizer, **opt_kwargs)

@@ -13,7 +13,7 @@ backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
 package's ``jax.checkpoint`` with the ``nothing_saveable`` policy does per
 scanned layer; the other JAX policies come with a later slice.
 
-Ported so far: attention mixers (``"attn"``, ``"swa"``) with the dense
+The block kinds: attention mixers (``"attn"``, ``"swa"``) with the dense
 SwiGLU FFN, which is every block of the dense decoders, or with the MoE
 FFN (``"moe"``: dbrx; arctic adds a dense residual MLP beside it, under
 ``"mlp"``, where ``cfg.moe_dense_residual`` is set); RWKV6's time-mix
@@ -21,7 +21,13 @@ FFN (``"moe"``: dbrx; arctic adds a dense residual MLP beside it, under
 (``"mamba2"``) with no FFN (``"none"``: no ``norm2``), with zamba2's
 weight-tied shared attention block (``SHARED_SPEC``, one set of weights
 under the segment's ``"shared"`` key) applied before each repeat of the
-body, with a cache of its own per repeat. In the dense cache every leaf
+body, with a cache of its own per repeat; and whisper's decoder block
+(``"cross_attn_block"``): causal self-attention, then, where an encoder
+``memory`` is given, ``x + cross_attn(norm_cross(x), memory)``, then the
+FFN. Its cache is the self-attention's; the cross-attention's K and V are
+computed from the memory at every call, as in the JAX package. A segment
+runs causal or not (``causal=False``: whisper's encoder, a segment of
+``"attn"`` blocks over the audio frames). In the dense cache every leaf
 has one row per batch row (attention KV at ``cache_len`` positions, the
 O(1) recurrent state: RWKV6's wkv state and token shifts, Mamba2's SSM
 state and conv window). In the paged cache, attention KV lives in the
@@ -42,23 +48,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BlockSpec, ModelConfig, SegmentSpec
 from repro_torch.models.layers import attention, mamba2, mlp, moe, norm, rwkv6
 
-# the block kinds of the slices still to come
-_LATER = {
-    "cross_attn_block": "the whisper slice",
-}
-ATTENTION_MIXERS = ("attn", "swa")
+ATTENTION_MIXERS = ("attn", "swa", "cross_attn_block")
 # zamba2's shared block: attention and the dense FFN, one set of weights for
 # every repeat of its segment
 SHARED_SPEC = BlockSpec(mixer="attn", ffn="dense")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a block kind that a later slice ports."""
-    for seg in cfg.segments:
-        for spec in seg.body:
-            for kind in (spec.mixer, spec.ffn):
-                if kind in _LATER:
-                    raise NotImplementedError(f"the {kind!r} block comes with {_LATER[kind]}")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec, device="cuda"):
@@ -66,6 +59,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec, device="
     params = {"norm1": norm.init(cfg.d_model, dtype, device)}
     if spec.mixer in ATTENTION_MIXERS:
         params["attn"] = attention.init(gen, cfg, device)
+        if spec.mixer == "cross_attn_block":
+            params["norm_cross"] = norm.init(cfg.d_model, dtype, device)
+            params["cross_attn"] = attention.init(gen, cfg, device, cross=True)
     elif spec.mixer == "mamba2":
         params["mamba"] = mamba2.init(gen, cfg, device)
     else:
@@ -149,9 +145,10 @@ def init_segment_cache_paged(cfg: ModelConfig, seg: SegmentSpec, num_pages: int,
 
 
 def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None,
-                page_table=None, cache_index=None):
+                page_table=None, cache_index=None, memory=None, causal: bool = True):
     """Returns (x, new_cache, aux). With ``cache`` None it is the full-sequence
-    (training) forward. An attention cache (dense or paged) is updated in
+    (training) forward, causal or not; ``memory`` is the encoder output a
+    cross-attention block attends to. An attention cache (dense or paged) is updated in
     place and returned; recurrent state (RWKV6's, Mamba2's) comes back as
     new tensors (which the paged engine writes into its slot rows,
     ``LanguageModel.paged_state_merge``)."""
@@ -165,8 +162,12 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
         y, _ = attention.apply(
             params["attn"], h, cfg, positions=positions,
             cache=None if cache is None else cache["attn"],
-            page_table=page_table, cache_index=cache_index, sliding_window=window,
+            page_table=page_table, cache_index=cache_index, sliding_window=window, causal=causal,
         )
+        if spec.mixer == "cross_attn_block" and memory is not None:
+            x = x + y
+            hx = norm.apply(params["norm_cross"], x, cfg.norm_eps)
+            y, _ = attention.apply(params["cross_attn"], hx, cfg, positions=positions, memory=memory)
     elif spec.mixer == "mamba2":
         y, mcache = mamba2.apply(params["mamba"], h, cfg,
                                  cache=None if cache is None else cache["mamba"],
@@ -194,17 +195,19 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
     return x + y, new_cache, 0.0
 
 
-def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions):
-    x, _, aux = apply_block(params, x, cfg, spec, positions=positions)
+def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions, memory, causal):
+    x, _, aux = apply_block(params, x, cfg, spec, positions=positions, memory=memory, causal=causal)
     return x, aux
 
 
 def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, cache=None,
-                  page_table=None, cache_index=None):
+                  page_table=None, cache_index=None, memory=None, causal: bool = True):
     """Run the segment's layers in order. Returns (x, new_cache, aux: the
     layers' router losses summed); with ``cache`` None it is the
     full-sequence (training) forward, rematerialized per block (the shared
-    block's every application too) when ``cfg.remat`` is set."""
+    block's every application too) when ``cfg.remat`` is set. ``memory``
+    and ``causal`` reach every block (the memory under remat too, so the
+    encoder's gradient flows through each decoder block's recomputation)."""
     aux = 0.0
     if cache is None:
         remat = cfg.remat and torch.is_grad_enabled()
@@ -217,9 +220,10 @@ def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, c
             for name, spec in _segment_blocks(seg):
                 p = params[name] if name == "shared" else params[name][r]
                 if remat:
-                    x, a = checkpoint(_train_block, p, x, cfg, spec, positions, use_reentrant=False)
+                    x, a = checkpoint(_train_block, p, x, cfg, spec, positions, memory, causal,
+                                      use_reentrant=False)
                 else:
-                    x, a = _train_block(p, x, cfg, spec, positions)
+                    x, a = _train_block(p, x, cfg, spec, positions, memory, causal)
                 aux = aux + a
         return x, None, aux
     new_cache = {name: list(layers) for name, layers in cache.items()}
@@ -228,7 +232,7 @@ def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, c
             p = params[name] if name == "shared" else params[name][r]
             x, new_cache[name][r], a = apply_block(
                 p, x, cfg, spec, positions=positions, cache=cache[name][r],
-                page_table=page_table, cache_index=cache_index,
+                page_table=page_table, cache_index=cache_index, memory=memory, causal=causal,
             )
             aux = aux + a
     return x, new_cache, aux

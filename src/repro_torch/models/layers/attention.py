@@ -13,8 +13,16 @@ Five execution modes are ported:
   logit soft-cap (gemma2) the JAX package never takes its flash kernel,
   and neither does the port: the configuration routes it to
   :func:`_sdpa` / :func:`_sdpa_chunked`, plain PyTorch as XLA computes
-  them there, differentiated by autograd. Cross-attention memory (whisper)
-  comes with its slice;
+  them there, differentiated by autograd. A full sequence is causal, or
+  not (whisper's encoder, ``causal=False``: the flash kernels without a
+  mask, or the soft-capped route with an all-true mask);
+- cross-attention (whisper's decoder, ``memory`` (B, T, d) given): K and V
+  are projected from the memory, never cached and never rotated, and every
+  query attends to every memory position through :func:`_sdpa` with an
+  all-true mask, as the JAX package computes it outside any Pallas kernel
+  (its ``memory is None`` is a condition of the flash branch); plain
+  PyTorch here too. The JAX package recomputes these K and V from the
+  memory at every serving step, and so does the port;
 - dense prefill (a dense ``cache``, ``s > 1``): the same attention (the
   flash forward, or ``_sdpa`` with a soft-cap), and the whole K/V written
   into the zeroed cache;
@@ -51,7 +59,9 @@ from repro_torch.models.layers import rope
 NEG_INF = -2.0e38
 
 
-def init(gen: torch.Generator, cfg, device="cuda"):
+def init(gen: torch.Generator, cfg, device="cuda", cross: bool = False):
+    """The layer's weights; a cross-attention layer (``cross``) takes no
+    QKV bias, as in the JAX package."""
     d = cfg.d_model
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dtype = getattr(torch, cfg.param_dtype)
@@ -65,7 +75,7 @@ def init(gen: torch.Generator, cfg, device="cuda"):
         "wv": normal((d, hkv, hd), d**-0.5),
         "wo": normal((hq, hd, d), (hq * hd) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, heads in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             params[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
     return params
@@ -113,11 +123,13 @@ def _paged_write(leaf, val, page_table, positions):
     leaf.index_put_((phys, off), val.reshape((-1,) + val.shape[2:]).to(leaf.dtype))
 
 
-def _project_qkv(params, x):
+def _project_qkv(params, x, memory=None):
+    """q from ``x``; k and v from ``memory`` where it is given, else ``x``."""
     dtype = x.dtype
+    kv_in = x if memory is None else memory
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(dtype))
-    k = torch.einsum("bsd,dnh->bsnh", x, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dnh->bsnh", x, params["wv"].to(dtype))
+    k = torch.einsum("btd,dnh->btnh", kv_in, params["wk"].to(dtype))
+    v = torch.einsum("btd,dnh->btnh", kv_in, params["wv"].to(dtype))
     if "bq" in params:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
@@ -125,10 +137,13 @@ def _project_qkv(params, x):
     return q, k, v
 
 
-def _mask(q_pos, k_pos, window: Optional[int]):
-    """Causal boolean mask (.., q, k), within the window if there is one:
-    True = attend."""
-    m = k_pos[..., None, :] <= q_pos[..., :, None]
+def _mask(q_pos, k_pos, window: Optional[int], causal: bool = True):
+    """Boolean mask (.., q, k), causal or not, within the window if there
+    is one: True = attend."""
+    m = torch.ones(q_pos.shape[:-1] + (q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = m & (k_pos[..., None, :] <= q_pos[..., :, None])
     if window is not None:
         m = m & (k_pos[..., None, :] > q_pos[..., :, None] - window)
     return m
@@ -153,7 +168,7 @@ def _sdpa(q, k, v, mask, cfg):
     return torch.einsum("bnst,btnh->bsnh", probs, v)
 
 
-def _sdpa_chunked(q, k, v, cfg, *, chunk: int, window: Optional[int]):
+def _sdpa_chunked(q, k, v, cfg, *, chunk: int, window: Optional[int], causal: bool = True):
     """:func:`_sdpa` over blocks of ``chunk`` queries, the whole K/V
     resident: (B, heads, chunk, S) logits at a time instead of (B, heads,
     S, S), as the JAX package's ``_sdpa_chunked``; S a multiple of
@@ -162,20 +177,23 @@ def _sdpa_chunked(q, k, v, cfg, *, chunk: int, window: Optional[int]):
     outs = []
     for i in range(q.shape[1] // chunk):
         rows = slice(i * chunk, (i + 1) * chunk)
-        outs.append(_sdpa(q[:, rows], k, v, _mask(pos[:, rows], pos, window), cfg))
+        outs.append(_sdpa(q[:, rows], k, v, _mask(pos[:, rows], pos, window, causal), cfg))
     return torch.cat(outs, dim=1)
 
 
-def _full_attention(q, k, v, cfg, positions, sliding_window):
-    """The full-sequence (training and dense prefill) attention: the flash
-    kernels, or with a logit soft-cap the JAX package's ``_sdpa_chunked``
-    (above ``attn_chunk`` positions, in whole chunks) or ``_sdpa``."""
+def _full_attention(q, k, v, cfg, positions, sliding_window, causal: bool = True):
+    """The full-sequence (training and dense prefill) attention, causal or
+    not: the flash kernels, or with a logit soft-cap the JAX package's
+    ``_sdpa_chunked`` (above ``attn_chunk`` positions, in whole chunks) or
+    ``_sdpa``. Where S is not a multiple of ``attn_chunk`` (whisper's
+    encoder: 1,500 positions) the JAX package runs ``_sdpa`` over the whole
+    sequence and the port its flash kernels; the tests show they agree."""
     if cfg.attn_logit_softcap is None:
-        return flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
+        return flash_ops.flash_attention(q, k, v, causal=causal, sliding_window=sliding_window)
     s, chunk = q.shape[1], cfg.attn_chunk
     if chunk is not None and s > chunk and s % chunk == 0:
-        return _sdpa_chunked(q, k, v, cfg, chunk=chunk, window=sliding_window)
-    mask = _mask(positions, torch.arange(s, device=q.device)[None, :], sliding_window)
+        return _sdpa_chunked(q, k, v, cfg, chunk=chunk, window=sliding_window, causal=causal)
+    mask = _mask(positions, torch.arange(s, device=q.device)[None, :], sliding_window, causal)
     return _sdpa(q, k, v, mask, cfg)
 
 
@@ -210,10 +228,14 @@ def apply(
     page_table=None,
     cache_index=None,
     sliding_window: Optional[int] = None,
+    causal: bool = True,
+    memory=None,
 ):
     """Returns (out, cache); a ``cache`` is updated in place.
 
-    full sequence: ``cache`` is None; ``positions`` (B, S) or (1, S).
+    full sequence: ``cache`` is None; ``positions`` (B, S) or (1, S);
+    ``causal`` False attends to every position (whisper's encoder).
+    cross-attention: ``memory`` (B, T, d); no cache, no mask, no RoPE.
     dense prefill: a dense ``cache``, ``x`` (B, S, d), ``cache_index`` None,
     ``positions`` ``arange(S)``.
     decode: ``x`` is (B, 1, d) and ``cache_index`` a scalar or (B,) int.
@@ -221,6 +243,11 @@ def apply(
     and ``positions`` (B, C) contiguous from each row's start.
     """
     b, s, _ = x.shape
+    if memory is not None:
+        q, k, v = _project_qkv(params, x, memory)
+        mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+        return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), cache
     decode = s == 1 and cache_index is not None
     cap = cfg.attn_logit_softcap
     prefill = cache is None or (page_table is None and not decode)
@@ -236,7 +263,7 @@ def apply(
             for name, val in (("k", k), ("v", v)):
                 cache[name].zero_()
                 cache[name][:, :s].copy_(val)
-        out = _full_attention(q, k, v, cfg, positions, sliding_window)
+        out = _full_attention(q, k, v, cfg, positions, sliding_window, causal)
         return torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(out.dtype)), cache
 
     k = rope.apply_rope(k, positions, cfg.rope_theta)

@@ -21,6 +21,12 @@ The paged cache mirrors the JAX tree the same way. Per attention layer
 layer at once, which the steps update in place. Per recurrent layer, its
 state at ``state_batch`` rows (one per slot), which a step computes anew
 and the ``paged_state_*`` helpers write back into the slot rows.
+
+An encoder-decoder model (whisper) adds a non-causal encoder segment over
+the batch's ``audio_embeds`` (B, T, d): stubbed frame embeddings, as in the
+JAX package, whose mel/conv frontend is out of scope there too. Its output,
+the ``memory``, is what every decoder block cross-attends to; the serving
+steps take it as an argument (the engines encode each request once).
 """
 from __future__ import annotations
 
@@ -29,21 +35,9 @@ from typing import Any, Callable, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import VISION_EMBED_DIM, ModelConfig
+from repro_torch.configs.base import VISION_EMBED_DIM, BlockSpec, ModelConfig, SegmentSpec
 from repro_torch.models import blocks
 from repro_torch.models.layers import embedding, norm
-
-
-_LATER_INPUTS = {
-    "audio_embeds": "the whisper slice",
-}
-
-
-def check_batch(batch) -> None:
-    """Raise NotImplementedError for a batch input that a later slice ports."""
-    for key, slice_name in _LATER_INPUTS.items():
-        if key in batch:
-            raise NotImplementedError(f"{key!r} inputs come with {slice_name}")
 
 
 class LanguageModel:
@@ -51,7 +45,6 @@ class LanguageModel:
     serving steps."""
 
     def __init__(self, cfg: ModelConfig):
-        blocks.check_supported(cfg)
         self.cfg = cfg
 
     # -- init ---------------------------------------------------------------
@@ -65,6 +58,9 @@ class LanguageModel:
             params[f"seg{i}"] = blocks.init_segment(gen, cfg, seg, device)
         dtype = getattr(torch, cfg.param_dtype)
         params["final_norm"] = norm.init(cfg.d_model, dtype, device)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = blocks.init_segment(gen, cfg, self.encoder_segment(), device)
+            params["encoder_norm"] = norm.init(cfg.d_model, dtype, device)
         if cfg.num_vision_tokens:
             d = cfg.d_model
             params["vision_proj"] = {
@@ -74,13 +70,34 @@ class LanguageModel:
             }
         return params
 
+    def encoder_segment(self) -> SegmentSpec:
+        """The encoder: ``encoder_layers`` attention blocks with the dense
+        FFN, run non-causal."""
+        return SegmentSpec(body=(BlockSpec(mixer="attn", ffn="dense"),), repeat=self.cfg.encoder_layers)
+
+    def _encode(self, params, batch):
+        """The encoder's output (the memory, (B, T, d) in ``compute_dtype``)
+        from ``batch["audio_embeds"]`` (B, T, d); None for a decoder-only
+        model. An encoder-decoder batch without audio embeddings raises,
+        naming them."""
+        cfg = self.cfg
+        if not cfg.is_encoder_decoder:
+            return None
+        if "audio_embeds" not in batch:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its batch needs 'audio_embeds' "
+                             f"(B, {cfg.encoder_seq}, {cfg.d_model}), the frames its encoder reads")
+        mem = batch["audio_embeds"].to(getattr(torch, cfg.compute_dtype))
+        pos = torch.arange(mem.shape[1], device=mem.device)[None, :]
+        mem, _, _ = blocks.apply_segment(params["encoder"], mem, cfg, self.encoder_segment(),
+                                         positions=pos, causal=False)
+        return norm.apply(params["encoder_norm"], mem, cfg.norm_eps)
+
     def _embed_inputs(self, params, batch):
         """Token embeddings; with ``vision_embeds`` (B, P, 1024) in the batch
         (internvl2's stubbed vision frontend), the first ``num_vision_tokens``
         positions are their projections instead (two products with a tanh
         GELU between, as ``jax.nn.gelu``)."""
         cfg = self.cfg
-        check_batch(batch)
         x = embedding.embed(params["embed"], batch["tokens"], cfg)
         if cfg.num_vision_tokens and "vision_embeds" in batch:
             proj = params["vision_proj"]
@@ -92,17 +109,19 @@ class LanguageModel:
 
     # -- train forward --------------------------------------------------------
     def forward(self, params, batch):
-        """batch: {tokens (B, S) int, [vision_embeds (B, P, 1024)]}. Returns
-        (logits (B, S, V) f32, aux loss: the router losses summed over the
-        layers, an f32 scalar, 0 for a model without a router). A batch with
-        audio embeddings raises: they come with a later slice, and dropping
-        them would change the logits silently."""
+        """batch: {tokens (B, S) int, [vision_embeds (B, P, 1024)],
+        [audio_embeds (B, T, d): an encoder-decoder model's, required
+        there]}. Returns (logits (B, S, V) f32 of the decoder, aux loss: the
+        router losses summed over the layers, an f32 scalar, 0 for a model
+        without a router)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
+        memory = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(cfg.segments):
-            x, _, a = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions)
+            x, _, a = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions,
+                                           memory=memory)
             aux = aux + a
         x = norm.apply(params["final_norm"], x, cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), aux
@@ -226,57 +245,64 @@ class LanguageModel:
         return sum(leaf[0].numel() * leaf.element_size() for leaf in self._kv_leaves(cache))
 
     # -- serving ----------------------------------------------------------------
-    def _segments(self, params, x, cache, *, positions, page_table, cache_index=None):
+    def _segments(self, params, x, cache, *, positions, page_table, cache_index=None, memory=None):
         new_cache = {}
         for i, seg in enumerate(self.cfg.segments):
             x, new_cache[f"seg{i}"], _ = blocks.apply_segment(
                 params[f"seg{i}"], x, self.cfg, seg, positions=positions,
-                cache=cache[f"seg{i}"], page_table=page_table, cache_index=cache_index,
+                cache=cache[f"seg{i}"], page_table=page_table, cache_index=cache_index, memory=memory,
             )
         return x, new_cache
 
-    def prefill(self, params, batch, cache):
+    def prefill(self, params, batch, cache, memory=None):
         """Full-sequence forward over ``batch["tokens"]`` (B, S), filling the
-        dense ``cache`` (B rows, zeroed first) in place. Returns (logits
+        dense ``cache`` (B rows, zeroed first) in place. ``memory`` may carry
+        an encoder output made already; an encoder-decoder model encodes
+        ``batch["audio_embeds"]`` when it is given none. Returns (logits
         (B, 1, V) f32 of the last position, cache: the KV updated in place,
         new recurrent state)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
+        if memory is None:
+            memory = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None)
+        x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None,
+                                      memory=memory)
         x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), new_cache
 
-    def decode_step(self, params, token, cache, cache_index, page_table=None):
+    def decode_step(self, params, token, cache, cache_index, page_table=None, memory=None):
         """One-token decode. token: (B, 1) int; cache_index: scalar int (all
         rows at one depth) or (B,) int (each slot at its own). Without a
         ``page_table`` the cache is dense (:meth:`init_cache`, B rows); with
         one (B, max_pages) it is paged and holds B state rows
         (``paged_state_slice``). Returns (logits (B, 1, V) f32, new cache:
         the KV updated in place, new recurrent state rows, which the paged
-        engine writes back with ``paged_state_merge``)."""
+        engine writes back with ``paged_state_merge``). An encoder-decoder
+        model takes its ``memory`` (B, T, d)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], token, cfg)
         idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
         positions = idx.expand(token.shape[0])[:, None]
         x, new_cache = self._segments(params, x, cache, positions=positions,
-                                      page_table=page_table, cache_index=idx)
+                                      page_table=page_table, cache_index=idx, memory=memory)
         x = norm.apply(params["final_norm"], x, cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), new_cache
 
-    def prefill_chunk(self, params, tokens, cache, pos_start: int, slot: int, page_table):
+    def prefill_chunk(self, params, tokens, cache, pos_start: int, slot: int, page_table, memory=None):
         """One chunk of a paged, chunked prefill: ``tokens`` (1, C) are the
         prompt positions ``[pos_start, pos_start + C)`` of the request in
         slot ``slot``, whose pages ``page_table`` (1, max_pages) names. The
         chunk's KV is written into those pages and attends to everything
         already written (shared prefix pages included); recurrent state
-        resumes from, and is written back to, row ``slot``.
+        resumes from, and is written back to, row ``slot``. An
+        encoder-decoder model takes the request's ``memory`` (1, T, d).
         Returns (logits (1, 1, V) for the chunk's last token, cache)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], tokens, cfg)
         positions = pos_start + torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
         row = self.paged_state_row(cache, slot)
         x, new_row = self._segments(params, x, row, positions=positions[None, :],
-                                    page_table=page_table)
+                                    page_table=page_table, memory=memory)
         x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         return embedding.logits(params["embed"], x, cfg), self.paged_state_merge_row(cache, new_row, slot)

@@ -18,6 +18,14 @@ prefills them in fixed-size chunks interleaved with decode ticks, and
 decodes one token per tick at each slot's own depth. In both continuous
 engines the active slot budget ramps stagewise (b₁ρˢ) under sustained
 load, the serving mirror of SEBS's stagewise batch enlargement.
+
+An encoder-decoder model (whisper) needs each request's audio: ``memory``
+(the request's ``audio_embeds``, (1, T, d), or the static batch's (B, T,
+d)), and each engine raises the JAX engines' ``ValueError`` without it. An
+engine encodes a request's audio once, at its prefill (the continuous
+engine) or at its admission (the paged one), into a row of a (slots, T, d)
+buffer in ``compute_dtype`` that every later step of the request reads;
+the cross-attention's K and V are projected from that row at each step.
 """
 from __future__ import annotations
 
@@ -65,6 +73,29 @@ def _put(array: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def _audio(memory, device) -> torch.Tensor:
+    """A request's (or batch's) audio embeddings as a tensor on ``device``:
+    a tensor as it is, an array through numpy."""
+    if isinstance(memory, torch.Tensor):
+        return memory.to(device)
+    return _put(np.asarray(memory), device)
+
+
+def _memory_buffer(model: LanguageModel, rows: int, device):
+    """Zeroed (rows, encoder_seq, d) memory rows in ``compute_dtype`` for an
+    encoder-decoder model, else None."""
+    cfg = model.cfg
+    if not cfg.is_encoder_decoder:
+        return None
+    return torch.zeros((rows, cfg.encoder_seq, cfg.d_model), dtype=getattr(torch, cfg.compute_dtype),
+                       device=device)
+
+
+def _require_memory(model: LanguageModel, memory, what: str) -> None:
+    if model.cfg.is_encoder_decoder and memory is None:
+        raise ValueError(f"encoder-decoder model requires {what}audio memory")
+
+
 class ServeEngine:
     """Static batch: ``generate(prompts)`` prefills the (B, P) prompts
     together and decodes greedily in lockstep over a dense cache of
@@ -77,22 +108,28 @@ class ServeEngine:
         self.cache_len = cache_len
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, max_new_tokens: int = 16) -> np.ndarray:
-        """prompts: (B, P) int. Greedy decode. Returns (B, P+new) int32."""
+    def generate(self, prompts: np.ndarray, max_new_tokens: int = 16, memory=None) -> np.ndarray:
+        """prompts: (B, P) int. Greedy decode. Returns (B, P+new) int32. An
+        encoder-decoder model takes the batch's audio embeddings as
+        ``memory`` (B, T, d), encoded once for the prefill and every decode
+        step."""
         b, p = prompts.shape
         if p + max_new_tokens > self.cache_len:
             raise ValueError(f"prompt {p} + {max_new_tokens} new tokens exceed cache_len {self.cache_len}")
+        _require_memory(self.model, memory, "")
         vocab = self.model.cfg.vocab_size
         tokens = _put(np.asarray(prompts, np.int32), self.device)
         cache = self.model.init_cache(b, self.cache_len, device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        if memory is not None:
+            memory = self.model._encode(self.params, {"audio_embeds": _audio(memory, self.device)})
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache, memory=memory)
         out = [tokens]
         token = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32)
         for i in range(max_new_tokens):
             out.append(token)
             if i == max_new_tokens - 1:
                 break
-            logits, cache = self.model.decode_step(self.params, token, cache, p + i)
+            logits, cache = self.model.decode_step(self.params, token, cache, p + i, memory=memory)
             token = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32)
         return torch.cat(out, dim=1).cpu().numpy()
 
@@ -169,13 +206,14 @@ class ContinuousBatchingEngine:
 
     # -- request intake ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, temperature: float = 0.0,
-               top_k: int = 0, tag: str = "") -> int:
+               top_k: int = 0, memory=None, tag: str = "") -> int:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new_tokens > self.cache_len:
             raise ValueError(f"prompt {prompt.size} + {max_new_tokens} new tokens "
                              f"exceed cache_len {self.cache_len}")
+        _require_memory(self.model, memory, "per-request ")
         return self.scheduler.submit(
-            prompt, max_new_tokens, temperature=temperature, top_k=top_k, tag=tag
+            prompt, max_new_tokens, temperature=temperature, top_k=top_k, memory=memory, tag=tag
         )
 
     # -- device-state plumbing ----------------------------------------------
@@ -186,10 +224,14 @@ class ContinuousBatchingEngine:
 
     def _prefill_request(self, req):
         """Batch-1 prefill of one admitted request. Returns the sampled first
-        token and the request's batch-1 cache, ready for ``cache_insert``."""
+        token, the request's batch-1 cache, ready for ``cache_insert``, and
+        its encoder memory row (an encoder-decoder model's; else None)."""
         cache = self.model.init_cache(1, self.cache_len, device=self.device)
+        memory_row = None
+        if self.model.cfg.is_encoder_decoder:
+            memory_row = self.model._encode(self.params, {"audio_embeds": _audio(req.memory, self.device)})
         logits, cache = self.model.prefill(self.params, {"tokens": _put(req.prompt[None, :], self.device)},
-                                          cache)
+                                          cache, memory=memory_row)
         logits = logits[:, -1, : self.model.cfg.vocab_size].float().contiguous()
         first = sample_tokens(
             logits,
@@ -197,7 +239,7 @@ class ContinuousBatchingEngine:
             torch.tensor([req.temperature], dtype=torch.float32, device=self.device),
             torch.tensor([req.top_k], dtype=torch.int32, device=self.device),
         )
-        return int(first[0]), cache
+        return int(first[0]), cache, memory_row
 
     # -- the serve loop ------------------------------------------------------
     @torch.inference_mode()
@@ -208,6 +250,7 @@ class ContinuousBatchingEngine:
         width = self.admission.budget()
         slots = SlotManager(width)
         cache = self.model.init_cache(width, self.cache_len, device=self.device)
+        memory_buf = _memory_buffer(self.model, width, self.device)
 
         while self.scheduler.has_work():
             # 1. stagewise ramp: enlarge the ring under sustained pressure
@@ -215,6 +258,10 @@ class ContinuousBatchingEngine:
             if budget > width:
                 cache = self._grow_cache(cache, budget)
                 slots.grow(budget)
+                if memory_buf is not None:
+                    grown = _memory_buffer(self.model, budget, self.device)
+                    grown[:width].copy_(memory_buf)
+                    memory_buf = grown
                 width = budget
             self.stats["peak_width"] = max(self.stats["peak_width"], width)
 
@@ -224,8 +271,10 @@ class ContinuousBatchingEngine:
                 req = self.scheduler.pop_waiting()
                 if req is None:
                     break
-                first, slot_cache = self._prefill_request(req)
+                first, slot_cache, memory_row = self._prefill_request(req)
                 cache = self.model.cache_insert(cache, slot_cache, i)
+                if memory_row is not None:
+                    memory_buf[i].copy_(memory_row[0])
                 slots.admit(i, req, first)
                 # dense prefill is synchronous: handoff and first token land
                 # together at admission
@@ -250,6 +299,7 @@ class ContinuousBatchingEngine:
                 _put(slots.temperatures(), self.device),
                 _put(slots.top_ks(), self.device),
                 self._generator,
+                memory=memory_buf,
             )
             n_active = slots.num_active()
             self.stats["ticks"] += 1
@@ -390,13 +440,14 @@ class PagedContinuousBatchingEngine:
 
     # -- request intake ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16, temperature: float = 0.0,
-               top_k: int = 0, tag: str = "") -> int:
+               top_k: int = 0, memory=None, tag: str = "") -> int:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new_tokens > self.cache_len:
             raise ValueError(f"prompt {prompt.size} + {max_new_tokens} new tokens "
                              f"exceed cache_len {self.cache_len}")
+        _require_memory(self.model, memory, "per-request ")
         return self.scheduler.submit(
-            prompt, max_new_tokens, temperature=temperature, top_k=top_k, tag=tag
+            prompt, max_new_tokens, temperature=temperature, top_k=top_k, memory=memory, tag=tag
         )
 
     def _decode_for(self, width: int):
@@ -408,7 +459,10 @@ class PagedContinuousBatchingEngine:
         return _put(array, self.device)
 
     # -- admission -----------------------------------------------------------
-    def _admit(self, slots: PagedSlotManager, i: int, req):
+    def _admit(self, slots: PagedSlotManager, i: int, req, memory_buf):
+        """Plan request ``req``'s pages and admit it into slot ``i``, its
+        audio encoded into row ``i`` of ``memory_buf`` (an encoder-decoder
+        model's). Returns the plan, or None when the pool cannot hold it."""
         total = len(req.prompt) + req.max_new_tokens
         plan = plan_admission(self.pool, self.index, req.prompt, total, share=self.prefix_sharing)
         if plan is None:
@@ -419,6 +473,9 @@ class PagedContinuousBatchingEngine:
             self.cache = self.model.paged_copy_page(self.cache, plan.cow_src, plan.new_pages[0])
             self.stats["cow_copies"] += 1
         self.cache = self.model.paged_zero_state_row(self.cache, i)
+        if memory_buf is not None:
+            row = self.model._encode(self.params, {"audio_embeds": _audio(req.memory, self.device)})
+            memory_buf[i].copy_(row[0])
         slots.admit(i, req, plan)
         self.stats["prefix_tokens_reused"] += plan.reuse_len
         self.stats["prompt_tokens_total"] += len(req.prompt)
@@ -463,6 +520,7 @@ class PagedContinuousBatchingEngine:
         completed: Dict[int, np.ndarray] = {}
         width = self.admission.budget()
         slots = PagedSlotManager(width, self.max_pages, chunk_floor=min(self.prefill_chunks))
+        memory_buf = _memory_buffer(self.model, self.max_slots, self.device)
 
         while self.scheduler.has_work():
             # 1. stagewise ramp (host-side only: device state is full-width)
@@ -479,7 +537,7 @@ class PagedContinuousBatchingEngine:
                 req = self.scheduler.pop_waiting()
                 if req is None:
                     break
-                if self._admit(slots, i, req) is None:
+                if self._admit(slots, i, req, memory_buf) is None:
                     self.scheduler.requeue(req)
                     break
                 admitted += 1
@@ -512,6 +570,7 @@ class PagedContinuousBatchingEngine:
                     slot.fill,
                     i,
                     self._put(slots.page_table[i : i + 1]),
+                    memory=None if memory_buf is None else memory_buf[i : i + 1],
                 )
                 slot.fill += bucket
                 self.stats["prefill_chunks"] += 1
@@ -541,6 +600,7 @@ class PagedContinuousBatchingEngine:
                 self._put(slots.temperatures()),
                 self._put(slots.top_ks()),
                 self._generator,
+                memory=memory_buf,
             )
             n_decoded = int(active.sum()) - n_forced
             self.stats["ticks"] += 1

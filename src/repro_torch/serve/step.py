@@ -9,6 +9,11 @@ device the paged steps' attention goes through the kernels/paged_decode
 kernels and the sampler through the fused sampler kernel; on the CPU
 through their plain versions. The dense decode's attention is plain
 PyTorch, as it is XLA in the JAX package.
+
+An encoder-decoder model's steps take its encoder ``memory``: the slot
+ring's (width, T, d) rows for a decode tick (a step of a narrower ring
+than the buffer reads its first ``width`` rows), the request's row for a
+chunk prefill.
 """
 from __future__ import annotations
 
@@ -43,14 +48,15 @@ def build_slot_decode_step(model: LanguageModel):
     width.
 
     Inputs per call: tokens (B, 1) int, cache, cache_pos (B,) int, active
-    (B,) bool, temperature (B,) f32, top_k (B,) int, and the
-    ``torch.Generator`` the sampling noise is drawn from.
+    (B,) bool, temperature (B,) f32, top_k (B,) int, the
+    ``torch.Generator`` the sampling noise is drawn from, and an
+    encoder-decoder model's memory (B, T, d).
     Returns (next_token (B,), cache, new_pos (B,)).
     """
     vocab = model.cfg.vocab_size
 
-    def step(params, tokens, cache, cache_pos, active, temperature, top_k, generator):
-        logits, cache = model.decode_step(params, tokens, cache, cache_pos)
+    def step(params, tokens, cache, cache_pos, active, temperature, top_k, generator, memory=None):
+        logits, cache = model.decode_step(params, tokens, cache, cache_pos, memory=memory)
         logits = logits[:, -1, :vocab].float().contiguous()
         nxt = sample_tokens(logits, gumbel_noise(logits.shape, generator), temperature, top_k)
         nxt = torch.where(active, nxt, tokens[:, 0])
@@ -72,9 +78,11 @@ def build_paged_decode_step(model: LanguageModel, width: int):
     """
     vocab = model.cfg.vocab_size
 
-    def step(params, tokens, cache, cache_pos, page_table, active, temperature, top_k, generator):
+    def step(params, tokens, cache, cache_pos, page_table, active, temperature, top_k, generator,
+             memory=None):
         sliced = model.paged_state_slice(cache, width)
-        logits, new_sliced = model.decode_step(params, tokens, sliced, cache_pos, page_table)
+        mem = None if memory is None else memory[:width]
+        logits, new_sliced = model.decode_step(params, tokens, sliced, cache_pos, page_table, memory=mem)
         logits = logits[:, -1, :vocab].float().contiguous()
         noise = gumbel_noise(logits.shape, generator)
         nxt = sample_tokens(logits, noise, temperature, top_k)
@@ -88,7 +96,7 @@ def build_chunk_prefill_step(model: LanguageModel):
     """Paged chunk prefill: one call computes ``chunk`` prompt tokens of one
     request at any position offset."""
 
-    def step(params, tokens, cache, pos_start, slot, page_table):
-        return model.prefill_chunk(params, tokens, cache, pos_start, slot, page_table)
+    def step(params, tokens, cache, pos_start, slot, page_table, memory=None):
+        return model.prefill_chunk(params, tokens, cache, pos_start, slot, page_table, memory=memory)
 
     return step

@@ -107,6 +107,18 @@ def _grads_over_microbatches(model, params, batch, accum_steps: int, z_loss: flo
     return gsum, metrics
 
 
+def build_eval_step(model, *, z_loss: float = 0.0):
+    """Returns ``eval_step(params, batch) -> metrics``: ``lm_loss``'s
+    metrics ({"loss", "aux", "tokens"}) without gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = lm_loss(model, params, batch, z_loss=z_loss)
+        return metrics
+
+    return eval_step
+
+
 def build_train_step(model, optimizer, *, accum_steps: int = 1, mode: str = "deferred",
                      z_loss: float = 0.0, grad_clip: float = 0.0):
     """Returns ``step(state, batch, lr, stage) -> (state, metrics)``; the

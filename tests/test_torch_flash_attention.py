@@ -101,3 +101,14 @@ def test_cpu_path_counts_no_launch():
     ops.reset_launches()
     ops.backward(*_t(q, k, v), *ops.forward(*_t(q, k, v), **kw), torch.from_numpy(do), **kw)
     assert ops.LAUNCHES == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+def test_reset_zeroes_the_noncausal_counts():
+    """``reset_launches`` zeroes the non-causal counts with the others, and
+    a non-causal call on CPU tensors raises neither."""
+    q, k, v, do, kw = _inputs("not_causal")
+    ops.LAUNCHES_NONCAUSAL["flash_attention_fwd"] = 3
+    ops.reset_launches()
+    ops.backward(*_t(q, k, v), *ops.forward(*_t(q, k, v), **kw), torch.from_numpy(do), **kw)
+    assert ops.LAUNCHES_NONCAUSAL == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    assert ops.LAUNCHES == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}

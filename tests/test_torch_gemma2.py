@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from _torch_engine_cases import CASES, run_engine_case  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
@@ -205,6 +206,15 @@ def test_paged_engine_greedy_matches_jax():
         assert engine.stats[key] == jax_engine.stats[key], key
     assert engine.prefix_sharing and engine.stats["prefix_tokens_reused"] > 0
     assert engine.memory_stats() == jax_engine.memory_stats()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_paged_engine_cases_match_jax(case):
+    """Pool pressure with requeue, and a one-page pool with a one-token
+    prompt and one new token (tests/_torch_engine_cases.py), with the
+    local layers' window cut to 5 so that it bites."""
+    jmodel, jparams, tmodel, tparams, _ = _models()
+    run_engine_case(case, JaxEngine, PagedContinuousBatchingEngine, jmodel, jparams, tmodel, tparams)
 
 
 def test_dense_engines_greedy_match_jax():

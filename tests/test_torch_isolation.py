@@ -35,7 +35,7 @@ def _imported_modules(path: Path):
 def test_no_jax_or_repro_import(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), f"{path.name} imports {name}"
 
 
 def test_registry_resolves_inside_the_port():
@@ -49,10 +49,12 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.launch.train, repro_torch.bridge\n"
         "import repro_torch.serve, repro_torch.core, repro_torch.train, repro_torch.optim\n"
-        "import repro_torch.checkpoint\n"
+        "import repro_torch.checkpoint, repro_torch.models.vision, repro_torch.models.zoo\n"
+        "import repro_torch.experiments.fig2_optimal_batch, repro_torch.experiments.fig3_stagewise\n"
+        "import repro_torch.experiments.adaptive_sebs, repro_torch.experiments.sebs_vs_stagewise\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -96,6 +98,17 @@ def test_train_launcher_names_the_later_slice(flags, capsys):
     with pytest.raises(SystemExit):
         launcher.main(["--device", "cpu", *flags])
     assert "slice" in capsys.readouterr().err
+
+
+def test_experiments_default_device_needs_cuda(monkeypatch):
+    from repro_torch.experiments import _records
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["fig3_stagewise"])
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        _records.cli("the Fig. 3 taker")
+    monkeypatch.setattr(sys, "argv", ["fig3_stagewise", "--device", "cpu", "--out", "x"])
+    assert _records.cli("the Fig. 3 taker").device == "cpu"
 
 
 def test_engine_default_device_needs_cuda(monkeypatch):

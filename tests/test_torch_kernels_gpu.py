@@ -31,8 +31,11 @@ same bit for bit from run to run. f32 inputs take the CUDA-core kernels,
 bf16 inputs the tensor-core ones, which also take D 80 (the f32 ones
 refuse it by name); the cases include the MoE family's shapes (dbrx-132b
 training, B 4, S 513, 48/8 heads; arctic-480b's static prefill, B 8, S
-512, 56/8). The fused pSGD, momentum and AdaGrad-DA
-(nu = 1 and 1/2) updates equal their plain versions bit for bit; for other
+512, 56/8) and whisper-tiny's (the encoder non-causal at B 4, S 1500, 6/6
+heads of 64; the decoder causal at S 448). The paged kernels run at
+whisper's G 1, D 64 too. The fused pSGD, momentum and AdaGrad-DA
+(nu = 1 and 1/2) updates equal their plain versions bit for bit, also over
+the ResNets' many small leaves; for other
 nu the kernel's powf may differ from torch.pow by a few ulps (rtol 1e-6).
 
 Chunked GLA: the forward and the backward against the plain recurrence
@@ -241,6 +244,31 @@ def test_paged_kernels_at_the_moe_groups_match_plain(cuda, case, kind):
     assert torch.equal(out, fn(qt, kt, vt, tt, pt))
 
 
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_paged_kernels_at_whisper_shape_match_plain(cuda, kind):
+    """whisper-tiny's decoder: 6 query heads over 6 kv heads of 64 (G 1);
+    decode one token in each of 8 slots of 228 and 100 positions (a prompt
+    of 132 or 4 and 96 new tokens), or a 64-token chunk at pos_start 0 and
+    64; bf16 within a bf16 ulp, f32 within 2e-5; the same bits twice."""
+    k, v, table, pos = paged_lengths_setup(6, lengths=[228, 100] * 4, ps=16, hkv=6, d=64, mp=28)
+    rng = np.random.default_rng(7)
+    if kind == "decode":
+        q = rng.normal(size=(8, 6, 64)).astype(np.float32)
+        fn, plain = ops.paged_flash_decode, ref.paged_attention_ref
+    else:
+        q = rng.normal(size=(2, 64, 6, 64)).astype(np.float32)
+        table, pos = table[[0, 2]], np.array([0, 64], np.int32)  # two slots of 228
+        fn, plain = ops.paged_chunk_prefill, ref.paged_prefill_ref
+    for dtype, tol in ((torch.float32, dict(atol=2e-5, rtol=2e-5)), (torch.bfloat16, BF16_ULP)):
+        qt, kt, vt, tt, pt = _on(cuda, q, k, v, table, pos)
+        qt = qt.to(dtype)
+        kt, vt = kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+        out = fn(qt, kt, vt, tt, pt)
+        assert out.dtype == dtype and out.shape == qt.shape
+        _close(out, plain(qt, kt, vt, tt, pt), **tol)
+        assert torch.equal(out, fn(qt, kt, vt, tt, pt))
+
+
 def test_decode_layout_matches_the_library(cuda):
     """kernel.decode_layout, which the step-for-step plain version follows,
     splits a table as the library does: the scratch sizes agree."""
@@ -406,6 +434,10 @@ FLASH_CASES = {
     # static prefill (G 7)
     "g6_dbrx": (4, 513, 513, 48, 8, 128, True, None),
     "g7_arctic": (8, 512, 512, 56, 8, 128, True, None),
+    # whisper-tiny: the encoder's self-attention (non-causal, 1,500 frames =
+    # 23 x 64 + 28: a ragged last tile) and the decoder's (causal, 448)
+    "whisper_encoder": (4, 1500, 1500, 6, 6, 64, False, None),
+    "whisper_decoder": (4, 448, 448, 6, 6, 64, True, None),
 }
 
 
@@ -451,6 +483,8 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     again = flash_ops.backward(q, k, v, out, lse, d_out, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again)), "backward is not deterministic"
     assert flash_ops.LAUNCHES == {"flash_attention_fwd": 1, "flash_attention_bwd": 2}
+    noncausal = 0 if kw["causal"] else 1
+    assert flash_ops.LAUNCHES_NONCAUSAL == {"flash_attention_fwd": noncausal, "flash_attention_bwd": 2 * noncausal}
 
 
 def test_flash_attention_autograd_on_the_card(cuda):
@@ -503,6 +537,50 @@ def test_fused_updates_match_plain(cuda, name):
                 _close(u, e, atol=1e-6, rtol=1e-6)
             else:
                 assert torch.equal(u, e), f"{name}: {(u - e).abs().max().item()}"
+    assert sum(optim_ops.LAUNCHES.values()) == 1
+
+
+def _resnet_leaf_sizes():
+    """The element counts of ResNet-20's leaves (width 16, 3 blocks a stage)
+    and of Fig. 3's narrower one (width 8, 2 blocks a stage): convolutions,
+    GroupNorm scales and biases of 8 to 64 elements, the 10-element head
+    bias."""
+    from repro_torch.models import vision
+    from repro_torch.utils.tree import tree_leaves
+
+    sizes = []
+    for cfg in (vision.VisionConfig(), vision.VisionConfig(width=8, blocks_per_stage=2, image_size=16)):
+        sizes += [w.numel() for w in tree_leaves(vision.init(0, cfg, device="cpu"))]
+    return sizes
+
+
+@pytest.mark.parametrize("name", ["psgd", "momentum", "adagrad_da"])
+def test_fused_updates_over_resnet_leaves_match_plain(cuda, name):
+    """One launch over every leaf of the two ResNets, bit for bit against
+    the plain versions leaf by leaf."""
+    sizes = _resnet_leaf_sizes()
+    w, g, a, z = (_leaves(cuda, sizes, seed) for seed in range(10, 14))
+    s2 = _leaves(cuda, sizes, 14, positive=True)
+    ws = [x.clone() for x in w]
+    optim_ops.reset_launches()
+    if name == "psgd":
+        states = [x.clone() for x in a]
+        optim_ops.psgd_update(ws, g, states, lr=0.15, gamma=1e4)
+        expect = [(optim_ref.psgd_ref(*x, lr=0.15, gamma=1e4),) for x in zip(w, g, a)]
+        got = [(x,) for x in ws]
+    elif name == "momentum":
+        states = [x.clone() for x in a]
+        optim_ops.momentum_update(ws, g, states, lr=0.05, beta=0.9)
+        expect = [optim_ref.momentum_ref(*x, lr=0.05, beta=0.9) for x in zip(w, g, a)]
+        got = list(zip(ws, states))
+    else:
+        zs, s2s = [x.clone() for x in z], [x.clone() for x in s2]
+        optim_ops.adagrad_da_update(ws, g, a, zs, s2s, lr=0.08, delta=1.0, nu=1.0)
+        expect = [optim_ref.adagrad_da_ref(*x, lr=0.08, delta=1.0, nu=1.0) for x in zip(w, g, a, z, s2)]
+        got = list(zip(ws, zs, s2s))
+    for x, y in zip(got, expect):
+        for u, e in zip(x, y):
+            assert torch.equal(u, e), f"{name}: {(u - e).abs().max().item()}"
     assert sum(optim_ops.LAUNCHES.values()) == 1
 
 

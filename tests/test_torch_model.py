@@ -225,39 +225,52 @@ def test_attention_decode_branch_matches_jax(models, cfgs):
 
 
 def test_unported_blocks_raise():
-    """whisper's cross-attention blocks wait for their slice and raise.
-    zamba2's blocks (Mamba2, the shared attention block) and gemma2's
-    soft-capped full-sequence attention raised until their slice; now their
-    logits equal JAX's (the MoE blocks' too: tests/test_torch_moe.py)."""
-    with pytest.raises(NotImplementedError, match="whisper"):
-        LanguageModel(get_config("whisper-tiny", "smoke"))
-    tokens = np.random.default_rng(1).integers(0, 512, (2, 9)).astype(np.int32)
-    for arch in ("zamba2-2.7b", "gemma2-9b"):
+    """No block kind is left to a later slice: whisper's cross-attention
+    blocks, zamba2's (Mamba2, the shared attention block) and gemma2's
+    soft-capped full-sequence attention each raised until their slice; now
+    their logits equal JAX's (whisper's with its audio; the MoE blocks' too:
+    tests/test_torch_moe.py)."""
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, 512, (2, 9)).astype(np.int32)
+    audio = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    for arch in ("whisper-tiny", "zamba2-2.7b", "gemma2-9b"):
         jcfg = jax_config(arch, "smoke").replace(compute_dtype="float32")
         tcfg = get_config(arch, "smoke").replace(compute_dtype="float32")
         jmodel = build_model(jcfg)
         tree = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0))[0])
-        jlogits, _ = jax.jit(jmodel.forward)(jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(tokens)})
+        batch = {"tokens": tokens, **({"audio_embeds": audio} if jcfg.is_encoder_decoder else {})}
+        jlogits, _ = jax.jit(jmodel.forward)(jax.tree.map(jnp.asarray, tree),
+                                             {k: jnp.asarray(v) for k, v in batch.items()})
         with torch.no_grad():
             tlogits, _ = LanguageModel(tcfg).forward(bridge.params_from_numpy(tree, tcfg, device="cpu"),
-                                                     {"tokens": torch.from_numpy(tokens)})
+                                                     {k: torch.from_numpy(v) for k, v in batch.items()})
         _close(tlogits, jlogits)
 
 
 @pytest.mark.parametrize("key,slice_name", [("audio_embeds", "whisper slice")])
 def test_forward_refuses_unported_batch_inputs(models, key, slice_name):
-    """A batch with audio embeddings raises instead of leaving them out of
-    the logits; lm_loss, which takes the training batch, raises too."""
+    """Audio embeddings, which waited for the whisper slice, now reach an
+    encoder-decoder model's logits, and a whisper batch without them raises
+    naming them (forward and lm_loss, which takes the training batch); a
+    decoder-only model reads them no more than the JAX package does."""
     from repro_torch.train.loss import lm_loss
 
     _, _, tmodel, tparams, _ = models
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64), key: torch.zeros((1, 2, 8))}
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tmodel.forward(tparams, batch)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        lm_loss(tmodel, tparams, batch)
-    logits, _ = tmodel.forward(tparams, {"tokens": batch["tokens"]})  # tokens alone still run
-    assert torch.isfinite(logits).all()
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    logits, _ = tmodel.forward(tparams, {"tokens": tokens, key: torch.zeros((1, 2, 8))})
+    plain, _ = tmodel.forward(tparams, {"tokens": tokens})
+    assert torch.equal(logits, plain)
+    cfg = get_config("whisper-tiny", "smoke").replace(compute_dtype="float32")
+    whisper = LanguageModel(cfg)
+    params = whisper.init(0, device="cpu")
+    audio = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        with_audio, _ = whisper.forward(params, {"tokens": tokens, key: audio})
+        other, _ = whisper.forward(params, {"tokens": tokens, key: 2 * audio})
+    assert torch.isfinite(with_audio).all() and not torch.equal(with_audio, other)
+    for fn in (whisper.forward, lambda p, b: lm_loss(whisper, p, b)):
+        with pytest.raises(ValueError, match=key):
+            fn(params, {"tokens": tokens})
 
 
 @pytest.mark.parametrize("with_vision", [True, False])

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from _torch_engine_cases import CASES, run_engine_case  # noqa: E402
 
 from repro.checkpoint import CheckpointManager as JCheckpointManager  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
@@ -360,6 +361,17 @@ def test_paged_engine_greedy_matches_jax(arch):
         assert engine.stats[key] == jax_engine.stats[key], key
     assert engine.prefix_sharing and engine.stats["prefix_tokens_reused"] > 0
     assert engine.memory_stats() == jax_engine.memory_stats()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_engine_cases_match_jax(arch, case):
+    """Pool pressure with requeue, and a one-page pool with a one-token
+    prompt and one new token (tests/_torch_engine_cases.py): a decoded
+    token is a routing group of its own."""
+    jmodel, jparams, tmodel, tparams, _ = _models(arch)
+    run_engine_case(case, JaxPaged, PagedContinuousBatchingEngine, jmodel, jparams, tmodel, tparams,
+                    vocab=tmodel.cfg.vocab_size)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from _torch_engine_cases import CASES, run_engine_case  # noqa: E402
 
 from repro.checkpoint import CheckpointManager as JCheckpointManager  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
@@ -362,6 +363,15 @@ def test_paged_engine_greedy_matches_jax():
         assert engine.stats[key] == jax_engine.stats[key], key
     assert not engine.prefix_sharing and engine.stats["prefix_tokens_reused"] == 0
     assert engine.memory_stats() == jax_engine.memory_stats()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_paged_engine_cases_match_jax(case):
+    """Pool pressure with requeue, and a one-page pool with a one-token
+    prompt and one new token (tests/_torch_engine_cases.py): the Mamba2
+    state rows ride per slot beside the pages."""
+    jmodel, jparams, tmodel, tparams, _ = _models()
+    run_engine_case(case, JaxEngine, PagedContinuousBatchingEngine, jmodel, jparams, tmodel, tparams)
 
 
 def test_launchers_take_zamba2():
