@@ -173,6 +173,25 @@
     ResNet-20 at its real shape card against CPU (forward, backward, a
     pSGD update).
 
+26. Elastic exact-sync training (``repro_torch.distributed``): qwen2.5-3b at
+    full width cut to 4 layers, phase 7's schedule with pSGD, on devices
+    [cuda:0] x budget for budgets 1, 2 and 4 (one worker process each,
+    sharing the card; gloo for control, the partial sums through shared
+    host slots; the caller's state to rank 0 by CUDA IPC). One microbatch's
+    gradient has the same bits twice; losses, stages, batch sizes, GNS and
+    final params are bit-identical across the budgets; the widths run are
+    {1}, {1, 2}, {1, 2, 4}; the ledger is the one sync.py predicts; every
+    worker launched the flash forward and backward for its microbatches and
+    the fused pSGD for its updates. A run killed at update 9 under budget 4
+    (saves at 4 and 8) resumes under budget 2 bit-identically; the
+    launcher's --dp-elastic runs on the visible card. Prints update ms by
+    stage and budget, the all-gather's host ms (copy out, barriers, copy
+    back), the reshards' ms and each worker's peak, with the card's name
+    and power limit.
+27. Local SGD on the same model at budget 4 (momentum 0.9, local_interval 2,
+    save_every 3): saves snap to updates [3, 6, 10, 12], losses finite, the
+    state collapsed at the end, fewer collectives than updates.
+
 Phase 3 also holds the MoE family's shapes: the flash forward and backward
 at G 6 (B 4, S 513, 48/8 heads), the forward at dbrx's dense prefills and
 at G 7 (B 8, S 512, 56/8), the paged decode and chunk prefill at G 6 and G
@@ -3146,6 +3165,297 @@ def paper_experiments() -> dict:
             "resnet_card_vs_cpu": resnet}
 
 
+# Phases 26-27: elastic multi-worker SEBS training, four workers sharing the card.
+ELASTIC_LAYERS = 4           # qwen2.5-3b at full width, cut in depth as phase 13
+ELASTIC_DEADLINE = 600.0     # seconds an elastic run may take in all
+ELASTIC_SAVE_EVERY = 4       # the killed budget-4 run saves at 4 and 8 (5 GB each)
+
+
+def elastic_cut(cfg):
+    return cfg.replace(segments=(dataclasses.replace(cfg.segments[0], repeat=ELASTIC_LAYERS),))
+
+
+def elastic_run(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}), eta: float = 1.0,
+                sync_mode: str = "exact", local_interval: int = 4, copy_params: bool = True, **run_kw):
+    """One ElasticTrainer run on ``budget`` workers of cuda:0 from ``params``
+    (a copy of them unless ``copy_params`` is false; on the card, rank 0
+    reads them through CUDA IPC) on phase 7's schedule (SEBS b1 4, C1 16,
+    rho 2, 3 stages, 513-token rows). Returns (log, wall s, trainer, final
+    state)."""
+    import torch
+
+    from repro_torch.core import SEBS
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.distributed import ElasticTrainer
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+
+    opt = make_optimizer(optimizer[0], **optimizer[1])
+    params = copy.deepcopy(params) if copy_params else params
+    trainer = ElasticTrainer(
+        LanguageModel(cfg), opt, SEBS(b1=4, C1=16, rho=2.0, num_stages=3, eta=eta),
+        DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), device="cuda"), microbatch=4,
+        sync_mode=sync_mode, local_interval=local_interval, device_budget=budget,
+        devices=[torch.device("cuda", 0)] * budget, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
+    t0 = time.perf_counter()
+    state, log = trainer.run(TrainState(params, opt.init(params), 0), log_every=1, **run_kw)
+    return log, time.perf_counter() - t0, trainer, state
+
+
+def elastic_expected(trainer, log, first: int = 0) -> tuple:
+    """From the planner and sync.py alone, for the updates ``log`` holds
+    (the workers ran those after update ``first``): per rank (microbatches,
+    updates), and the exact-sync ledger (per-stage summary) the byte models
+    predict for the whole run."""
+    from repro_torch.core.stages import StageController
+    from repro_torch.distributed import CommAccountant, sync_cost
+
+    world = trainer.planner.device_budget
+    micro, updates = [0] * world, [0] * world
+    acct, width = CommAccountant(), None
+    plans = StageController(trainer.controller.schedule, microbatch=4).plans()
+    for plan, _ in zip(plans, log.steps):
+        mp = trainer.planner.plan_for(plan)
+        if width is not None and mp.width != width:
+            acct.record_reshard(plan.stage, bytes_moved=trainer._state_bytes if mp.width > width else 0)
+        width = mp.width
+        for r in range(mp.width if acct.total("updates") >= first else 0):
+            micro[r] += mp.local_accum
+            updates[r] += 1
+        collectives, moved = sync_cost("exact", mp.width, grad_bytes=trainer._grad_bytes,
+                                       state_bytes=trainer._state_bytes)
+        acct.record_update(plan.stage, collectives=collectives, bytes_moved=moved)
+    return micro, updates, acct.summary()
+
+
+def elastic_launch_check(label: str, trainer, log, layers: int, fused: str, first: int = 0) -> dict:
+    """Every worker launched the flash forward (2 a layer and microbatch:
+    remat) and backward (1) for its own microbatches and the fused update
+    once for each update its replica took; the counts add up over ranks."""
+    micro, updates, _ = elastic_expected(trainer, log, first)
+    total: dict = {}
+    for r, stats in enumerate(trainer.worker_stats):
+        got = stats["launches"]
+        want = {"flash_attention_fwd": 2 * layers * micro[r], "flash_attention_bwd": layers * micro[r],
+                fused: updates[r]}
+        if any(got[k] != v for k, v in want.items()) or min(want.values()) <= 0:
+            fail(f"{label}: worker {r} launched {got}, not {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    if total["flash_attention_bwd"] != layers * sum(micro) or total[fused] != sum(updates):
+        fail(f"{label}: the ranks' launches {total} do not add up")
+    return total
+
+
+def elastic_times(trainer, log) -> dict:
+    """Median update ms per stage (rank 0's spans), the all-gather's host ms
+    per update by width (copy out, gather, copy back), the reshards' ms, and
+    each worker's peak GiB."""
+    spans = [ev["dur"] for ev in trainer.tracer.events if ev.get("name") == "train.update"]
+    per_stage: dict = {}
+    for st, dur in zip(log.stages, spans):
+        per_stage.setdefault(st, []).append(dur * 1e3)
+    widths = [trainer.planner.plan_for(p).width
+              for p, _ in zip(trainer.controller.plans(), log.steps)]
+    gathers: dict = {}
+    for w, t in zip([w for w in widths if w > 1], trainer.worker_stats[0]["allgather"]):
+        gathers.setdefault(w, []).append(t)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return {
+        "update_ms": {st: med(xs) for st, xs in per_stage.items()},
+        "allgather_ms": {w: {part: med([t[f"{part}_s"] for t in ts]) * 1e3
+                             for part in ("copy_out", "collective", "copy_back")} for w, ts in gathers.items()},
+        "reshard_ms": [x * 1e3 for x in trainer.worker_stats[0]["reshard_s"]],
+        "peak_gib": [s["peak_bytes"] / 2**30 for s in trainer.worker_stats],
+    }
+
+
+def same_gradient_bits_twice(cfg, params) -> None:
+    """One microbatch (4 x 513) through the elastic step's term twice: the
+    gradient bits must agree before the budgets are compared (atomics would
+    break bit-identity across widths)."""
+    import torch
+
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed.step import _local_total
+    from repro_torch.models import LanguageModel
+
+    model = LanguageModel(cfg)
+    tokens = torch.from_numpy(TokenDataset(cfg.vocab_size, 512, seed=0).batch(0, 4)["tokens"]).cuda()
+    runs = [_local_total(model, params, {"tokens": tokens[None]}, 1, 0.0) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(runs[0]["grads"], runs[1]["grads"], strict=True))
+    if not same or not torch.equal(runs[0]["loss"], runs[1]["loss"]):
+        fail("elastic: one microbatch's gradient differs between two runs on the card")
+    for w in params_leaves(params):
+        w.requires_grad_(False)
+    print("phase 26 elastic: one microbatch's gradient has the same bits twice "
+          f"({sum(g.numel() for g in runs[0]['grads']):,} elements)", flush=True)
+
+
+def params_leaves(params):
+    from repro_torch.utils.tree import tree_leaves
+
+    return tree_leaves(params)
+
+
+def print_elastic(label: str, budget: int, log, wall: float, times: dict, smi: str) -> None:
+    print(f"phase {label} budget {budget}: {len(log.steps)} updates in {wall:.1f} s | update ms by stage "
+          + ", ".join(f"{st} {ms:.1f}" for st, ms in times["update_ms"].items())
+          + " | all-gather host ms an update by width (copy out / barriers / copy back) "
+          + ", ".join(f"W{w} {p['copy_out']:.1f} / {p['collective']:.1f} / {p['copy_back']:.1f}"
+                      for w, p in times["allgather_ms"].items())
+          + " | reshard ms " + ", ".join(f"{x:.1f}" for x in times["reshard_ms"])
+          + " | worker peaks GiB " + ", ".join(f"{x:.2f}" for x in times["peak_gib"])
+          + f" | {smi}", flush=True)
+
+
+def elastic_exact(cfg, smi: str) -> dict:
+    """Phase 26: exact sync at budgets 1, 2 and 4 on one card (bit-identical
+    losses, stages, batch sizes, GNS and params; widths {1}, {1, 2},
+    {1, 2, 4}; the ledger sync.py predicts; every worker's launches); a run
+    killed at update 9 under budget 4 resumed under budget 2 (bit-identical);
+    the launcher's --dp-elastic on the visible card."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils.tree import tree_leaves
+
+    layers = cfg.num_layers
+    params = LanguageModel(cfg).init(0, device="cuda")
+    same_gradient_bits_twice(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params), strict=True))
+
+    torch.cuda.empty_cache()
+    print(f"phase 26 elastic: the card {torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free at the start", flush=True)
+    runs, out, total = {}, {}, {}
+    for budget in (1, 2, 4):
+        log, wall, tr, state = elastic_run(cfg, params, budget)
+        runs[budget] = (log, state if budget == 1 else same(state, runs[1][1]))
+        widths = sorted({k[1] for k in tr._steps})
+        if widths != [1, 2, 4][:budget.bit_length()]:
+            fail(f"elastic budget {budget}: widths {widths}")
+        _, _, predicted = elastic_expected(tr, log)
+        if tr.accountant.summary() != predicted:
+            fail(f"elastic budget {budget}: ledger {tr.accountant.summary()} is not sync.py's {predicted}")
+        launches = elastic_launch_check(f"elastic budget {budget}", tr, log, layers, "fused_psgd")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        times = elastic_times(tr, log)
+        print_elastic("26 elastic", budget, log, wall, times, smi)
+        out[budget] = {"wall_s": wall, "losses": log.losses, "widths": widths, "ledger": predicted,
+                       "launches_by_rank": [s["launches"] for s in tr.worker_stats], **times}
+        del state, tr
+        gc.collect()
+    log1, state1 = runs[1]
+    if not all(math.isfinite(x) for x in log1.losses):
+        fail(f"elastic: a loss is not finite: {log1.losses}")
+    for budget in (2, 4):
+        log, same_params = runs[budget]
+        if (log.losses != log1.losses or log.stages != log1.stages or log.batch_sizes != log1.batch_sizes
+                or json.dumps(log.noise_scales) != json.dumps(log1.noise_scales) or not same_params):
+            fail(f"elastic: budget {budget} is not bit-identical to budget 1 (losses {log.losses} vs {log1.losses},"
+                 f" GNS {log.noise_scales} vs {log1.noise_scales}, params equal {same_params})")
+
+    # killed at 9 under budget 4 (saves at 4 and 8), resumed under budget 2
+    directory = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        with CheckpointManager(directory, keep_last=1) as ckpt:
+            klog, kwall, ktr, _ = elastic_run(cfg, params, 4, checkpointer=ckpt,
+                                              save_every=ELASTIC_SAVE_EVERY, stop_after_updates=9)
+        with CheckpointManager(directory, keep_last=1) as ckpt:
+            rlog, rwall, rtr, rstate = elastic_run(cfg, params, 2, checkpointer=ckpt,
+                                                   save_every=ELASTIC_SAVE_EVERY, resume=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for label, tr, log, first in (("killed", ktr, klog, 0), ("resumed", rtr, rlog, 8)):
+        for k, v in elastic_launch_check(f"elastic {label}", tr, log, layers, "fused_psgd", first).items():
+            total[k] = total.get(k, 0) + v
+    same_params = same(rstate, state1)
+    if (klog.steps != list(range(1, 10)) or rlog.losses != log1.losses or rlog.stages != log1.stages
+            or not same_params):
+        fail(f"elastic resume: killed at 9 under budget 4, resumed under budget 2: losses {rlog.losses} vs "
+             f"{log1.losses}, params equal {same_params}")
+    print(f"phase 26 elastic: budgets 1, 2, 4 bit-identical (losses, stages, batches, GNS, params); killed at 9 "
+          f"under budget 4 ({kwall:.1f} s, saves at 4, 8) and resumed under budget 2 ({rwall:.1f} s): "
+          f"bit-identical | {smi}", flush=True)
+    del rstate, state1, runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher on the visible card (width 1)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--dp-elastic", "--variant", "smoke",
+                           "--b1", "4", "--c1", "16", "--rho", "2", "--seq", "64", "--steps-log", "100"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    comm = [ln for ln in proc.stderr.splitlines() if "comm:" in ln]
+    if proc.returncode != 0 or not comm:
+        fail(f"elastic launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"phase 26 elastic launcher: --dp-elastic --variant smoke exit 0 in {time.perf_counter() - t0:.1f} s "
+          f"| {comm[-1].strip()}", flush=True)
+    return {"budgets": out, "killed_wall_s": kwall, "resumed_wall_s": rwall, "launches": total}
+
+
+def elastic_local(cfg, smi: str) -> dict:
+    """Phase 27: local SGD at budget 4 (momentum 0.9, local_interval 2,
+    save_every 3): saves snap to [3, 6, 10, 12]; finite losses; the state
+    collapsed at the end; fewer collectives than updates."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    params = LanguageModel(cfg).init(0, device="cuda")
+    shapes = [t.shape for t in tree_leaves(params)]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_local_")
+    try:
+        with CheckpointManager(directory, keep_last=1) as ckpt:
+            log, wall, tr, state = elastic_run(cfg, params, 4, optimizer=("momentum", {"beta": 0.9}),
+                                               eta=ETAS["momentum"], sync_mode="local", local_interval=2,
+                                               copy_params=False, checkpointer=ckpt, save_every=3)
+        saves = [ev["args"]["update"] for ev in tr.tracer.events if ev.get("name") == "train.save"]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    acct = tr.accountant
+    shapes_ok = [t.shape for t in tree_leaves(state.params)] == shapes
+    if saves != [3, 6, 10, 12] or not all(math.isfinite(x) for x in log.losses) or tr._stacked or not shapes_ok:
+        fail(f"elastic local SGD: saves {saves}, losses {log.losses}, still stacked {tr._stacked}, "
+             f"shapes kept {shapes_ok}")
+    if not acct.total("collectives") < acct.total("updates"):
+        fail(f"elastic local SGD: {acct.total('collectives')} collectives for {acct.total('updates')} updates")
+    launches = elastic_launch_check("elastic local SGD", tr, log, cfg.num_layers, "fused_momentum")
+    times = elastic_times(tr, log)
+    sync_ms = [sum(t[f"{p}_s"] for p in ("copy_out", "collective", "copy_back")) * 1e3
+               for t in tr.worker_stats[0]["sync"]]
+    print_elastic("27 local SGD", 4, log, wall, times, smi)
+    print(f"phase 27 local SGD: the card {free_gib:.1f} GiB free at the start; saves at {saves}, "
+          f"{acct.total('collectives')} collectives for "
+          f"{acct.total('updates')} updates, averages' host ms " + ", ".join(f"{x:.0f}" for x in sync_ms)
+          + " | losses " + " ".join(f"{x:.4f}" for x in log.losses) + f" | {smi}", flush=True)
+    return {"wall_s": wall, "losses": log.losses, "saves": saves, "ledger": acct.summary(), "sync_ms": sync_ms,
+            "free_gib_at_start": free_gib,
+            "launches": launches, **times}
+
+
 def main() -> None:
     import torch
 
@@ -3467,6 +3777,14 @@ def main() -> None:
     # 25. the paper's own experiments: Fig. 3, Fig. 2, adaptive SEBS, ResNet-20
     experiments = paper_experiments()
     phase_done("25 the paper's experiments")
+    # 26-27. elastic multi-worker SEBS training: up to four workers share the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_cfg = elastic_cut(get_config("qwen2.5-3b", "full"))
+    elastic = elastic_exact(elastic_cfg, smi)
+    phase_done("26 elastic exact sync")
+    local_sgd = elastic_local(elastic_cfg, smi)
+    phase_done("27 elastic local SGD")
     print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
           + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -3553,6 +3871,11 @@ def main() -> None:
                         ("fused_sample_v51865", "fused_sample"), ("fused_psgd_resnet", "fused_psgd"),
                         ("fused_momentum_resnet", "fused_momentum"), ("fused_adagrad_da_resnet", "fused_adagrad_da")):
         replaces[kname], sources[kname] = replaces[base], sources[base]
+    # the elastic paths (phases 26-27): every worker's launches, added over ranks and runs
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += elastic["launches"][kname]
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
+        all_launches[kname] += local_sgd["launches"][kname]
     unlaunched = [kname for kname in records if all_launches.get(kname, 0) <= 0]
     if unlaunched:
         fail(f"kernels not launched on their main paths: {unlaunched}")
@@ -3616,7 +3939,7 @@ def main() -> None:
                     "library": {n: {key: records[n][key] for key in (
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
-        "experiments": experiments,
+        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd},
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

@@ -19,8 +19,12 @@ directory. The contract is kill-equivalence: a run killed after any update
 and resumed from the latest checkpoint gives bit-identical losses, stage
 transitions and final params to an uninterrupted run.
 
-Not yet ported: the elastic data-parallel hooks (the multi-worker slice)
-and the sanitizer hooks (the analysis slice).
+The run loop goes through the JAX trainer's hook seams (``_before_update``,
+``_place_batch``, ``_execute``, ``_after_update``, ``_comm_counters``,
+``_ready_to_save``, ``_save_view``, ``_finalize``, ``_meta_extra``,
+``_restore_extra``): each does nothing here, and
+:class:`repro_torch.distributed.ElasticTrainer` fills them in. Not yet
+ported: the sanitizer hooks (the analysis slice).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ class TrainLog:
     losses: List[float] = field(default_factory=list)
     noise_scales: List[float] = field(default_factory=list)
     # cumulative per-device sync bytes and sync collectives at each logged
-    # update (the JAX package's elastic trainer fills them; one process
+    # update (the elastic trainer's CommAccountant fills them; one process
     # logs zeros)
     comm_bytes: List[int] = field(default_factory=list)
     sync_events: List[int] = field(default_factory=list)
@@ -142,7 +146,8 @@ class SEBSTrainer:
         }
         if hasattr(self.controller.schedule, "state"):
             meta["schedule"] = self.controller.schedule.state()
-        ckpt.save(update, train_state_tree(state, self.model.cfg), meta=meta)
+        meta.update(self._meta_extra())
+        ckpt.save(update, train_state_tree(self._save_view(state), self.model.cfg), meta=meta)
         self._last_saved = update
         self.tracer.complete("train.save", t0, self._clock(), update=update)
 
@@ -155,6 +160,11 @@ class SEBSTrainer:
             return state, 0
         tree, meta = restored
         state = train_state_from_tree(tree, state, self.model.cfg)
+        self._apply_meta(meta, log, gns)
+        return state, int(meta["update"])
+
+    def _apply_meta(self, meta: dict, log: TrainLog, gns: GradientNoiseScale) -> None:
+        """Restore everything of a checkpoint but the train state from its meta."""
         self.pipeline.restore(meta["pipeline"])
         gns.restore(meta["gns"])
         self.host_rng.bit_generator.state = meta["host_rng"]
@@ -163,7 +173,53 @@ class SEBSTrainer:
         saved_log = TrainLog.from_dict(meta["log"])
         for f in dataclasses.fields(TrainLog):
             getattr(log, f.name)[:] = getattr(saved_log, f.name)
-        return state, int(meta["update"])
+        self._restore_extra(meta)
+
+    # -- subclass hooks (repro_torch.distributed.ElasticTrainer) ------------
+    #
+    # The run loop goes through these seams so that the elastic data-parallel
+    # trainer can change where the state lives (which workers hold a replica)
+    # and when replicas synchronize, without a second copy of the schedule,
+    # checkpoint and GNS plumbing. Each is an identity or a no-op here.
+
+    def _before_update(self, state: TrainState, plan: StepPlan) -> TrainState:
+        """Called before each update's batch is drawn (width transitions)."""
+        return state
+
+    def _place_batch(self, batch: dict, plan: StepPlan) -> dict:
+        """Shape (and placement) of the raw pipeline batch."""
+        return self._shape_batch(batch, plan)
+
+    def _execute(self, state: TrainState, batch: dict, plan: StepPlan):
+        """Run one optimizer update; returns (state, metrics)."""
+        return self._step_fn(plan)(state, batch, plan.lr, plan.stage)
+
+    def _after_update(self, state: TrainState, update: int, plan: StepPlan) -> TrainState:
+        """Called after each update (local-SGD averaging, comm accounting)."""
+        return state
+
+    def _comm_counters(self) -> Tuple[int, int]:
+        """(cumulative bytes per device, cumulative sync events) for the log."""
+        return 0, 0
+
+    def _ready_to_save(self, update: int) -> bool:
+        """Whether the run state is checkpoint-consistent at this update
+        (local-SGD replicas are only consistent right after an average)."""
+        return True
+
+    def _save_view(self, state: TrainState) -> TrainState:
+        """The state to serialize (the collapsed one)."""
+        return state
+
+    def _finalize(self, state: TrainState) -> TrainState:
+        """Called once when the loop exits, before the farewell save."""
+        return state
+
+    def _meta_extra(self) -> dict:
+        return {}
+
+    def _restore_extra(self, meta: dict) -> None:
+        pass
 
     # -- the training loop --------------------------------------------------
 
@@ -191,6 +247,7 @@ class SEBSTrainer:
         log = TrainLog()
         gns = GradientNoiseScale()
         update = 0
+        save_pending = False
         if resume and checkpointer is not None:
             t0 = self._clock()
             state, update = self._restore(checkpointer, state, log, gns)
@@ -205,9 +262,11 @@ class SEBSTrainer:
                 interrupted = True
                 break
             t0 = self._clock()
-            batch = self._shape_batch(self.pipeline.next_batch(plan.batch_size), plan)
-            state, metrics = self._step_fn(plan)(state, batch, plan.lr, plan.stage)
+            state = self._before_update(state, plan)
+            batch = self._place_batch(self.pipeline.next_batch(plan.batch_size), plan)
+            state, metrics = self._execute(state, batch, plan)
             update += 1
+            state = self._after_update(state, update, plan)
             loss = float(metrics["loss"])  # waits for the update to finish
             t1 = self._clock()
             self.tracer.complete("train.update", t0, t1, update=update, stage=plan.stage,
@@ -229,13 +288,27 @@ class SEBSTrainer:
                 log.batch_sizes.append(plan.batch_size)
                 log.losses.append(loss)
                 log.noise_scales.append(gns.b_noise)
-                log.comm_bytes.append(0)
-                log.sync_events.append(0)
+                comm_bytes, sync_events = self._comm_counters()
+                log.comm_bytes.append(comm_bytes)
+                log.sync_events.append(sync_events)
+                # the registry reads the same numbers as the log
+                self.metrics.gauge("train.comm_bytes").set(comm_bytes)
+                self.metrics.gauge("train.sync_events").set(sync_events)
                 self.metrics.gauge("train.gns").set(gns.b_noise)
-                if self.tracer.enabled and not np.isnan(gns.b_noise):  # NaN is invalid trace JSON
-                    self.tracer.counter("train.gns", b_noise=gns.b_noise)
-            if checkpointer is not None and save_every and update % save_every == 0:
-                self._save(checkpointer, update, state, log, gns)
+                if self.tracer.enabled:
+                    self.tracer.counter("train.comm", bytes=comm_bytes, syncs=sync_events)
+                    if not np.isnan(gns.b_noise):  # NaN is invalid trace JSON
+                        self.tracer.counter("train.gns", b_noise=gns.b_noise)
+            if checkpointer is not None and save_every:
+                # saves SNAP to the next checkpoint-consistent update rather
+                # than being dropped: local-SGD replicas are consistent only
+                # right after an average, whose cadence need not align with
+                # save_every
+                save_pending = save_pending or update % save_every == 0
+                if save_pending and self._ready_to_save(update):
+                    self._save(checkpointer, update, state, log, gns)
+                    save_pending = False
+        state = self._finalize(state)
         if checkpointer is not None:
             # farewell save unless this exact update is already on disk
             if not interrupted and update and update != self._last_saved:

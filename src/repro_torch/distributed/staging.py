@@ -1,0 +1,132 @@
+"""Host-staged collectives over shared host slots, for the workers of one
+elastic run.
+
+The workers of a run are processes on one host (``ElasticTrainer.run``
+spawns them), so their large collectives go through shared host memory:
+each rank owns a slot, a file in the run's directory that every worker maps
+(``torch.from_file(..., shared=True)``), as large as the largest leaf. A
+collective copies this rank's tensors to the host into its slot, meets the
+other ranks at a gloo barrier, copies what it needs from their slots back
+to its device, and meets them at a barrier again before the slots are
+reused. The copies are explicit and named; gloo carries the barriers and
+the control traffic. gloo's own ``all_gather`` over the loopback is 4-6x
+slower for the same partials on an H100 host (``tools/elastic_bench.py``
+times both); a slot costs a copy out and a copy back, and no socket.
+
+Tensors travel as their bytes, so any dtype goes through bit for bit, and
+they go in buckets that fill a slot, so the host holds at most W slots of
+the largest leaf's size (the largest at qwen2.5-3b's full width is the
+311 M-element tied embedding, 1.24 GB in f32). :class:`StagingTimes` adds
+up the host seconds of the three parts: the copy out, the barrier, the
+copy back.
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+ALIGN = 64  # bytes: every tensor starts at an aligned offset of its slot
+
+
+@dataclass
+class StagingTimes:
+    copy_out_s: float = 0.0
+    collective_s: float = 0.0
+    copy_back_s: float = 0.0
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _padded(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+def from_host(buf: torch.Tensor, like: torch.Tensor, times: StagingTimes, device=None) -> torch.Tensor:
+    """A new tensor of ``like``'s dtype and shape on ``device`` (default:
+    ``like``'s; ``like`` may be a meta tensor) whose bytes are ``buf``'s."""
+    t0 = time.perf_counter()
+    out = buf.to(like.device if device is None else device, copy=True).view(like.dtype).reshape(like.shape)
+    times.copy_back_s += time.perf_counter() - t0
+    return out
+
+
+class HostExchange:
+    """One slot of ``slot_bytes`` a rank, in ``directory``, mapped by every
+    worker of the run; created by rank r for slot r, then a barrier of the
+    default group (every rank calls the constructor together)."""
+
+    def __init__(self, directory: str, rank: int, world: int, slot_bytes: int):
+        import torch.distributed as dist
+
+        self.rank, self.world, self.slot_bytes = rank, world, _padded(slot_bytes)
+        path = lambda r: os.path.join(directory, f"slot_{r}")  # noqa: E731
+        own = torch.from_file(path(rank), shared=True, size=self.slot_bytes, dtype=torch.uint8)
+        if world > 1:
+            dist.barrier()
+        self.slots = [own if r == rank else torch.from_file(path(r), shared=True, size=self.slot_bytes,
+                                                            dtype=torch.uint8)
+                      for r in range(world)]
+
+    def _buckets(self, tensors: List[torch.Tensor]) -> List[List[Tuple[int, int, int]]]:
+        """Runs of (index, offset, bytes) that fill a slot, in order."""
+        buckets, used = [[]], 0
+        for i, t in enumerate(tensors):
+            n = t.numel() * t.element_size()
+            if n > self.slot_bytes:
+                raise ValueError(f"a tensor of {n} bytes exceeds the host slot ({self.slot_bytes} bytes)")
+            if used + n > self.slot_bytes:
+                buckets.append([])
+                used = 0
+            buckets[-1].append((i, used, n))
+            used += _padded(n)
+        return [b for b in buckets if b]
+
+    def _barrier(self, mesh, times: StagingTimes) -> None:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        dist.barrier(group=mesh.group)
+        times.collective_s += time.perf_counter() - t0
+
+    def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
+                   consume: bool = False) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """For each tensor, in order: (its index, the mesh's W ranks' bytes of
+        it on the host, in rank order). Every rank of the mesh passes tensors
+        of the same shapes and dtypes. A rank's views hold until it asks for
+        the next item; the caller must exhaust the iterator. ``consume``
+        drops each entry of ``tensors`` once its bytes are on the host."""
+        width = mesh.width
+        for bucket in self._buckets(tensors):
+            t0 = time.perf_counter()
+            own = self.slots[self.rank]
+            for i, off, n in bucket:
+                own[off:off + n].copy_(_bytes(tensors[i]))
+                if consume:
+                    tensors[i] = None
+            times.copy_out_s += time.perf_counter() - t0
+            self._barrier(mesh, times)
+            for i, off, n in bucket:
+                yield i, [self.slots[d][off:off + n] for d in range(width)]
+            self._barrier(mesh, times)  # every rank has read the slots
+
+    @torch.no_grad()
+    def broadcast(self, tensors: List[torch.Tensor], mesh, times: StagingTimes) -> None:
+        """Rank 0's bytes of each tensor into that tensor on every rank of the mesh."""
+        for bucket in self._buckets(tensors):
+            if self.rank == 0:
+                t0 = time.perf_counter()
+                for i, off, n in bucket:
+                    self.slots[0][off:off + n].copy_(_bytes(tensors[i]))
+                times.copy_out_s += time.perf_counter() - t0
+            self._barrier(mesh, times)
+            if self.rank != 0:
+                for i, off, n in bucket:
+                    t = tensors[i]
+                    t.copy_(from_host(self.slots[0][off:off + n], t, times))
+            self._barrier(mesh, times)

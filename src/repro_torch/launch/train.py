@@ -23,8 +23,19 @@ so either launcher resumes the other's directory); ``--resume`` restarts
 from the latest checkpoint and is kill-equivalent; ``--stop-after``
 simulates a preemption.
 
-Not yet ported, each an error naming its slice: ``--mesh``, ``--dp-elastic``
-and its options (multi-worker training).
+Elastic data parallelism, as in the JAX launcher: ``--dp-elastic`` hands the
+run to :class:`repro_torch.distributed.ElasticTrainer`, whose width (worker
+processes) follows the SEBS stage ladder up to ``--device-budget``, with
+``--sync-mode exact`` (bit-identical across widths) or ``--sync-mode local``
+(local SGD, averaging cadence ``--local-interval`` / ``--local-growth``); it
+implies accumulate mode with the canonical tree (``--mode`` and
+``--accum-mode`` do not apply). On the card the workers are the visible CUDA
+devices, the budget capped at their count (default: all of them); with
+``--device cpu``, ``--device-budget N`` runs N CPU workers (default 1) of one
+intra-op thread each, at every budget alike.
+
+Not yet ported: ``--mesh single|multi`` (the production mesh), an error
+naming the sharding slice.
 """
 from __future__ import annotations
 
@@ -39,13 +50,14 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import SEBS, AdaptiveSEBS, ClassicalStagewise, SEBSTrainer
 from repro_torch.data import DataPipeline, TokenDataset
+from repro_torch.distributed import ElasticTrainer
 from repro_torch.models import LanguageModel
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.optim import OPTIMIZERS, make_optimizer
 from repro_torch.train.state import init_train_state
 
 log = logging.getLogger("train")
-_MULTI_WORKER = "multi-worker training comes with the multi-worker slice"
+_SHARDING = "the production mesh comes with the sharding slice (sharding/partitioning.py)"
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -70,11 +82,20 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0, help="random weights and the data stream")
     ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
-    ap.add_argument("--dp-elastic", action="store_true")
-    ap.add_argument("--sync-mode", default="exact", choices=["exact", "local"])
-    ap.add_argument("--device-budget", type=int, default=None)
-    ap.add_argument("--local-interval", type=int, default=4)
-    ap.add_argument("--local-growth", type=float, default=1.0)
+    ap.add_argument("--dp-elastic", action="store_true",
+                    help="elastic data parallelism: the number of worker processes follows the SEBS "
+                         "stage ladder (repro_torch.distributed). Builds its own per-stage worker groups "
+                         "(incompatible with --mesh) and implies accumulate mode with the canonical tree "
+                         "(--mode/--accum-mode do not apply)")
+    ap.add_argument("--sync-mode", default="exact", choices=["exact", "local"],
+                    help="exact: one gradient collective per update, bit-identical across widths; "
+                         "local: local SGD with stage-keyed averaging")
+    ap.add_argument("--device-budget", type=int, default=None,
+                    help="max data-parallel width (default: every visible CUDA device; 1 with --device cpu)")
+    ap.add_argument("--local-interval", type=int, default=4,
+                    help="local-SGD: updates between parameter averages at stage 0")
+    ap.add_argument("--local-growth", type=float, default=1.0,
+                    help="local-SGD: geometric growth of the averaging interval per stage")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (full run state, not just params)")
     ap.add_argument("--ckpt-every", type=int, default=0,
@@ -94,16 +115,14 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--steps-log", type=int, default=5)
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: {_MULTI_WORKER}")
-    if args.dp_elastic or (args.sync_mode, args.device_budget, args.local_interval,
-                           args.local_growth) != ("exact", None, 4, 1.0):
-        ap.error(f"--dp-elastic and its options: {_MULTI_WORKER}")
+    if args.dp_elastic and args.mesh != "none":
+        ap.error("--dp-elastic builds its own per-stage worker groups; drop --mesh")
     if args.optimizer not in OPTIMIZERS:
         ap.error(f"unknown --optimizer {args.optimizer!r}; available: {sorted(OPTIMIZERS)}")
     for flag, value, low in (("--b1", args.b1, 1), ("--c1", args.c1, 1), ("--stages", args.stages, 1),
                              ("--seq", args.seq, 1), ("--ckpt-every", args.ckpt_every, 0),
-                             ("--ckpt-keep", args.ckpt_keep, 1), ("--steps-log", args.steps_log, 1)):
+                             ("--ckpt-keep", args.ckpt_keep, 1), ("--local-interval", args.local_interval, 1),
+                             ("--steps-log", args.steps_log, 1)):
         if value < low:
             ap.error(f"{flag} must be >= {low} (got {value})")
     if args.rho <= 1.0 and args.schedule in ("sebs", "classical") and args.stages > 1:
@@ -114,6 +133,18 @@ def main(argv: Optional[Sequence[str]] = None):
         ap.error(f"--stop-after must be >= 1 (got {args.stop_after})")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
+    if args.device_budget is not None and args.device_budget < 1:
+        ap.error(f"--device-budget must be >= 1 (got {args.device_budget})")
+    if args.local_growth < 1.0:
+        ap.error(f"--local-growth must be >= 1.0 (got {args.local_growth})")
+    if not args.dp_elastic:
+        # flags that would otherwise be silently ignored
+        defaults = {"sync_mode": "exact", "device_budget": None, "local_interval": 4, "local_growth": 1.0}
+        for dest, default in defaults.items():
+            if getattr(args, dest) != default:
+                ap.error(f"--{dest.replace('_', '-')} requires --dp-elastic")
+    if args.mesh != "none":
+        ap.error(f"--mesh {args.mesh}: {_SHARDING}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
@@ -140,11 +171,27 @@ def main(argv: Optional[Sequence[str]] = None):
     tracer = Tracer() if args.trace else None
     metrics = MetricsRegistry() if args.metrics else None
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=args.seed)
-    trainer = SEBSTrainer(
-        model, optimizer, schedule, DataPipeline(ds, device=args.device),
-        microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode, seed=args.seed,
-        tracer=tracer, metrics=metrics,
-    )
+    if args.dp_elastic:
+        if args.device == "cpu":
+            devices = [torch.device("cpu")] * (args.device_budget or 1)
+            # one intra-op thread a worker: the workers take the caller's count, so the machine's
+            # count would oversubscribe its cores budget-fold, and a count that followed the
+            # budget would change the bits from one budget to another
+            torch.set_num_threads(1)
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        trainer = ElasticTrainer(
+            model, optimizer, schedule, DataPipeline(ds, device=args.device),
+            microbatch=args.b1, sync_mode=args.sync_mode, device_budget=args.device_budget, devices=devices,
+            local_interval=args.local_interval, local_growth=args.local_growth, seed=args.seed,
+            tracer=tracer, metrics=metrics,
+        )
+    else:
+        trainer = SEBSTrainer(
+            model, optimizer, schedule, DataPipeline(ds, device=args.device),
+            microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode, seed=args.seed,
+            tracer=tracer, metrics=metrics,
+        )
     state = init_train_state(model, optimizer, seed=args.seed, device=args.device)
     checkpointer = CheckpointManager(args.ckpt_dir, keep_last=args.ckpt_keep) if args.ckpt_dir else None
     try:
@@ -157,6 +204,11 @@ def main(argv: Optional[Sequence[str]] = None):
     for i in range(len(tlog.steps)):
         log.info("update %4d samples %6d stage %d batch %4d loss %.4f", tlog.steps[i],
                  tlog.samples[i], tlog.stages[i], tlog.batch_sizes[i], tlog.losses[i])
+    if args.dp_elastic:
+        acct = trainer.accountant
+        log.info("comm: %d sync events, %.2f MiB/device across stages %s (widths %s)",
+                 acct.total_sync_events, acct.total_bytes / 2**20, sorted(acct.per_stage),
+                 sorted({k[1] for k in trainer._steps}))
     if checkpointer is not None:
         log.info("checkpoints under %s (latest: update %s)", args.ckpt_dir, checkpointer.latest_step())
     if args.log_json:

@@ -23,7 +23,7 @@ OPTIMIZERS = tuple(_REGISTRY)
 def make_optimizer(name: str, **hp) -> Optimizer:
     if name not in _REGISTRY:
         raise KeyError(f"unknown optimizer {name!r}; available: {sorted(_REGISTRY)}")
-    return _REGISTRY[name](**hp)
+    return _REGISTRY[name](**hp)._replace(recipe=(name, tuple(sorted(hp.items()))))
 
 
 __all__ = ["Optimizer", "OPTIMIZERS", "make_optimizer", "sgd", "psgd", "momentum", "adagrad",

@@ -24,7 +24,7 @@ jit, at the same update; here it is decided on the host.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 PyTree = Any
 
@@ -33,6 +33,23 @@ class Optimizer(NamedTuple):
     init: Callable[[PyTree], PyTree]
     update: Callable[..., Tuple[PyTree, PyTree]]
     name: str = ""
+    #: (registry name, sorted hyperparameter items) when made by
+    #: ``repro_torch.optim.make_optimizer``: how a worker process rebuilds it
+    recipe: Optional[Tuple[str, Tuple[Tuple[str, Any], ...]]] = None
+
+    def __reduce__(self):
+        """Pickled as its recipe (``init`` and ``update`` are closures), so that
+        the elastic trainer's worker processes can rebuild it."""
+        if self.recipe is None:
+            raise TypeError(f"optimizer {self.name!r} was not made by make_optimizer and cannot be "
+                            "sent to a worker process")
+        return _rebuild, self.recipe
+
+
+def _rebuild(name: str, hp: Tuple[Tuple[str, Any], ...]) -> Optimizer:
+    from repro_torch.optim import make_optimizer
+
+    return make_optimizer(name, **dict(hp))
 
 
 def stage_transition(new_stage, state_stage) -> Tuple[bool, int]:

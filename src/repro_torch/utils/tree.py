@@ -1,6 +1,7 @@
-"""The two tree operations the port needs over its parameter trees (nested
+"""The tree operations the port needs over its parameter trees (nested
 dicts and lists of tensors, the JAX package's pytrees): the leaves in a
-fixed order, and a leafwise map over trees of one structure."""
+fixed order, a leafwise map over trees of one structure, and the sums,
+scalings and sizes that the elastic data-parallel step takes of them."""
 from __future__ import annotations
 
 from typing import Any, Callable, List
@@ -25,3 +26,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    """Leafwise ``a + b`` (new leaves)."""
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_scale(tree: Any, scale) -> Any:
+    """Leafwise ``x * scale`` (new leaves): a multiply, as the JAX package's."""
+    return tree_map(lambda x: x * scale, tree)
+
+
+def tree_size(tree: Any) -> int:
+    """Total number of elements across the tensor leaves."""
+    return int(sum(x.numel() for x in tree_leaves(tree) if isinstance(x, torch.Tensor)))

@@ -63,3 +63,13 @@ def test_device_ms_reads_the_retried_trace(cardbench, monkeypatch, tmp_path):
     assert (ms, per) == (2.0, {"k": 1.0})
     assert len(calls) == 2
     assert runs == [1, 2] + [1, 2, 1] * 2  # warm-up, then the traced loop on each attempt
+
+
+def test_device_ms_times_with_events_when_traces_stay_empty(cardbench, monkeypatch, tmp_path):
+    trace_once, calls = _stand_in([None] * 3)
+    monkeypatch.setattr(cardbench, "_trace_once", trace_once)
+    monkeypatch.setattr(cardbench, "timed", lambda fn, arg_sets, iters: 0.25)
+    ms, per = cardbench.device_ms(lambda x: None, [(1,)], 4, tmp_path)
+    assert (ms, per) == (0.25, {cardbench.EVENTS_ONLY: 0.25})
+    assert len(calls) == 3  # every attempt was made first
+

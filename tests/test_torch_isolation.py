@@ -52,6 +52,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.checkpoint, repro_torch.models.vision, repro_torch.models.zoo\n"
         "import repro_torch.experiments.fig2_optimal_batch, repro_torch.experiments.fig3_stagewise\n"
         "import repro_torch.experiments.adaptive_sebs, repro_torch.experiments.sebs_vs_stagewise\n"
+        "import repro_torch.distributed, repro_torch.launch.mesh, repro_torch.experiments.table_comm\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
@@ -87,17 +88,21 @@ def test_train_launcher_runs_on_cpu(tmp_path):
     assert all(np.isfinite(log.losses)) and (tmp_path / "log.json").exists()
 
 
-# checkpoint/resume and the adaptive optimizers have come; what is left
-# waiting is multi-worker training (--mesh, --dp-elastic and its options)
-@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--dp-elastic"], ["--mesh", "multi"],
-                                   ["--sync-mode", "local"], ["--device-budget", "2"],
-                                   ["--local-interval", "2"]])
+# the JAX launcher's behaviours: --mesh still waits for the sharding slice;
+# the elastic options need --dp-elastic, which builds its own worker groups
+@pytest.mark.parametrize("flags", [(["--mesh", "single"], "sharding slice"),
+                                   (["--dp-elastic", "--mesh", "single"], "drop --mesh"),
+                                   (["--mesh", "multi"], "sharding slice"),
+                                   (["--sync-mode", "local"], "--sync-mode requires --dp-elastic"),
+                                   (["--device-budget", "2"], "--device-budget requires --dp-elastic"),
+                                   (["--local-interval", "2"], "--local-interval requires --dp-elastic")])
 def test_train_launcher_names_the_later_slice(flags, capsys):
     from repro_torch.launch import train as launcher
 
+    args, message = flags
     with pytest.raises(SystemExit):
-        launcher.main(["--device", "cpu", *flags])
-    assert "slice" in capsys.readouterr().err
+        launcher.main(["--device", "cpu", *args])
+    assert message in capsys.readouterr().err
 
 
 def test_experiments_default_device_needs_cuda(monkeypatch):
