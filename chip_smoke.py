@@ -192,6 +192,30 @@
     save_every 3): saves snap to updates [3, 6, 10, 12], losses finite, the
     state collapsed at the end, fewer collectives than updates.
 
+28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
+    workers on cuda:0: two pools, two caches, the export / move / import
+    seam) of qwen2.5-3b at full width on phase 4's weights and requests
+    (prefill ring 2), after phase 4's warm-up request, under
+    REPRO_SANITIZE=1 with the seam wrapped (seam_checks) and the counters
+    zeroed just before and read just after: every request completes, 8
+    transfers, the greedy streams equal phase 4's bit for bit, each block
+    bit-equal to the prefill pool at export and to the decode pool at
+    adoption (and unchanged while it waited), the launches those the stats
+    predict (paged decode 36 a decode tick and a tail tick, chunk prefill
+    36 a chunk, the sampler a tick and a first token), the decode worker
+    with no chunk step, the prefill worker with one a size and at most one
+    tail tick at width 2, both workers on the same weight tensors, no
+    sanitizer error. Then a timed run (sanitizers off, nothing wrapped) on
+    fresh prompts of the same shape: tok/s, the median decode tick and
+    TTFT p50 beside phase 4's, the seam's bytes, export and import device
+    ms, both pools' peaks, peak memory.
+29. The same for zamba2-2.7b at full width against phase 15's paged run
+    (the shared attention's pages at D 80 and the Mamba2 state rows across
+    the seam; GLA forward 54 a chunk); then on qwen2.5-3b, rwkv6-1.6b
+    (state rows only) and zamba2-2.7b smoke (ssm_state 64) in float32 the
+    disaggregated engine's greedy tokens on the card equal the CPU path's,
+    under REPRO_SANITIZE=1.
+
 Phase 3 also holds the MoE family's shapes: the flash forward and backward
 at G 6 (B 4, S 513, 48/8 heads), the forward at dbrx's dense prefills and
 at G 7 (B 8, S 512, 56/8), the paged decode and chunk prefill at G 6 and G
@@ -1898,7 +1922,7 @@ def zamba2_kernel_checks(records: dict) -> None:
     mamba2_gla_checks(records)
 
 
-def serve_zamba2(cfg) -> dict:
+def serve_zamba2(cfg, keep: dict) -> dict:
     """Phase 15: the paged engine serving zamba2-2.7b at full width on phase
     4's traffic (8 slots, cache 2048, pages of 16, 256-token chunks; 8
     requests of 512 prompt tokens, the first 256 shared, and 32 new, half
@@ -1910,7 +1934,9 @@ def serve_zamba2(cfg) -> dict:
     device; the static engine on the 8 prompts (greedy: one batched prefill,
     the flash forward at D 80 9 times and the GLA forward 54 times); and on
     zamba2 smoke (ssm_state 64) in float32 the greedy tokens of the paged and
-    both dense engines on the card equal the CPU path's."""
+    both dense engines on the card equal the CPU path's. ``keep`` takes the
+    warm-up prompt, the measured prompts, their greedy streams and the TTFT
+    p50, which phase 29 compares with."""
     import numpy as np
     import torch
 
@@ -1960,6 +1986,9 @@ def serve_zamba2(cfg) -> dict:
             fail(f"zamba2 request {rid}: bad generated tokens {gen_tokens.tolist()}")
     engine.pool.check()
     stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    keep.update(warmup=prefix.numpy(), prompts=prompts[0], prefix=prefix,
+                greedy=[results[rid] for rid in ids[::2]],
+                ttft_ms=sorted(engine.scheduler.requests[rid].ttft_s for rid in ids)[len(ids) // 2] * 1e3)
     if engine.prefix_sharing or stats["prefix_tokens_reused"] != 0:
         fail("zamba2: prefix sharing must be off for a hybrid model")
     expect = {"gla_fwd": cfg.num_layers * stats["prefill_chunks"],
@@ -3456,6 +3485,302 @@ def elastic_local(cfg, smi: str) -> dict:
             "launches": launches, **times}
 
 
+# -- disaggregated prefill/decode serving (phases 28-29) ---------------------
+
+DISAGG = {"slots": 8, "cache_len": 2048, "page_size": 16, "chunk": 256, "prefill_slots": 2}
+
+
+@contextlib.contextmanager
+def sanitizers_on():
+    """REPRO_SANITIZE=1 inside the block, the variable as it was after it."""
+    import os
+
+    old = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_SANITIZE"]
+        else:
+            os.environ["REPRO_SANITIZE"] = old
+
+
+def seam_checks(engine) -> dict:
+    """Wraps the engine's export and import steps. Each exported block is
+    held against the prefill pool's pages and state row at export, bit for
+    bit, and kept as a snapshot; at its adoption (FIFO, as the transfers
+    are) the block must still equal its snapshot, and the decode pool's
+    pages at the remapped ids and its state row must equal the block. Each
+    step's device ms comes from CUDA events around it. Returns the record,
+    filled as the engine runs; its "restore" puts the steps back."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model = engine.model
+    rec = {"export_ms": [], "import_ms": [], "bad": []}
+    snapshots = collections.deque()
+    export, import_ = engine.prefill.export, engine.decode.import_
+
+    def timed_call(device, fn, *args):
+        with torch.cuda.device(device):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def all_true(flags) -> bool:
+        return bool(torch.stack(flags).all()) if flags else True
+
+    def checked_export(cache, page_ids, slot):
+        block, ms = timed_call(engine.prefill_device, export, cache, page_ids, slot)
+        rec["export_ms"].append(ms)
+        flags = []
+        model._map_paged(lambda full, part: flags.append((full[page_ids] == part).all()),
+                         lambda full, part: flags.append((full[slot:slot + 1] == part).all()), cache, block)
+        if not all_true(flags):
+            rec["bad"].append(f"export {len(rec['export_ms'])}: the block differs from the prefill pool")
+        snapshots.append(tree_map(torch.clone, block))
+        return block
+
+    def checked_import(cache, block, page_ids, slot):
+        out, ms = timed_call(engine.decode_device, import_, cache, block, page_ids, slot)
+        rec["import_ms"].append(ms)
+        ids = np.asarray(page_ids, np.int64)
+        lanes = torch.from_numpy(np.flatnonzero(ids)).to(engine.decode_device)
+        dst = torch.from_numpy(ids[ids != 0]).to(engine.decode_device)
+        flags = [(a == b.to(a.device)).all() for a, b in zip(tree_leaves(block), tree_leaves(snapshots.popleft()))]
+        model._map_paged(lambda full, part: flags.append((full[dst] == part[lanes]).all()),
+                         lambda full, part: flags.append((full[slot:slot + 1] == part).all()), out, block)
+        if not all_true(flags):
+            rec["bad"].append(f"import {len(rec['import_ms'])}: the decode pool differs from the block, "
+                              "or the block changed while it waited at the seam")
+        return out
+
+    def restore():
+        engine.prefill.export, engine.decode.import_ = export, import_
+
+    engine.prefill.export, engine.decode.import_ = checked_export, checked_import
+    rec["restore"] = restore
+    return rec
+
+
+def counted_serve(engine, prompts, new_tokens: int) -> tuple:
+    """Serve ``prompts`` (even ones greedy, odd ones t=0.8 top_k=50) with
+    every launch counter zeroed just before ``run()`` and read just after,
+    the prefill worker's tail ticks and first-token samples counted.
+    Returns (results in submission order, request ids, wall s, launches,
+    {"tail_ticks", "first_tokens"})."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+
+    counts = {"tail_ticks": 0, "first_tokens": 0}
+    tick, sample_first = engine.prefill.tick, engine._sample_first
+
+    def counted_tick():
+        step = tick()
+
+        def run(*args, **kwargs):
+            counts["tail_ticks"] += 1
+            return step(*args, **kwargs)
+
+        return run
+
+    def counted_first(req, logits):
+        counts["first_tokens"] += 1
+        return sample_first(req, logits)
+
+    engine.prefill.tick, engine._sample_first = counted_tick, counted_first
+    ids = [engine.submit(p, max_new_tokens=new_tokens, temperature=0.0 if i % 2 == 0 else 0.8,
+                         top_k=0 if i % 2 == 0 else 50) for i, p in enumerate(prompts)]
+    devices = {engine.prefill_device, engine.decode_device}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    for ops in (paged_ops, gla_ops, flash_ops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    launches = {**paged_ops.LAUNCHES, **gla_ops.LAUNCHES, **flash_ops.LAUNCHES}
+    engine.prefill.tick, engine._sample_first = tick, sample_first
+    return [results[rid] for rid in ids], ids, wall, launches, counts
+
+
+def serve_disagg(label: str, cfg, warmup, prompts, fresh_prompts, reference: list, reference_tick_ms: float,
+                 reference_ttft_ms: float, devices=None) -> dict:
+    """Phases 28-29: the disaggregated engine serving ``cfg`` at full width,
+    both workers on cuda:0 (two pools, two caches, the export / move /
+    import seam; ``devices``, a (prefill, decode) pair, puts them on two
+    cards instead), on phase 4's traffic: 8 slots, cache 2048, pages of 16,
+    256-token chunks, prefill ring 2. After the warm-up request ``warmup``
+    (as the paged run before it had), a checked run on ``prompts`` under
+    REPRO_SANITIZE=1 with the seam wrapped (seam_checks) and the counters
+    zeroed just before and read just after: every request completes, 8
+    transfers, the greedy streams equal ``reference`` (the paged engine's on
+    the same weights and prompts) bit for bit, the blocks bit-exact across
+    the seam, the launches those the stats predict (the paged decode once
+    an attention layer a decode tick and a tail tick, the chunk prefill once
+    an attention layer a chunk, the GLA forward once a Mamba2 layer a chunk,
+    the sampler once a tick and a first token), the decode worker without a
+    chunk step and the prefill worker with at most one a size and one tail
+    tick at width 2, both workers on the same weight tensors. Then a timed
+    run, sanitizers off and nothing wrapped, on ``fresh_prompts`` (phase 4's
+    shape, new suffixes): tok/s, the median decode tick against the paged
+    engine's, TTFT p50, the seam's bytes, export and import ms, both pools'
+    peaks and the peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import sanitize
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import DisaggregatedEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    attn = sum(seg.repeat for seg in cfg.segments if seg.shared_attn) + sum(
+        seg.repeat * sum(b.mixer in ("attn", "swa") for b in seg.body) for seg in cfg.segments)
+    mamba = sum(seg.repeat * sum(b.mixer == "mamba2" for b in seg.body) for seg in cfg.segments)
+    pair = tuple(devices or (torch.device("cuda", 0),) * 2)
+    model = LanguageModel(cfg)
+    params = model.init(seed=0, device=pair[0])
+    for d in set(pair):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    engine = DisaggregatedEngine(
+        model, params, max_slots=DISAGG["slots"], page_size=DISAGG["page_size"], cache_len=DISAGG["cache_len"],
+        prefill_chunks=(DISAGG["chunk"],), prefill_slots=DISAGG["prefill_slots"], seed=0,
+        prefill_device=pair[0], decode_device=pair[1],
+    )
+    if (engine.prefill_device, engine.decode_device) != pair:
+        fail(f"{label}: the workers are on {engine.prefill_device} and {engine.decode_device}, not {pair}")
+    if not all(a is b and (b is c) == (pair[0] == pair[1]) for a, b, c in zip(
+            tree_leaves(params), tree_leaves(engine.prefill.params), tree_leaves(engine.decode.params))):
+        fail(f"{label}: the workers do not share the weight tensors on one card (or copy them to a second)")
+
+    def expect_launches(stats, counts) -> dict:
+        ticks = stats["ticks"] + counts["tail_ticks"]
+        return {"paged_flash_decode": attn * ticks, "paged_chunk_prefill": attn * stats["prefill_chunks"],
+                "fused_sample": ticks + counts["first_tokens"], "gla_fwd": mamba * stats["prefill_chunks"],
+                "gla_bwd": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+    def check_launches(what, launches, stats, counts):
+        for kname, n in expect_launches(stats, counts).items():
+            if launches.get(kname, 0) != n:
+                fail(f"{label} {what}: {kname} launched {launches.get(kname, 0)} times, not {n} "
+                     f"(stats {dict((k, stats[k]) for k in ('ticks', 'prefill_chunks'))}, {counts})")
+
+    new = 32
+    try:
+        with sanitizers_on():
+            if not sanitize.enabled():
+                fail(f"{label}: REPRO_SANITIZE=1 did not enable the sanitizers")
+            engine.submit(warmup, max_new_tokens=4)
+            engine.run()
+            engine.reset_stats()
+            seam = seam_checks(engine)
+            streams, ids, checked_wall, launches, counts = counted_serve(engine, prompts, new)
+            seam.pop("restore")()
+    except sanitize.SanitizerError as e:
+        fail(f"{label}: a sanitizer fired: {e}")
+    stats = copy.deepcopy(engine.stats)
+    for row in streams:
+        if len(row) != len(prompts[0]) + new or row.min() < 0 or row.max() >= cfg.vocab_size:
+            fail(f"{label}: bad stream {row[len(prompts[0]):].tolist()}")
+    if stats["transfers"] != len(prompts):
+        fail(f"{label}: {stats['transfers']} transfers, not {len(prompts)}")
+    for i in range(0, len(prompts), 2):
+        if not np.array_equal(streams[i], reference[i // 2]):
+            fail(f"{label}: greedy request {i} differs from the paged engine's: "
+                 f"{streams[i][len(prompts[0]):].tolist()} vs {reference[i // 2][len(prompts[0]):].tolist()}")
+    if seam["bad"] or len(seam["export_ms"]) != len(prompts) or len(seam["import_ms"]) != len(prompts):
+        fail(f"{label}: seam {seam['bad']}, {len(seam['export_ms'])} exports, {len(seam['import_ms'])} imports")
+    check_launches("checked run", launches, stats, counts)
+    if engine.decode._chunk_steps or engine.decode.prefill_chunks:
+        fail(f"{label}: the decode worker built chunk steps {sorted(engine.decode._chunk_steps)}")
+    if not set(engine.prefill._chunk_steps) <= {DISAGG["chunk"]} or not set(engine.prefill._decodes) <= {2}:
+        fail(f"{label}: the prefill worker built chunk steps {sorted(engine.prefill._chunk_steps)} and ticks "
+             f"{sorted(engine.prefill._decodes)}")
+    for worker in (engine.prefill, engine.decode):
+        worker.pool.check()
+
+    # the timed run: the same shape of traffic, nothing wrapped, sanitizers off
+    engine.reset_stats()
+    for d in set(pair):
+        torch.cuda.reset_peak_memory_stats(d)
+    _, tids, wall, tlaunches, tcounts = counted_serve(engine, fresh_prompts, new)
+    tstats, mem = copy.deepcopy(engine.stats), engine.memory_stats()
+    check_launches("timed run", tlaunches, tstats, tcounts)
+    peak = max(torch.cuda.max_memory_allocated(d) for d in set(pair))
+    tick_ms = float(np.median(tstats["decode_tick_s"])) * 1e3
+    ttft_ms = float(np.median([engine.scheduler.requests[rid].ttft_s for rid in tids])) * 1e3
+    export_ms, import_ms = float(np.median(seam["export_ms"])), float(np.median(seam["import_ms"]))
+    print(f"{label} disagg: {len(tids)} requests x {new} tokens in {wall:.3f} s | decode {tstats['decoded_tokens']} "
+          f"tokens = {tstats['decoded_tokens'] / wall:.1f} tok/s | median decode tick {tick_ms:.2f} ms "
+          f"(the paged engine's {reference_tick_ms:.2f}) | TTFT p50 {ttft_ms:.1f} ms (the paged engine's "
+          f"{reference_ttft_ms:.1f}) | {tstats['transfers']} transfers, {tstats['pages_streamed']} pages "
+          f"streamed, {tstats['pages_adopted']} adopted, seam {tstats['seam_bytes']} bytes | export "
+          f"{export_ms:.3f} ms, import {import_ms:.3f} ms (median device ms of the checked run) | pools' peaks: "
+          f"prefill {mem['prefill_pages_peak']}/{mem['prefill_pages_capacity']}, decode "
+          f"{mem['pages_peak']}/{mem['pages_capacity']} | peak memory {peak / 2**30:.1f} GiB", flush=True)
+    print(f"{label} disagg checked run (REPRO_SANITIZE=1, the seam checked): {checked_wall:.3f} s, no sanitizer "
+          f"error; greedy streams equal the paged engine's; {len(seam['export_ms'])} blocks bit-exact across the "
+          f"seam | launches {launches} = predicted ({stats['ticks']} decode ticks, {counts['tail_ticks']} tail "
+          f"ticks, {stats['prefill_chunks']} chunks, {counts['first_tokens']} first tokens) | steps built: decode "
+          f"{sorted(engine.decode._decodes)}, prefill chunk {sorted(engine.prefill._chunk_steps)}, tail "
+          f"{sorted(engine.prefill._decodes)}", flush=True)
+    out = {"wall_s": wall, "decoded_tokens": tstats["decoded_tokens"], "tok_s": tstats["decoded_tokens"] / wall,
+           "median_decode_tick_ms": tick_ms, "reference_decode_tick_ms": reference_tick_ms,
+           "ttft_p50_ms": ttft_ms, "reference_ttft_p50_ms": reference_ttft_ms, "transfers": tstats["transfers"],
+           "pages_streamed": tstats["pages_streamed"], "pages_adopted": tstats["pages_adopted"],
+           "seam_bytes": tstats["seam_bytes"], "export_ms": seam["export_ms"], "import_ms": seam["import_ms"],
+           "memory": mem, "peak_gib": peak / 2**30, "checked_wall_s": checked_wall,
+           "launches": {k: launches.get(k, 0) + tlaunches.get(k, 0) for k in set(launches) | set(tlaunches)},
+           "checked": {"ticks": stats["ticks"], "prefill_chunks": stats["prefill_chunks"], **counts}}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def disagg_small_input_agreement(arch: str, smoke=None) -> None:
+    """Greedy tokens of the disaggregated engine on the card (kernels) equal
+    the CPU path's (plain versions) on ``arch`` smoke (or ``smoke``) in
+    float32, under REPRO_SANITIZE=1."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.serve import DisaggregatedEngine
+
+    cfg = (smoke or get_config(arch, "smoke")).replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 9)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 3 + i)]) for i in range(5)] + [prefix]
+    streams = {}
+    with sanitizers_on():
+        for device in ("cpu", "cuda"):
+            engine = DisaggregatedEngine(model, to_device(cpu_params, device), cache_len=64, max_slots=2,
+                                         page_size=4, prefill_chunks=(4,), prefill_slots=2, seed=0, device=device)
+            ids = [engine.submit(p, max_new_tokens=5) for p in prompts]
+            out = engine.run()
+            streams[device] = [out[i].tolist() for i in ids]
+    if streams["cpu"] != streams["cuda"]:
+        fail(f"{arch} disaggregated small-input greedy tokens differ: cpu {streams['cpu']} vs cuda {streams['cuda']}")
+
+
+
 def main() -> None:
     import torch
 
@@ -3615,7 +3940,8 @@ def main() -> None:
         ]
 
     # warm-up: one request publishes the shared prefix to the radix index
-    engine.submit(prompt(), max_new_tokens=4)
+    warmup = prompt()
+    engine.submit(warmup, max_new_tokens=4)
     engine.run()
     engine.reset_stats()
     ids = submit_batch()
@@ -3634,6 +3960,9 @@ def main() -> None:
             fail(f"request {rid}: bad generated tokens {gen_tokens.tolist()}")
     engine.pool.check()
     stats, mem = copy.deepcopy(engine.stats), engine.memory_stats()  # phase 6 serves on
+    # phase 28 serves the same requests through the disaggregated engine
+    paged_greedy = [results[rid] for rid in ids[::2]]
+    paged_ttft_ms = sorted(engine.scheduler.requests[rid].ttft_s for rid in ids)[len(ids) // 2] * 1e3
     if stats["prefix_tokens_reused"] <= 0:
         fail("no prefix tokens were reused")
     for kname, n in launches.items():
@@ -3747,7 +4076,8 @@ def main() -> None:
     # 15-16. zamba2-2.7b at full width: served, then trained (Mamba2 through the GLA
     # kernels with the current token included, the shared attention at D 80)
     zamba2 = get_config("zamba2-2.7b", "full")
-    zamba2_serving = serve_zamba2(zamba2)
+    zamba2_kept: dict = {}  # phase 29 serves phase 15's requests again
+    zamba2_serving = serve_zamba2(zamba2, zamba2_kept)
     phase_done("15 zamba2 serving")
     zamba2_training = train_zamba2(zamba2)
     phase_done("16 zamba2 training")
@@ -3785,6 +4115,27 @@ def main() -> None:
     phase_done("26 elastic exact sync")
     local_sgd = elastic_local(elastic_cfg, smi)
     phase_done("27 elastic local SGD")
+    # 28-29. disaggregated prefill/decode serving, both workers on the card,
+    # on phase 4's and phase 15's weights and requests, under the sanitizers
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg = {}
+    for key, arch_cfg, kept, seed in (
+            ("qwen2.5-3b", cfg, {"warmup": warmup, "prompts": served[0], "prefix": prefix, "greedy": paged_greedy,
+                                 "tick_ms": decode_tick_ms, "ttft_ms": paged_ttft_ms}, 28),
+            ("zamba2-2.7b", zamba2, {**zamba2_kept, "tick_ms": zamba2_serving["median_decode_tick_ms"]}, 29)):
+        fresh_rng = torch.Generator().manual_seed(seed)
+        fresh = [torch.cat([kept["prefix"], torch.randint(0, arch_cfg.vocab_size, (256,), generator=fresh_rng)])
+                 .numpy() for _ in range(8)]
+        disagg[key] = serve_disagg(f"phase {seed}", arch_cfg, kept["warmup"], kept["prompts"], fresh,
+                                   kept["greedy"], kept["tick_ms"], kept["ttft_ms"])
+        phase_done(f"{seed} {key} disaggregated serving")
+    for arch, small in (("qwen2.5-3b", None), ("rwkv6-1.6b", None), ("zamba2-2.7b", zamba2_smoke())):
+        disagg_small_input_agreement(arch, small)
+    print("phase 29 disagg small input: greedy tokens of the disaggregated engine on the card equal the CPU "
+          "path's on qwen2.5-3b, rwkv6-1.6b and zamba2-2.7b smoke (ssm_state 64), f32, under REPRO_SANITIZE=1",
+          flush=True)
+    phase_done("28-29 disagg small input")
     print("phase seconds: " + ", ".join(f"{n} {x:.1f}" for n, x in phase_s.items())
           + f" | total {sum(phase_s.values()):.1f}", flush=True)
 
@@ -3876,6 +4227,15 @@ def main() -> None:
         all_launches[kname] += elastic["launches"][kname]
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
         all_launches[kname] += local_sgd["launches"][kname]
+    # the disaggregated paths (phases 28-29): qwen2.5-3b's kernels and zamba2's D 80
+    # attention, Mamba2's GLA and its sampler at V 32,000
+    for kname in ("paged_flash_decode", "paged_chunk_prefill", "fused_sample"):
+        all_launches[kname] += disagg["qwen2.5-3b"]["launches"][kname]
+    zamba2_disagg = disagg["zamba2-2.7b"]["launches"]
+    for kname in ("paged_flash_decode", "paged_chunk_prefill"):
+        all_launches[f"{kname}_d80"] += zamba2_disagg[kname]
+    all_launches["gla_fwd_mamba2"] += zamba2_disagg["gla_fwd"]
+    all_launches["fused_sample_v32000"] += zamba2_disagg["fused_sample"]
     unlaunched = [kname for kname in records if all_launches.get(kname, 0) <= 0]
     if unlaunched:
         fail(f"kernels not launched on their main paths: {unlaunched}")
@@ -3939,7 +4299,7 @@ def main() -> None:
                     "library": {n: {key: records[n][key] for key in (
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
-        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd},
+        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd}, "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

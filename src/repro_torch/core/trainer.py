@@ -23,8 +23,11 @@ The run loop goes through the JAX trainer's hook seams (``_before_update``,
 ``_place_batch``, ``_execute``, ``_after_update``, ``_comm_counters``,
 ``_ready_to_save``, ``_save_view``, ``_finalize``, ``_meta_extra``,
 ``_restore_extra``): each does nothing here, and
-:class:`repro_torch.distributed.ElasticTrainer` fills them in. Not yet
-ported: the sanitizer hooks (the analysis slice).
+:class:`repro_torch.distributed.ElasticTrainer` fills them in. With
+``REPRO_SANITIZE=1`` the loop checks each update's loss and gradient norm
+for NaN/Inf and audits the tracer at the end of the run, as the JAX
+trainer does (:mod:`repro_torch.analysis.sanitize`); the elastic trainer's
+ranks run the same loop, and so the same hooks.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.analysis import sanitize
 from repro_torch.checkpoint import CheckpointManager, train_state_from_tree, train_state_tree
 from repro_torch.core.noise_scale import GradientNoiseScale
 from repro_torch.core.schedules import Schedule
@@ -274,6 +278,8 @@ class SEBSTrainer:
             self.metrics.histogram("train.update_s", labels={"stage": plan.stage}).observe(t1 - t0)
             self.metrics.counter("train.updates").inc()
             self.metrics.counter("train.samples").inc(plan.batch_size)
+            if sanitize.enabled():
+                sanitize.check_finite_update(dict(metrics, loss=loss), update=update, stage=plan.stage)
             # adaptive schedules consume the measured loss; the GNS estimator
             # consumes the per-microbatch grad norms of accumulate mode
             if hasattr(self.controller.schedule, "observe"):
@@ -309,6 +315,8 @@ class SEBSTrainer:
                     self._save(checkpointer, update, state, log, gns)
                     save_pending = False
         state = self._finalize(state)
+        if sanitize.enabled():
+            sanitize.audit_tracer(self.tracer, where="(train run end)")
         if checkpointer is not None:
             # farewell save unless this exact update is already on disk
             if not interrupted and update and update != self._last_saved:

@@ -11,14 +11,16 @@ rank creates all the power-of-two prefix groups at start-up
 prefixes of one worker order, so replica r keeps its device across every
 stage it takes part in.
 
-``make_production_mesh``, ``make_host_mesh`` and ``make_disagg_submeshes``
-come with the sharding and disaggregated-serving slices.
+:func:`make_disagg_submeshes` carves two disjoint device grids for
+disaggregated serving. ``make_production_mesh`` and ``make_host_mesh`` come
+with the sharding slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -74,3 +76,34 @@ def make_data_mesh(width: int, devices: Optional[Sequence] = None,
             raise ValueError(f"no process group for width {width} (widths are powers of two)")
         group = groups[width]
     return DataMesh(tuple(torch.device(d) for d in devices[:width]), group, exchange if width > 1 else None)
+
+
+def make_disagg_submeshes(prefill_pods: int = 1, decode_pods: int = 1, data: int = 1, model: int = 1,
+                          devices: Optional[Sequence] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Carve one ``("pod", "data", "model")`` device grid into a disjoint
+    (prefill, decode) pair for disaggregated serving, the JAX package's
+    ``make_disagg_submeshes``.
+
+    The first ``(prefill_pods + decode_pods) * data * model`` devices are
+    laid out as a pod-major grid and split along the pod axis: pods
+    ``[0, prefill_pods)`` become the prefill grid, the rest the decode grid.
+    Returns ``(prefill, decode)``, object arrays of ``torch.device`` of
+    shape ``(pods, data, model)``; a worker of
+    :class:`~repro_torch.serve.engine.DisaggregatedEngine` takes its grid's
+    lead device (``grid.flat[0]``). ``devices`` default to the visible CUDA
+    devices (:func:`visible_devices`); on the CPU pass ``[cpu] * n``, the
+    counterpart of the JAX package's forced host devices.
+    """
+    if prefill_pods < 1 or decode_pods < 1:
+        raise ValueError("prefill_pods and decode_pods must each be >= 1")
+    devices = visible_devices() if devices is None else list(devices)
+    need = (prefill_pods + decode_pods) * data * model
+    if len(devices) < need:
+        raise ValueError(
+            f"need {need} devices for a ({prefill_pods}+{decode_pods})x{data}x{model} "
+            f"submesh pair, have {len(devices)}"
+        )
+    grid = np.empty((need,), object)
+    grid[:] = [torch.device(d) for d in devices[:need]]
+    grid = grid.reshape(prefill_pods + decode_pods, data, model)
+    return grid[:prefill_pods], grid[prefill_pods:]

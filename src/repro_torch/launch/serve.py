@@ -15,6 +15,12 @@
     # on the CPU (the kernels' plain versions), smoke width
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged --device cpu
 
+    # disaggregated prefill/decode: the prefill worker on the first
+    # --prefill-devices devices' lead, the decode worker on the next
+    # --decode-devices' (two cards at least, or --device cpu)
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine disagg \
+        --requests 12 --slots 4 --prefill-devices 1 --decode-devices 1
+
 ``--arch`` takes the ported families: the dense decoders (gemma2-9b's
 soft-capped attention included), rwkv6-1.6b and zamba2-2.7b (whose
 recurrent state rides per slot beside the page pool; prefix sharing is off
@@ -24,8 +30,11 @@ of its own). whisper-tiny runs in the engines, which take each request's
 audio embeddings (``submit(..., memory=...)``); this launcher, like the JAX
 package's, makes no audio, so ``--arch whisper-tiny`` is an error naming
 the missing input. The default engine is
-``paged``; the disaggregated engine of the JAX launcher comes with a later
-slice, and asking for it is an error.
+``paged``. ``--engine disagg`` needs ``--prefill-devices +
+--decode-devices`` devices, as the JAX launcher does: on one card it stops,
+naming how many it needs (the engine API, ``DisaggregatedEngine``, runs
+both workers on one card); with ``--device cpu`` the devices are that many
+CPU devices, all the CPU.
 """
 from __future__ import annotations
 
@@ -38,13 +47,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_disagg_submeshes, visible_devices
 from repro_torch.models import LanguageModel
 from repro_torch.obs import MetricsRegistry, Tracer
-from repro_torch.serve import ContinuousBatchingEngine, PagedContinuousBatchingEngine, ServeEngine
+from repro_torch.serve import (
+    ContinuousBatchingEngine,
+    DisaggregatedEngine,
+    PagedContinuousBatchingEngine,
+    ServeEngine,
+)
 
 log = logging.getLogger("repro_torch.serve")
-
-_DISAGG = "the disaggregated-serving slice"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -58,7 +71,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weights, prompts and sampling noise")
     ap.add_argument("--batch", type=int, default=4, help="static: batch size")
-    ap.add_argument("--requests", type=int, default=8, help="continuous, paged: request count")
+    ap.add_argument("--requests", type=int, default=8, help="continuous, paged, disagg: request count")
     ap.add_argument("--slots", type=int, default=4, help="max slot-ring width")
     ap.add_argument("--b1", type=int, default=None,
                     help="initial slot budget (default: --slots, no ramp)")
@@ -80,15 +93,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--no-prefix-cache", dest="prefix_cache", action="store_false")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give all requests a common prompt prefix of this length")
+    ap.add_argument("--prefill-devices", type=int, default=1, help="disagg: pods in the prefill submesh")
+    ap.add_argument("--decode-devices", type=int, default=1, help="disagg: pods in the decode submesh")
+    ap.add_argument("--prefill-slots", type=int, default=2, help="disagg: prefill worker ring width")
+    ap.add_argument("--prefill-pages", type=int, default=None,
+                    help="disagg: prefill pool size in pages (default: prompt-dense-equivalent for the "
+                         "prefill ring)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace_event JSON of the run")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="dump the metrics registry snapshot as JSON")
     args = ap.parse_args(argv)
 
-    if args.engine == "disagg":
-        ap.error(f"--engine disagg comes with {_DISAGG} of the port; "
-                 "this one serves --engine static, continuous and paged")
     for flag, value, low in (
         ("--batch", args.batch, 1),
         ("--requests", args.requests, 1),
@@ -121,15 +137,44 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.engine == "static" and args.b1 is not None:
         ap.error("--b1 requires --engine continuous or paged")
     if args.engine == "static" and (args.trace or args.metrics):
-        ap.error("--trace/--metrics require a scheduled engine (--engine continuous or paged)")
-    if args.engine != "paged":
-        for flag, given in (("--pages", args.pages is not None), ("--chunk", args.chunk is not None),
-                            ("--shared-prefix", args.shared_prefix > 0)):
-            if given:
-                ap.error(f"{flag} requires --engine paged")
+        ap.error("--trace/--metrics require a scheduled engine (--engine continuous, paged, or disagg)")
+    if args.engine not in ("paged", "disagg"):
+        if args.pages is not None:
+            ap.error("--pages requires --engine paged or disagg")
+        if args.chunk is not None:
+            ap.error("--chunk requires --engine paged or disagg")
+        if args.shared_prefix:
+            ap.error("--shared-prefix requires --engine paged or disagg (prefix sharing)")
+    if args.engine != "disagg":
+        for flag, value, default in (("--prefill-devices", args.prefill_devices, 1),
+                                     ("--decode-devices", args.decode_devices, 1),
+                                     ("--prefill-slots", args.prefill_slots, 2),
+                                     ("--prefill-pages", args.prefill_pages, None)):
+            if value != default:
+                ap.error(f"{flag} requires --engine disagg")
+    else:
+        if args.prefill_devices < 1 or args.decode_devices < 1:
+            ap.error("--prefill-devices and --decode-devices must each be >= 1")
+        if args.prefill_slots < 1:
+            ap.error("--prefill-slots must be >= 1")
+        if args.prefill_pages is not None and args.prefill_pages < 2:
+            ap.error(f"--prefill-pages must be >= 2 (pool reserves scratch page 0; got {args.prefill_pages})")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
+
+    grids = None
+    if args.engine == "disagg":
+        # the JAX launcher's devices: the visible cards (or, with --device
+        # cpu, as many CPU devices as the grids take); never fewer
+        need = args.prefill_devices + args.decode_devices
+        devices = visible_devices() if args.device == "cuda" else [torch.device("cpu")] * need
+        try:
+            grids = make_disagg_submeshes(prefill_pods=args.prefill_devices, decode_pods=args.decode_devices,
+                                          devices=devices)
+        except ValueError as e:
+            ap.error(f"--engine disagg: {e} (the launcher puts the prefill and decode workers on "
+                     "disjoint devices; DisaggregatedEngine runs both on one card through its API)")
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
@@ -160,7 +205,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     tracer = Tracer() if args.trace else None
     metrics = MetricsRegistry() if args.metrics else None
-    if args.engine == "paged":
+    if args.engine == "disagg":
+        prefill_grid, decode_grid = grids
+        engine = DisaggregatedEngine(
+            model, params, cache_len=args.cache_len, max_slots=args.slots,
+            b1=args.b1, rho=args.rho, patience=args.patience, seed=args.seed,
+            page_size=args.page_size, num_pages=args.pages, prefix_cache=args.prefix_cache,
+            prefill_chunks=tuple(args.chunk) if args.chunk else (32,),
+            prefill_slots=args.prefill_slots, prefill_pages=args.prefill_pages,
+            prefill_device=prefill_grid.flat[0], decode_device=decode_grid.flat[0],
+            tracer=tracer, metrics=metrics, device=args.device,
+        )
+        axes = ("pod", "data", "model")
+        log.info("disagg submeshes: prefill %s on %s | decode %s on %s",
+                 dict(zip(axes, prefill_grid.shape)), engine.prefill_device,
+                 dict(zip(axes, decode_grid.shape)), engine.decode_device)
+    elif args.engine == "paged":
         engine = PagedContinuousBatchingEngine(
             model, params, cache_len=args.cache_len, max_slots=args.slots,
             b1=args.b1, rho=args.rho, patience=args.patience, seed=args.seed,
@@ -205,6 +265,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             100 * mem["prefix_hit_rate"], engine.stats["prefill_tokens_computed"],
             engine.stats["prefix_tokens_reused"], mem["kv_bytes_peak"] // 1024,
         )
+    if args.engine == "disagg":
+        log.info("streamed %d transfer(s), %d page(s), %d KiB over the seam | adopted %d page(s) "
+                 "decode-side | prefill pool peak %d/%d", engine.stats["transfers"],
+                 engine.stats["pages_streamed"], engine.stats["seam_bytes"] // 1024,
+                 engine.stats["pages_adopted"], mem["prefill_pages_peak"], mem["prefill_pages_capacity"])
     if tracer is not None:
         tracer.dump_chrome(args.trace)
     if metrics is not None:

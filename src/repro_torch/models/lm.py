@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -236,6 +237,45 @@ class LanguageModel:
         for leaf in self._kv_leaves(cache):
             leaf[dst].copy_(leaf[src])
         return cache
+
+    def paged_export_slot(self, cache, page_ids, slot: int):
+        """One slot's streamable state (disaggregated serving): the attention
+        pages ``page_ids`` ((K,) int64 tensor on the cache's device, padded
+        with the scratch page 0 past the prompt) gathered along the page
+        axis, and the slot's recurrent state row. The result has the cache's
+        tree structure and pool-size-free shapes, ``(K, page_size, ...)`` KV
+        and ``(1, ...)`` state, so it can be moved to another device and
+        scattered into a pool of any size there. Every leaf is a copy: the
+        prefill pool's pages and row are reused as soon as the export
+        returns, and on one device the move across the seam copies nothing."""
+        return self._map_paged(lambda leaf: leaf.index_select(0, page_ids),
+                               lambda leaf: leaf[slot:slot + 1].clone(), cache)
+
+    def paged_import_slot(self, cache, block, page_ids, slot: int):
+        """Scatter a streamed export into this pool's pages and state row
+        ``slot``, in place. ``page_ids`` ((K,) host ints) maps each lane of
+        the block to its page here; a lane mapped to 0 (padding, or a page
+        the local prefix index already holds) is not written, so the scratch
+        page 0 is never touched and no page is written twice."""
+        ids = np.asarray(page_ids, np.int64)
+        lanes = np.flatnonzero(ids)
+        index = {}  # (lanes, pages) as tensors, once a device
+
+        def on(device):
+            if device not in index:
+                index[device] = (torch.from_numpy(lanes).to(device), torch.from_numpy(ids[lanes]).to(device))
+            return index[device]
+
+        def put_pages(full, part):
+            lanes_part = part.index_select(0, on(part.device)[0])
+            full.index_copy_(0, on(full.device)[1], lanes_part.to(full.device, full.dtype))
+            return full
+
+        def put_row(full, part):
+            full[slot:slot + 1].copy_(part)
+            return full
+
+        return self._map_paged(put_pages, put_row, cache, block)
 
     def paged_kv_bytes_per_page(self, page_size: int, dtype=torch.bfloat16) -> int:
         """Host-side accounting: bytes one page occupies across all

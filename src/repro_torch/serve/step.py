@@ -1,5 +1,6 @@
 """Serving steps: the decode tick of the dense slot ring (continuous
-batching), and the paged decode tick and chunk prefill. The dense prefill
+batching), the paged decode tick and chunk prefill, and the page export
+and import of disaggregated serving. The dense prefill
 and the static batch's decode are ``LanguageModel.prefill`` and
 ``LanguageModel.decode_step`` themselves.
 
@@ -98,5 +99,31 @@ def build_chunk_prefill_step(model: LanguageModel):
 
     def step(params, tokens, cache, pos_start, slot, page_table, memory=None):
         return model.prefill_chunk(params, tokens, cache, pos_start, slot, page_table, memory=memory)
+
+    return step
+
+
+def build_page_export_step(model: LanguageModel):
+    """Page-streaming gather (disaggregated serving, prefill side): one
+    slot's prompt pages and recurrent state row out of the prefill pool, as
+    a pool-size-free block of copies (``LanguageModel.paged_export_slot``).
+    ``page_ids`` is (max_pages,) on the cache's device, padded with the
+    scratch page 0, as in the JAX package."""
+
+    def step(cache, page_ids, slot):
+        return model.paged_export_slot(cache, page_ids, slot)
+
+    return step
+
+
+def build_page_import_step(model: LanguageModel):
+    """Page-streaming scatter (disaggregated serving, decode side): a
+    streamed block into this pool at the remapped ``page_ids`` ((max_pages,)
+    host ints; 0 is a lane not written: padding, or a page the local prefix
+    index already holds) and the state row at ``slot``, in place
+    (``LanguageModel.paged_import_slot``)."""
+
+    def step(cache, block, page_ids, slot):
+        return model.paged_import_slot(cache, block, page_ids, slot)
 
     return step

@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                     ROOT / "tools" / "cardbench.py",
                                                                     ROOT / "tools" / "sample_bench.py",
-                                                                    ROOT / "tools" / "trace_check.py"]
+                                                                    ROOT / "tools" / "trace_check.py",
+                                                                    ROOT / "tools" / "disagg_check.py"]
 
 
 def _imported_modules(path: Path):
@@ -53,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.experiments.fig2_optimal_batch, repro_torch.experiments.fig3_stagewise\n"
         "import repro_torch.experiments.adaptive_sebs, repro_torch.experiments.sebs_vs_stagewise\n"
         "import repro_torch.distributed, repro_torch.launch.mesh, repro_torch.experiments.table_comm\n"
+        "import repro_torch.analysis.sanitize\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"

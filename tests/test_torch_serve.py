@@ -109,15 +109,12 @@ def test_launcher_serves_on_cpu():
 
 @pytest.mark.parametrize("engine", ["static", "continuous", "disagg"])
 def test_launcher_names_the_later_slice(engine, capsys):
-    """disagg waits for its slice. The static and continuous engines serve
-    every family; whisper needs per-request audio, which the launcher (like
-    the JAX launcher) does not make, so it stops naming that input."""
-    argv = ["--engine", engine, "--device", "cpu"]
-    if engine != "disagg":
-        argv += ["--arch", "whisper-tiny"]
+    """Every engine serves the decoder families; whisper needs per-request
+    audio, which the launcher (like the JAX launcher) does not make, so it
+    stops naming that input."""
     with pytest.raises(SystemExit):
-        launcher.main(argv)
-    assert ("comes with" if engine == "disagg" else "audio memory") in capsys.readouterr().err
+        launcher.main(["--engine", engine, "--device", "cpu", "--arch", "whisper-tiny"])
+    assert "audio memory" in capsys.readouterr().err
 
 
 def test_engine_under_pool_pressure_matches_jax(weights):
