@@ -191,6 +191,16 @@
 27. Local SGD on the same model at budget 4 (momentum 0.9, local_interval 2,
     save_every 3): saves snap to updates [3, 6, 10, 12], losses finite, the
     state collapsed at the end, fewer collectives than updates.
+30. Rule-based storage sharding: SEBSTrainer(mesh=make_host_mesh(2, 2) on
+    cuda:0 x 4, param_axes=...) on phase 26's model and schedule: losses and
+    final params bit-identical to phase 26's budget 1; each worker launched
+    the fused pSGD once an update (on its shards) and the flash kernels for
+    its microbatches; each worker's memory_allocated between updates within
+    2% of its shards' bytes counted from the specs. Prints the gather, the
+    exchange (copy out / barriers / copy back) and the optimizer's ms and
+    the updates' ms by stage, and each worker's peak.
+31. ElasticTrainer(param_axes=...) at budget 4: losses and params
+    bit-identical to phase 26's budget 4; the same timings.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -3205,7 +3215,8 @@ def elastic_cut(cfg):
 
 
 def elastic_run(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}), eta: float = 1.0,
-                sync_mode: str = "exact", local_interval: int = 4, copy_params: bool = True, **run_kw):
+                sync_mode: str = "exact", local_interval: int = 4, copy_params: bool = True, param_axes=None,
+                **run_kw):
     """One ElasticTrainer run on ``budget`` workers of cuda:0 from ``params``
     (a copy of them unless ``copy_params`` is false; on the card, rank 0
     reads them through CUDA IPC) on phase 7's schedule (SEBS b1 4, C1 16,
@@ -3227,7 +3238,8 @@ def elastic_run(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}),
         LanguageModel(cfg), opt, SEBS(b1=4, C1=16, rho=2.0, num_stages=3, eta=eta),
         DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), device="cuda"), microbatch=4,
         sync_mode=sync_mode, local_interval=local_interval, device_budget=budget,
-        devices=[torch.device("cuda", 0)] * budget, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
+        devices=[torch.device("cuda", 0)] * budget, tracer=Tracer(), deadline=ELASTIC_DEADLINE,
+        param_axes=param_axes)
     t0 = time.perf_counter()
     state, log = trainer.run(TrainState(params, opt.init(params), 0), log_every=1, **run_kw)
     return log, time.perf_counter() - t0, trainer, state
@@ -3419,6 +3431,8 @@ def elastic_exact(cfg, smi: str) -> dict:
     print(f"phase 26 elastic: budgets 1, 2, 4 bit-identical (losses, stages, batches, GNS, params); killed at 9 "
           f"under budget 4 ({kwall:.1f} s, saves at 4, 8) and resumed under budget 2 ({rwall:.1f} s): "
           f"bit-identical | {smi}", flush=True)
+    # phases 30-31 are held to budget 1's run (budgets 2 and 4 equal it): its log and a host copy of its params
+    reference = (log1, [t.detach().cpu() for t in tree_leaves(state1.params)])
     del rstate, state1, runs, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3434,7 +3448,7 @@ def elastic_exact(cfg, smi: str) -> dict:
         fail(f"elastic launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
     print(f"phase 26 elastic launcher: --dp-elastic --variant smoke exit 0 in {time.perf_counter() - t0:.1f} s "
           f"| {comm[-1].strip()}", flush=True)
-    return {"budgets": out, "killed_wall_s": kwall, "resumed_wall_s": rwall, "launches": total}
+    return {"budgets": out, "killed_wall_s": kwall, "resumed_wall_s": rwall, "launches": total}, reference
 
 
 def elastic_local(cfg, smi: str) -> dict:
@@ -3483,6 +3497,162 @@ def elastic_local(cfg, smi: str) -> dict:
     return {"wall_s": wall, "losses": log.losses, "saves": saves, "ledger": acct.summary(), "sync_ms": sync_ms,
             "free_gib_at_start": free_gib,
             "launches": launches, **times}
+
+
+# -- rule-based storage sharding (phases 30-31) --------------------------------
+
+SHARD_MEMORY_TOL = 0.02  # a worker's between-update memory_allocated against its shards' bytes
+
+
+def shard_times(trainer, log) -> dict:
+    """Median ms per stage of the sharded step's parts on rank 0 (the shard
+    gather, the partials' exchange: copy out / barriers / copy back, the
+    optimizer on the shards), the updates' ms (rank 0's spans) and each
+    worker's peak GiB."""
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    spans = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
+    rows = trainer.worker_stats[0]["sharded"]
+    by_stage: dict = {}
+    for st, span, t in zip(log.stages, spans, rows):
+        by_stage.setdefault(st, []).append((span, t))
+    out = {}
+    for st, items in by_stage.items():
+        ex = [t["exchange"] for _, t in items]
+        out[st] = {"update_ms": med([s for s, _ in items]), "gather_ms": med([t["gather_s"] for _, t in items]) * 1e3,
+                   "exchange_ms": {p: med([e[f"{p}_s"] for e in ex]) * 1e3
+                                   for p in ("copy_out", "collective", "copy_back")},
+                   "optimizer_ms": med([t["update_s"] for _, t in items]) * 1e3}
+    return {"by_stage": out, "peak_gib": [s["peak_bytes"] / 2**30 for s in trainer.worker_stats],
+            "exchange": trainer.worker_stats[0]["exchange"]}
+
+
+def print_shard_times(label: str, times: dict, smi: str) -> None:
+    print(f"phase {label}: by stage " + "; ".join(
+        f"{st}: update {t['update_ms']:.1f} ms, gather {t['gather_ms']:.1f}, exchange "
+        f"{t['exchange_ms']['copy_out']:.1f} / {t['exchange_ms']['collective']:.1f} / "
+        f"{t['exchange_ms']['copy_back']:.1f} (copy out / barriers / copy back), optimizer {t['optimizer_ms']:.1f}"
+        for st, t in times["by_stage"].items())
+        + f" | exchange {times['exchange']} | worker peaks GiB " + ", ".join(f"{x:.2f}" for x in times["peak_gib"])
+        + f" | {smi}", flush=True)
+
+
+def same_as_reference(label: str, log, params, reference) -> None:
+    """The run's losses, stages, batch sizes, GNS and final params against
+    phase 26's budget-1 run, bit for bit."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    ref_log, ref_params = reference
+    same = all(torch.equal(a.detach().cpu(), b) for a, b in zip(tree_leaves(params), ref_params, strict=True))
+    if (log.losses != ref_log.losses or log.stages != ref_log.stages or log.batch_sizes != ref_log.batch_sizes
+            or json.dumps(log.noise_scales) != json.dumps(ref_log.noise_scales) or not same):
+        fail(f"{label}: not bit-identical to phase 26's budget 1 (losses {log.losses} vs {ref_log.losses}, "
+             f"params equal {same})")
+
+
+def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 2)") -> dict:
+    """Phase 30: SEBSTrainer on a (2, 2) host mesh of four workers sharing
+    cuda:0 (or on ``mesh``: ``tools/mesh_check.py`` passes the production
+    mesh of four cards), the state sharded by qwen2.5-3b's param_axes (pSGD,
+    phase 7's schedule): losses and final params bit-identical to
+    ``reference`` (phase 26's budget 1); every worker launched the fused
+    pSGD once an update (on its shards) and the flash kernels for the
+    microbatches it computed; every worker's memory_allocated between
+    updates within SHARD_MEMORY_TOL of its shards' bytes as the specs count
+    them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.core.stages import StageController
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.distributed.planner import ElasticMeshPlanner
+    from repro_torch.distributed.reshard import state_shardings
+    from repro_torch.distributed.sharded import tensor_leaves, tensor_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LanguageModel(cfg)
+    axes = model.param_axes()
+    mesh = make_host_mesh(data=2, model=2, devices=[torch.device("cuda", 0)] * 4) if mesh is None else mesh
+    opt = make_optimizer("psgd", gamma=1e4)
+    params = model.init(0, device="cuda")
+    state = TrainState(params, opt.init(params), 0)
+    shard_bytes = sum(int(np.prod(s.shard_shape)) * t.element_size() for s, t in
+                      zip(tensor_shardings(state_shardings(state, mesh, axes), state), tensor_leaves(state)))
+    whole_bytes = sum(t.numel() * t.element_size() for t in tensor_leaves(state))
+    trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=16, rho=2.0, num_stages=3, eta=1.0),
+                          DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), mesh), mesh=mesh,
+                          param_axes=axes, microbatch=4, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
+    t0 = time.perf_counter()
+    state, log = trainer.run(state, log_every=1)
+    wall = time.perf_counter() - t0
+    same_as_reference(f"phase {label}", log, state.params, reference)
+    # launches: the fused pSGD once an update on every worker; the flash kernels for each worker's microbatches
+    planner = ElasticMeshPlanner(device_budget=mesh.size, devices=["cpu"] * mesh.size)
+    micro = [0] * mesh.size
+    for plan, _ in zip(StageController(trainer.controller.schedule, microbatch=4).plans(), log.steps):
+        mp = planner.plan_for(plan)
+        for r in range(mp.width):
+            micro[r] += mp.local_accum
+    layers, total = cfg.num_layers, {}
+    for r, stats in enumerate(trainer.worker_stats):
+        got = stats["launches"]
+        want = {"flash_attention_fwd": 2 * layers * micro[r], "flash_attention_bwd": layers * micro[r],
+                "fused_psgd": len(log.steps)}
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"phase {label}: worker {r} launched {got}, not {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        between = stats["between_bytes"]
+        worst = max(abs(b - shard_bytes) / shard_bytes for b in between)
+        if len(between) != len(log.steps) or worst > SHARD_MEMORY_TOL:
+            fail(f"phase {label}: worker {r} held {between} bytes between updates, not its shards' "
+                 f"{shard_bytes} (within {SHARD_MEMORY_TOL:.0%})")
+    times = shard_times(trainer, log)
+    between = [s["between_bytes"] for s in trainer.worker_stats]
+    print(f"phase {label} on {[str(d) for d in mesh.device_list]}: {len(log.steps)} updates in {wall:.1f} s, "
+          f"bit-identical to the budget-1 run; each worker stores {shard_bytes / 1e9:.3f} GB of the state's {whole_bytes / 1e9:.3f} GB "
+          f"(spec count), between updates " + ", ".join(f"{min(b) / 1e9:.3f}-{max(b) / 1e9:.3f}" for b in between)
+          + f" GB by worker; launches by worker {[s['launches']['fused_psgd'] for s in trainer.worker_stats]} "
+          f"fused pSGD, {micro} microbatches | {smi}", flush=True)
+    print_shard_times(label, times, smi)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "losses": log.losses, "shard_bytes": shard_bytes, "state_bytes": whole_bytes,
+            "between_bytes": between, "launches": total, "microbatches": micro, **times}
+
+
+def elastic_sharded(cfg, smi: str, reference) -> dict:
+    """Phase 31: ElasticTrainer(param_axes=...) at budget 4 (the replicas
+    of each width store their shards of ``embed``, FSDP): losses and params
+    bit-identical to phase 26's budget 4 (and so budget 1's)."""
+    import torch
+
+    from repro_torch.models import LanguageModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LanguageModel(cfg)
+    params = model.init(0, device="cuda")
+    log, wall, tr, state = elastic_run(cfg, params, 4, copy_params=False, param_axes=model.param_axes())
+    same_as_reference("phase 31 elastic sharded", log, state.params, reference)
+    launches = elastic_launch_check("phase 31 elastic sharded", tr, log, cfg.num_layers, "fused_psgd")
+    times = shard_times(tr, log)
+    print(f"phase 31 elastic sharded budget 4: {len(log.steps)} updates in {wall:.1f} s, bit-identical to phase 26 "
+          f"| {smi}", flush=True)
+    print_shard_times("31 elastic sharded", times, smi)
+    del state, params, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "losses": log.losses, "launches": launches, **times}
 
 
 # -- disaggregated prefill/decode serving (phases 28-29) ---------------------
@@ -4111,10 +4281,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     elastic_cfg = elastic_cut(get_config("qwen2.5-3b", "full"))
-    elastic = elastic_exact(elastic_cfg, smi)
+    elastic, elastic_reference = elastic_exact(elastic_cfg, smi)
     phase_done("26 elastic exact sync")
     local_sgd = elastic_local(elastic_cfg, smi)
     phase_done("27 elastic local SGD")
+    # 30-31. rule-based storage sharding: SEBSTrainer on a (2, 2) mesh of four workers on the card, and
+    # ElasticTrainer with param_axes at budget 4, both held to phase 26's budget-1 run
+    sharded = {"mesh": mesh_sharded(elastic_cfg, smi, elastic_reference)}
+    phase_done("30 sharded mesh (2, 2)")
+    sharded["elastic"] = elastic_sharded(elastic_cfg, smi, elastic_reference)
+    del elastic_reference
+    phase_done("31 elastic sharded")
     # 28-29. disaggregated prefill/decode serving, both workers on the card,
     # on phase 4's and phase 15's weights and requests, under the sanitizers
     gc.collect()
@@ -4227,6 +4404,9 @@ def main() -> None:
         all_launches[kname] += elastic["launches"][kname]
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
         all_launches[kname] += local_sgd["launches"][kname]
+    # the sharded paths (phases 30-31): every worker's launches, added over ranks
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += sharded["mesh"]["launches"][kname] + sharded["elastic"]["launches"][kname]
     # the disaggregated paths (phases 28-29): qwen2.5-3b's kernels and zamba2's D 80
     # attention, Mamba2's GLA and its sampler at V 32,000
     for kname in ("paged_flash_decode", "paged_chunk_prefill", "fused_sample"):
@@ -4299,7 +4479,8 @@ def main() -> None:
                     "library": {n: {key: records[n][key] for key in (
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
-        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd}, "disagg": disagg,
+        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd}, "sharded": sharded,
+        "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {
             "wall_s": wall, "decoded_tokens": stats["decoded_tokens"], "ticks": stats["ticks"],

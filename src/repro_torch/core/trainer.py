@@ -23,7 +23,17 @@ The run loop goes through the JAX trainer's hook seams (``_before_update``,
 ``_place_batch``, ``_execute``, ``_after_update``, ``_comm_counters``,
 ``_ready_to_save``, ``_save_view``, ``_finalize``, ``_meta_extra``,
 ``_restore_extra``): each does nothing here, and
-:class:`repro_torch.distributed.ElasticTrainer` fills them in. With
+:class:`repro_torch.distributed.ElasticTrainer` fills them in.
+
+**A mesh.** With ``mesh`` (``launch/mesh.py``'s :class:`Mesh`), ``run``
+spawns one worker process a rank of it (the elastic trainer's machinery,
+``distributed/trainer.py``'s ``MeshTrainer``): each stores its shards of
+the state by ``param_axes`` (``LanguageModel.param_axes()``; the rules of
+``sharding/partitioning.py``), gathered whole inside each step, and the
+microbatches are spread data-parallel over the ranks, not split by the
+``model`` axis as GSPMD splits them in the JAX package: the rules place
+storage only. The log and state are bit-identical to
+``ElasticTrainer``'s at budget 1. ``deadline`` bounds such a run's seconds. With
 ``REPRO_SANITIZE=1`` the loop checks each update's loss and gradient norm
 for NaN/Inf and audits the tracer at the end of the run, as the JAX
 trainer does (:mod:`repro_torch.analysis.sanitize`); the elastic trainer's
@@ -89,6 +99,8 @@ class SEBSTrainer:
         schedule: Schedule,
         pipeline: DataPipeline,
         *,
+        mesh=None,
+        param_axes=None,
         microbatch: Optional[int] = None,
         mode: str = "accumulate",
         accum_mode: str = "deferred",
@@ -96,8 +108,14 @@ class SEBSTrainer:
         seed: int = 0,
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
+        deadline: Optional[float] = None,
     ):
+        if param_axes is not None and mesh is None:
+            raise ValueError("param_axes place the state on a mesh: pass mesh too")
         self.model = model
+        self.mesh = mesh
+        self.param_axes = param_axes
+        self.deadline = deadline
         self.optimizer = optimizer
         self.controller = StageController(schedule, microbatch=microbatch, mode=mode)
         self.pipeline = pipeline
@@ -248,6 +266,11 @@ class SEBSTrainer:
         """
         if checkpointer is not None and not isinstance(checkpointer, CheckpointManager):
             raise TypeError(f"checkpointer must be a CheckpointManager, not {type(checkpointer).__name__}")
+        if self.mesh is not None:
+            from repro_torch.distributed.trainer import run_on_mesh
+
+            return run_on_mesh(self, state, log_every=log_every, checkpointer=checkpointer, save_every=save_every,
+                               resume=resume, stop_after_updates=stop_after_updates)
         log = TrainLog()
         gns = GradientNoiseScale()
         update = 0

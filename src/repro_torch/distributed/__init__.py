@@ -31,11 +31,22 @@ Invariants, as the JAX package states them (``tests/test_torch_distributed*.py``
    the consumed-sample offset (``data/pipeline.py``), so every width sees
    the same rows in the same microbatch order.
 
-Deferred to the sharding slice: ``reshard_state``'s rule-based placement
-and ``state_shardings`` (``param_axes``).
+Rule-based storage sharding (``param_axes``; ``SEBSTrainer(mesh=...)``
+through :class:`MeshTrainer`): each worker stores its shards of
+:func:`state_shardings`, gathered whole inside each step
+(``sharded.py``); where every worker has a card of its own the large
+collectives go through NCCL (``nccl.py``), else through the host slots.
 """
 from repro_torch.distributed.planner import ElasticMeshPlanner, MeshPlan
-from repro_torch.distributed.reshard import broadcast_state, build_sync_step, collapse_state, float_state_bytes
+from repro_torch.distributed.reshard import (
+    broadcast_state,
+    build_sync_step,
+    collapse_state,
+    float_state_bytes,
+    reshard_state,
+    state_shardings,
+)
+from repro_torch.distributed.sharded import build_sharded_train_step
 from repro_torch.distributed.step import build_elastic_train_step, build_local_train_step, span_tree_sum
 from repro_torch.distributed.sync import (
     SYNC_MODES,
@@ -45,12 +56,16 @@ from repro_torch.distributed.sync import (
     allreduce_bytes_per_device,
     sync_cost,
 )
-from repro_torch.distributed.trainer import ElasticTrainer
+from repro_torch.distributed.trainer import ElasticTrainer, MeshTrainer
 
 __all__ = [
     "ElasticMeshPlanner",
     "MeshPlan",
     "ElasticTrainer",
+    "MeshTrainer",
+    "build_sharded_train_step",
+    "reshard_state",
+    "state_shardings",
     "SyncScheduler",
     "CommAccountant",
     "SYNC_MODES",

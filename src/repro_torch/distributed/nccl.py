@@ -1,0 +1,98 @@
+"""The elastic and sharded runs' large collectives over NCCL, for workers
+that each have a CUDA card of their own (``staging.make_exchange`` chooses
+it; several workers on one card, or the CPU, take the shared host slots of
+``staging.py``, since NCCL refuses two ranks on one card).
+
+The methods are :class:`~repro_torch.distributed.staging.HostExchange`'s,
+and so are the results, bit for bit: every collective here is a copy of
+bytes (``all_gather_into_tensor``, ``broadcast``), never a reduce, whose
+sum would follow NCCL's order; the sums stay the callers' canonical trees.
+The groups are prefixes of the world (``launch.mesh.prefix_widths``), so a
+group rank is the global rank. Each collective waits for its stream before
+it returns, so :class:`StagingTimes` holds device time (under
+``collective_s``; there is no host copy). ``backend`` is NCCL on the card;
+the CPU tests run the same code over gloo.
+"""
+from __future__ import annotations
+
+import time
+from typing import Iterator, List, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed.staging import StagingTimes, _bytes, place_shards
+
+
+class DeviceExchange:
+    def __init__(self, rank: int, world: int, device: torch.device, backend: str = "nccl"):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import prefix_widths
+
+        self.rank, self.world, self.device = rank, world, torch.device(device)
+        self.groups = {w: dist.new_group(ranks=list(range(w)), backend=backend) for w in prefix_widths(world)}
+        # a first collective, so that a NCCL that cannot start fails here and not mid-step
+        probe = torch.full((1,), rank, dtype=torch.uint8, device=self.device)
+        seen = torch.empty(world, dtype=torch.uint8, device=self.device)
+        dist.all_gather_into_tensor(seen, probe, group=self.groups[world])
+        if seen.tolist() != list(range(world)):
+            raise RuntimeError(f"NCCL's first all-gather returned {seen.tolist()}")
+
+    def _timed(self, fn, times: StagingTimes):
+        t0 = time.perf_counter()
+        fn()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        times.collective_s += time.perf_counter() - t0
+
+    def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
+                   consume: bool = False, senders: Optional[int] = None) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """As ``HostExchange.all_gather``: the views are on this card."""
+        import torch.distributed as dist
+
+        width = mesh.width
+        senders = width if senders is None else senders
+        for i, t in enumerate(tensors):
+            n = t.numel() * t.element_size()
+            src = _bytes(t) if self.rank < senders else torch.empty(n, dtype=torch.uint8, device=self.device)
+            if consume:
+                tensors[i] = t = None
+            out = torch.empty(width * n, dtype=torch.uint8, device=self.device)
+            self._timed(lambda: dist.all_gather_into_tensor(out, src, group=self.groups[width]), times)
+            del src
+            yield i, [out[d * n:(d + 1) * n] for d in range(senders)]
+
+    @torch.no_grad()
+    def broadcast(self, tensors: List[torch.Tensor], mesh, times: StagingTimes) -> None:
+        """As ``HostExchange.broadcast``, in place."""
+        import torch.distributed as dist
+
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("a broadcast tensor must be contiguous")
+            self._timed(lambda: dist.broadcast(_bytes(t), 0, group=self.groups[mesh.width]), times)
+
+    def assemble(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                 mesh, times: StagingTimes, device, want: bool = True) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
+        """As ``HostExchange.assemble``: a leaf with one holder by a
+        broadcast from it, any other by an all-gather of every rank's shard
+        (a rank that holds no shard of it sends an unused buffer)."""
+        import torch.distributed as dist
+
+        group = self.groups[mesh.width]
+        for i, (shard, sharding, like) in enumerate(zip(shards, shardings, likes)):
+            shard_like = torch.empty(sharding.shard_shape, dtype=like.dtype, device="meta")
+            n = shard_like.numel() * shard_like.element_size()
+            holders = sharding.holders()
+            if len(holders) == 1:
+                holder = next(iter(holders.values()))
+                buf = _bytes(shard) if shard is not None else torch.empty(n, dtype=torch.uint8,
+                                                                                  device=self.device)
+                self._timed(lambda: dist.broadcast(buf, holder, group=group), times)
+                parts = {index: buf for index in holders}
+            else:
+                src = _bytes(shard) if shard is not None else torch.empty(n, dtype=torch.uint8, device=self.device)
+                out = torch.empty(mesh.width * n, dtype=torch.uint8, device=self.device)
+                self._timed(lambda: dist.all_gather_into_tensor(out, src, group=group), times)
+                parts = {index: out[h * n:(h + 1) * n] for index, h in holders.items()}
+            yield i, place_shards(parts, sharding, like, shard_like, times, device) if want else None

@@ -13,9 +13,14 @@ width-W mesh holds one replica of the state (or none, outside the mesh).
   counters and stage ids, take replica 0's).
 
 Placement only copies bytes (through the run's shared host slots,
-``staging.py``): a leaf has the same bits before and after.
-``state_shardings`` and ``reshard_state``'s ``param_axes`` (rule-based
-storage sharding) come with the sharding slice.
+``staging.py``, or NCCL, ``nccl.py``): a leaf has the same bits before and
+after.
+
+- *sharded* (exact mode with ``param_axes``; ``SEBSTrainer(mesh=...)``):
+  each worker stores its shards of :func:`state_shardings` (the rules of
+  ``sharding/partitioning.py``, a leaf that does not divide replicated);
+  :func:`reshard_state` cuts a worker's shards from a whole state, and
+  ``sharded.move_state`` moves a state between layouts across workers.
 """
 from __future__ import annotations
 
@@ -25,8 +30,49 @@ import torch
 
 from repro_torch.distributed.staging import StagingTimes, from_host
 from repro_torch.distributed.step import add_, span_tree_sum
-from repro_torch.train.state import TrainState
+from repro_torch.sharding import shard_tree
+from repro_torch.train.state import TrainState, state_axes
 from repro_torch.utils.tree import tree_leaves
+
+
+def state_shardings(state: TrainState, mesh, param_axes=None) -> TrainState:
+    """A :class:`~repro_torch.sharding.NamedSharding` for every leaf of
+    ``state`` stored on ``mesh`` between steps: replicated without
+    ``param_axes``, else by the rules (``param_axes`` the JAX package's
+    layout, ``LanguageModel.param_axes()``)."""
+    axes = state_axes(state, param_axes if param_axes is not None else _replicated_axes(state.params))
+    return shard_tree(axes, state, mesh)
+
+
+def _replicated_axes(params):
+    if isinstance(params, dict):
+        return {k: _replicated_axes(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_replicated_axes(v) for v in params]
+    return (None,) * params.dim()
+
+
+def reshard_state(state: TrainState, mesh=None, param_axes=None, rank: int = 0) -> TrainState:
+    """Rank ``rank``'s part of ``state`` on ``mesh`` (the state itself when
+    ``mesh`` is None): each leaf's shard, a copy of its slice, or the leaf
+    itself where it is replicated. Placement only: the shards, concatenated
+    in index order, are the leaves bit for bit."""
+    if mesh is None:
+        return state
+    from repro_torch.distributed.sharded import own_shard
+
+    shardings = state_shardings(state, mesh, param_axes)
+    pick = lambda s, t: own_shard(t, s, rank) if isinstance(t, torch.Tensor) else t  # noqa: E731
+    return TrainState(_zip_map(pick, shardings.params, state.params),
+                      _zip_map(pick, shardings.opt_state, state.opt_state), state.step)
+
+
+def _zip_map(fn, shardings, tree):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, shardings[k], v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, s, v) for s, v in zip(shardings, tree, strict=True)]
+    return fn(shardings, tree)
 
 
 def _int_leaves(state: TrainState) -> list:

@@ -19,6 +19,10 @@ the largest leaf's size (the largest at qwen2.5-3b's full width is the
 311 M-element tied embedding, 1.24 GB in f32). :class:`StagingTimes` adds
 up the host seconds of the three parts: the copy out, the barrier, the
 copy back.
+
+When every worker has a card of its own, the same collectives go through
+NCCL instead (:class:`repro_torch.distributed.nccl.DeviceExchange`, the
+same methods): :func:`make_exchange` chooses by the run's devices.
 """
 from __future__ import annotations
 
@@ -54,6 +58,30 @@ def from_host(buf: torch.Tensor, like: torch.Tensor, times: StagingTimes, device
     out = buf.to(like.device if device is None else device, copy=True).view(like.dtype).reshape(like.shape)
     times.copy_back_s += time.perf_counter() - t0
     return out
+
+
+def place_shards(parts: dict, sharding, like: torch.Tensor, shard_like: torch.Tensor, times: StagingTimes,
+                 device) -> torch.Tensor:
+    """The leaf from ``parts`` (shard index -> the shard's bytes, anywhere)."""
+    if len(parts) == 1:
+        return from_host(next(iter(parts.values())), like, times, device)
+    full = torch.empty(like.shape, dtype=like.dtype, device=device)
+    for index, buf in parts.items():
+        full[sharding.slices_of(index)] = from_host(buf, shard_like, times, device)
+    return full
+
+
+def make_exchange(directory: str, rank: int, world: int, slot_bytes: int, devices: list):
+    """The run's collectives: NCCL (:class:`~repro_torch.distributed.nccl.DeviceExchange`)
+    where the ``world`` workers each have a CUDA card of their own, else the
+    shared host slots. Every rank calls it together. There is no fallback:
+    when NCCL is chosen and fails, the run fails."""
+    first = [torch.device(d) for d in devices[:world]]
+    if all(d.type == "cuda" for d in first) and len({d.index for d in first}) == world:
+        from repro_torch.distributed.nccl import DeviceExchange
+
+        return DeviceExchange(rank, world, first[rank])
+    return HostExchange(directory, rank, world, slot_bytes)
 
 
 class HostExchange:
@@ -95,25 +123,56 @@ class HostExchange:
         times.collective_s += time.perf_counter() - t0
 
     def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
-                   consume: bool = False) -> Iterator[Tuple[int, List[torch.Tensor]]]:
-        """For each tensor, in order: (its index, the mesh's W ranks' bytes of
-        it on the host, in rank order). Every rank of the mesh passes tensors
-        of the same shapes and dtypes. A rank's views hold until it asks for
-        the next item; the caller must exhaust the iterator. ``consume``
-        drops each entry of ``tensors`` once its bytes are on the host."""
-        width = mesh.width
+                   consume: bool = False, senders: Optional[int] = None) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """For each tensor, in order: (its index, the bytes of it of ranks
+        ``[0, senders)`` (default: every rank of the mesh) on the host, in
+        rank order), on every rank of the mesh. Every rank passes tensors of
+        the same shapes and dtypes; a rank that does not send passes meta
+        tensors. A rank's views hold until it asks for the next item; the
+        caller must exhaust the iterator. ``consume`` drops each entry of
+        ``tensors`` once its bytes are on the host."""
+        senders = mesh.width if senders is None else senders
+        sends = self.rank < senders
         for bucket in self._buckets(tensors):
             t0 = time.perf_counter()
             own = self.slots[self.rank]
             for i, off, n in bucket:
-                own[off:off + n].copy_(_bytes(tensors[i]))
+                if sends:
+                    own[off:off + n].copy_(_bytes(tensors[i]))
                 if consume:
                     tensors[i] = None
             times.copy_out_s += time.perf_counter() - t0
             self._barrier(mesh, times)
             for i, off, n in bucket:
-                yield i, [self.slots[d][off:off + n] for d in range(width)]
+                yield i, [self.slots[d][off:off + n] for d in range(senders)]
             self._barrier(mesh, times)  # every rank has read the slots
+
+    def assemble(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                 mesh, times: StagingTimes, device, want: bool = True) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
+        """Whole leaves from their shards, leaf by leaf, on every rank of the
+        mesh: (index, the leaf on ``device``, or None where not ``want``).
+        ``shards[i]`` is this rank's shard of leaf i where it is the holder
+        of its shard index (the lowest rank storing it: it sends), else
+        None; ``shardings[i]`` places the leaf on a mesh whose ranks are a
+        prefix of this one's; ``likes[i]`` has its shape and dtype (a meta
+        tensor). Copies only: a leaf has its shards' bits."""
+        shard_likes = [torch.empty(s.shard_shape, dtype=like.dtype, device="meta")
+                       for s, like in zip(shardings, likes)]
+        for bucket in self._buckets(shard_likes):
+            t0 = time.perf_counter()
+            own = self.slots[self.rank]
+            for i, off, n in bucket:
+                if shards[i] is not None:
+                    own[off:off + n].copy_(_bytes(shards[i]))
+            times.copy_out_s += time.perf_counter() - t0
+            self._barrier(mesh, times)
+            for i, off, n in bucket:
+                if not want:
+                    yield i, None
+                    continue
+                parts = {index: self.slots[holder][off:off + n] for index, holder in shardings[i].holders().items()}
+                yield i, place_shards(parts, shardings[i], likes[i], shard_likes[i], times, device)
+            self._barrier(mesh, times)
 
     @torch.no_grad()
     def broadcast(self, tensors: List[torch.Tensor], mesh, times: StagingTimes) -> None:

@@ -112,19 +112,28 @@ def _local_total(model, params, batch: dict, local_accum: int, z_loss: float) ->
             h.remove()
 
 
-def _combine_across(total: dict, mesh, times: StagingTimes) -> dict:
-    """The mesh's W partial sums, all-gathered through the host and combined
-    by the canonical tree in replica order: the same result on every worker.
-    Each local leaf goes as soon as its bytes are on the host."""
-    width = mesh.width
-    scalars = torch.stack([total["loss"].float(), total["aux"].float(), total["sq"].float()])
-    parts = total["grads"] + [scalars]
-    likes = [(t.to("meta"), t.device) for t in parts]
+def _combine_across(total: Optional[dict], mesh, times: StagingTimes, senders: Optional[int] = None,
+                    likes: Optional[list] = None, device=None) -> dict:
+    """The partial sums of ranks ``[0, senders)`` (default: every rank of
+    the mesh), all-gathered (through the host, or NCCL) and combined by the
+    canonical tree in replica order: the same result on every worker of the
+    mesh. Each local leaf goes as soon as its bytes are sent. A rank that
+    does not send passes ``total`` None, and the gradients' ``likes`` (meta
+    tensors) and its ``device``."""
+    senders = mesh.width if senders is None else senders
+    meta_scalars = torch.empty(3, dtype=torch.float32, device="meta")
+    if total is None:
+        parts = list(likes) + [meta_scalars]
+    else:
+        scalars = torch.stack([total["loss"].float(), total["aux"].float(), total["sq"].float()])
+        parts = total["grads"] + [scalars]
+        device = scalars.device
+        total["grads"] = None
+    metas = [t.to("meta") for t in parts]
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
-    total["grads"] = None
-    for i, host in mesh.exchange.all_gather(parts, mesh, times, consume=True):
-        like, device = likes[i]
-        out[i] = span_tree_sum(lambda d: from_host(host[d], like, times, device), width, add_)
+    for i, host in mesh.exchange.all_gather(parts, mesh, times, consume=True, senders=senders):
+        like = metas[i]
+        out[i] = span_tree_sum(lambda d: from_host(host[d], like, times, device), senders, add_)
     s = out.pop()
     return {"grads": out, "loss": s[0], "aux": s[1], "sq": s[2]}
 

@@ -61,8 +61,23 @@ process. The parent builds the CUDA kernels before it spawns (a worker only
 loads them; ``kernels/_cuda.py`` writes each library through a per-process
 temporary file and a rename).
 
-``param_axes`` (rule-based storage sharding) raises: with processes it means
-ZeRO-style shards gathered before each step, the sharding slice's work.
+**Transport.** Where every worker has a CUDA card of its own, the large
+collectives go through NCCL (``nccl.py``: all-gathers and broadcasts of
+bytes, never a reduce); where workers share a card, or run on the CPU,
+through the shared host slots (``staging.make_exchange`` chooses; no
+fallback).
+
+**Sharded storage.** With ``param_axes`` (exact mode), each replica of a
+width-W stage stores only its shards of the state on the ("data",) mesh of
+W workers (``embed`` sharded over them, FSDP; the other rules name
+``model``, which this mesh lacks, so those dimensions stay whole), gathered
+whole before each step and updated shard by shard (``sharded.py``); the
+losses and params stay bit-identical to the unsharded run's, and the
+checkpoints hold the collapsed state, byte-equal to an unsharded run's.
+Local SGD keeps whole replicas, as in the JAX package.
+:class:`MeshTrainer` runs ``SEBSTrainer(mesh=...)`` through the same
+machinery: every rank of a fixed mesh stores its shards, and the stage's
+width of them compute.
 """
 from __future__ import annotations
 
@@ -89,8 +104,10 @@ from repro_torch.distributed.reshard import (
     collapse_state,
     float_state_bytes,
     skeleton_of,
+    state_shardings,
 )
-from repro_torch.distributed.staging import HostExchange, StagingTimes
+from repro_torch.distributed.sharded import build_sharded_train_step, move_state, tensor_leaves, tensor_shardings
+from repro_torch.distributed.staging import StagingTimes, make_exchange
 from repro_torch.distributed.step import build_elastic_train_step, build_local_train_step
 from repro_torch.distributed.sync import CommAccountant, SyncScheduler, allreduce_bytes_per_device, sync_cost
 from repro_torch.launch.mesh import prefix_groups
@@ -128,10 +145,6 @@ class ElasticTrainer(SEBSTrainer):
         collective_timeout: float = 120.0,
         deadline: Optional[float] = None,
     ):
-        if param_axes is not None:
-            raise NotImplementedError(
-                "param_axes (rule-based storage sharding of the replicas) comes with the sharding slice "
-                "(sharding/partitioning.py: ZeRO-style shards gathered before each step)")
         super().__init__(
             model, optimizer, schedule, pipeline, microbatch=microbatch, mode="accumulate",
             accum_mode="deferred", grad_clip=grad_clip, seed=seed, tracer=tracer, metrics=metrics,
@@ -140,6 +153,8 @@ class ElasticTrainer(SEBSTrainer):
         self.sync = SyncScheduler(mode=sync_mode, local_interval=local_interval, local_growth=local_growth)
         self.accountant = CommAccountant()
         self.param_axes = param_axes
+        self._sharded = param_axes is not None and sync_mode == "exact"
+        self._held: Optional[int] = None    # ranks that store the state (sharded layouts)
         self.collective_timeout = collective_timeout
         self.deadline = deadline
         self._width: Optional[int] = None   # realized width (None = not placed yet)
@@ -153,7 +168,9 @@ class ElasticTrainer(SEBSTrainer):
         # inside a worker process: its rank, and the state's shapes for a replica that joins
         self._rank: Optional[int] = None
         self._skeleton: Optional[TrainState] = None
-        self._times: Dict[str, list] = {"allgather": [], "sync": [], "reshard_s": [], "broadcast": []}
+        self._times: Dict[str, list] = {"allgather": [], "sync": [], "reshard_s": [], "broadcast": [],
+                                        "sharded": [], "between_bytes": []}
+        self._layouts: Dict[int, list] = {}
         #: per rank, after run(): device, peak memory, kernel launches, staging seconds
         self.worker_stats: List[dict] = []
 
@@ -166,7 +183,7 @@ class ElasticTrainer(SEBSTrainer):
         d["_clock"] = None
         d["_steps"], d["_sync_steps"], d["worker_stats"] = {}, {}, []
         # a run's first placement is cold: rank 0 alone holds the state
-        d["_width"], d["_stacked"] = None, False
+        d["_width"], d["_stacked"], d["_held"], d["_layouts"] = None, False, None, {}
         return d
 
     def __setstate__(self, d: dict) -> None:
@@ -177,12 +194,31 @@ class ElasticTrainer(SEBSTrainer):
 
     # -- compiled-step caches ---------------------------------------------------
 
+    def _store_width(self, width: int) -> int:
+        """How many ranks store the state when ``width`` of them compute."""
+        return width
+
+    def _layout(self, n: int) -> list:
+        """The shardings of the state's tensor leaves when ranks ``[0, n)``
+        store it (n = 1: rank 0 holds it whole)."""
+        if n not in self._layouts:
+            mesh = self.planner.mesh_for(n)
+            shardings = state_shardings(self._skeleton, mesh, self.param_axes if n > 1 else None)
+            self._layouts[n] = tensor_shardings(shardings, self._skeleton)
+        return self._layouts[n]
+
     def _elastic_step(self, mp: MeshPlan):
         stacked = self.sync.mode == "local" and mp.width > 1
         key = ("local" if stacked else "exact", mp.width, mp.local_accum)
         if key not in self._steps:
             mesh = self.planner.mesh_for(mp.width)
-            if stacked:
+            if self._sharded:
+                n_params = len(tree_leaves(self._skeleton.params))
+                self._steps[key] = build_sharded_train_step(
+                    self.model, self.optimizer, self._layout(self._held)[:n_params], rank=self._rank,
+                    width=mp.width, local_accum=mp.local_accum, xmesh=self.planner.mesh_for(self._held),
+                    grad_clip=self.grad_clip, times=self._times["sharded"])
+            elif stacked:
                 self._steps[key] = build_local_train_step(
                     self.model, self.optimizer, mesh, width=mp.width, local_accum=mp.local_accum,
                     grad_clip=self.grad_clip)
@@ -217,8 +253,30 @@ class ElasticTrainer(SEBSTrainer):
         self._times["reshard_s"].append(time.perf_counter() - t0)
         return state
 
+    def _move(self, state: Optional[TrainState], n_new: int) -> Optional[TrainState]:
+        """The sharded state from ranks ``[0, self._held)`` (rank 0 alone
+        before the first placement) to ranks ``[0, n_new)``."""
+        n_old = self._held or 1
+        xw = max(n_old, n_new)
+        if n_new != n_old and self._rank < xw:
+            old = tensor_leaves(state) if state is not None and n_old == 1 else []
+            state = move_state(state, self._skeleton, self._layout(n_old), self._layout(n_new), self._rank,
+                               self.planner.mesh_for(xw), StagingTimes())
+            # rank 0's whole state (its own copy of the caller's, a restore, or a width-1 stage's), which the
+            # callers' frames may still name: free its memory, so that only the shards stay
+            for t in old:
+                t.untyped_storage().resize_(0)
+        self._held = n_new
+        return state if self._rank < n_new else None
+
     def _transition_inner(self, state: TrainState, mp: MeshPlan, stage: int) -> TrainState:
         first_placement = self._width is None
+        if self._sharded:
+            state = self._move(state, self._store_width(mp.width))
+            if not first_placement:
+                self.accountant.record_reshard(stage, bytes_moved=self._state_bytes if mp.width > self._width else 0)
+            self._width = mp.width
+            return state
         if self._stacked:  # leaving a local-SGD stage: one final average
             if self._rank < self._width:
                 state = self._sync_step(self._width)(state)
@@ -255,7 +313,15 @@ class ElasticTrainer(SEBSTrainer):
 
     def _execute(self, state: TrainState, batch: Optional[dict], plan: StepPlan):
         metrics = None
-        if self._rank < self._mp.width:
+        device = self.pipeline.device
+        if self._sharded and device.type == "cuda" and state is not None:
+            # what the worker stores between updates; cuBLAS keeps its workspaces (64 MiB on the H100,
+            # through the caching allocator) from one call to the next, and they are not state
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+            if clear is not None:
+                clear()
+            self._times["between_bytes"].append(torch.cuda.memory_allocated(device))
+        if self._rank < (self._held if self._sharded else self._mp.width):
             state, metrics = self._elastic_step(self._mp)(state, batch, plan.lr, plan.stage)
             if self._stacked:
                 metrics = self._replica_mean(metrics)
@@ -316,7 +382,13 @@ class ElasticTrainer(SEBSTrainer):
     def _save_view(self, state: TrainState) -> TrainState:
         return collapse_state(state, self._rank)
 
+    def _collapse(self, state: Optional[TrainState]) -> Optional[TrainState]:
+        """A sharded state whole on rank 0 (None on the other ranks)."""
+        return self._move(state, 1)
+
     def _finalize(self, state: TrainState) -> TrainState:
+        if self._sharded:
+            return self._collapse(state)
         if self._stacked:
             if self._rank < self._width:
                 state = self._sync_step(self._width)(state)
@@ -333,14 +405,19 @@ class ElasticTrainer(SEBSTrainer):
         # the state was restored collapsed (the only serialized layout); the
         # next _before_update places it at whatever width THIS run's planner
         # assigns: an elastic resume is a cold placement
-        self._width = None
+        self._width = self._held = None
         self._stacked = False
         self._last_sync = self._updates_done = int(meta.get("update", 0))
 
     def _save(self, ckpt, update, state, log, gns) -> None:
-        """Rank 0 writes; the other ranks wait for it at a barrier."""
+        """Rank 0 writes (a sharded state gathered whole onto it for the
+        save, then dropped); the other ranks wait for it at a barrier."""
         import torch.distributed as dist
 
+        if self._sharded and self._held and self._held > 1 and self._rank < self._held:
+            held = self._held
+            state = self._collapse(state)
+            self._held = held
         if self._rank == 0:
             super()._save(ckpt, update, state, log, gns)
         else:
@@ -445,6 +522,9 @@ class ElasticTrainer(SEBSTrainer):
             "sync": [dataclasses.asdict(t) for t in self._times["sync"]],
             "broadcast": [dataclasses.asdict(t) for t in self._times["broadcast"]],
             "reshard_s": list(self._times["reshard_s"]),
+            "sharded": [dataclasses.asdict(t) for t in self._times["sharded"]],
+            "between_bytes": list(self._times["between_bytes"]),
+            "exchange": type(self.planner.exchange).__name__ if self.planner.exchange is not None else None,
         }
         if self._rank != 0:
             return {"stats": stats}
@@ -459,6 +539,56 @@ class ElasticTrainer(SEBSTrainer):
             "metrics": self.metrics._series if self.metrics.enabled else {},
             **{name: getattr(self, name) for name in _ADOPTED},
         }
+
+
+class MeshTrainer(ElasticTrainer):
+    """What :meth:`SEBSTrainer.run` hands a run on a mesh to: one worker
+    process a rank of ``base.mesh``, each storing its shards of the state by
+    ``base.param_axes`` (replicated without them) for the whole run. Each
+    update's microbatches are spread over ``width`` ranks, the largest power
+    of two dividing the accumulation count that fits the mesh, as the
+    elastic planner chooses; every rank gathers, receives the summed
+    gradient and updates its shards (``sharded.py``). So the losses and
+    params are bit-identical to :class:`ElasticTrainer`'s at budget 1.
+    Checkpoints are the single-process trainer's (no elastic meta keys)."""
+
+    def __init__(self, base: SEBSTrainer):
+        if base.controller.mode != "accumulate":
+            raise ValueError("a run on a mesh spreads microbatches over its workers: it needs mode='accumulate'")
+        mesh = base.mesh
+        super().__init__(base.model, base.optimizer, base.controller.schedule, base.pipeline,
+                         microbatch=base.controller.microbatch, device_budget=mesh.size, devices=mesh.device_list,
+                         grad_clip=base.grad_clip, tracer=base.tracer, metrics=base.metrics, deadline=base.deadline)
+        # the caller's own controller, pipeline and host RNG: what the run moves on is the caller's
+        self.controller, self.host_rng = base.controller, base.host_rng
+        self.param_axes, self.storage, self._sharded = base.param_axes, mesh, True
+
+    def _store_width(self, width: int) -> int:
+        return self.storage.size
+
+    def _layout(self, n: int) -> list:
+        if n == self.storage.size and n > 1 and n not in self._layouts:
+            self._layouts[n] = tensor_shardings(state_shardings(self._skeleton, self.storage, self.param_axes),
+                                                self._skeleton)
+        return super()._layout(n)
+
+    def _after_update(self, state: TrainState, update: int, plan: StepPlan) -> TrainState:
+        self._updates_done = update
+        return state
+
+    def _comm_counters(self) -> tuple:
+        return 0, 0
+
+    def _meta_extra(self) -> dict:
+        return {}
+
+
+def run_on_mesh(base: SEBSTrainer, state: TrainState, **run_kw):
+    """``base.run`` on ``base.mesh`` (see :class:`MeshTrainer`)."""
+    runner = MeshTrainer(base)
+    state, log = runner.run(state, **run_kw)
+    base._steps, base._last_saved, base.worker_stats = runner._steps, runner._last_saved, runner.worker_stats
+    return state, log
 
 
 # -- the processes ------------------------------------------------------------------
@@ -543,7 +673,8 @@ def _worker(rank: int, job: dict, box: list) -> None:
             trainer._rank = rank
             trainer.planner.groups, trainer.planner._meshes = prefix_groups(job["world"]), {}
             if job["world"] > 1:
-                trainer.planner.exchange = HostExchange(workdir, rank, job["world"], job["slot_bytes"])
+                trainer.planner.exchange = make_exchange(workdir, rank, job["world"], job["slot_bytes"],
+                                                         trainer.planner.devices)
             trainer.pipeline.device = device
             state = shared = None
             if rank == 0:

@@ -34,8 +34,14 @@ devices, the budget capped at their count (default: all of them); with
 ``--device cpu``, ``--device-budget N`` runs N CPU workers (default 1) of one
 intra-op thread each, at every budget alike.
 
-Not yet ported: ``--mesh single|multi`` (the production mesh), an error
-naming the sharding slice.
+The production mesh, as in the JAX launcher: ``--mesh single|multi`` lays
+the visible cards out by ``launch.mesh.make_production_mesh`` (4 cards give
+(2, 2)), one worker process a card, and hands the run to ``SEBSTrainer``
+with the model's ``param_axes``: each worker stores its shards of the state
+by the rules (``sharding/partitioning.py``) and the microbatches are spread
+data-parallel over every worker (NCCL between them). With ``--device cpu``
+the mesh is one CPU worker. It implies accumulate mode, and ``--mesh`` with
+``--dp-elastic`` is an error, as in the JAX launcher.
 """
 from __future__ import annotations
 
@@ -57,7 +63,6 @@ from repro_torch.optim import OPTIMIZERS, make_optimizer
 from repro_torch.train.state import init_train_state
 
 log = logging.getLogger("train")
-_SHARDING = "the production mesh comes with the sharding slice (sharding/partitioning.py)"
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -143,8 +148,8 @@ def main(argv: Optional[Sequence[str]] = None):
         for dest, default in defaults.items():
             if getattr(args, dest) != default:
                 ap.error(f"--{dest.replace('_', '-')} requires --dp-elastic")
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: {_SHARDING}")
+    if args.mesh != "none" and args.mode != "accumulate":
+        ap.error(f"--mesh spreads microbatches over its workers: it needs --mode accumulate, not {args.mode}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
@@ -187,8 +192,20 @@ def main(argv: Optional[Sequence[str]] = None):
             tracer=tracer, metrics=metrics,
         )
     else:
+        mesh = None
+        if args.mesh != "none":
+            from repro_torch.launch.mesh import make_production_mesh
+
+            devices = [torch.device("cpu")] if args.device == "cpu" else None
+            try:
+                mesh = make_production_mesh(multi_pod=args.mesh == "multi", devices=devices)
+            except ValueError as e:
+                ap.error(f"--mesh {args.mesh}: {e}")
+            log.info("mesh %s over %d worker(s)", mesh.shape, mesh.size)
         trainer = SEBSTrainer(
-            model, optimizer, schedule, DataPipeline(ds, device=args.device),
+            model, optimizer, schedule,
+            DataPipeline(ds, mesh) if mesh is not None else DataPipeline(ds, device=args.device),
+            mesh=mesh, param_axes=model.param_axes() if mesh is not None else None,
             microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode, seed=args.seed,
             tracer=tracer, metrics=metrics,
         )

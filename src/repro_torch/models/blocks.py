@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, SegmentSpec
 from repro_torch.models.layers import attention, mamba2, mlp, moe, norm, rwkv6
+from repro_torch.sharding.partitioning import map_axes
 
 ATTENTION_MIXERS = ("attn", "swa", "cross_attn_block")
 # zamba2's shared block: attention and the dense FFN, one set of weights for
@@ -89,6 +90,61 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: SegmentSpec, devic
     if seg.shared_attn:
         params["shared"] = init_block(gen, cfg, SHARED_SPEC, device)
     return params
+
+
+def block_axes(cfg: ModelConfig, spec: BlockSpec):
+    """The logical axes of :func:`init_block`'s leaves, key for key."""
+    axes = {"norm1": norm.param_axes()}
+    if spec.mixer in ATTENTION_MIXERS:
+        axes["attn"] = attention.param_axes(cfg)
+        if spec.mixer == "cross_attn_block":
+            axes["norm_cross"] = norm.param_axes()
+            axes["cross_attn"] = attention.param_axes(cfg, cross=True)
+    elif spec.mixer == "mamba2":
+        axes["mamba"] = mamba2.param_axes(cfg)
+    else:
+        axes["tmix"] = rwkv6.time_mix_axes(cfg)
+    if spec.ffn != "none":
+        axes["norm2"] = norm.param_axes()
+    if spec.ffn == "dense":
+        axes["mlp"] = mlp.param_axes(cfg)
+    elif spec.ffn == "moe":
+        axes["moe"] = moe.param_axes(cfg)
+        if cfg.moe_dense_residual:
+            axes["mlp"] = mlp.param_axes(cfg)
+    elif spec.ffn == "rwkv_cmix":
+        axes["cmix"] = rwkv6.channel_mix_axes(cfg)
+    return axes
+
+
+def _stacked(axes):
+    """``axes`` with the leading ``"layers"`` entry of a stacked leaf."""
+    return map_axes(lambda a: ("layers",) + a, axes)
+
+
+def segment_axes(cfg: ModelConfig, seg: SegmentSpec):
+    """The logical axes of a segment in the JAX package's layout: each body
+    block's leaves stacked over the repeats (a leading ``"layers"`` entry),
+    the shared block's alone. ``train/state.py``'s ``unstack_axes`` lays
+    them over the port's per-layer lists."""
+    axes = {f"b{bi}": _stacked(block_axes(cfg, spec)) for bi, spec in enumerate(seg.body)}
+    if seg.shared_attn:
+        axes["shared"] = block_axes(cfg, SHARED_SPEC)
+    return axes
+
+
+def block_cache_axes(spec: BlockSpec):
+    if spec.mixer in ATTENTION_MIXERS:
+        return {"attn": dict(attention.CACHE_AXES)}
+    if spec.mixer == "mamba2":
+        return {"mamba": dict(mamba2.CACHE_AXES)}
+    return {"rwkv": dict(rwkv6.CACHE_AXES)}
+
+
+def segment_cache_axes(seg: SegmentSpec):
+    """The logical axes of a segment's dense cache in the JAX package's
+    layout (every block's cache stacked over the repeats)."""
+    return {name: _stacked(block_cache_axes(spec)) for name, spec in _segment_blocks(seg)}
 
 
 def _recurrent_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, dtype, device):

@@ -81,6 +81,21 @@ def init(gen: torch.Generator, cfg, device="cuda", cross: bool = False):
     return params
 
 
+def param_axes(cfg, cross: bool = False):
+    """The logical axes of :func:`init`'s leaves (``sharding/partitioning.py``)."""
+    axes = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias and not cross:
+        axes["bq"] = ("heads", "head_dim")
+        axes["bk"] = ("kv_heads", "head_dim")
+        axes["bv"] = ("kv_heads", "head_dim")
+    return axes
+
+
 def init_cache(cfg, batch: int, cache_len: int, dtype, device="cuda"):
     """Dense KV cache: ``(batch, cache_len, hkv, hd)`` per leaf."""
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -88,6 +103,12 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, device="cuda"):
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+}
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, dtype, device="cuda"):
@@ -99,6 +120,12 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, dtype, device="cuda"):
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+PAGED_CACHE_AXES = {
+    "k": (None, None, "kv_heads", "head_dim"),
+    "v": (None, None, "kv_heads", "head_dim"),
+}
 
 
 def _paged_write(leaf, val, page_table, positions):

@@ -16,6 +16,14 @@ def init(gen: torch.Generator, cfg, device="cuda"):
     return params
 
 
+def param_axes(cfg):
+    """The logical axes of :func:`init`'s leaves."""
+    axes = {"table": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("embed", "vocab")
+    return axes
+
+
 def embed(params, tokens, cfg):
     """Row lookup with ``jnp.take``'s semantics: a negative id counts from
     the end, and an id outside ``[-V, V)`` yields a row of NaN (the CUDA

@@ -59,6 +59,20 @@ def init(gen: torch.Generator, cfg, device="cuda"):
     }
 
 
+def param_axes(cfg):
+    """The logical axes of :func:`init`'s leaves."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv_width", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "out_proj": ("ssm_inner", "embed"),
+        "norm_scale": ("ssm_inner",),
+    }
+
+
 def init_cache(cfg, batch: int, dtype, device="cuda"):
     _, nh, conv_ch = _dims(cfg)
     return {
@@ -66,6 +80,12 @@ def init_cache(cfg, batch: int, dtype, device="cuda"):
                            device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch), dtype=dtype, device=device),
     }
+
+
+CACHE_AXES = {
+    "ssm": ("batch", "ssm_heads", "ssm_state", None),
+    "conv": ("batch", None, "ssm_inner"),
+}
 
 
 def _split_proj(proj, cfg, d_in):

@@ -19,6 +19,11 @@ def init(gen: torch.Generator, cfg, device="cuda"):
     }
 
 
+def param_axes(cfg):
+    """The logical axes of :func:`init`'s leaves."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def apply(params, x):
     dtype = x.dtype
     up = x @ params["w_up"].to(dtype)

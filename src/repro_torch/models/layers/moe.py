@@ -44,6 +44,16 @@ def init(gen: torch.Generator, cfg, device="cuda"):
     }
 
 
+def param_axes(cfg):
+    """The logical axes of :func:`init`'s leaves."""
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "mlp"),
+        "w_up": ("experts", "embed", "mlp"),
+        "w_down": ("experts", "mlp", "embed"),
+    }
+
+
 def top_experts(probs: torch.Tensor, top_k: int) -> torch.Tensor:
     """(..., T, E) -> (..., T, k) expert indices by falling probability, the
     lower index first among equals (``jax.lax.top_k``'s order)."""

@@ -59,6 +59,20 @@ def init_time_mix(gen: torch.Generator, cfg, device="cuda"):
     }
 
 
+def time_mix_axes(cfg):
+    """The logical axes of :func:`init_time_mix`'s leaves."""
+    return {
+        **{f"mu_{n}": ("embed",) for n in "rkvwg"},
+        **{f"w_{n}": ("embed", "heads") for n in "rkvg"},
+        "w_o": ("heads", "embed"),
+        "decay_base": ("embed",),
+        "decay_lora_a": ("embed", None),
+        "decay_lora_b": (None, "embed"),
+        "bonus_u": ("ssm_heads", None),
+        "ln_scale": ("embed",),
+    }
+
+
 def init_channel_mix(gen: torch.Generator, cfg, device="cuda"):
     d, dff = cfg.d_model, cfg.d_ff
     dtype = getattr(torch, cfg.param_dtype)
@@ -75,6 +89,12 @@ def init_channel_mix(gen: torch.Generator, cfg, device="cuda"):
     }
 
 
+def channel_mix_axes(cfg):
+    """The logical axes of :func:`init_channel_mix`'s leaves."""
+    return {"mu_k": ("embed",), "mu_r": ("embed",), "w_k": ("embed", "mlp"), "w_v": ("mlp", "embed"),
+            "w_r": ("embed", "heads")}
+
+
 def init_cache(cfg, batch: int, dtype, device="cuda"):
     nh, hd = _dims(cfg)
     d = cfg.d_model
@@ -83,6 +103,13 @@ def init_cache(cfg, batch: int, dtype, device="cuda"):
         "shift_t": torch.zeros((batch, d), dtype=dtype, device=device),  # prev token (time-mix)
         "shift_c": torch.zeros((batch, d), dtype=dtype, device=device),  # prev token (channel-mix)
     }
+
+
+CACHE_AXES = {
+    "wkv": ("batch", "ssm_heads", None, None),
+    "shift_t": ("batch", "embed"),
+    "shift_c": ("batch", "embed"),
+}
 
 
 def _token_shift(x, prev):

@@ -71,6 +71,27 @@ class LanguageModel:
             }
         return params
 
+    def param_axes(self) -> Any:
+        """The logical axes of :meth:`init`'s leaves, in the JAX package's
+        layout (its ``init``'s second tree): each segment's body leaves
+        stacked over a leading ``"layers"`` entry. ``train/state.py``'s
+        ``unstack_axes`` lays them over the port's per-layer lists."""
+        cfg = self.cfg
+        axes = {"embed": embedding.param_axes(cfg)}
+        for i, seg in enumerate(cfg.segments):
+            axes[f"seg{i}"] = blocks.segment_axes(cfg, seg)
+        axes["final_norm"] = norm.param_axes()
+        if cfg.is_encoder_decoder:
+            axes["encoder"] = blocks.segment_axes(cfg, self.encoder_segment())
+            axes["encoder_norm"] = norm.param_axes()
+        if cfg.num_vision_tokens:
+            axes["vision_proj"] = {"w1": (None, "embed"), "w2": ("embed", "embed")}
+        return axes
+
+    def cache_axes(self) -> Any:
+        """The logical axes of the dense cache, in the JAX package's layout."""
+        return {f"seg{i}": blocks.segment_cache_axes(seg) for i, seg in enumerate(self.cfg.segments)}
+
     def encoder_segment(self) -> SegmentSpec:
         """The encoder: ``encoder_layers`` attention blocks with the dense
         FFN, run non-causal."""

@@ -10,6 +10,11 @@ The trust ratio of LARS and LAMB is taken, as in the JAX package, over
 each leaf of the JAX package's tree: there a segment's layers are stacked
 on one array, so one ratio covers that leaf of every layer of the segment
 (:func:`_stacked_groups` finds those leaves in the port's per-layer lists).
+Each norm comes from per-leaf sums of squares; a sharded run's update gets
+its shards and ``leaf_sums``, which turns the per-shard sums into whole-leaf
+ones (``distributed/sharded.py``). Each leaf's update term is computed twice,
+once for its sum and once to apply it (the same bits), so that no second
+f32 copy of the tree is held.
 """
 from __future__ import annotations
 
@@ -60,17 +65,22 @@ def _stacked_groups(params) -> List[List[int]]:
     return groups
 
 
-def _norm(xs) -> torch.Tensor:
-    """‖concat(xs)‖ in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in xs))
+def _sq(x: torch.Tensor) -> torch.Tensor:
+    """‖x‖² in f32."""
+    return torch.sum(torch.square(x.float()))
 
 
-def _trust_ratio(ws, gs, eps: float = 1e-9) -> torch.Tensor:
+def _trust_ratio(sums: torch.Tensor, group: List[int], eps: float = 1e-9) -> torch.Tensor:
     """‖w‖ / (‖g‖ + eps) over the leaves of one group, or 1 where either
-    norm is 0."""
-    wn, gn = _norm(ws), _norm(gs)
+    norm is 0; ``sums`` (2, L) holds each leaf's ‖w‖² and ‖g‖²."""
+    wn = torch.sqrt(sum(sums[0, i] for i in group))
+    gn = torch.sqrt(sum(sums[1, i] for i in group))
     ratio = wn / (gn + eps)
     return torch.where((wn > 0) & (gn > 0), ratio, torch.ones_like(ratio))
+
+
+def _whole(sums: torch.Tensor, leaf_sums) -> torch.Tensor:
+    return sums if leaf_sums is None else leaf_sums(sums)
 
 
 def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
@@ -101,13 +111,15 @@ def lars(beta: float = 0.9, scaling: float = 0.01, weight_decay: float = 1e-4) -
         return {"stage": 0, "u": _zeros(params)}
 
     @torch.no_grad()
-    def update(grads, state, params, *, lr, stage=0, **_):
+    def update(grads, state, params, *, lr, stage=0, leaf_sums=None, **_):
         ws, gs, us = tree_leaves(params), tree_leaves(grads), tree_leaves(state["u"])
+        decayed = lambda i: gs[i].float() + weight_decay * ws[i].float()  # noqa: E731
+        sums = _whole(torch.stack([torch.stack([_sq(w) for w in ws]),
+                                   torch.stack([_sq(decayed(i)) for i in range(len(ws))])]), leaf_sums)
         for group in _stacked_groups(params):
-            gfs = [gs[i].float() + weight_decay * ws[i].float() for i in group]
-            local = scaling * _trust_ratio([ws[i] for i in group], gfs)
-            for i, gf in zip(group, gfs):
-                us[i].mul_(beta).add_(local * lr * gf)
+            local = scaling * _trust_ratio(sums, group)
+            for i in group:
+                us[i].mul_(beta).add_(local * lr * decayed(i))
                 ws[i].copy_((ws[i].float() - us[i]).to(ws[i].dtype))
         state["stage"] = int(stage)
         return params, state
@@ -120,19 +132,20 @@ def lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6, weight_decay: fl
         return {"stage": 0, "m": _zeros(params), "v": _zeros(params), "count": 0}
 
     @torch.no_grad()
-    def update(grads, state, params, *, lr, stage=0, **_):
+    def update(grads, state, params, *, lr, stage=0, leaf_sums=None, **_):
         state["count"] += 1
         bc1, bc2 = _bias_corrections(b1, b2, state["count"])
         ws, gs = tree_leaves(params), tree_leaves(grads)
         ms, vs = tree_leaves(state["m"]), tree_leaves(state["v"])
+        step = lambda i: (ms[i] / bc1) / (torch.sqrt(vs[i] / bc2) + eps) + weight_decay * ws[i].float()  # noqa: E731
+        for m, v, g in zip(ms, vs, gs):
+            _moments(m, v, g.float(), b1, b2)
+        sums = _whole(torch.stack([torch.stack([_sq(w) for w in ws]),
+                                   torch.stack([_sq(step(i)) for i in range(len(ws))])]), leaf_sums)
         for group in _stacked_groups(params):
-            upds = []
+            ratio = _trust_ratio(sums, group)
             for i in group:
-                _moments(ms[i], vs[i], gs[i].float(), b1, b2)
-                upds.append((ms[i] / bc1) / (torch.sqrt(vs[i] / bc2) + eps) + weight_decay * ws[i].float())
-            ratio = _trust_ratio([ws[i] for i in group], upds)
-            for i, upd in zip(group, upds):
-                ws[i].copy_((ws[i].float() - lr * ratio * upd).to(ws[i].dtype))
+                ws[i].copy_((ws[i].float() - lr * ratio * step(i)).to(ws[i].dtype))
         state["stage"] = int(stage)
         return params, state
 

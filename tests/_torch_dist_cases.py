@@ -150,3 +150,110 @@ class FailingDataset:
 
 def finite(xs) -> bool:
     return bool(np.all(np.isfinite(xs)))
+
+
+def gather_worker(rank, world, workdir, shape):
+    """One of ``world`` CPU workers: its shards of qwen2.5-3b smoke's pSGD
+    state on a ``shape`` host mesh, gathered back whole (``gather_params``
+    on every rank, ``move_state`` onto rank 0); writes ``ok_<rank>`` when
+    every leaf has the bits of the state it was cut from."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.reshard import reshard_state, state_shardings
+    from repro_torch.distributed.sharded import gather_params, move_state, tensor_leaves, tensor_shardings
+    from repro_torch.distributed.staging import HostExchange, StagingTimes
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh, prefix_groups
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.state import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "store"), rank=rank,
+                            world_size=world)
+    try:
+        model = LanguageModel(port_cfg())
+        params = model.init(0, device="cpu")
+        opt = make_optimizer("psgd")
+        state = TrainState(params, opt.init(params), 5)
+        mesh = make_host_mesh(*shape, devices=["cpu"] * world)
+        exchange = HostExchange(workdir, rank, world, 1 << 22)
+        xmesh = make_data_mesh(world, ["cpu"] * world, prefix_groups(world), exchange)
+        mine = reshard_state(state, mesh, model.param_axes(), rank)
+        layout = tensor_shardings(state_shardings(state, mesh, model.param_axes()), state)
+        n_params = len(tree_leaves(params))
+        full = gather_params(mine.params, layout[:n_params], rank, xmesh, StagingTimes())
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(full), tree_leaves(params), strict=True))
+        whole = tensor_shardings(state_shardings(state, make_data_mesh(1, ["cpu"]), None), state)
+        back = move_state(mine, state, layout, whole, rank, xmesh, StagingTimes())
+        if rank == 0:
+            same = same and back.step == 5 and all(
+                torch.equal(a, b) for a, b in zip(tensor_leaves(back), tensor_leaves(state), strict=True))
+        else:
+            same = same and back is None
+        sharded = sum(not s.replicated for s in layout)
+        if same and sharded:
+            open(os.path.join(workdir, f"ok_{rank}"), "w").write(str(sharded))
+    finally:
+        dist.destroy_process_group()
+
+
+def exchange_worker(rank, world, workdir, backend, on_cuda):
+    """One of ``world`` workers (on cuda:<rank> where ``on_cuda``): the
+    shards of qwen2.5-3b smoke's pSGD state on a (world // 2, 2) host mesh
+    gathered whole, a partial sum of seeded terms exchanged and tree-summed,
+    and the state moved onto rank 0, once through the shared host slots and
+    once through ``DeviceExchange`` over ``backend``; writes ``ok_<rank>``
+    when both give the same bits."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.nccl import DeviceExchange
+    from repro_torch.distributed.reshard import reshard_state, state_shardings
+    from repro_torch.distributed.sharded import gather_params, move_state, tensor_leaves, tensor_shardings
+    from repro_torch.distributed.staging import HostExchange, StagingTimes
+    from repro_torch.distributed.step import _combine_across
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh, prefix_groups
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.state import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.set_num_threads(1)
+    device = torch.device("cuda", rank) if on_cuda else torch.device("cpu")
+    if on_cuda:
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "store"), rank=rank,
+                            world_size=world)
+    try:
+        model = LanguageModel(port_cfg())
+        params = model.init(0, device=device)
+        state = TrainState(params, make_optimizer("psgd").init(params), 7)
+        mesh = make_host_mesh(world // 2, 2, devices=[device] * world)
+        layout = tensor_shardings(state_shardings(state, mesh, model.param_axes()), state)
+        whole = tensor_shardings(state_shardings(state, make_data_mesh(1, [device]), None), state)
+        n = len(tree_leaves(params))
+        gen = torch.Generator().manual_seed(rank)
+        grads = [torch.randn(t.shape, generator=gen).to(device) for t in tree_leaves(params)]
+        groups = prefix_groups(world)
+        results = []
+        for exchange in (HostExchange(workdir, rank, world, 1 << 22), DeviceExchange(rank, world, device, backend)):
+            xmesh = make_data_mesh(world, [device] * world, groups, exchange)
+            mine = reshard_state(state, mesh, model.param_axes(), rank)
+            full = tree_leaves(gather_params(mine.params, layout[:n], rank, xmesh, StagingTimes()))
+            total = {"grads": [g.clone() for g in grads], "loss": torch.tensor(1.0 + rank, device=device),
+                     "aux": torch.tensor(0.0, device=device), "sq": torch.tensor(2.0 * rank, device=device)}
+            summed = _combine_across(total, xmesh, StagingTimes())
+            back = move_state(mine, state, layout, whole, rank, xmesh, StagingTimes())
+            results.append((full, summed["grads"] + [summed["loss"], summed["sq"]],
+                            tensor_leaves(back) if back is not None else []))
+        (f1, s1, b1), (f2, s2, b2) = results
+        same = (all(torch.equal(a, b) for a, b in zip(f1, f2, strict=True))
+                and all(torch.equal(a, b) for a, b in zip(f1, tree_leaves(params), strict=True))
+                and all(torch.equal(a, b) for a, b in zip(s1, s2, strict=True))
+                and all(torch.equal(a, b) for a, b in zip(b1, b2, strict=True)) and len(b1) == len(b2))
+        if same:
+            open(os.path.join(workdir, f"ok_{rank}"), "w").write("ok")
+    finally:
+        dist.destroy_process_group()

@@ -321,5 +321,11 @@ def test_local_sgd_every_update_is_exact_sync_with_plain_sgd():
 
 
 def test_param_axes_names_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        port_trainer(2, param_axes={"embed": None})
+    """``param_axes`` are taken now (the sharding slice): exact sync shards
+    the replicas' storage by the rules (``tests/test_torch_mesh_train.py``
+    runs it), local SGD keeps whole replicas, as the JAX trainer does."""
+    axes = LanguageModel(CFG).param_axes()
+    tr, _ = port_trainer(2, param_axes=axes)
+    assert tr._sharded and tr.param_axes == axes
+    tr, _ = port_trainer(2, param_axes=axes, sync_mode="local")
+    assert not tr._sharded

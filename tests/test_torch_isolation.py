@@ -18,7 +18,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
                                                                     ROOT / "tools" / "cardbench.py",
                                                                     ROOT / "tools" / "sample_bench.py",
                                                                     ROOT / "tools" / "trace_check.py",
-                                                                    ROOT / "tools" / "disagg_check.py"]
+                                                                    ROOT / "tools" / "disagg_check.py",
+                                                                    ROOT / "tools" / "mesh_check.py"]
 
 
 def _imported_modules(path: Path):
@@ -54,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.experiments.fig2_optimal_batch, repro_torch.experiments.fig3_stagewise\n"
         "import repro_torch.experiments.adaptive_sebs, repro_torch.experiments.sebs_vs_stagewise\n"
         "import repro_torch.distributed, repro_torch.launch.mesh, repro_torch.experiments.table_comm\n"
-        "import repro_torch.analysis.sanitize\n"
+        "import repro_torch.analysis.sanitize, repro_torch.sharding, repro_torch.distributed.sharded\n"
+        "import repro_torch.distributed.nccl\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
@@ -90,11 +92,20 @@ def test_train_launcher_runs_on_cpu(tmp_path):
     assert all(np.isfinite(log.losses)) and (tmp_path / "log.json").exists()
 
 
-# the JAX launcher's behaviours: --mesh still waits for the sharding slice;
-# the elastic options need --dp-elastic, which builds its own worker groups
-@pytest.mark.parametrize("flags", [(["--mesh", "single"], "sharding slice"),
+def test_mesh_launcher_without_cpu_flag_needs_cuda(monkeypatch):
+    from repro_torch.launch import train as launcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        launcher.main(["--mesh", "single"])
+
+
+# the JAX launcher's behaviours: --mesh needs accumulate mode and, for two
+# pods, two devices; the elastic options need --dp-elastic, which builds its
+# own worker groups
+@pytest.mark.parametrize("flags", [(["--mesh", "single", "--mode", "reshape"], "needs --mode accumulate"),
                                    (["--dp-elastic", "--mesh", "single"], "drop --mesh"),
-                                   (["--mesh", "multi"], "sharding slice"),
+                                   (["--mesh", "multi"], "needs at least 2 devices"),
                                    (["--sync-mode", "local"], "--sync-mode requires --dp-elastic"),
                                    (["--device-budget", "2"], "--device-budget requires --dp-elastic"),
                                    (["--local-interval", "2"], "--local-interval requires --dp-elastic")])

@@ -49,6 +49,11 @@ sub-chunk and 64-position chunk edges, strong decay, more (batch, head,
 chunk) blocks than the card has SMs, and Mamba2's own inputs (80 heads, C
 and B shared by every head, a decay per head from zamba2's A_log and dt,
 the current token included).
+
+The sharded runs' NCCL exchange (``distributed/nccl.py``, one card a
+worker): on two or four cards, the shard gather, the partials' exchange and
+the move onto rank 0 give the shared host slots' bits (skips with fewer
+than two cards: NCCL refuses two ranks on one card).
 """
 import numpy as np
 import pytest
@@ -749,3 +754,13 @@ def test_gla_refuses_what_it_does_not_take(cuda):
         gla_kernel.gla_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(), x.bfloat16(), include_current=True)
     with pytest.raises(ValueError, match="contiguous"):
         gla_kernel.gla_fwd(x.transpose(1, 2), x, x, x, include_current=True)
+
+
+def test_nccl_exchange_keeps_the_host_slots_bits(tmp_path):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more: NCCL refuses two ranks on one card")
+    from _torch_dist_cases import exchange_worker
+
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    torch.multiprocessing.spawn(exchange_worker, args=(world, str(tmp_path), "nccl", True), nprocs=world, join=True)
+    assert all((tmp_path / f"ok_{r}").exists() for r in range(world))
