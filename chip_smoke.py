@@ -167,14 +167,14 @@
     phase 8 (batches with audio), and the greedy tokens of the three
     engines with per-request audio are equal.
 25. The paper's experiments: Fig. 3 at the JAX file's settings (all 8
-    methods; update counts and batch paths as the schedules give them; a
+    methods, in four processes sharing the card; update counts and batch paths as the schedules give them; a
     fused update's kernel launched once an update), Fig. 2's b*(x) at both
     rates over the full grid with the correlation, adaptive SEBS, and
     ResNet-20 at its real shape card against CPU (forward, backward, a
     pSGD update).
 
 26. Elastic exact-sync training (``repro_torch.distributed``): qwen2.5-3b at
-    full width cut to 4 layers, phase 7's schedule with pSGD, on devices
+    full width cut to 2 layers, phase 7's schedule with pSGD, on devices
     [cuda:0] x budget for budgets 1, 2 and 4 (one worker process each,
     sharing the card; gloo for control, the partial sums through shared
     host slots; the caller's state to rank 0 by CUDA IPC). One microbatch's
@@ -201,6 +201,20 @@
     the updates' ms by stage, and each worker's peak.
 31. ElasticTrainer(param_axes=...) at budget 4: losses and params
     bit-identical to phase 26's budget 4; the same timings.
+32. The dry run and the roofline (run right after phase 9, on its state):
+    (a) qwen2.5-3b train_4k counted on meta tensors on the (16, 16) mesh
+    (``repro_torch.launch.dryrun``): rank 0's argument and peak bytes,
+    FLOPs, bytes accessed, collective bytes and the three roofline terms at
+    the H100's published peaks, in under 10 s on the host; (b) one stage-2
+    update of phase 7's cell under each remat policy (nothing_saveable,
+    dots_saveable, dots_no_batch, save_block_outputs; each twice, the second
+    round in reverse order) from the same params, the dry-run counts in
+    worker processes meanwhile:
+    losses and params bit-identical across the policies, the flash forward
+    288 and backward 144 launches an update under each, the peak (less the
+    reference copies held) within 10% of the dry run's for the same step on
+    the (1, 1) mesh; prints each update's ms beside the roofline's compute
+    and memory terms and the share, with the card's name and power limit.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -314,6 +328,13 @@ def kv_bytes_read(table, q_hi, ps, hkv, d, itemsize) -> int:
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cost_bound(cost, peak_ops: float):
+    """The bound of a kernel's ``cost(...)`` (operations, bytes), the
+    function the dry run counts the kernel's work with."""
+    ops, bytes_moved = cost
+    return bound(bytes_moved, ops, peak_ops)
 
 
 def merge(readings: list) -> dict:
@@ -677,16 +698,10 @@ def gla_inputs(gen, b: int, s: int, h: int, initial_state: bool):
 
 def gla_products(s: int, backward: bool) -> int:
     """Multiply-adds x 2 of the chunked form's matrix products for one
-    (batch, head) over S positions (the last chunk as long as it is):
-    forward A (L L K), A v (L L V), q S and k^T v (L K V each); the backward
-    recomputes A and adds dA, A^T dy, dq and dk's pairwise (L L K each, L L V
-    for the two with V) and four L K V products."""
-    total = 0
-    for t0 in range(0, s, 64):
-        n = min(64, s - t0)
-        total += 2 * (3 * n * n * 64 + 2 * n * n * 64 + 4 * n * 64 * 64) if backward else \
-            2 * (2 * n * n * 64 + 2 * n * 64 * 64)
-    return total
+    (batch, head) over S positions (``kernels/gla/ops.py``'s ``products``)."""
+    from repro_torch.kernels.gla.ops import products
+
+    return products(s, backward=backward)
 
 
 def dlog_w_without_chunk_totals(q, k, v, lw, u, dy, d_lw, include_current: bool = False):
@@ -750,14 +765,12 @@ def gla_checks(records: dict) -> dict:
         bwd.append(check_scaled(f"gla_bwd {name}", g, e, tol, fault if name == "dlog_w" else None))
     sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u) for _ in range(copies_for(nbytes(q, k, v, lw)))]
     bwd_sets = [(*x, None, states.clone(), final.clone(), dy.clone(), None) for x in sets]
-    b, s, h = q.shape[:3]
-    io = nbytes(q, k, v, lw, u) + nbytes(v) + 4 * b * h * 64 * 64  # y and the final state written
     records["gla_fwd"] = dict(
         **merge(fwd),
         ms=timed(lambda *a: ops.forward(*a, include_current=False, save_states=True), sets, 50),
         plain_ms=timed(lambda q_, k_, v_, lw_, u_: ref.gla_fwd_ref(q_, k_, v_, lw_, bonus_u=u_,
                                                                    include_current=False), sets, 3),
-        bound=bound(io, b * h * gla_products(s, backward=False), BF16_FLOPS),
+        bound=cost_bound(ops.cost(q, k, v, lw, u), BF16_FLOPS),
         library_ms=None,
     )
     records["gla_bwd"] = dict(
@@ -766,8 +779,7 @@ def gla_checks(records: dict) -> dict:
         plain_ms=timed(lambda *a: ref.gla_bwd_ref(*a[:6], a[8], a[9], include_current=False),
                        bwd_sets, 2),
         # reads q, k, v, dy, log_w and u; writes dq, dk, dv, dlog_w and du
-        bound=bound(nbytes(q, k, v, dy, lw, u) + nbytes(q, k, v, lw, u),
-                    b * h * gla_products(s, backward=True), BF16_FLOPS),
+        bound=cost_bound(ops.cost(q, k, v, lw, u, backward=True), BF16_FLOPS),
         library_ms=None,
     )
     # the kernels' own device time (the L2-cold loop also holds the host's time a call)
@@ -879,16 +891,13 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
     n_sets = copies_for(nbytes(q, k, v, d_out, out))
     sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n_sets)]
     bwd_sets = [(*x, out.clone(), lse.clone(), d_out.clone()) for x in sets]
-    # visible (query, key) pairs
-    pairs = sum(min(i + 1, s) for i in range(s)) if causal else s * s
-    io = nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s
     fwd_fn = functools.partial(ops.forward, causal=causal)
     bwd_fn = functools.partial(ops.backward, causal=causal)
     records[name_fwd] = dict(
         **fwd,
         ms=timed(fwd_fn, sets, 50),
         plain_ms=timed(functools.partial(ref.attention_fwd_ref, causal=causal), sets, 5),
-        bound=bound(io, 4 * d * pairs * b * hq, BF16_FLOPS),
+        bound=cost_bound(ops.cost(q, k, v, causal=causal), BF16_FLOPS),
     )
     records[name_bwd] = dict(
         **bwd,
@@ -897,8 +906,7 @@ def flash_shape(records: dict, gen, b: int, s: int, hq: int, hkv: int, d: int, s
         # reads q, k, v, out, dO and lse; writes dq, dk, dv; the four
         # products of the gradient (dV, dP, dQ, dK), the recomputation of
         # P being the kernel's choice
-        bound=bound(2 * nbytes(q, k, v) + nbytes(out, d_out) + 4 * b * hq * s,
-                    8 * d * pairs * b * hq, BF16_FLOPS),
+        bound=cost_bound(ops.cost(q, k, v, causal=causal, backward=True), BF16_FLOPS),
     )
     # the library yardstick: SDPA on the (B, H, S, D) layout, forward and
     # backward, under one named backend (library_ms; flash where it takes
@@ -1051,14 +1059,12 @@ def fused_checks(records: dict, trees: dict) -> None:
             wrapper = lambda w_, g_, a_: ops.psgd_update(w_, g_, a_, lr=lr, gamma=gamma)
             plain = lambda w_, g_, a_: [ref.psgd_ref(*x, lr=lr, gamma=gamma) for x in zip(w_, g_, a_)]
             outputs = lambda w_, st: [w_]
-            moved = 16 * n  # w, g, anchor read; w written
         elif kname.startswith("fused_momentum"):
             state = [leaves(shapes)]
             wrapper = lambda w_, g_, u_: ops.momentum_update(w_, g_, u_, lr=lr, beta=beta)
             plain = lambda w_, g_, u_: list(zip(*[ref.momentum_ref(*x, lr=lr, beta=beta)
                                                   for x in zip(w_, g_, u_)]))
             outputs = lambda w_, st: [w_, st[0]]
-            moved = 20 * n  # w, g, u read; w, u written
         else:
             state = [leaves(shapes), leaves(shapes), leaves(shapes, positive=True)]
             wrapper = lambda w_, g_, a_, z_, s_: ops.adagrad_da_update(
@@ -1066,7 +1072,6 @@ def fused_checks(records: dict, trees: dict) -> None:
             plain = lambda w_, g_, a_, z_, s_: list(zip(*[
                 ref.adagrad_da_ref(*x, lr=lr, delta=delta, nu=nu) for x in zip(w_, g_, a_, z_, s_)]))
             outputs = lambda w_, st: [w_, st[1], st[2]]
-            moved = 28 * n  # g, anchor, z, s2 read; w, z, s2 written (w is not read)
         expect = plain(w, g, *state)
         expect = [expect] if kname.startswith("fused_psgd") else expect
         wrapper(w, g, *state)
@@ -1084,7 +1089,10 @@ def fused_checks(records: dict, trees: dict) -> None:
             ms=timed(wrapper, [(w, g, *state)], 10),
             device_ms=device_ms(wrapper, [(w, g, *state)], 5),
             plain_ms=timed(plain, [(w, g, *state)], 2),
-            bound=bound(moved, 6 * n, F32_FLOPS),
+            # pSGD reads w, g, the anchor and writes w; momentum reads w, g, u and
+            # writes w, u; AdaGrad-DA reads g, the anchor, z, s2 and writes w, z, s2
+            bound=cost_bound(ops.cost(next(b for b in ops.LAUNCHES if kname.startswith(b)), w, g, *state),
+                             F32_FLOPS),
             library_ms=None,
         )
         del w, g, state
@@ -1351,6 +1359,195 @@ def trace_update(label: str, trainer, state, optimizer, lr: float):
     for kname, (ms, n) in list(prof["by_kernel"].items())[:10]:
         print(f"{label} profile: {ms:9.2f} ms {n:6d} x  {kname[:100]}")
     return prof, untraced_ms, metrics
+
+
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "dots_no_batch", "save_block_outputs")
+DRYRUN_SECONDS = 10.0  # phase 32(a)'s limit on the host
+REMAT_PEAK_TOL = 0.10  # the card's peak against the dry run's, relative
+
+
+def _dry_run_train_4k():
+    """(the dry run's summary of qwen2.5-3b train_4k on the (16, 16) mesh,
+    its host seconds after a warm-up at smoke size), in a worker process."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    # warm-up at smoke size: PyTorch imports some modules at first use
+    dryrun.count_combo(get_config("qwen2.5-3b", "smoke"), InputShape("warm", 16, 4, "train"),
+                       make_host_mesh(2, 2, devices=["meta"] * 4))
+    t0 = time.perf_counter()
+    summary = dryrun.run_combo("qwen2.5-3b", "train_4k", False)
+    return summary, time.perf_counter() - t0
+
+
+def _count_update(cfg, seq: int, policy: str):
+    """(the dry run's count of phase 7's stage-2 update under ``policy`` on
+    the (1, 1) mesh, its host seconds), in a worker process."""
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    summary = dryrun.count_train(cfg.replace(remat_policy=policy), InputShape("phase7_stage2", seq, 16, "train"),
+                                 make_production_mesh(devices=["meta"]), accum_steps=4, optimizer_name="psgd")
+    return summary, time.perf_counter() - t0
+
+
+def dry_run_report(summary: dict, seconds: float) -> dict:
+    """Phase 32(a): the meta dry run of qwen2.5-3b train_4k on the (16, 16)
+    mesh (``repro_torch.launch.dryrun``, nothing allocated): rank 0's bytes,
+    FLOPs and collective bytes and the three roofline terms at the H100's
+    published peaks. Fails if it took DRYRUN_SECONDS or more on the host."""
+    from repro_torch.roofline.analysis import roofline_from_summary
+
+    terms = roofline_from_summary(summary)
+    mem, coll = summary["memory"], summary["collectives"]
+    print(f"phase 32(a) dry run qwen2.5-3b train_4k on {summary['mesh']} (meta, counted on the host in "
+          f"{seconds:.2f} s): per rank arguments {mem['argument_bytes_per_device']} B, peak "
+          f"{mem['peak_bytes_per_device']} B, flops {summary['cost']['flops']:.6e}, bytes accessed "
+          f"{summary['cost']['bytes_accessed']:.6e}, collective bytes {coll['total_bytes']} | roofline (H100 "
+          f"published peaks) compute {terms.compute_s:.4f} s, memory {terms.memory_s:.4f} s, collective "
+          f"{terms.collective_s:.4f} s, dominant {terms.dominant}", flush=True)
+    if seconds >= DRYRUN_SECONDS:
+        fail(f"phase 32(a): the dry run took {seconds:.1f} s on the host, not under {DRYRUN_SECONDS:.0f} s")
+    return {"seconds": seconds, "memory": mem, "cost": {k: summary["cost"][k] for k in ("flops", "bytes_accessed")},
+            "collectives": coll, "terms": {"compute_s": terms.compute_s, "memory_s": terms.memory_s,
+                                           "collective_s": terms.collective_s, "dominant": terms.dominant}}
+
+
+def remat_start(cfg, trainer, state, optimizer, lr: float) -> tuple:
+    """Phase 32: starts the dry-run counts in worker processes (spawned, one
+    CPU thread each, five of the host's cores), runs phase 7's stage-2
+    update under each remat policy on the card (b), and returns with the
+    counts still running (they finish beside the next phases):
+    (the pool, its futures, the card's measurements)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(1 + len(REMAT_POLICIES),
+                                                  mp_context=multiprocessing.get_context("spawn"))
+    dry = pool.submit(_dry_run_train_4k)
+    seq = trainer.pipeline.ds.seq_len + 1
+    counts = {p: pool.submit(_count_update, cfg, seq, p) for p in REMAT_POLICIES}
+    return pool, dry, counts, remat_update(cfg, trainer, state, optimizer, lr)
+
+
+def remat_finish(started: tuple, smi: str) -> dict:
+    """Phase 32's report once the counts are in: (b) each update against the
+    dry run's count of it, (a) the dry run of train_4k; stops the workers."""
+    pool, dry, counts, measured = started
+    t0 = time.perf_counter()
+    with pool:
+        counted = {p: f.result() for p, f in counts.items()}
+        report = {"update": remat_check(measured, counted, smi), "dry_run": dry_run_report(*dry.result())}
+    print(f"phase 32: waited {time.perf_counter() - t0:.1f} s for the counts", flush=True)
+    return report
+
+
+def remat_update(cfg, trainer, state, optimizer, lr: float) -> dict:
+    """Phase 32(b) on the card: stage-2 updates of phase 7's cell (full
+    width, 4 microbatches of 4 x 513, pSGD) under each remat policy, twice
+    each (the policies in order, then in reverse order), from the same
+    params each time (restored from a copy on the card; the anchors do
+    not move within a stage), each after reset_peak_memory_stats() (phase 9
+    has run the step warm). Fails
+    unless the losses and params are bit-identical across the policies and
+    the flash forward ran twice a layer and microbatch and the backward
+    once. Returns each policy's ms (the mean of its two runs, and the runs),
+    loss, peak (the larger of its two, less the reference copies held) and
+    launches."""
+    import torch
+
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import build_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    batch = trainer.pipeline.next_batch(16)
+    batch = {k: v.reshape((4, 4) + tuple(v.shape[1:])) for k, v in batch.items()}
+    leaves = tree_leaves(state.params)
+    with torch.no_grad():
+        start = [w.detach().clone() for w in leaves]
+    held = sum(nbytes(w) for w in start)
+    first = None
+    out = {p: {"ms_runs": [], "peak_bytes": 0} for p in REMAT_POLICIES}
+    expect = {"flash_attention_fwd": 2 * 4 * cfg.num_layers, "flash_attention_bwd": 4 * cfg.num_layers,
+              "fused_psgd": 1}
+    steps = {p: build_train_step(LanguageModel(cfg.replace(remat_policy=p)), optimizer, accum_steps=4)
+             for p in REMAT_POLICIES}
+    # two rounds, the second in reverse order, so that no policy always runs first
+    for policy in REMAT_POLICIES + REMAT_POLICIES[::-1]:
+        with torch.no_grad():
+            for w, x in zip(leaves, start):
+                w.copy_(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for ops in (optim_ops, sys.modules["repro_torch.kernels.flash_attention.ops"]):
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = steps[policy](state, batch, lr, 2)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = {**flash_launches(), "fused_psgd": optim_ops.LAUNCHES["fused_psgd"]}
+        loss = metrics["loss"].item()
+        if any(launches[k] != n for k, n in expect.items()):
+            fail(f"phase 32 {policy}: launches {launches}, not {expect}")
+        if first is None:
+            with torch.no_grad():
+                first = (loss, [w.detach().clone() for w in leaves])
+            held += sum(nbytes(w) for w in first[1])
+        elif loss != first[0] or not all(torch.equal(w, x) for w, x in zip(leaves, first[1])):
+            fail(f"phase 32 {policy}: the loss ({loss!r} vs {first[0]!r}) or the params differ from "
+                 f"{REMAT_POLICIES[0]}'s")
+        rec = out[policy]
+        rec["ms_runs"].append(ms)
+        rec.update(ms=sum(rec["ms_runs"]) / len(rec["ms_runs"]), loss=loss, peak_bytes=max(rec["peak_bytes"], peak),
+                   launches=launches)
+    with torch.no_grad():  # leave the params as phase 9 left them
+        for w, x in zip(leaves, start):
+            w.copy_(x)
+    return out
+
+
+def remat_check(measured: dict, counted: dict, smi: str) -> dict:
+    """Phase 32(b)'s report: each policy's update ms beside the roofline's
+    compute and memory terms of the dry run's count of the same step on the
+    (1, 1) mesh, and the card's peak against the count's. Fails where the
+    peak is REMAT_PEAK_TOL or more from the count's."""
+    from repro_torch.roofline.analysis import HW
+
+    out = {}
+    for policy, m in measured.items():
+        predicted, dry_s = counted[policy]
+        dry_peak = predicted["memory"]["peak_bytes_per_device"]
+        compute_s = predicted["cost"]["flops"] / HW["peak_flops"]
+        memory_s = predicted["cost"]["bytes_accessed"] / HW["hbm_bw"]
+        rel = abs(m["peak_bytes"] - dry_peak) / dry_peak
+        out[policy] = {**m, "dry_peak_bytes": dry_peak, "peak_rel_diff": rel, "flops": predicted["cost"]["flops"],
+                       "bytes_accessed": predicted["cost"]["bytes_accessed"],
+                       "activation_bytes": predicted["memory"]["activation_bytes_per_microbatch"],
+                       "compute_s": compute_s, "memory_s": memory_s,
+                       "share": max(compute_s, memory_s) * 1e3 / m["ms"], "dry_run_s": dry_s}
+        print(f"phase 32(b) {policy}: update {m['ms']:.1f} ms (runs " + " / ".join(f"{x:.1f}" for x in m["ms_runs"])
+              + f") | roofline compute {compute_s * 1e3:.1f} ms, memory "
+              f"{memory_s * 1e3:.1f} ms, share {100 * out[policy]['share']:.1f}% | flops "
+              f"{predicted['cost']['flops']:.6e} | peak {m['peak_bytes'] / 2**30:.2f} GiB vs dry run "
+              f"{dry_peak / 2**30:.2f} GiB ({100 * rel:.1f}%) | activations a microbatch "
+              f"{out[policy]['activation_bytes'] / 2**30:.2f} GiB | loss {m['loss']:.6f} | launches {m['launches']} "
+              f"| counted in {dry_s:.1f} s | {smi}", flush=True)
+        if rel >= REMAT_PEAK_TOL:
+            fail(f"phase 32 {policy}: peak {m['peak_bytes']} B is {100 * rel:.1f}% from the dry run's {dry_peak} B")
+    return out
 
 
 def serve_rwkv6(cfg) -> dict:
@@ -2193,13 +2390,12 @@ def flash_forward_reading(records: dict, name: str, gen, b: int, s: int, hq: int
         backend = SDPBackend.EFFICIENT_ATTENTION
     with sdpa_kernel(backend):
         library_ms = timed(sdpa, lib_sets, 50)
-    pairs = sum(min(i + 1, s) for i in range(s))
     records[name] = dict(
         **reading,
         ms=timed(ops.forward, sets, 50),
         device_ms=device_ms(ops.forward, sets, 20),
         plain_ms=timed(ref.attention_fwd_ref, sets, 5),
-        bound=bound(nbytes(q, k, v) + nbytes(out) + 4 * b * hq * s, 4 * d * pairs * b * hq, BF16_FLOPS),
+        bound=cost_bound(ops.cost(q, k, v), BF16_FLOPS),
         library_ms=library_ms, library_backend=backend.name,
     )
 
@@ -3137,10 +3333,33 @@ def resnet_card_cpu() -> dict:
     return reading
 
 
+FIG3_WORKERS = 4  # Fig. 3's methods run in this many processes sharing the card
+
+
+def _fig3_method(name: str):
+    """One Fig. 3 method on the card in a worker process: (its result, the
+    fused launches it made, its wall seconds)."""
+    import torch
+
+    from repro_torch.experiments import fig3_stagewise
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    schedule, opt_name, opt_kwargs = fig3_stagewise.methods()[name]
+    optim_ops.reset_launches()
+    t0 = time.perf_counter()
+    res = fig3_stagewise._train(schedule, opt_name, opt_kwargs, device="cuda")
+    torch.cuda.synchronize()
+    return res, dict(optim_ops.LAUNCHES), time.perf_counter() - t0
+
+
 def paper_experiments() -> dict:
     """Phase 25: the paper's experiments on the card. Fig. 3 at the JAX
     file's settings (n 4,000, 16 px, width 8, 10 epochs, b1 32, rho 4, all 8
-    methods), each method's counters zeroed before its run and read after:
+    methods, in FIG3_WORKERS processes sharing the card: each run is
+    host-bound and independent), each method's counters zeroed before its
+    run and read after:
     its update count and logged batches equal its schedule's plan, and the
     methods that update through a fused kernel launch it once an update.
     Fig. 2's b*(x) at both rates over the full grid, with the correlation;
@@ -3150,17 +3369,18 @@ def paper_experiments() -> dict:
     from repro_torch.experiments import adaptive_sebs, fig2_optimal_batch, fig3_stagewise
     from repro_torch.kernels.fused_optim import ops as optim_ops
 
+    import concurrent.futures
+    import multiprocessing
+
     out_dir = str(OUT_DIR / "experiments")
     fig3, fig3_launches = {}, {}
     t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(FIG3_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = {name: pool.submit(_fig3_method, name) for name in fig3_stagewise.methods()}
+        runs = {name: f.result() for name, f in runs.items()}
     for name, (schedule, opt_name, opt_kwargs) in fig3_stagewise.methods().items():
         path = fig3_stagewise.batch_path(schedule)
-        optim_ops.reset_launches()
-        t1 = time.perf_counter()
-        res = fig3_stagewise._train(schedule, opt_name, opt_kwargs, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = dict(optim_ops.LAUNCHES)
+        res, launches, wall = runs[name]
         if res["updates"] != len(path) or res["log"]["batch"] != path[9::10]:
             fail(f"fig3 {name}: {res['updates']} updates / logged batches differ from the schedule's "
                  f"{len(path)} updates")
@@ -3205,7 +3425,8 @@ def paper_experiments() -> dict:
 
 
 # Phases 26-27: elastic multi-worker SEBS training, four workers sharing the card.
-ELASTIC_LAYERS = 4           # qwen2.5-3b at full width, cut in depth as phase 13
+ELASTIC_LAYERS = 2           # qwen2.5-3b at full width, cut in depth (the bit-identity gates do not
+                             # depend on depth; tools/mesh_check.py --four-cards runs all 36 layers)
 ELASTIC_DEADLINE = 600.0     # seconds an elastic run may take in all
 ELASTIC_SAVE_EVERY = 4       # the killed budget-4 run saves at 4 and 8 (5 GB each)
 
@@ -4196,11 +4417,16 @@ def main() -> None:
 
     # 9. where the time goes: one stage-2 update (4 microbatches), traced on the device
     train_profile, untraced_ms, _ = trace_update("train", trainer, state, psgd, ETAS["psgd"])
+    phase_done("7, 9 psgd training")
+    # 32. the dry run and the roofline: phase 7's stage-2 update under each remat
+    # policy on the card; the dry run's counts (of it, and of train_4k on meta
+    # tensors) run in worker processes beside phases 7b-8 and are read after phase 8
+    remat_started = remat_start(cfg, trainer, state, psgd, ETAS["psgd"])
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase_done("7, 9 psgd training")
+    phase_done("32 remat policies on the card")
     # 7b. momentum and AdaGrad-DA, full width at 8 layers
     runs = {"psgd": {"layers": cfg.num_layers, "eta": ETAS["psgd"], "losses": log.losses,
                      "wall_s": train_wall, "peak_gib": train_peak / 2**30,
@@ -4237,6 +4463,8 @@ def main() -> None:
     agreement = card_cpu_agreement("qwen2.5-3b")
 
     phase_done("8 card vs cpu")
+    remat = remat_finish(remat_started, smi)
+    phase_done("32 the dry run's counts (waited)")
     # 10-11. rwkv6-1.6b at full width: served, then trained, through the GLA kernels
     rwkv = get_config("rwkv6-1.6b", "full")
     rwkv_serving = serve_rwkv6(rwkv)
@@ -4399,6 +4627,9 @@ def main() -> None:
                         ("fused_sample_v51865", "fused_sample"), ("fused_psgd_resnet", "fused_psgd"),
                         ("fused_momentum_resnet", "fused_momentum"), ("fused_adagrad_da_resnet", "fused_adagrad_da")):
         replaces[kname], sources[kname] = replaces[base], sources[base]
+    # phase 32's updates, two a remat policy (``launches`` are an update's)
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += sum(len(r["ms_runs"]) * r["launches"][kname] for r in remat["update"].values())
     # the elastic paths (phases 26-27): every worker's launches, added over ranks and runs
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
         all_launches[kname] += elastic["launches"][kname]
@@ -4480,6 +4711,7 @@ def main() -> None:
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
         "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd}, "sharded": sharded,
+        "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,
         "profile": profile, "engine": {

@@ -8,6 +8,7 @@ from repro_torch.configs.base import (
     TrainConfig,
 )
 from repro_torch.configs.registry import ARCHS, get_config, list_archs
+from repro_torch.configs.shapes import INPUT_SHAPES, input_specs, shape_applicable
 
 __all__ = [
     "BlockSpec",
@@ -20,4 +21,7 @@ __all__ = [
     "ARCHS",
     "get_config",
     "list_archs",
+    "INPUT_SHAPES",
+    "input_specs",
+    "shape_applicable",
 ]

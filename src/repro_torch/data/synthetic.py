@@ -34,7 +34,6 @@ tests state the bound).
 from __future__ import annotations
 
 import functools
-import hashlib
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -96,12 +95,6 @@ def split(k, num: int = 2):
 def unstack(keys):
     """The keys along the last axis of ``keys``, one (k0, k1) pair each."""
     return [(keys[0][..., i], keys[1][..., i]) for i in range(keys[0].shape[-1])]
-
-
-def fold_in_name(k, name: str):
-    """The JAX package's ``fold_in_name``: ``fold_in`` of the first four
-    bytes (little-endian) of the name's SHA-256."""
-    return fold_in(k, int.from_bytes(hashlib.sha256(name.encode("utf-8")).digest()[:4], "little"))
 
 
 def random_bits(k, shape) -> np.ndarray:

@@ -46,6 +46,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.distributed.staging import StagingTimes
+from repro_torch.kernels.accounting import descriptors
 from repro_torch.distributed.step import _combine_across, _local_total, _metrics
 from repro_torch.train.state import TrainState
 from repro_torch.train.step import clip_by_global_norm
@@ -147,7 +148,8 @@ def gather_params(params, shardings: list, rank: int, xmesh, times: StagingTimes
     full = list(leaves)
     if idx:
         shards = [leaves[i] if _holds(shardings[i], rank) else None for i in idx]
-        likes = [torch.empty(shardings[i].shape, dtype=leaves[i].dtype, device="meta") for i in idx]
+        with descriptors():
+            likes = [torch.empty(shardings[i].shape, dtype=leaves[i].dtype, device="meta") for i in idx]
         for j, leaf in xmesh.exchange.assemble(shards, [shardings[i] for i in idx], likes, xmesh, times,
                                                leaves[0].device):
             full[idx[j]] = leaf
@@ -200,7 +202,8 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
             total = _local_total(model, params, batch, local_accum, z_loss)
         del params
         if xmesh.width > 1:
-            likes = [torch.empty(s.shape, dtype=torch.float32, device="meta") for s in shardings]
+            with descriptors():
+                likes = [torch.empty(s.shape, dtype=torch.float32, device="meta") for s in shardings]
             total = _combine_across(total, xmesh, t.exchange, senders=width, likes=likes,
                                     device=tree_leaves(state.params)[0].device)
         grads = tree_scale(total["grads"], 1.0 / global_accum)

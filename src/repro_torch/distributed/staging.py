@@ -41,6 +41,7 @@ class StagingTimes:
     copy_out_s: float = 0.0
     collective_s: float = 0.0
     copy_back_s: float = 0.0
+    received_bytes: int = 0  # bytes this rank copied back (from_host): what it received
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -57,6 +58,7 @@ def from_host(buf: torch.Tensor, like: torch.Tensor, times: StagingTimes, device
     t0 = time.perf_counter()
     out = buf.to(like.device if device is None else device, copy=True).view(like.dtype).reshape(like.shape)
     times.copy_back_s += time.perf_counter() - t0
+    times.received_bytes += buf.numel() * buf.element_size()
     return out
 
 

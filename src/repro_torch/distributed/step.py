@@ -43,6 +43,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.distributed.staging import StagingTimes, from_host
+from repro_torch.kernels.accounting import descriptors, kernel_region
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.state import TrainState
 from repro_torch.train.step import _sq_norm, clip_by_global_norm
@@ -121,7 +122,8 @@ def _combine_across(total: Optional[dict], mesh, times: StagingTimes, senders: O
     does not send passes ``total`` None, and the gradients' ``likes`` (meta
     tensors) and its ``device``."""
     senders = mesh.width if senders is None else senders
-    meta_scalars = torch.empty(3, dtype=torch.float32, device="meta")
+    with descriptors():
+        meta_scalars = torch.empty(3, dtype=torch.float32, device="meta")
     if total is None:
         parts = list(likes) + [meta_scalars]
     else:
@@ -129,13 +131,38 @@ def _combine_across(total: Optional[dict], mesh, times: StagingTimes, senders: O
         parts = total["grads"] + [scalars]
         device = scalars.device
         total["grads"] = None
-    metas = [t.to("meta") for t in parts]
+    with descriptors():
+        metas = [t.to("meta") for t in parts]
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     for i, host in mesh.exchange.all_gather(parts, mesh, times, consume=True, senders=senders):
-        like = metas[i]
-        out[i] = span_tree_sum(lambda d: from_host(host[d], like, times, device), senders, add_)
+        out[i] = _tree_of_partials(host, metas[i], senders, times, device)
     s = out.pop()
     return {"grads": out, "loss": s[0], "aux": s[1], "sq": s[2]}
+
+
+def _tree_of_partials(host: list, like: torch.Tensor, senders: int, times: StagingTimes, device) -> torch.Tensor:
+    """One leaf's partials from the host (``host[d]``: sender d's bytes)
+    combined by the canonical tree. On meta tensors (the dry run) the same
+    work is reported whole and nothing is computed: each partial copied back
+    (its bytes read and written), each add reading two terms and writing
+    one, and the tree's most live terms allocated at once, which is the
+    op-by-op run's count and high-water mark."""
+    if torch.device(device).type != "meta":
+        return span_tree_sum(lambda d: from_host(host[d], like, times, device), senders, add_)
+    n = like.numel() * like.element_size()
+    times.received_bytes += senders * n
+    with kernel_region("exchange_tree_sum", 0.0, float(2 * senders * n + 3 * (senders - 1) * n)):
+        live = [torch.empty(like.shape, dtype=like.dtype, device=device) for _ in range(_tree_live_terms(senders))]
+    return live[0]
+
+
+def _tree_live_terms(n: int) -> int:
+    """The most terms :func:`span_tree_sum` holds at once over ``n`` (each
+    fetched term new, the right subtree added into the left)."""
+    if n == 1:
+        return 1
+    mid = n // 2
+    return max(_tree_live_terms(mid), 1 + _tree_live_terms(n - mid))
 
 
 def _apply(optimizer, state: TrainState, grads, lr, stage, grad_clip):

@@ -23,6 +23,7 @@ disaggregated serving.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -64,7 +65,12 @@ class Mesh:
         return int(self.devices.size)
 
     def coords(self, rank: int) -> Dict[str, int]:
-        return dict(zip(self.axis_names, (int(i) for i in np.unravel_index(rank, self.devices.shape))))
+        return self._coords[rank]
+
+    @functools.cached_property
+    def _coords(self) -> List[Dict[str, int]]:
+        grid = np.unravel_index(np.arange(self.size), self.devices.shape)
+        return [dict(zip(self.axis_names, (int(g[r]) for g in grid))) for r in range(self.size)]
 
     def device_of(self, rank: int) -> torch.device:
         return torch.device(self.devices.flat[rank])

@@ -10,8 +10,35 @@ Three modes: the full-sequence forward of training (no cache), the dense
 serving steps (prefill and decode against a per-row cache) and the paged
 serving steps. In training, ``cfg.remat`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
-package's ``jax.checkpoint`` with the ``nothing_saveable`` policy does per
-scanned layer; the other JAX policies come with a later slice.
+package's ``jax.checkpoint`` does per scanned layer, under the policy
+``cfg.remat_policy`` names (:data:`REMAT_POLICIES`, JAX's four names):
+
+- ``nothing_saveable``: each block one region; nothing inside is kept.
+- ``dots_saveable``: one region, whose matrix products (``mm``, ``addmm``,
+  ``bmm``, ``baddbmm``, ``convolution``) are kept for the recomputation
+  (``create_selective_checkpoint_contexts``), as JAX's policy keeps
+  ``dot_general`` and convolutions.
+- ``dots_no_batch``: only the products without batch dimensions: ``mm``
+  and ``addmm``, and ``bmm``/``baddbmm`` of batch 1 (the form
+  ``torch.einsum`` gives a product with no batch dimension: the
+  projections, the FFN, the router); not the MoE experts' ``e``-batched
+  products nor ``_sdpa``'s (B x heads).
+- ``save_block_outputs``: JAX keeps the outputs it names ``mixer_out`` (an
+  attention block's self-attention, Mamba2's mixer) and ``ffn_out`` (the
+  dense and MoE FFNs). Here such a block is two regions, split where the
+  mixer's branch joins the residual stream: the mid-block residual is the
+  second region's input and is kept, and each branch is recomputed from
+  its own input, so the FFN's recomputation no longer replays the mixer.
+  A named identity kept by a selective policy would keep the tensor but
+  save nothing: a non-reentrant recomputation replays the region from its
+  input up to each tensor the backward unpacks. RWKV6's blocks name
+  nothing in JAX and stay one region.
+
+A policy changes what is kept, never a value: losses and gradients are
+the same bits under all four. The kernels' calls (``kernels/accounting.py``)
+are opaque to the policies, as a ``pallas_call`` is to JAX's: no tensor
+inside a kernel's call is kept, and its outputs are recomputed under every
+policy.
 
 The block kinds: attention mixers (``"attn"``, ``"swa"``) with the dense
 SwiGLU FFN, which is every block of the dense decoders, or with the MoE
@@ -42,10 +69,13 @@ router's gradient flows through the recomputation, as the JAX scan's
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, SegmentSpec
+from repro_torch.kernels.accounting import in_kernel
 from repro_torch.models.layers import attention, mamba2, mlp, moe, norm, rwkv6
 from repro_torch.sharding.partitioning import map_axes
 
@@ -208,9 +238,19 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
     place and returned; recurrent state (RWKV6's, Mamba2's) comes back as
     new tensors (which the paged engine writes into its slot rows,
     ``LanguageModel.paged_state_merge``)."""
+    x, new_cache, carry = _mixer_part(params, x, cfg, spec, positions=positions, cache=cache,
+                                      page_table=page_table, cache_index=cache_index, causal=causal)
+    return _ffn_part(params, x, cfg, spec, positions=positions, cache=cache, new_cache=new_cache,
+                     carry=carry, memory=memory)
+
+
+def _mixer_part(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None, page_table=None,
+                cache_index=None, causal: bool = True):
+    """The block's first half: x plus the mixer's branch (JAX's
+    ``mixer_out``; an RWKV6 block's time-mix). Returns (x, new_cache, the
+    time-mix's (wkv, shift_t) for the channel mix, or None)."""
     h = norm.apply(params["norm1"], x, cfg.norm_eps)
-    new_cache = cache
-    rc = None
+    new_cache, carry = cache, None
     if spec.mixer in ATTENTION_MIXERS:
         window = None
         if spec.mixer == "swa":
@@ -220,10 +260,6 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
             cache=None if cache is None else cache["attn"],
             page_table=page_table, cache_index=cache_index, sliding_window=window, causal=causal,
         )
-        if spec.mixer == "cross_attn_block" and memory is not None:
-            x = x + y
-            hx = norm.apply(params["norm_cross"], x, cfg.norm_eps)
-            y, _ = attention.apply(params["cross_attn"], hx, cfg, positions=positions, memory=memory)
     elif spec.mixer == "mamba2":
         y, mcache = mamba2.apply(params["mamba"], h, cfg,
                                  cache=None if cache is None else cache["mamba"],
@@ -234,7 +270,19 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
         rc = None if cache is None else cache["rwkv"]
         decode = cache is not None and x.shape[1] == 1 and cache_index is not None
         y, wkv, shift_t = rwkv6.apply_time_mix(params["tmix"], h, cfg, cache=rc, decode=decode)
-    x = x + y
+        carry = (wkv, shift_t)
+    return x + y, new_cache, carry
+
+
+def _ffn_part(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=None, new_cache=None,
+              carry=None, memory=None):
+    """The block's second half: a cross-attention block's attention to the
+    ``memory``, then x plus the FFN's branch (JAX's ``ffn_out``). Returns
+    (x, new_cache, aux)."""
+    if spec.mixer == "cross_attn_block" and memory is not None:
+        hx = norm.apply(params["norm_cross"], x, cfg.norm_eps)
+        y, _ = attention.apply(params["cross_attn"], hx, cfg, positions=positions, memory=memory)
+        x = x + y
     if spec.ffn == "none":
         return x, new_cache, 0.0
     h = norm.apply(params["norm2"], x, cfg.norm_eps)
@@ -245,8 +293,10 @@ def apply_block(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cach
         if cfg.moe_dense_residual:
             y = y + mlp.apply(params["mlp"], h)
         return x + y, new_cache, aux
+    rc = None if cache is None else cache["rwkv"]
     y, shift_c = rwkv6.apply_channel_mix(params["cmix"], h, cfg, cache=rc)
     if cache is not None:
+        wkv, shift_t = carry
         new_cache = {"rwkv": {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}}
     return x + y, new_cache, 0.0
 
@@ -256,28 +306,90 @@ def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions, memory
     return x, aux
 
 
+def _train_mixer(params, x, cfg: ModelConfig, spec: BlockSpec, positions, causal):
+    return _mixer_part(params, x, cfg, spec, positions=positions, causal=causal)[0]
+
+
+def _train_ffn(params, x, cfg: ModelConfig, spec: BlockSpec, positions, memory):
+    x, _, aux = _ffn_part(params, x, cfg, spec, positions=positions, memory=memory)
+    return x, aux
+
+
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm,
+         torch.ops.aten.convolution)
+_UNBATCHED = (torch.ops.aten.mm, torch.ops.aten.addmm)
+_BATCHED = (torch.ops.aten.bmm, torch.ops.aten.baddbmm)
+
+
+def _save_if(keep):
+    def policy(ctx, op, *args, **kwargs):
+        if not in_kernel() and keep(op.overloadpacket, args):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _dots(packet, args) -> bool:
+    return packet in _DOTS
+
+
+def _dots_no_batch(packet, args) -> bool:
+    if packet in _UNBATCHED:
+        return True
+    # bmm(input, mat2) and baddbmm(self, batch1, batch2): batch 1 is torch.einsum's unbatched product
+    return packet in _BATCHED and args[0 if packet is torch.ops.aten.bmm else 1].shape[0] == 1
+
+
+#: policy name -> the ``context_fn`` of each block's ``checkpoint`` (None:
+#: the default, which keeps nothing); ``save_block_outputs`` also splits
+#: the blocks that name outputs (:func:`_splits`)
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "dots_saveable": _save_if(_dots),
+    "dots_no_batch": _save_if(_dots_no_batch),
+    "save_block_outputs": None,
+}
+
+
+def _splits(spec: BlockSpec) -> bool:
+    """Whether ``save_block_outputs`` splits the block: JAX names its
+    ``mixer_out`` where an attention or Mamba2 mixer is followed by more of
+    the block (the FFN, or the cross-attention)."""
+    named_mixer = spec.mixer in ATTENTION_MIXERS or spec.mixer == "mamba2"
+    return named_mixer and (spec.ffn != "none" or spec.mixer == "cross_attn_block")
+
+
+def _remat_block(p, x, cfg: ModelConfig, spec: BlockSpec, positions, memory, causal):
+    """One block rematerialized under ``cfg.remat_policy``: (x, aux)."""
+    policy = cfg.remat_policy
+    if policy == "save_block_outputs" and _splits(spec):
+        x = checkpoint(_train_mixer, p, x, cfg, spec, positions, causal, use_reentrant=False)
+        return checkpoint(_train_ffn, p, x, cfg, spec, positions, memory, use_reentrant=False)
+    context_fn = REMAT_POLICIES[policy]
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(_train_block, p, x, cfg, spec, positions, memory, causal, use_reentrant=False, **kw)
+
+
 def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, cache=None,
                   page_table=None, cache_index=None, memory=None, causal: bool = True):
     """Run the segment's layers in order. Returns (x, new_cache, aux: the
     layers' router losses summed); with ``cache`` None it is the
     full-sequence (training) forward, rematerialized per block (the shared
-    block's every application too) when ``cfg.remat`` is set. ``memory``
+    block's every application too) under ``cfg.remat_policy`` when
+    ``cfg.remat`` is set. ``memory``
     and ``causal`` reach every block (the memory under remat too, so the
     encoder's gradient flows through each decoder block's recomputation)."""
     aux = 0.0
     if cache is None:
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "nothing_saveable":
-            raise NotImplementedError(
-                f"remat policy {cfg.remat_policy!r} comes with a later slice; "
-                "the port has nothing_saveable"
-            )
+        if remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {cfg.remat_policy!r}; the policies are {sorted(REMAT_POLICIES)}")
         for r in range(seg.repeat):
             for name, spec in _segment_blocks(seg):
                 p = params[name] if name == "shared" else params[name][r]
                 if remat:
-                    x, a = checkpoint(_train_block, p, x, cfg, spec, positions, memory, causal,
-                                      use_reentrant=False)
+                    x, a = _remat_block(p, x, cfg, spec, positions, memory, causal)
                 else:
                     x, a = _train_block(p, x, cfg, spec, positions, memory, causal)
                 aux = aux + a

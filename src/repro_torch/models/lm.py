@@ -51,9 +51,10 @@ class LanguageModel:
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> Any:
         """Random parameters from a ``torch.Generator`` seeded with ``seed``,
-        on ``device`` (the JAX package's scales; not its random stream)."""
+        on ``device`` (the JAX package's scales; not its random stream).
+        On ``"meta"`` the same tree of empty tensors (:meth:`abstract_init`)."""
         cfg = self.cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = None if torch.device(device).type == "meta" else torch.Generator(device=device).manual_seed(seed)
         params = {"embed": embedding.init(gen, cfg, device)}
         for i, seg in enumerate(cfg.segments):
             params[f"seg{i}"] = blocks.init_segment(gen, cfg, seg, device)
@@ -70,6 +71,11 @@ class LanguageModel:
                 "w2": torch.randn((d, d), generator=gen, dtype=dtype, device=device) * d**-0.5,
             }
         return params
+
+    def abstract_init(self) -> Any:
+        """The tree :meth:`init` builds, as meta tensors of its shapes and
+        dtypes: nothing is allocated or drawn (the dry run's state)."""
+        return self.init(device="meta")
 
     def param_axes(self) -> Any:
         """The logical axes of :meth:`init`'s leaves, in the JAX package's

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.data.synthetic import fold_in, fold_in_name, key, normal
+from repro_torch.data.synthetic import fold_in, key, normal
+from repro_torch.utils.prng import fold_in_name
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,7 @@ have no counterpart here.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -166,9 +167,22 @@ class NamedSharding:
 
     def holders(self) -> Dict[Tuple[int, ...], int]:
         """Each shard index -> the lowest rank that stores it, in index order."""
+        return dict(self._holders)
+
+    @functools.cached_property
+    def _holders(self) -> Dict[Tuple[int, ...], int]:
+        sizes = dict(self.mesh.shape)
+        axes = [_entry_axes(e) for e in self.spec]
         out: Dict[Tuple[int, ...], int] = {}
         for rank in range(self.mesh.size):
-            out.setdefault(self.shard_index(rank), rank)
+            coords = self.mesh.coords(rank)
+            index = []
+            for entry in axes:
+                idx = 0
+                for a in entry:
+                    idx = idx * sizes[a] + coords[a]
+                index.append(idx)
+            out.setdefault(tuple(index), rank)
         return dict(sorted(out.items()))
 
 

@@ -257,3 +257,46 @@ def exchange_worker(rank, world, workdir, backend, on_cuda):
             open(os.path.join(workdir, f"ok_{rank}"), "w").write("ok")
     finally:
         dist.destroy_process_group()
+
+
+def sharded_step_worker(rank, world, workdir, shape, seq, rows):
+    """One of ``world`` CPU workers on a ``shape`` host mesh: one sharded
+    momentum step of qwen2.5-3b smoke (every rank computing ``rows`` rows
+    of ``seq`` tokens) through the host slots; rank 0 writes the bytes it
+    received (the shard gathers' and the partials' exchange's) to
+    ``received.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.reshard import reshard_state, state_shardings
+    from repro_torch.distributed.sharded import build_sharded_train_step, tensor_shardings
+    from repro_torch.distributed.staging import HostExchange
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh, prefix_groups
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.state import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "store"), rank=rank,
+                            world_size=world)
+    try:
+        model = LanguageModel(port_cfg())
+        params = model.init(0, device="cpu")
+        opt = make_optimizer("momentum")
+        state = TrainState(params, opt.init(params), 0)
+        mesh = make_host_mesh(*shape, devices=["cpu"] * world)
+        exchange = HostExchange(workdir, rank, world, 1 << 22)
+        xmesh = make_data_mesh(world, ["cpu"] * world, prefix_groups(world), exchange)
+        layout = tensor_shardings(state_shardings(state, mesh, model.param_axes()), state)
+        mine = reshard_state(state, mesh, model.param_axes(), rank)
+        times = []
+        step = build_sharded_train_step(model, opt, layout[:len(tree_leaves(params))], rank=rank, width=world,
+                                        local_accum=1, xmesh=xmesh, times=times)
+        tokens = torch.from_numpy(np.random.default_rng(rank).integers(0, 512, (1, rows, seq)).astype(np.int32))
+        step(mine, {"tokens": tokens}, 0.05, 0)
+        if rank == 0:
+            with open(os.path.join(workdir, "received.json"), "w") as f:
+                json.dump({"received_bytes": times[0].exchange.received_bytes}, f)
+    finally:
+        dist.destroy_process_group()

@@ -22,6 +22,8 @@ largest value plus rtol 5e-4. Every test runs the port with torch's
 intra-op threads pinned to one (and restored after), so that its sums take
 one order whatever else the process runs beside it.
 """
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -169,8 +171,13 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     ops.reset_launches()
     ops.gla_chunked(q, k, v, lw, bonus_u=u, include_current=False, initial_state=s0)
     assert ops.LAUNCHES == {"gla_fwd": 0, "gla_bwd": 0}
-    with pytest.raises(ValueError, match="not meta"):
-        ops.gla_chunked(*(t.to("meta") for t in (q, k, v, lw)))
+    # meta tensors (the dry run) get the kernel's outputs, unwritten, and launch nothing
+    y, final = ops.gla_chunked(*(t.to("meta") for t in (q, k, v, lw)))
+    assert y.device.type == final.device.type == "meta"
+    assert y.shape == v.shape and final.shape == (1, 1, 8, 8)
+    assert ops.LAUNCHES == {"gla_fwd": 0, "gla_bwd": 0}
+    with pytest.raises(ValueError, match="not xpu"):
+        ops.forward(types.SimpleNamespace(device=torch.device("xpu")), k, v, lw, include_current=True)
 
 
 # -- the chunked plain versions, which the CUDA kernels follow step for step --

@@ -148,3 +148,27 @@ def test_chip_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_dry_run_and_roofline_load_no_jax(tmp_path):
+    """The dry run's CLI (``python -m repro_torch.launch.dryrun``) counts a
+    combo, and the roofline's modules import, without loading any JAX."""
+    code = (
+        "import runpy, sys\n"
+        "import repro_torch.roofline.run, repro_torch.roofline.hillclimb, repro_torch.configs.shapes\n"
+        "import repro_torch.utils, repro_torch.roofline.counter, repro_torch.kernels.accounting\n"
+        f"sys.argv = ['dryrun', '--arch', 'whisper-tiny', '--shape', 'decode_32k', '--out', {str(tmp_path)!r}]\n"
+        "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (tmp_path / "whisper-tiny_decode_32k_pod1.json").exists()
+
+
+def test_remat_check_tool_imports_no_jax():
+    """``tools/remat_check.py`` (chip_smoke's phase 32 alone) stands with the port."""
+    for name in _imported_modules(ROOT / "tools" / "remat_check.py"):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "benchmarks"), name

@@ -764,3 +764,34 @@ def test_nccl_exchange_keeps_the_host_slots_bits(tmp_path):
     world = 4 if torch.cuda.device_count() >= 4 else 2
     torch.multiprocessing.spawn(exchange_worker, args=(world, str(tmp_path), "nccl", True), nprocs=world, join=True)
     assert all((tmp_path / f"ok_{r}").exists() for r in range(world))
+
+
+def test_remat_policies_give_the_same_bits_on_the_card(cuda):
+    """qwen2.5-3b smoke in bf16 through the flash kernels: the loss and
+    every gradient under dots_saveable, dots_no_batch and
+    save_block_outputs equal nothing_saveable's bit for bit, and the flash
+    forward runs twice a layer (the forward and its recomputation) under
+    every policy: no policy keeps a tensor from inside a kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.train.step import _grads_over_microbatches
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("qwen2.5-3b", "smoke")
+    params = LanguageModel(cfg).init(0, device=cuda)
+    for w in tree_leaves(params):
+        w.requires_grad_(True)
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=gen).to(torch.int32).to(cuda)}
+    runs = {}
+    for policy in ("nothing_saveable", "dots_saveable", "dots_no_batch", "save_block_outputs"):
+        flash_ops.reset_launches()
+        grads, metrics = _grads_over_microbatches(LanguageModel(cfg.replace(remat_policy=policy)), params, batch,
+                                                  1, 0.0)
+        assert flash_ops.LAUNCHES["flash_attention_fwd"] == 2 * cfg.num_layers
+        assert flash_ops.LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+        runs[policy] = (metrics["loss"].detach(), [g.detach() for g in grads])
+    loss, grads = runs.pop("nothing_saveable")
+    for policy, (other_loss, other) in runs.items():
+        assert torch.equal(other_loss, loss), policy
+        assert all(torch.equal(a, b) for a, b in zip(other, grads, strict=True)), policy

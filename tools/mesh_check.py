@@ -4,7 +4,7 @@
     python3 tools/mesh_check.py --four-cards  # a machine with four cards
 
 One card: builds the kernels, runs phase 26's reference (ElasticTrainer at
-budget 1, qwen2.5-3b full width cut to 4 layers, pSGD on phase 7's
+budget 1, qwen2.5-3b full width cut to 2 layers, pSGD on phase 7's
 schedule: SEBS b1 4, C1 16, rho 2, 3 stages, 513-token rows, microbatch
 4), then ``chip_smoke.mesh_sharded`` (SEBSTrainer on a (2, 2) mesh of four
 workers sharing cuda:0, host slots) and ``chip_smoke.elastic_sharded``
@@ -16,8 +16,8 @@ exchange go through NCCL): the (2, 2) production mesh (what the launcher's
 ``--mesh single`` builds) over the four cards at all 36 of qwen2.5-3b's
 layers, against a one-card ElasticTrainer at budget 1 on cuda:0 in the same
 call (losses and params bit-identical; each card's storage between updates
-as the specs count it); then at 4 layers the (2, 2) mesh on cuda:0 x 4
-(host slots) and over the four cards (NCCL), both held to a 4-layer budget-1
+as the specs count it); then at 2 layers the (2, 2) mesh on cuda:0 x 4
+(host slots) and over the four cards (NCCL), both held to a 2-layer budget-1
 run, with the exchange's ms of each side by side; and the launcher's
 ``--mesh single`` at smoke size on the four cards. Every number printed
 carries the card's name and power limit. Any failed check raises.
@@ -97,12 +97,12 @@ def main() -> None:
     t = time.perf_counter()
     ref = reference(cs, cut)
     host = cs.mesh_sharded(cut, smi, ref, make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4),
-                           label="mesh (2, 2) on cuda:0 x 4, 4 layers")
-    cards = cs.mesh_sharded(cut, smi, ref, mesh, label="mesh (2, 2) over 4 cards, 4 layers")
-    print(f"4 layers: {time.perf_counter() - t:.1f} s", flush=True)
+                           label=f"mesh (2, 2) on cuda:0 x 4, {cut.num_layers} layers")
+    cards = cs.mesh_sharded(cut, smi, ref, mesh, label=f"mesh (2, 2) over 4 cards, {cut.num_layers} layers")
+    print(f"{cut.num_layers} layers: {time.perf_counter() - t:.1f} s", flush=True)
     for st in sorted(host["by_stage"]):
         h, c = host["by_stage"][st], cards["by_stage"][st]
-        print(f"exchange at 4 layers, stage {st}: host slots ({host['exchange']}) "
+        print(f"exchange at {cut.num_layers} layers, stage {st}: host slots ({host['exchange']}) "
               f"{sum(h['exchange_ms'].values()):.1f} ms (copy out / barriers / copy back "
               f"{h['exchange_ms']['copy_out']:.1f} / {h['exchange_ms']['collective']:.1f} / "
               f"{h['exchange_ms']['copy_back']:.1f}), NCCL ({cards['exchange']}) "
