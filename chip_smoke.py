@@ -192,19 +192,24 @@
     save_every 3): saves snap to updates [3, 6, 10, 12], losses finite, the
     state collapsed at the end, fewer collectives than updates.
 30. Rule-based storage sharding: SEBSTrainer(mesh=make_host_mesh(2, 2) on
-    cuda:0 x 4, param_axes=...) on phase 26's model and schedule: losses and
-    final params bit-identical to phase 26's budget 1; each worker launched
-    the fused pSGD once an update (on its shards) and the flash kernels for
-    its microbatches; each worker's memory_allocated between updates within
-    2% of its shards' bytes counted from the specs. Prints the gather, the
-    exchange (copy out / barriers / copy back) and the optimizer's ms and
-    the updates' ms by stage, and each worker's peak.
+    cuda:0 x 4, param_axes=...) on phase 26's model and schedule, each
+    layer gathered where it runs and the gradient exchanged as shard slices
+    (``distributed/sharded.py``): losses and final params bit-identical to
+    phase 26's budget 1; each worker launched the fused pSGD once an update
+    (on its shards) and the flash kernels for its microbatches; each
+    worker's memory_allocated between updates within 2% of its shards'
+    bytes counted from the specs, and its peak in a stage-2 update within
+    10% of the dry run's count of its rank's step (the same mesh and
+    depth). Prints the layer gathers', the collectives' (copy out /
+    barriers / copy back) and the optimizer's ms and the updates' ms by
+    stage, and each worker's peak.
 31. ElasticTrainer(param_axes=...) at budget 4: losses and params
-    bit-identical to phase 26's budget 4; the same timings.
+    bit-identical to phase 26's budget 4; the same peaks against the count
+    (the ("data",) mesh of 4) and timings.
 32. The dry run and the roofline (run right after phase 9, on its state):
     (a) qwen2.5-3b train_4k counted on meta tensors on the (16, 16) mesh
     (``repro_torch.launch.dryrun``): rank 0's argument and peak bytes,
-    FLOPs, bytes accessed, collective bytes and the three roofline terms at
+    FLOPs, bytes accessed, collective bytes by type and the three roofline terms at
     the H100's published peaks, in under 10 s on the host; (b) one stage-2
     update of phase 7's cell under each remat policy (nothing_saveable,
     dots_saveable, dots_no_batch, save_block_outputs; each twice, the second
@@ -215,6 +220,14 @@
     reference copies held) within 10% of the dry run's for the same step on
     the (1, 1) mesh; prints each update's ms beside the roofline's compute
     and memory terms and the share, with the card's name and power limit.
+
+33. The paper's Fig. 1 (``repro_torch.experiments.fig1_util``, right
+    after phase 25): the momentum train step on qwen2.5-3b at smoke size
+    and at full width, µs a sample at batches 1, 2, 4, 8, 16, 32 of 64
+    tokens (3 timed steps each): below at batch 32 than at batch 1 at both
+    sizes, the flash kernels and the fused momentum launched once a layer
+    (the forward twice, under remat) and once a step, within 30 s; prints
+    the six times with the card's name and power limit.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -1414,7 +1427,8 @@ def dry_run_report(summary: dict, seconds: float) -> dict:
     print(f"phase 32(a) dry run qwen2.5-3b train_4k on {summary['mesh']} (meta, counted on the host in "
           f"{seconds:.2f} s): per rank arguments {mem['argument_bytes_per_device']} B, peak "
           f"{mem['peak_bytes_per_device']} B, flops {summary['cost']['flops']:.6e}, bytes accessed "
-          f"{summary['cost']['bytes_accessed']:.6e}, collective bytes {coll['total_bytes']} | roofline (H100 "
+          f"{summary['cost']['bytes_accessed']:.6e}, collective bytes {coll['total_bytes']} "
+          f"({', '.join(f'{k} {v}' for k, v in sorted(coll['by_type_bytes'].items()))}) | roofline (H100 "
           f"published peaks) compute {terms.compute_s:.4f} s, memory {terms.memory_s:.4f} s, collective "
           f"{terms.collective_s:.4f} s, dominant {terms.dominant}", flush=True)
     if seconds >= DRYRUN_SECONDS:
@@ -3354,6 +3368,57 @@ def _fig3_method(name: str):
     return res, dict(optim_ops.LAUNCHES), time.perf_counter() - t0
 
 
+FIG1_ITERS = 3  # timed steps a batch size (after one untimed)
+FIG1_SECONDS = 30.0  # the phase's limit
+
+
+def fig1_phase(smi: str) -> dict:
+    """Phase 33: the paper's Fig. 1 on the card
+    (``repro_torch.experiments.fig1_util``): the momentum train step on
+    qwen2.5-3b at smoke size and at full width (36 layers, d 2,048), µs a
+    sample at batches 1-32 of 64 tokens, the counters zeroed before each
+    size and read after: the flash forward (twice a layer under remat) and
+    backward once a layer a step, the fused momentum once a step. µs a
+    sample at batch 32 must be below batch 1 at both sizes, and the phase
+    within FIG1_SECONDS."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.experiments import fig1_util
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+
+    t0 = time.perf_counter()
+    out = {}
+    for variant in ("smoke", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_ops.reset_launches()
+        optim_ops.reset_launches()
+        tv = time.perf_counter()
+        records = fig1_util.run(str(OUT_DIR / "experiments"), "cuda", variant, FIG1_ITERS)
+        wall = time.perf_counter() - tv
+        cfg = get_config("qwen2.5-3b", variant)
+        steps = len(fig1_util.BATCHES) * (1 + FIG1_ITERS)
+        want = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.num_layers * steps,
+                "flash_attention_bwd": cfg.num_layers * steps, "fused_momentum": steps}
+        launches = {k: {**flash_ops.LAUNCHES, **optim_ops.LAUNCHES}[k] for k in want}
+        if launches != want:
+            fail(f"phase 33 fig1 {variant}: launches {launches}, not {want}")
+        us = {int(k): v for k, v in records[0].context["per_sample_us"].items()}
+        print(f"phase 33 fig1 {variant} ({cfg.num_layers} layers, d {cfg.d_model}): µs a sample by batch "
+              + ", ".join(f"{b}: {v:.1f}" for b, v in us.items())
+              + f"; b 1 -> 32 {records[1].value:.2f}x; launches {launches}; {wall:.1f} s | {smi}", flush=True)
+        if not us[32] < us[1]:
+            fail(f"phase 33 fig1 {variant}: µs a sample at batch 32 ({us[32]:.1f}) is not below batch 1 ({us[1]:.1f})")
+        out[variant] = {"per_sample_us": us, "speedup": records[1].value, "launches": launches, "wall_s": wall}
+    seconds = time.perf_counter() - t0
+    if seconds > FIG1_SECONDS:
+        fail(f"phase 33 fig1: {seconds:.1f} s, not within {FIG1_SECONDS:.0f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def paper_experiments() -> dict:
     """Phase 25: the paper's experiments on the card. Fig. 3 at the JAX
     file's settings (n 4,000, 16 px, width 8, 10 epochs, b1 32, rho 4, all 8
@@ -3723,6 +3788,43 @@ def elastic_local(cfg, smi: str) -> dict:
 # -- rule-based storage sharding (phases 30-31) --------------------------------
 
 SHARD_MEMORY_TOL = 0.02  # a worker's between-update memory_allocated against its shards' bytes
+SHARD_PEAK_TOL = 0.10  # a worker's peak in a stage-2 update against the dry run's count of its step
+
+
+def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str) -> dict:
+    """Each worker's max_memory_allocated in the stage-2 updates (phase 7's
+    schedule: 4 microbatches of 4 x 513 tokens, one a rank) against the dry
+    run's count of that rank's step on ``meta_mesh`` (the run's mesh on meta
+    devices) at the same depth (``repro_torch.launch.dryrun.count_train``,
+    the host slots' layout; NCCL's in-place send buffer comes to the
+    same). Fails beyond SHARD_PEAK_TOL, and where what a worker holds
+    before a stage-2 update is beyond SHARD_MEMORY_TOL of the count's
+    arguments (its shards and its chunk)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rows = []
+    for r, stats in enumerate(trainer.worker_stats):
+        stage2 = [(before, peak) for st, before, peak in stats["update_peak_bytes"] if st == 2]
+        mem = dryrun.count_train(cfg, InputShape("stage2", 513, 16, "train"), meta_mesh, optimizer_name="psgd",
+                                 rank=r)["memory"]
+        card, counted = max(p for _, p in stage2), mem["peak_bytes_per_device"]
+        rows.append({"rank": r, "card_bytes": card, "counted_bytes": counted, "rel": card / counted - 1,
+                     "card_before_bytes": [b for b, _ in stage2], "card_peaks": [p for _, p in stage2],
+                     "counted_argument_bytes": mem["argument_bytes_per_device"]})
+    print(f"phase {label}: stage-2 update peaks by worker, card / dry run GiB "
+          + ", ".join(f"{x['card_bytes'] / 2**30:.3f} / {x['counted_bytes'] / 2**30:.3f} ({100 * x['rel']:+.1f}%; "
+                      f"before an update {min(x['card_before_bytes']) / 2**30:.3f}-"
+                      f"{max(x['card_before_bytes']) / 2**30:.3f}, counted arguments "
+                      f"{x['counted_argument_bytes'] / 2**30:.3f})" for x in rows)
+          + f" (counted in {time.perf_counter() - t0:.1f} s on the host) | {smi}", flush=True)
+    if any(abs(x["rel"]) > SHARD_PEAK_TOL for x in rows):
+        fail(f"phase {label}: a worker's stage-2 peak is beyond {SHARD_PEAK_TOL:.0%} of the dry run's count: {rows}")
+    if any(abs(b / x["counted_argument_bytes"] - 1) > SHARD_MEMORY_TOL for x in rows for b in x["card_before_bytes"]):
+        fail(f"phase {label}: a worker held more than its arguments (shards, batch chunk) before a stage-2 update, "
+             f"beyond {SHARD_MEMORY_TOL:.0%}: {rows}")
+    return {"by_worker": rows}
 
 
 def shard_times(trainer, log) -> dict:
@@ -3781,7 +3883,8 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     pSGD once an update (on its shards) and the flash kernels for the
     microbatches it computed; every worker's memory_allocated between
     updates within SHARD_MEMORY_TOL of its shards' bytes as the specs count
-    them."""
+    them; each worker's stage-2 peak within SHARD_PEAK_TOL of the dry
+    run's count (``shard_peak_check``)."""
     import numpy as np
     import torch
 
@@ -3837,6 +3940,8 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
             fail(f"phase {label}: worker {r} held {between} bytes between updates, not its shards' "
                  f"{shard_bytes} (within {SHARD_MEMORY_TOL:.0%})")
     times = shard_times(trainer, log)
+    meta_mesh = make_host_mesh(*mesh.shape.values(), devices=["meta"] * mesh.size)
+    times["peaks"] = shard_peak_check(label, cfg, trainer, meta_mesh, smi)
     between = [s["between_bytes"] for s in trainer.worker_stats]
     print(f"phase {label} on {[str(d) for d in mesh.device_list]}: {len(log.steps)} updates in {wall:.1f} s, "
           f"bit-identical to the budget-1 run; each worker stores {shard_bytes / 1e9:.3f} GB of the state's {whole_bytes / 1e9:.3f} GB "
@@ -3857,6 +3962,7 @@ def elastic_sharded(cfg, smi: str, reference) -> dict:
     bit-identical to phase 26's budget 4 (and so budget 1's)."""
     import torch
 
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.models import LanguageModel
 
     gc.collect()
@@ -3867,6 +3973,7 @@ def elastic_sharded(cfg, smi: str, reference) -> dict:
     same_as_reference("phase 31 elastic sharded", log, state.params, reference)
     launches = elastic_launch_check("phase 31 elastic sharded", tr, log, cfg.num_layers, "fused_psgd")
     times = shard_times(tr, log)
+    times["peaks"] = shard_peak_check("31 elastic sharded", cfg, tr, make_data_mesh(4, ["meta"] * 4), smi)
     print(f"phase 31 elastic sharded budget 4: {len(log.steps)} updates in {wall:.1f} s, bit-identical to phase 26 "
           f"| {smi}", flush=True)
     print_shard_times("31 elastic sharded", times, smi)
@@ -4505,6 +4612,9 @@ def main() -> None:
     # 25. the paper's own experiments: Fig. 3, Fig. 2, adaptive SEBS, ResNet-20
     experiments = paper_experiments()
     phase_done("25 the paper's experiments")
+    # 33. the paper's Fig. 1: time a sample against the batch, at smoke size and full width
+    fig1 = fig1_phase(smi)
+    phase_done("33 fig. 1")
     # 26-27. elastic multi-worker SEBS training: up to four workers share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -4638,6 +4748,9 @@ def main() -> None:
     # the sharded paths (phases 30-31): every worker's launches, added over ranks
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
         all_launches[kname] += sharded["mesh"]["launches"][kname] + sharded["elastic"]["launches"][kname]
+    # Fig. 1 (phase 33), at smoke size and full width
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
+        all_launches[kname] += sum(fig1[v]["launches"][kname] for v in ("smoke", "full"))
     # the disaggregated paths (phases 28-29): qwen2.5-3b's kernels and zamba2's D 80
     # attention, Mamba2's GLA and its sampler at V 32,000
     for kname in ("paged_flash_decode", "paged_chunk_prefill", "fused_sample"):
@@ -4710,7 +4823,8 @@ def main() -> None:
                     "library": {n: {key: records[n][key] for key in (
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
-        "experiments": experiments, "elastic": {"exact": elastic, "local_sgd": local_sgd}, "sharded": sharded,
+        "experiments": experiments, "fig1": fig1, "elastic": {"exact": elastic, "local_sgd": local_sgd},
+        "sharded": sharded,
         "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,

@@ -5,13 +5,17 @@ it; several workers on one card, or the CPU, take the shared host slots of
 
 The methods are :class:`~repro_torch.distributed.staging.HostExchange`'s,
 and so are the results, bit for bit: every collective here is a copy of
-bytes (``all_gather_into_tensor``, ``broadcast``), never a reduce, whose
+bytes (``all_gather_into_tensor``, ``broadcast``, ``all_to_all_single``), never a reduce, whose
 sum would follow NCCL's order; the sums stay the callers' canonical trees.
 The groups are prefixes of the world (``launch.mesh.prefix_widths``), so a
-group rank is the global rank. Each collective waits for its stream before
-it returns, so :class:`StagingTimes` holds device time (under
-``collective_s``; there is no host copy). ``backend`` is NCCL on the card;
-the CPU tests run the same code over gloo.
+group rank is the global rank. A collective returns once it is enqueued:
+NCCL runs it on its own stream, the caller's stream waits for it on the
+device, and the host runs ahead as it does for compute (the sharded step
+makes several collectives a layer, and a wait for the stream after each
+would serialize the host's work and the card's). :class:`StagingTimes`
+holds the host seconds of the calls (under ``collective_s``; there is no
+host copy). ``backend`` is NCCL on the card; the CPU tests run the same
+code over gloo.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.staging import StagingTimes, _bytes, place_shards
+from repro_torch.distributed.staging import StagingTimes, _bytes, place_shards, slice_position
 
 
 class DeviceExchange:
@@ -41,8 +45,6 @@ class DeviceExchange:
     def _timed(self, fn, times: StagingTimes):
         t0 = time.perf_counter()
         fn()
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
         times.collective_s += time.perf_counter() - t0
 
     def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
@@ -96,3 +98,64 @@ class DeviceExchange:
                 self._timed(lambda: dist.all_gather_into_tensor(out, src, group=group), times)
                 parts = {index: out[h * n:(h + 1) * n] for index, h in holders.items()}
             yield i, place_shards(parts, sharding, like, shard_like, times, device) if want else None
+
+    def _to_all(self, inp: Optional[torch.Tensor], in_splits: List[int], recvs: dict, mesh,
+                times: StagingTimes) -> dict:
+        """One ``all_to_all_single`` over the mesh's group: ``inp`` (bytes,
+        or None for nothing) in ``in_splits`` a peer, ``recvs`` peer -> the
+        byte count this rank receives from it; returns peer -> the received
+        bytes (views)."""
+        import torch.distributed as dist
+
+        width = mesh.width
+        out_splits = [recvs.get(q, 0) for q in range(width)]
+        inp = torch.empty(0, dtype=torch.uint8, device=self.device) if inp is None else inp
+        out = torch.empty(sum(out_splits), dtype=torch.uint8, device=self.device)
+        self._timed(lambda: dist.all_to_all_single(out, inp, out_splits, in_splits, group=self.groups[width]), times)
+        got, at = {}, 0
+        for q, n in enumerate(out_splits):
+            if q in recvs:
+                got[q] = out[at:at + n]
+            at += n
+        return got
+
+    def exchange_slices(self, tensors: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                        mesh, times: StagingTimes, senders: int) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """As ``HostExchange.exchange_slices``, one ``all_to_all_single`` a
+        leaf: a sender copies, for each rank, the slice of the shard index
+        it stores into one buffer, drops its leaf, and sends; the views are
+        on this card."""
+        width = mesh.width
+        for i, (sharding, like) in enumerate(zip(shardings, likes)):
+            size = like.numel() * like.element_size() // sharding.num_shards
+            inp, in_splits = None, [0] * width
+            if self.rank < senders:
+                t, indices = tensors[i], list(sharding.holders())
+                inp = torch.empty(width * size, dtype=torch.uint8, device=self.device)
+                for q in range(width):
+                    part = t[sharding.slices_of(indices[slice_position(sharding, q)])]
+                    inp[q * size:(q + 1) * size].view(like.dtype).view(part.shape).copy_(part)
+                in_splits = [size] * width
+                del t
+            tensors[i] = None
+            got = self._to_all(inp, in_splits, {d: size for d in range(senders)}, mesh, times)
+            del inp
+            yield i, [got[d] for d in range(senders)]
+
+    def assemble_at(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                    owners: List[int], mesh, times: StagingTimes,
+                    device) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
+        """As ``HostExchange.assemble_at``: each holder sends its shard to
+        the leaf's owner alone (one ``all_to_all_single`` a leaf)."""
+        for i, (shard, sharding, like) in enumerate(zip(shards, shardings, likes)):
+            shard_like = torch.empty(sharding.shard_shape, dtype=like.dtype, device="meta")
+            n = shard_like.numel() * shard_like.element_size()
+            holders = sharding.holders()
+            in_splits = [n if shard is not None and q == owners[i] else 0 for q in range(mesh.width)]
+            recvs = {h: n for h in holders.values()} if owners[i] == self.rank else {}
+            got = self._to_all(_bytes(shard) if shard is not None else None, in_splits, recvs, mesh, times)
+            if owners[i] != self.rank:
+                yield i, None
+                continue
+            parts = {index: got[h] for index, h in holders.items()}
+            yield i, place_shards(parts, sharding, like, shard_like, times, device)

@@ -20,6 +20,12 @@ the largest leaf's size (the largest at qwen2.5-3b's full width is the
 up the host seconds of the three parts: the copy out, the barrier, the
 copy back.
 
+Besides the all-gather, the broadcast and the shard gather, the sharded
+step's gradient moves as slices (:meth:`HostExchange.exchange_slices`):
+each sender writes a leaf's slices into its slot in shard-index order, and
+each rank copies back, from every sender, the slice of the shard index it
+stores (a reduce-scatter's traffic as an all-to-all; the caller sums).
+
 When every worker has a card of its own, the same collectives go through
 NCCL instead (:class:`repro_torch.distributed.nccl.DeviceExchange`, the
 same methods): :func:`make_exchange` chooses by the run's devices.
@@ -71,6 +77,12 @@ def place_shards(parts: dict, sharding, like: torch.Tensor, shard_like: torch.Te
     for index, buf in parts.items():
         full[sharding.slices_of(index)] = from_host(buf, shard_like, times, device)
     return full
+
+
+def slice_position(sharding, rank: int) -> int:
+    """The position of ``rank``'s shard index among the leaf's shard indices
+    in index order: where its slice sits in a sender's slices."""
+    return list(sharding.holders()).index(sharding.shard_index(rank))
 
 
 def make_exchange(directory: str, rank: int, world: int, slot_bytes: int, devices: list):
@@ -150,9 +162,10 @@ class HostExchange:
             self._barrier(mesh, times)  # every rank has read the slots
 
     def assemble(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
-                 mesh, times: StagingTimes, device, want: bool = True) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
+                 mesh, times: StagingTimes, device, want=True) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
         """Whole leaves from their shards, leaf by leaf, on every rank of the
-        mesh: (index, the leaf on ``device``, or None where not ``want``).
+        mesh: (index, the leaf on ``device``, or None where not ``want``: a
+        bool, or one a leaf).
         ``shards[i]`` is this rank's shard of leaf i where it is the holder
         of its shard index (the lowest rank storing it: it sends), else
         None; ``shardings[i]`` places the leaf on a mesh whose ranks are a
@@ -169,11 +182,49 @@ class HostExchange:
             times.copy_out_s += time.perf_counter() - t0
             self._barrier(mesh, times)
             for i, off, n in bucket:
-                if not want:
+                if not (want if isinstance(want, bool) else want[i]):
                     yield i, None
                     continue
                 parts = {index: self.slots[holder][off:off + n] for index, holder in shardings[i].holders().items()}
                 yield i, place_shards(parts, shardings[i], likes[i], shard_likes[i], times, device)
+            self._barrier(mesh, times)
+
+    def assemble_at(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                    owners: List[int], mesh, times: StagingTimes,
+                    device) -> Iterator[Tuple[int, Optional[torch.Tensor]]]:
+        """As :meth:`assemble`, each leaf whole on its owner's rank only
+        (``owners[i]``; None elsewhere)."""
+        yield from self.assemble(shards, shardings, likes, mesh, times, device,
+                                 want=[o == self.rank for o in owners])
+
+    def exchange_slices(self, tensors: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
+                        mesh, times: StagingTimes, senders: int) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """For each leaf, in order: (its index, the bytes of the slice of it
+        that this rank stores, from each rank of ``[0, senders)`` in rank
+        order, on the host), on every rank of the mesh. ``tensors[i]`` is
+        this rank's whole leaf where it sends, else None, and is dropped
+        once its bytes are on the host; ``likes[i]`` has the leaf's shape
+        and dtype (a meta tensor); ``shardings[i]`` places it on a mesh whose
+        ranks are this one's. Nothing is summed in transit. A rank's views
+        hold until it asks for the next item; the caller must exhaust the
+        iterator."""
+        sends = self.rank < senders
+        for bucket in self._buckets(likes):
+            t0 = time.perf_counter()
+            own = self.slots[self.rank]
+            for i, off, n in bucket:
+                if sends:
+                    sharding = shardings[i]
+                    size = n // sharding.num_shards
+                    for j, index in enumerate(sharding.holders()):
+                        own[off + j * size:off + (j + 1) * size].copy_(_bytes(tensors[i][sharding.slices_of(index)]))
+                tensors[i] = None
+            times.copy_out_s += time.perf_counter() - t0
+            self._barrier(mesh, times)
+            for i, off, n in bucket:
+                size = n // shardings[i].num_shards
+                at = off + slice_position(shardings[i], self.rank) * size
+                yield i, [self.slots[d][at:at + size] for d in range(senders)]
             self._barrier(mesh, times)
 
     @torch.no_grad()

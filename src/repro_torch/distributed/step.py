@@ -38,6 +38,7 @@ chip check runs one microbatch twice and compares the gradient bits).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional
 
 import torch
@@ -66,6 +67,37 @@ def span_tree_sum(get: Callable[[int], object], n: int, add: Callable = tree_add
     left = span_tree_sum(get, mid, add)
     right = span_tree_sum(lambda i: get(mid + i), n - mid, add)
     return add(left, right)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_program(n: int, lo: int = 0) -> tuple:
+    """:func:`span_tree_sum`'s evaluation over terms ``[lo, lo + n)`` as a
+    program: an int fetches that term, ``None`` adds the top term into the
+    one below it."""
+    if n == 1:
+        return (lo,)
+    mid = n // 2
+    return _tree_program(mid, lo) + _tree_program(n - mid, lo + mid) + (None,)
+
+
+class TreeFeed:
+    """:func:`span_tree_sum` over ``n`` terms that arrive one at a time, in
+    index order: the same additions in the same order (``add(left,
+    right)``), at most log2(n) + 1 terms alive. :meth:`push` returns the
+    sum with the last term, else None."""
+
+    def __init__(self, n: int, add: Callable):
+        self.ops, self.pc, self.stack, self.add = _tree_program(n), 0, [], add
+
+    def push(self, term):
+        assert self.ops[self.pc] is not None, "the tree is complete"
+        self.stack.append(term)
+        self.pc += 1
+        while self.pc < len(self.ops) and self.ops[self.pc] is None:
+            right = self.stack.pop()
+            self.stack.append(self.add(self.stack.pop(), right))
+            self.pc += 1
+        return self.stack.pop() if self.pc == len(self.ops) else None
 
 
 def add_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -171,9 +203,10 @@ def _apply(optimizer, state: TrainState, grads, lr, stage, grad_clip):
     return TrainState(state.params, state.opt_state, state.step + 1), gnorm
 
 
-def _metrics(total: dict, grads, n: int) -> dict:
+def _metrics(total: dict, grads, n: int, sq_big=None) -> dict:
+    """The step's metrics; ``sq_big`` is ‖G‖² where the caller has it (else ``_sq_norm(grads)``)."""
     return {"loss": total["loss"] / n, "aux": total["aux"] / n, "grad_sq_small": total["sq"] / n,
-            "grad_sq_big": _sq_norm(grads)}
+            "grad_sq_big": _sq_norm(grads) if sq_big is None else sq_big}
 
 
 def build_elastic_train_step(model, optimizer, mesh, *, width: int, local_accum: int, z_loss: float = 0.0,

@@ -169,8 +169,9 @@ class ElasticTrainer(SEBSTrainer):
         self._rank: Optional[int] = None
         self._skeleton: Optional[TrainState] = None
         self._times: Dict[str, list] = {"allgather": [], "sync": [], "reshard_s": [], "broadcast": [],
-                                        "sharded": [], "between_bytes": []}
+                                        "sharded": [], "between_bytes": [], "update_peak_bytes": []}
         self._layouts: Dict[int, list] = {}
+        self._run_peak = 0  # a sharded worker's peak bytes before its last reset of the card's peak
         #: per rank, after run(): device, peak memory, kernel launches, staging seconds
         self.worker_stats: List[dict] = []
 
@@ -306,7 +307,11 @@ class ElasticTrainer(SEBSTrainer):
     def _place_batch(self, batch: dict, plan: StepPlan) -> Optional[dict]:
         mp = self._mp
         if self._rank >= mp.width:
-            return None
+            if not self._sharded:
+                return None
+            # a sharded step's rank that computes nothing runs it on meta tensors of a chunk's shapes
+            return {k: torch.empty((mp.local_accum, plan.microbatch) + tuple(v.shape[1:]), dtype=v.dtype,
+                                   device="meta") for k, v in batch.items()}
         lo = self._rank * mp.local_accum
         return {k: v.reshape((plan.accum_steps, plan.microbatch) + tuple(v.shape[1:]))[lo:lo + mp.local_accum]
                 for k, v in batch.items()}
@@ -320,9 +325,14 @@ class ElasticTrainer(SEBSTrainer):
             clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
             if clear is not None:
                 clear()
-            self._times["between_bytes"].append(torch.cuda.memory_allocated(device))
+            between = torch.cuda.memory_allocated(device)
+            self._times["between_bytes"].append(between)
+            self._run_peak = max(self._run_peak, torch.cuda.max_memory_allocated(device))
+            torch.cuda.reset_peak_memory_stats(device)  # so that each update's peak is its own
         if self._rank < (self._held if self._sharded else self._mp.width):
             state, metrics = self._elastic_step(self._mp)(state, batch, plan.lr, plan.stage)
+            if self._sharded and device.type == "cuda":
+                self._times["update_peak_bytes"].append((plan.stage, between, torch.cuda.max_memory_allocated(device)))
             if self._stacked:
                 metrics = self._replica_mean(metrics)
         return state, self._share(metrics)
@@ -516,7 +526,8 @@ class ElasticTrainer(SEBSTrainer):
         """What this worker hands back: its statistics, and on rank 0 the run."""
         stats = {
             "rank": self._rank, "device": str(device),
-            "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+            "peak_bytes": max(self._run_peak, torch.cuda.max_memory_allocated(device)) if device.type == "cuda"
+            else None,
             "launches": _launch_counts(), "steps": sorted(self._steps),
             "allgather": [dataclasses.asdict(t) for t in self._times["allgather"]],
             "sync": [dataclasses.asdict(t) for t in self._times["sync"]],
@@ -524,6 +535,7 @@ class ElasticTrainer(SEBSTrainer):
             "reshard_s": list(self._times["reshard_s"]),
             "sharded": [dataclasses.asdict(t) for t in self._times["sharded"]],
             "between_bytes": list(self._times["between_bytes"]),
+            "update_peak_bytes": list(self._times["update_peak_bytes"]),
             "exchange": type(self.planner.exchange).__name__ if self.planner.exchange is not None else None,
         }
         if self._rank != 0:

@@ -57,14 +57,15 @@ def write_json(out_dir: str, name: str, payload) -> str:
     return path
 
 
-def cli(description: str) -> argparse.Namespace:
-    """``--device`` (cuda by default; raises when CUDA is missing) and
-    ``--out``."""
+def cli(description: str, device: bool = True) -> argparse.Namespace:
+    """``--device`` (cuda by default; raises when CUDA is missing; left out
+    for an experiment that runs on no device) and ``--out``."""
     ap = argparse.ArgumentParser(description=description)
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    if device:
+        ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default=DEFAULT_OUT, help="directory of the JSON results")
     args = ap.parse_args()
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if device and args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is available; "
                            "pass --device cpu to run on the CPU")
     return args

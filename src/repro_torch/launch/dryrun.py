@@ -33,11 +33,12 @@ numbers, under JAX's keys:
 What runs. The rules place storage only and compute is data-parallel over
 every rank (``distributed/sharded.py``): rank 0 runs
 ``build_sharded_train_step`` on its rows of the global batch (ranks past
-the batch's rows compute nothing and receive the sum), with a recording
-transport (:class:`RecordingExchange`) in place of the host slots or NCCL:
-each shard gather and each exchange of partial sums is recorded, and its
-results are meta tensors. A one-rank mesh runs ``train/step.py``'s step,
-which the trainer runs on one device. Prefill and decode gather the
+the batch's rows compute nothing and receive their slices), with a
+recording transport (:class:`RecordingExchange`) in place of the host
+slots or NCCL: each layer's gather (``all-gather``), each exchange of the
+gradient's slices and each leaf's assembly for the norm (``all-to-all``)
+is recorded, and its results are meta tensors. A one-rank mesh runs
+``train/step.py``'s step, which the trainer runs on one device. Prefill and decode gather the
 parameters the same way and run the model's ``prefill`` / ``decode_step``
 on the rank's rows of the batch and cache.
 
@@ -108,24 +109,47 @@ def abstract_cache(model: LanguageModel, batch: int, cache_len: int, device="met
 
 
 class RecordingExchange:
-    """The sharded step's transport for one rank counted alone: each
-    collective is recorded in ``log`` and its results are new tensors of
-    the right shapes on the rank's device (meta in the dry run), as the host
-    slots' would be. ``slot_bytes`` is the largest part a collective moves:
-    the received parts are views of one slot made before the count, as the
-    host slots are."""
+    """The sharded step's transport for rank ``rank`` counted alone: each
+    collective is recorded in ``log`` (what the rank receives) and its
+    results are new tensors of the right shapes on the rank's device (meta
+    in the dry run), as the host slots' would be. ``slot_bytes`` is the
+    largest part a collective moves: the received parts are views of one
+    slot made before the count, as the host slots are. The layer gathers
+    are all-gathers; the gradient's slices and the norm's assembly of each
+    leaf on its owner are all-to-alls."""
 
-    def __init__(self, device, slot_bytes: int):
+    def __init__(self, device, slot_bytes: int, rank: int = 0):
         self.log = CollectiveLog()
+        self.rank = rank
         on_meta = torch.device(device).type == "meta"
         self.slot = torch.zeros(slot_bytes, dtype=torch.uint8, device="meta" if on_meta else "cpu")
 
     def assemble(self, shards, shardings, likes, mesh, times: StagingTimes, device, want: bool = True):
         for i, like in enumerate(likes):
+            if not want:
+                yield i, None
+                continue
             nbytes = like.numel() * like.element_size()
             self.log.record("all-gather", nbytes)
             times.received_bytes += nbytes
-            yield i, (torch.empty(like.shape, dtype=like.dtype, device=device) if want else None)
+            yield i, torch.empty(like.shape, dtype=like.dtype, device=device)
+
+    def assemble_at(self, shards, shardings, likes, owners, mesh, times: StagingTimes, device):
+        for i, like in enumerate(likes):
+            if owners[i] != self.rank:
+                yield i, None
+                continue
+            nbytes = like.numel() * like.element_size()
+            self.log.record("all-to-all", nbytes)
+            times.received_bytes += nbytes
+            yield i, torch.empty(like.shape, dtype=like.dtype, device=device)
+
+    def exchange_slices(self, tensors, shardings, likes, mesh, times: StagingTimes, senders: int):
+        for i, (sharding, like) in enumerate(zip(shardings, likes)):
+            nbytes = like.numel() * like.element_size() // sharding.num_shards
+            self.log.record("all-to-all", senders * nbytes)
+            tensors[i] = None
+            yield i, [self.slot[:nbytes]] * senders
 
     def all_gather(self, tensors, mesh, times: StagingTimes, consume: bool = False, senders: Optional[int] = None):
         senders = mesh.width if senders is None else senders
@@ -137,10 +161,10 @@ class RecordingExchange:
             yield i, [self.slot[:nbytes]] * senders
 
 
-def recording_mesh(width: int, device, slot_bytes: int) -> DataMesh:
-    """The ("data",) mesh of ``width`` ranks a counted step runs over."""
+def recording_mesh(width: int, device, slot_bytes: int, rank: int = 0) -> DataMesh:
+    """The ("data",) mesh of ``width`` ranks a counted step of ``rank`` runs over."""
     return DataMesh(tuple(torch.device(device) for _ in range(width)), None,
-                    RecordingExchange(device, slot_bytes) if width > 1 else None)
+                    RecordingExchange(device, slot_bytes, rank) if width > 1 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +264,10 @@ def _cost(counter: StepCounter) -> dict:
 
 
 def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mode: str = "psum_each",
-                optimizer_name: str = "momentum", device="meta") -> dict:
-    """Rank 0's train step on ``mesh``: memory, cost, collectives and the
-    rank's share of the work."""
+                optimizer_name: str = "momentum", device="meta", rank: int = 0) -> dict:
+    """Rank ``rank``'s train step on ``mesh`` (rank 0's by default), a rank
+    that computes rows: memory, cost, collectives and the rank's share of
+    the work."""
     if shape.global_batch % accum_steps:
         raise ValueError(f"global batch {shape.global_batch} does not split into {accum_steps} microbatches")
     model = LanguageModel(cfg)
@@ -252,6 +277,8 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
     args = state_argument_bytes(whole, mesh, param_axes) + batch_argument_bytes(specs, mesh, accum_steps) \
         + 2 * SCALAR_BYTES
     rows, width = rank_rows(shape.global_batch // accum_steps, mesh.size)
+    if rank >= width:
+        raise ValueError(f"rank {rank} computes no rows ({width} ranks do): its pass on meta tensors is not counted")
     mb = local_batch(specs, rows, device)
     activation = activation_bytes(model, whole.params, mb)
     for w in tree_leaves(whole.params):
@@ -261,12 +288,12 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
         step = build_train_step(model, optimizer, accum_steps=accum_steps, mode=accum_mode)
         batch = mb if accum_steps == 1 else _stack(mb, accum_steps)
     else:
-        state = reshard_state(whole, mesh, param_axes, rank=0)
+        state = reshard_state(whole, mesh, param_axes, rank=rank)
         layout = tensor_shardings(state_shardings(whole, mesh, param_axes), whole)
         largest = max(4 * t.numel() for t in tensor_leaves(whole))
-        xmesh = recording_mesh(mesh.size, device, largest)
+        xmesh = recording_mesh(mesh.size, device, largest, rank)
         n_params = len(tree_leaves(whole.params))
-        step = build_sharded_train_step(model, optimizer, layout[:n_params], rank=0, width=width,
+        step = build_sharded_train_step(model, optimizer, layout[:n_params], rank=rank, width=width,
                                         local_accum=accum_steps, xmesh=xmesh)
         batch = _stack(mb, accum_steps)
     del whole

@@ -301,17 +301,42 @@ def _ffn_part(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=
     return x + y, new_cache, 0.0
 
 
+#: the top-level keys of a block's params that its first half (``_mixer_part``) reads; ``_ffn_part`` reads the rest
+MIXER_KEYS = frozenset({"norm1", "attn", "mamba", "tmix"})
+
+
+def whole(params, keep=None):
+    """``params`` as whole tensors. The sharded train step
+    (``distributed/sharded.py``) hands the model each layer's params, and
+    each other subtree, as the worker's stored shards: an object whose
+    ``whole(keep)`` gathers them (the top-level keys for which ``keep`` is
+    true, or all). Called first thing in a block's checkpoint region, the
+    gather is part of the region, so the backward's recomputation gathers
+    again and nothing whole outlives the region. A plain tree comes back
+    as it is."""
+    gather = getattr(params, "whole", None)
+    return params if gather is None else gather(keep)
+
+
+def _is_mixer(key: str) -> bool:
+    return key in MIXER_KEYS
+
+
+def _not_mixer(key: str) -> bool:
+    return key not in MIXER_KEYS
+
+
 def _train_block(params, x, cfg: ModelConfig, spec: BlockSpec, positions, memory, causal):
-    x, _, aux = apply_block(params, x, cfg, spec, positions=positions, memory=memory, causal=causal)
+    x, _, aux = apply_block(whole(params), x, cfg, spec, positions=positions, memory=memory, causal=causal)
     return x, aux
 
 
 def _train_mixer(params, x, cfg: ModelConfig, spec: BlockSpec, positions, causal):
-    return _mixer_part(params, x, cfg, spec, positions=positions, causal=causal)[0]
+    return _mixer_part(whole(params, _is_mixer), x, cfg, spec, positions=positions, causal=causal)[0]
 
 
 def _train_ffn(params, x, cfg: ModelConfig, spec: BlockSpec, positions, memory):
-    x, _, aux = _ffn_part(params, x, cfg, spec, positions=positions, memory=memory)
+    x, _, aux = _ffn_part(whole(params, _not_mixer), x, cfg, spec, positions=positions, memory=memory)
     return x, aux
 
 
@@ -385,9 +410,10 @@ def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, c
         remat = cfg.remat and torch.is_grad_enabled()
         if remat and cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {cfg.remat_policy!r}; the policies are {sorted(REMAT_POLICIES)}")
+        shared = whole(params["shared"]) if seg.shared_attn else None  # one set for every application
         for r in range(seg.repeat):
             for name, spec in _segment_blocks(seg):
-                p = params[name] if name == "shared" else params[name][r]
+                p = shared if name == "shared" else params[name][r]
                 if remat:
                     x, a = _remat_block(p, x, cfg, spec, positions, memory, causal)
                 else:

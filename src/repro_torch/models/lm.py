@@ -118,17 +118,18 @@ class LanguageModel:
         pos = torch.arange(mem.shape[1], device=mem.device)[None, :]
         mem, _, _ = blocks.apply_segment(params["encoder"], mem, cfg, self.encoder_segment(),
                                          positions=pos, causal=False)
-        return norm.apply(params["encoder_norm"], mem, cfg.norm_eps)
+        return norm.apply(blocks.whole(params["encoder_norm"]), mem, cfg.norm_eps)
 
-    def _embed_inputs(self, params, batch):
-        """Token embeddings; with ``vision_embeds`` (B, P, 1024) in the batch
-        (internvl2's stubbed vision frontend), the first ``num_vision_tokens``
-        positions are their projections instead (two products with a tanh
-        GELU between, as ``jax.nn.gelu``)."""
+    def _embed_inputs(self, params, batch, embed=None):
+        """Token embeddings (from ``embed``, default ``params["embed"]``);
+        with ``vision_embeds`` (B, P, 1024) in the batch (internvl2's stubbed
+        vision frontend), the first ``num_vision_tokens`` positions are their
+        projections instead (two products with a tanh GELU between, as
+        ``jax.nn.gelu``)."""
         cfg = self.cfg
-        x = embedding.embed(params["embed"], batch["tokens"], cfg)
+        x = embedding.embed(params["embed"] if embed is None else embed, batch["tokens"], cfg)
         if cfg.num_vision_tokens and "vision_embeds" in batch:
-            proj = params["vision_proj"]
+            proj = blocks.whole(params["vision_proj"])
             h = batch["vision_embeds"].to(x.dtype) @ proj["w1"].to(x.dtype)
             h = F.gelu(h, approximate="tanh") @ proj["w2"].to(x.dtype)
             nv = cfg.num_vision_tokens
@@ -141,9 +142,12 @@ class LanguageModel:
         [audio_embeds (B, T, d): an encoder-decoder model's, required
         there]}. Returns (logits (B, S, V) f32 of the decoder, aux loss: the
         router losses summed over the layers, an f32 scalar, 0 for a model
-        without a router)."""
+        without a router). Each subtree is made whole (``blocks.whole``)
+        where it is used: a tied table once, for the lookup and the head."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        tied = cfg.tie_embeddings
+        table = blocks.whole(params["embed"], None if tied else (lambda k: k == "table"))
+        x = self._embed_inputs(params, batch, table)
         memory = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -151,8 +155,9 @@ class LanguageModel:
             x, _, a = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions,
                                            memory=memory)
             aux = aux + a
-        x = norm.apply(params["final_norm"], x, cfg.norm_eps)
-        return embedding.logits(params["embed"], x, cfg), aux
+        x = norm.apply(blocks.whole(params["final_norm"]), x, cfg.norm_eps)
+        head = table if tied else blocks.whole(params["embed"], lambda k: k == "unembed")
+        return embedding.logits(head, x, cfg), aux
 
     # -- dense cache ----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16, device="cuda"):

@@ -9,11 +9,13 @@ conventions, per device:
 - all-gather: output shape (each device receives the gathered result)
 - reduce-scatter / all-to-all / collective-permute / broadcast: shape
 
-The port's sharded step makes all-gathers only: each shard gather (the
-whole leaf is its output) and the exchange of partial sums (``senders``
-partials of each leaf). None of them is inside the microbatch loop, so
-``in_while_bytes`` is 0: the step gathers once, computes its microbatches
-and exchanges once.
+The port's sharded step makes all-gathers (each layer's gather, the whole
+leaves its output, in the forward and again in the recomputation; the
+microbatch scalars and the norm's per-leaf dots) and all-to-alls (the
+gradient's slices, ``senders`` slices of the rank's shard index of each
+leaf; each leaf assembled on its owner for the norm). The port has no
+loop to count once: a step's microbatches are recorded call by call, so
+``in_while_bytes`` is 0.
 """
 from __future__ import annotations
 

@@ -37,12 +37,14 @@ def _sq_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, sq_norm=None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``
-    (no-op for 0). Returns (grads, the norm before clipping, or 0)."""
+    (no-op for 0). Returns (grads, the norm before clipping, or 0).
+    ``sq_norm``: the squared norm where the caller has it (the sharded
+    step's ``grads`` are slices), default :func:`_sq_norm` of ``grads``."""
     if not max_norm:
         return grads, torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    norm = torch.sqrt(_sq_norm(grads))
+    norm = torch.sqrt(_sq_norm(grads) if sq_norm is None else sq_norm)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale)

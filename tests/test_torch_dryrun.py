@@ -9,8 +9,9 @@ runs:
   ``Explicit`` axes fail the JAX package's own ``constrain``);
 - the meta count equals the count of the same step on real CPU tensors;
 - the counts at depth 1 and 2, extrapolated, equal the full-depth count;
-- the collective bytes it records for a (2, 2) mesh equal what four gloo
-  CPU workers running the same sharded step received;
+- the collective bytes it records for a (2, 2) mesh (the layer gathers'
+  all-gathers, the gradient slices' all-to-alls) equal what four gloo CPU
+  workers running the same sharded step received;
 - qwen2.5-3b's full-width ``train_4k`` on the (16, 16) mesh allocates no
   host storage above 1 MiB.
 """
@@ -125,7 +126,7 @@ def test_recorded_collectives_equal_a_gloo_runs_bytes(tmp_path):
     summary = dryrun.count_combo(cfg, InputShape("t", 8, 8, "train"), make_host_mesh(2, 2, devices=["meta"] * 4))
     coll = summary["collectives"]
     assert coll["total_bytes"] == received > 0
-    assert set(coll["by_type_bytes"]) == {"all-gather"} and coll["in_while_bytes"] == 0
+    assert set(coll["by_type_bytes"]) == {"all-gather", "all-to-all"} and coll["in_while_bytes"] == 0
 
 
 def test_full_width_train_4k_allocates_no_host_storage():
@@ -133,7 +134,7 @@ def test_full_width_train_4k_allocates_no_host_storage():
     assert summary["devices"] == 256 and summary["mesh"] == {"data": 16, "model": 16}
     assert summary["work"]["largest_host_bytes"] <= 1 << 20
     mem = summary["memory"]
-    # whole leaves are gathered for the step: the peak is far above the rank's shards
+    # each layer is gathered whole where it runs: the peak is far above the rank's shards
     assert mem["peak_bytes_per_device"] > 10 * mem["argument_bytes_per_device"] > 0
     assert summary["cost"]["kernels"]["flash_attention_fwd"]["calls"] == 2 * 36
     assert summary["cost"]["kernels"]["flash_attention_bwd"]["calls"] == 36

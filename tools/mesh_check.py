@@ -9,18 +9,20 @@ schedule: SEBS b1 4, C1 16, rho 2, 3 stages, 513-token rows, microbatch
 4), then ``chip_smoke.mesh_sharded`` (SEBSTrainer on a (2, 2) mesh of four
 workers sharing cuda:0, host slots) and ``chip_smoke.elastic_sharded``
 (ElasticTrainer with param_axes at budget 4), each held to the reference
-bit for bit, with the launch and storage gates of phase 30.
+bit for bit, with the launch, storage and peak gates of phases 30-31.
 
-Four cards (one worker a card, so the shard gather and the partials'
-exchange go through NCCL): the (2, 2) production mesh (what the launcher's
-``--mesh single`` builds) over the four cards at all 36 of qwen2.5-3b's
-layers, against a one-card ElasticTrainer at budget 1 on cuda:0 in the same
-call (losses and params bit-identical; each card's storage between updates
-as the specs count it); then at 2 layers the (2, 2) mesh on cuda:0 x 4
-(host slots) and over the four cards (NCCL), both held to a 2-layer budget-1
-run, with the exchange's ms of each side by side; and the launcher's
-``--mesh single`` at smoke size on the four cards. Every number printed
-carries the card's name and power limit. Any failed check raises.
+Four cards (one worker a card, so the layer gathers and the gradient's
+slices go through NCCL, the slices as one ``all_to_all_single`` a leaf):
+the (2, 2) production mesh (what the launcher's ``--mesh single`` builds)
+over the four cards at all 36 of qwen2.5-3b's layers, against a one-card
+ElasticTrainer at budget 1 on cuda:0 in the same call (losses and params
+bit-identical; each card's storage between updates as the specs count it,
+its stage-2 peak as the dry run counts it); then at 2 layers the (2, 2)
+mesh on cuda:0 x 4 (host slots) and over the four cards (NCCL), both held
+to a 2-layer budget-1 run, with the exchange's ms of each side by side;
+and the launcher's ``--mesh single`` at smoke size on the four cards.
+Every number printed carries the card's name and power limit. Any failed
+check raises.
 """
 import gc
 import os
