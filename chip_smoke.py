@@ -228,6 +228,24 @@
     sizes, the flash kernels and the fused momentum launched once a layer
     (the forward twice, under remat) and once a step, within 30 s; prints
     the six times with the card's name and power limit.
+34. An MoE layer's experts over the mesh's ``model`` groups
+    (``distributed/sharded.py``): SEBSTrainer(mesh=make_host_mesh(2, 2))
+    on cuda:0 x 4, dbrx-132b and arctic-480b smoke at f32, pSGD, 6 updates
+    (at width 2 a model group without rows), against the same schedule in
+    one process: the ladder equal, losses within 1e-4 relative and every
+    param within 1e-4 of its leaf's norm; whether the bits matched is
+    printed; each worker's launches exact.
+35. dbrx-132b at full width cut to 1 of its 40 layers on (1, 2), two
+    workers on cuda:0 with 8 experts each, the state built from a seed on
+    rank 0's device and kept on the workers (``run_on_mesh(...,
+    init_seed=0)``): one update of 4 rows of 513 tokens, each worker's
+    peak within 10% of the dry run's count of its rank; prints the
+    update's ms, the experts' all-to-alls', the gathers' and the
+    collectives' parts.
+36. The sharded serving forward (``distributed/mesh_serve.py``) on (2, 2)
+    x cuda:0, qwen2.5-3b and dbrx-132b smoke at f32 from one spawn: the
+    prefill and 3 greedy decode steps' logits against the single-process
+    engine's calls, qwen bit-identical, dbrx within 1e-4 of their scale.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -274,6 +292,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
@@ -3791,29 +3810,30 @@ SHARD_MEMORY_TOL = 0.02  # a worker's between-update memory_allocated against it
 SHARD_PEAK_TOL = 0.10  # a worker's peak in a stage-2 update against the dry run's count of its step
 
 
-def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str) -> dict:
-    """Each worker's max_memory_allocated in the stage-2 updates (phase 7's
-    schedule: 4 microbatches of 4 x 513 tokens, one a rank) against the dry
-    run's count of that rank's step on ``meta_mesh`` (the run's mesh on meta
-    devices) at the same depth (``repro_torch.launch.dryrun.count_train``,
-    the host slots' layout; NCCL's in-place send buffer comes to the
-    same). Fails beyond SHARD_PEAK_TOL, and where what a worker holds
-    before a stage-2 update is beyond SHARD_MEMORY_TOL of the count's
-    arguments (its shards and its chunk)."""
+def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str, stage: int = 2, shape=None) -> dict:
+    """Each worker's max_memory_allocated in the updates of ``stage`` (by
+    default phase 7's stage 2: 4 microbatches of 4 x 513 tokens, one a
+    rank; ``shape`` the update's rows) against the dry run's count of that
+    rank's step on ``meta_mesh`` (the run's mesh on meta devices) at the
+    same depth (``repro_torch.launch.dryrun.count_train``, the host slots'
+    layout; NCCL's in-place send buffer comes to the same). Fails beyond
+    SHARD_PEAK_TOL, and where what a worker holds before such an update is
+    beyond SHARD_MEMORY_TOL of the count's arguments (its shards and its
+    chunk)."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun
 
+    shape = InputShape("stage2", 513, 16, "train") if shape is None else shape
     t0 = time.perf_counter()
     rows = []
     for r, stats in enumerate(trainer.worker_stats):
-        stage2 = [(before, peak) for st, before, peak in stats["update_peak_bytes"] if st == 2]
-        mem = dryrun.count_train(cfg, InputShape("stage2", 513, 16, "train"), meta_mesh, optimizer_name="psgd",
-                                 rank=r)["memory"]
+        stage2 = [(before, peak) for st, before, peak in stats["update_peak_bytes"] if st == stage]
+        mem = dryrun.count_train(cfg, shape, meta_mesh, optimizer_name="psgd", rank=r)["memory"]
         card, counted = max(p for _, p in stage2), mem["peak_bytes_per_device"]
         rows.append({"rank": r, "card_bytes": card, "counted_bytes": counted, "rel": card / counted - 1,
                      "card_before_bytes": [b for b, _ in stage2], "card_peaks": [p for _, p in stage2],
                      "counted_argument_bytes": mem["argument_bytes_per_device"]})
-    print(f"phase {label}: stage-2 update peaks by worker, card / dry run GiB "
+    print(f"phase {label}: stage-{stage} update peaks by worker, card / dry run GiB "
           + ", ".join(f"{x['card_bytes'] / 2**30:.3f} / {x['counted_bytes'] / 2**30:.3f} ({100 * x['rel']:+.1f}%; "
                       f"before an update {min(x['card_before_bytes']) / 2**30:.3f}-"
                       f"{max(x['card_before_bytes']) / 2**30:.3f}, counted arguments "
@@ -3889,9 +3909,7 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     import torch
 
     from repro_torch.core import SEBS, SEBSTrainer
-    from repro_torch.core.stages import StageController
     from repro_torch.data import DataPipeline, TokenDataset
-    from repro_torch.distributed.planner import ElasticMeshPlanner
     from repro_torch.distributed.reshard import state_shardings
     from repro_torch.distributed.sharded import tensor_leaves, tensor_shardings
     from repro_torch.launch.mesh import make_host_mesh
@@ -3918,22 +3936,8 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     state, log = trainer.run(state, log_every=1)
     wall = time.perf_counter() - t0
     same_as_reference(f"phase {label}", log, state.params, reference)
-    # launches: the fused pSGD once an update on every worker; the flash kernels for each worker's microbatches
-    planner = ElasticMeshPlanner(device_budget=mesh.size, devices=["cpu"] * mesh.size)
-    micro = [0] * mesh.size
-    for plan, _ in zip(StageController(trainer.controller.schedule, microbatch=4).plans(), log.steps):
-        mp = planner.plan_for(plan)
-        for r in range(mp.width):
-            micro[r] += mp.local_accum
-    layers, total = cfg.num_layers, {}
+    total, micro = _mesh_launch_check(f"phase {label}", cfg, trainer, log, microbatch=4)
     for r, stats in enumerate(trainer.worker_stats):
-        got = stats["launches"]
-        want = {"flash_attention_fwd": 2 * layers * micro[r], "flash_attention_bwd": layers * micro[r],
-                "fused_psgd": len(log.steps)}
-        if any(got[k] != v for k, v in want.items()):
-            fail(f"phase {label}: worker {r} launched {got}, not {want}")
-        for k, v in got.items():
-            total[k] = total.get(k, 0) + v
         between = stats["between_bytes"]
         worst = max(abs(b - shard_bytes) / shard_bytes for b in between)
         if len(between) != len(log.steps) or worst > SHARD_MEMORY_TOL:
@@ -3981,6 +3985,217 @@ def elastic_sharded(cfg, smi: str, reference) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"wall_s": wall, "losses": log.losses, "launches": launches, **times}
+
+
+# -- MoE experts over the mesh's model groups (phases 34-36) -----------------
+
+EP_TOL = 1e-4  # the card at f32: losses, and each leaf against its norm, against the one-process run
+
+
+def _expert_parallel_run(arch: str, smi: str) -> dict:
+    """SEBSTrainer on a (2, 2) mesh of four workers on cuda:0 (host slots)
+    and the same schedule in one process, ``arch`` smoke at f32, pSGD: SEBS
+    b1 4, C1 8, rho 2, 3 stages of 64-token rows (6 updates), microbatch 2
+    (widths 2, 4, 4: at width 2 ranks 2-3, a model group without rows,
+    replay).
+    Losses within EP_TOL relative, every param within EP_TOL of its leaf's
+    norm; whether the bits matched is printed; launches exact."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+    model = LanguageModel(cfg)
+    runs = {}
+    for mesh in (None, make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)):
+        opt = make_optimizer("psgd", gamma=1e4)
+        pipe = DataPipeline(TokenDataset(cfg.vocab_size, 64, seed=0), "cuda" if mesh is None else mesh)
+        kw = {"mesh": mesh, "param_axes": model.param_axes(), "deadline": ELASTIC_DEADLINE} if mesh else {}
+        trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=8, rho=2.0, num_stages=3, eta=0.5), pipe,
+                              microbatch=2, **kw)
+        params = model.init(0, device="cuda")
+        t0 = time.perf_counter()
+        state, log = trainer.run(TrainState(params, opt.init(params), 0), log_every=1)
+        runs[mesh is not None] = (log, [t.detach().cpu() for t in tree_leaves(state.params)], trainer,
+                                  time.perf_counter() - t0)
+    (ref, ref_params, _, _), (log, params, trainer, wall) = runs[False], runs[True]
+    if log.stages != ref.stages or log.batch_sizes != ref.batch_sizes or not all(map(math.isfinite, log.losses)):
+        fail(f"phase 34 {arch}: ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref.losses, strict=True))
+    leaf_rel = max(float((a - b).abs().max()) / float(b.norm()) for a, b in zip(params, ref_params, strict=True))
+    if loss_rel > EP_TOL or leaf_rel > EP_TOL:
+        fail(f"phase 34 {arch}: losses {loss_rel:.3g} / params {leaf_rel:.3g} from the one-process run "
+             f"(allowed {EP_TOL})")
+    bits = log.losses == ref.losses and all(torch.equal(a, b) for a, b in zip(params, ref_params))
+    launches, _ = _mesh_launch_check(f"phase 34 {arch}", cfg, trainer, log, microbatch=2)
+    experts_ms = [t["experts_s"] * 1e3 for t in trainer.worker_stats[0]["sharded"]]
+    print(f"phase 34 {arch} smoke f32 on (2, 2) x cuda:0: {len(log.steps)} updates in {wall:.1f} s, losses within "
+          f"{loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms of the one-process run "
+          f"[{EP_TOL}]; bit-identical: {bits}; rank 0's experts' all-to-alls {sum(experts_ms):.1f} ms in all "
+          f"| {smi}", flush=True)
+    return {"wall_s": wall, "losses": log.losses, "reference_losses": ref.losses, "loss_rel": loss_rel,
+            "leaf_rel": leaf_rel, "bits": bits, "launches": launches, "experts_ms": experts_ms}
+
+
+def _mesh_launch_check(label: str, cfg, trainer, log, microbatch: int) -> tuple:
+    """A mesh run's launches: each worker the flash forward (twice under
+    remat) and backward once a layer for each microbatch it computed, the
+    fused pSGD once an update on its shards. Returns their sums over the
+    workers and each worker's microbatches."""
+    from repro_torch.core.stages import StageController
+    from repro_torch.distributed.planner import ElasticMeshPlanner
+
+    n = len(trainer.worker_stats)
+    planner = ElasticMeshPlanner(device_budget=n, devices=["cpu"] * n)
+    micro = [0] * n
+    for plan, _ in zip(StageController(trainer.controller.schedule, microbatch=microbatch).plans(), log.steps):
+        mp = planner.plan_for(plan)
+        for r in range(mp.width):
+            micro[r] += mp.local_accum
+    total: dict = {}
+    fwd = 2 if cfg.remat else 1
+    for r, stats in enumerate(trainer.worker_stats):
+        got = stats["launches"]
+        want = {"flash_attention_fwd": fwd * cfg.num_layers * micro[r],
+                "flash_attention_bwd": cfg.num_layers * micro[r], "fused_psgd": len(log.steps)}
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"{label}: worker {r} launched {got}, not {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total, micro
+
+
+def expert_parallel_smoke(smi: str) -> dict:
+    """Phase 34: the experts over the model groups on the card, dbrx and arctic smoke."""
+    return {arch: _expert_parallel_run(arch, smi) for arch in ("dbrx-132b", "arctic-480b")}
+
+
+def dbrx_expert_parallel(smi: str) -> dict:
+    """Phase 35: dbrx-132b at full width cut to 1 of its 40 layers on a
+    (1, 2) mesh, two workers on cuda:0, each holding 8 of the 16 experts:
+    one update of 4 rows of 513 tokens (one microbatch of 2 a worker; the
+    stage-2 shape's two microbatches a worker count 45.8 GB each, and two
+    do not fit one card), pSGD. The state (17.7 GB) is built from a seed on
+    rank 0's card and stays with the workers: nothing crosses the host.
+    Each worker's peak within SHARD_PEAK_TOL of the dry run's count of its
+    rank; the experts' all-to-all ms."""
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.distributed import run_on_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_cut("dbrx-132b", 1)
+    model = LanguageModel(cfg)
+    mesh = make_host_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)
+    opt = make_optimizer("psgd", gamma=1e4)
+    trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=4, rho=2.0, num_stages=1, eta=0.7),
+                          DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), mesh), mesh=mesh,
+                          param_axes=model.param_axes(), microbatch=2, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
+    t0 = time.perf_counter()
+    # two workers of ~29 GiB each share the card: expandable segments keep their caches from fragmenting
+    # (the workers read the setting when they start; this process's allocator has started already)
+    old_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        _, log = run_on_mesh(trainer, None, init_seed=0, log_every=1)
+    finally:
+        if old_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old_conf
+    wall = time.perf_counter() - t0
+    if len(log.steps) != 1 or not math.isfinite(log.losses[0]):
+        fail(f"phase 35: {len(log.steps)} updates, losses {log.losses}")
+    meta_mesh = make_host_mesh(1, 2, devices=["meta"] * 2)
+    peaks = shard_peak_check("35 dbrx (1, 2)", cfg, trainer, meta_mesh, smi, stage=0,
+                             shape=InputShape("update", 513, 4, "train"))
+    stats = trainer.worker_stats[0]
+    rows = stats["sharded"][0]
+    span = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
+    ex = rows["exchange"]
+    out = {"wall_s": wall, "placement_s": stats["reshard_s"][0], "loss": log.losses[0],
+           "update_ms": span[0], "experts_ms": rows["experts_s"] * 1e3, "gather_ms": rows["gather_s"] * 1e3,
+           "exchange_ms": {p: ex[f"{p}_s"] * 1e3 for p in ("copy_out", "collective", "copy_back")},
+           "optimizer_ms": rows["update_s"] * 1e3,
+           "launches": {k: sum(s["launches"][k] for s in trainer.worker_stats) for k in stats["launches"]},
+           "peaks": peaks}
+    print(f"phase 35 dbrx-132b 1 layer on (1, 2) x cuda:0: loss {log.losses[0]:.4f}, update {span[0]:.1f} ms "
+          f"(rank 0: the experts' all-to-alls {out['experts_ms']:.1f} ms, the gathers {out['gather_ms']:.1f}, "
+          f"collectives' copy out / barriers / copy back " + " / ".join(f"{v:.1f}" for v in out["exchange_ms"].values())
+          + f", optimizer {out['optimizer_ms']:.1f}); the run {wall:.1f} s, of which the first placement "
+          f"{out['placement_s']:.1f} s | {smi}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serving(smi: str) -> dict:
+    """Phase 36: the sharded serving forward (``distributed/mesh_serve``) on
+    a (2, 2) mesh of four workers on cuda:0, qwen2.5-3b and dbrx-132b smoke
+    at f32: 4 prompts of 12 tokens, one a worker, a prefill and 3 greedy
+    decode steps, each layer gathered where it runs (dbrx's experts over the
+    model groups). Held to the single-process engine's calls
+    (``prefill``, ``decode_step``) on the same rows: qwen bit-identical,
+    dbrx within EP_TOL of the logits' scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh_serve import serve_on_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+
+    out = {}
+    mesh = make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
+    runs = {}
+    for arch in ("qwen2.5-3b", "dbrx-132b"):
+        model = LanguageModel(get_config(arch, "smoke").replace(compute_dtype="float32"))
+        tokens = np.random.default_rng(36).integers(0, model.cfg.vocab_size, (4, 12)).astype(np.int32)
+        runs[arch] = (model, model.init(0, device="cuda"), tokens)
+    t0 = time.perf_counter()
+    served = dict(zip(runs, serve_on_mesh(mesh, list(runs.values()), 4, deadline=ELASTIC_DEADLINE)))
+    wall = time.perf_counter() - t0  # one spawn of the four workers serves both
+    for arch, (model, params, tokens) in runs.items():
+        got = served[arch]
+        want = []
+        with torch.no_grad():
+            for r in range(4):
+                cache = model.init_cache(1, 16, dtype=torch.float32, device="cuda")
+                logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[r:r + 1]).cuda()}, cache)
+                steps = [logits]
+                for t in range(3):
+                    nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                    logits, cache = model.decode_step(params, nxt, cache,
+                                                      torch.full((1,), 12 + t, dtype=torch.int32, device="cuda"))
+                    steps.append(logits)
+                want.append([x.float().cpu() for x in steps])
+        want = [torch.cat([w[i] for w in want]) for i in range(4)]
+        bits = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+        if (arch == "qwen2.5-3b" and not bits) or err > EP_TOL:
+            fail(f"phase 36 {arch}: the sharded forward's logits differ from the engine's by {err:.3g} of their "
+                 f"scale (bit-identical: {bits})")
+        print(f"phase 36 {arch} smoke f32, sharded prefill + 3 decode steps on (2, 2) x cuda:0 ({wall:.1f} s both): "
+              f"logits within {err:.3g} of their scale of the single-process engine's, bit-identical: {bits} "
+              f"| {smi}", flush=True)
+        out[arch] = {"wall_s": wall, "rel_err": err, "bits": bits}
+    return out
 
 
 # -- disaggregated prefill/decode serving (phases 28-29) ---------------------
@@ -4630,6 +4845,14 @@ def main() -> None:
     sharded["elastic"] = elastic_sharded(elastic_cfg, smi, elastic_reference)
     del elastic_reference
     phase_done("31 elastic sharded")
+    # 34-36. an MoE layer's experts over the mesh's model groups: the (2, 2) runs at smoke size held to the
+    # one-process run, dbrx-132b at full width on (1, 2), and the sharded serving forward
+    experts = {"smoke": expert_parallel_smoke(smi)}
+    phase_done("34 experts over model groups, smoke")
+    experts["dbrx"] = dbrx_expert_parallel(smi)
+    phase_done("35 dbrx experts on (1, 2)")
+    experts["serving"] = sharded_serving(smi)
+    phase_done("36 sharded serving forward")
     # 28-29. disaggregated prefill/decode serving, both workers on the card,
     # on phase 4's and phase 15's weights and requests, under the sanitizers
     gc.collect()
@@ -4748,6 +4971,13 @@ def main() -> None:
     # the sharded paths (phases 30-31): every worker's launches, added over ranks
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
         all_launches[kname] += sharded["mesh"]["launches"][kname] + sharded["elastic"]["launches"][kname]
+    # the experts over the model groups (phases 34-35): every worker's launches; dbrx's attention at G 6
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += sum(run["launches"][kname] for run in experts["smoke"].values())
+    all_launches["fused_psgd"] += experts["dbrx"]["launches"]["fused_psgd"]
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        if kname + "_g6" in records:
+            all_launches[kname + "_g6"] += experts["dbrx"]["launches"][kname]
     # Fig. 1 (phase 33), at smoke size and full width
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
         all_launches[kname] += sum(fig1[v]["launches"][kname] for v in ("smoke", "full"))
@@ -4824,7 +5054,7 @@ def main() -> None:
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
         "experiments": experiments, "fig1": fig1, "elastic": {"exact": elastic, "local_sgd": local_sgd},
-        "sharded": sharded,
+        "sharded": sharded, "experts": experts,
         "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,

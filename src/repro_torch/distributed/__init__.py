@@ -56,13 +56,14 @@ from repro_torch.distributed.sync import (
     allreduce_bytes_per_device,
     sync_cost,
 )
-from repro_torch.distributed.trainer import ElasticTrainer, MeshTrainer
+from repro_torch.distributed.trainer import ElasticTrainer, MeshTrainer, run_on_mesh
 
 __all__ = [
     "ElasticMeshPlanner",
     "MeshPlan",
     "ElasticTrainer",
     "MeshTrainer",
+    "run_on_mesh",
     "build_sharded_train_step",
     "reshard_state",
     "state_shardings",

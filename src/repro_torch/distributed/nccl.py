@@ -7,8 +7,11 @@ The methods are :class:`~repro_torch.distributed.staging.HostExchange`'s,
 and so are the results, bit for bit: every collective here is a copy of
 bytes (``all_gather_into_tensor``, ``broadcast``, ``all_to_all_single``), never a reduce, whose
 sum would follow NCCL's order; the sums stay the callers' canonical trees.
-The groups are prefixes of the world (``launch.mesh.prefix_widths``), so a
-group rank is the global rank. A collective returns once it is enqueued:
+The groups are prefixes of the world (``launch.mesh.prefix_widths``), where
+a group rank is the global rank, and the run's axis groups
+(``launch.mesh.make_axis_groups``: one NCCL group each, made by
+:meth:`DeviceExchange.add_group`), where a group rank is a position in
+``mesh.ranks``. A collective returns once it is enqueued:
 NCCL runs it on its own stream, the caller's stream waits for it on the
 device, and the host runs ahead as it does for compute (the sharded step
 makes several collectives a layer, and a wait for the stream after each
@@ -33,7 +36,7 @@ class DeviceExchange:
 
         from repro_torch.launch.mesh import prefix_widths
 
-        self.rank, self.world, self.device = rank, world, torch.device(device)
+        self.rank, self.world, self.device, self.backend = rank, world, torch.device(device), backend
         self.groups = {w: dist.new_group(ranks=list(range(w)), backend=backend) for w in prefix_widths(world)}
         # a first collective, so that a NCCL that cannot start fails here and not mid-step
         probe = torch.full((1,), rank, dtype=torch.uint8, device=self.device)
@@ -41,11 +44,24 @@ class DeviceExchange:
         dist.all_gather_into_tensor(seen, probe, group=self.groups[world])
         if seen.tolist() != list(range(world)):
             raise RuntimeError(f"NCCL's first all-gather returned {seen.tolist()}")
+        self.axis_groups: dict = {}  # global ranks -> the NCCL group over them
+
+    def add_group(self, ranks: tuple) -> None:
+        """An NCCL group over ``ranks`` (every rank of the run calls it, in one order)."""
+        import torch.distributed as dist
+
+        self.axis_groups[tuple(ranks)] = dist.new_group(ranks=list(ranks), backend=self.backend)
+
+    def _pg(self, mesh):
+        """The process group of ``mesh``: a prefix of the world, or an axis group."""
+        if isinstance(mesh.ranks, range):
+            return self.groups[mesh.width]
+        return self.axis_groups[tuple(mesh.ranks)]
 
     def _timed(self, fn, times: StagingTimes):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
         fn()
-        times.collective_s += time.perf_counter() - t0
+        times.collective_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
 
     def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
                    consume: bool = False, senders: Optional[int] = None) -> Iterator[Tuple[int, List[torch.Tensor]]]:
@@ -54,13 +70,14 @@ class DeviceExchange:
 
         width = mesh.width
         senders = width if senders is None else senders
+        sends = mesh.index(self.rank) < senders
         for i, t in enumerate(tensors):
             n = t.numel() * t.element_size()
-            src = _bytes(t) if self.rank < senders else torch.empty(n, dtype=torch.uint8, device=self.device)
+            src = _bytes(t) if sends else torch.empty(n, dtype=torch.uint8, device=self.device)
             if consume:
                 tensors[i] = t = None
             out = torch.empty(width * n, dtype=torch.uint8, device=self.device)
-            self._timed(lambda: dist.all_gather_into_tensor(out, src, group=self.groups[width]), times)
+            self._timed(lambda: dist.all_gather_into_tensor(out, src, group=self._pg(mesh)), times)
             del src
             yield i, [out[d * n:(d + 1) * n] for d in range(senders)]
 
@@ -81,7 +98,7 @@ class DeviceExchange:
         (a rank that holds no shard of it sends an unused buffer)."""
         import torch.distributed as dist
 
-        group = self.groups[mesh.width]
+        group = self._pg(mesh)
         for i, (shard, sharding, like) in enumerate(zip(shards, shardings, likes)):
             shard_like = torch.empty(sharding.shard_shape, dtype=like.dtype, device="meta")
             n = shard_like.numel() * shard_like.element_size()
@@ -90,7 +107,7 @@ class DeviceExchange:
                 holder = next(iter(holders.values()))
                 buf = _bytes(shard) if shard is not None else torch.empty(n, dtype=torch.uint8,
                                                                                   device=self.device)
-                self._timed(lambda: dist.broadcast(buf, holder, group=group), times)
+                self._timed(lambda: dist.broadcast(buf, mesh.ranks[holder], group=group), times)
                 parts = {index: buf for index in holders}
             else:
                 src = _bytes(shard) if shard is not None else torch.empty(n, dtype=torch.uint8, device=self.device)
@@ -102,16 +119,16 @@ class DeviceExchange:
     def _to_all(self, inp: Optional[torch.Tensor], in_splits: List[int], recvs: dict, mesh,
                 times: StagingTimes) -> dict:
         """One ``all_to_all_single`` over the mesh's group: ``inp`` (bytes,
-        or None for nothing) in ``in_splits`` a peer, ``recvs`` peer -> the
-        byte count this rank receives from it; returns peer -> the received
-        bytes (views)."""
+        or None for nothing) in ``in_splits`` a position, ``recvs`` position
+        -> the byte count this rank receives from it; returns position ->
+        the received bytes (views)."""
         import torch.distributed as dist
 
         width = mesh.width
         out_splits = [recvs.get(q, 0) for q in range(width)]
         inp = torch.empty(0, dtype=torch.uint8, device=self.device) if inp is None else inp
         out = torch.empty(sum(out_splits), dtype=torch.uint8, device=self.device)
-        self._timed(lambda: dist.all_to_all_single(out, inp, out_splits, in_splits, group=self.groups[width]), times)
+        self._timed(lambda: dist.all_to_all_single(out, inp, out_splits, in_splits, group=self._pg(mesh)), times)
         got, at = {}, 0
         for q, n in enumerate(out_splits):
             if q in recvs:
@@ -125,11 +142,11 @@ class DeviceExchange:
         leaf: a sender copies, for each rank, the slice of the shard index
         it stores into one buffer, drops its leaf, and sends; the views are
         on this card."""
-        width = mesh.width
+        width, sends = mesh.width, mesh.index(self.rank) < senders
         for i, (sharding, like) in enumerate(zip(shardings, likes)):
             size = like.numel() * like.element_size() // sharding.num_shards
             inp, in_splits = None, [0] * width
-            if self.rank < senders:
+            if sends:
                 t, indices = tensors[i], list(sharding.holders())
                 inp = torch.empty(width * size, dtype=torch.uint8, device=self.device)
                 for q in range(width):
@@ -159,3 +176,14 @@ class DeviceExchange:
                 continue
             parts = {index: got[h] for index, h in holders.items()}
             yield i, place_shards(parts, sharding, like, shard_like, times, device)
+
+    def to_all(self, sends: List[Optional[torch.Tensor]], recv_likes: dict, mesh, times: StagingTimes,
+               device) -> dict:
+        """As ``HostExchange.to_all``, one ``all_to_all_single``; the
+        received tensors are views on this card."""
+        inp = [_bytes(t) for t in sends if t is not None]
+        in_splits = [0 if t is None else t.numel() * t.element_size() for t in sends]
+        in_splits += [0] * (mesh.width - len(in_splits))
+        recvs = {p: like.numel() * like.element_size() for p, like in recv_likes.items()}
+        got = self._to_all(torch.cat(inp) if inp else None, in_splits, recvs, mesh, times)
+        return {p: got[p].view(like.dtype).reshape(like.shape) for p, like in recv_likes.items()}

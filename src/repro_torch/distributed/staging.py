@@ -26,6 +26,14 @@ each sender writes a leaf's slices into its slot in shard-index order, and
 each rank copies back, from every sender, the slice of the shard index it
 stores (a reduce-scatter's traffic as an all-to-all; the caller sums).
 
+Every collective runs over a mesh of the run's ranks: a
+:class:`~repro_torch.launch.mesh.DataMesh` (ranks ``[0, W)``) or an axis
+group (:class:`~repro_torch.launch.mesh.GroupMesh`), whose positions map to
+ranks, and so to slots, through ``mesh.ranks``; its barriers are the
+group's. :meth:`HostExchange.to_all` is the MoE layer's all-to-all over a
+``model`` group: each rank writes its blocks into its slot in position
+order and reads, from each sender, the block of its own position.
+
 When every worker has a card of its own, the same collectives go through
 NCCL instead (:class:`repro_torch.distributed.nccl.DeviceExchange`, the
 same methods): :func:`make_exchange` chooses by the run's devices.
@@ -44,6 +52,8 @@ ALIGN = 64  # bytes: every tensor starts at an aligned offset of its slot
 
 @dataclass
 class StagingTimes:
+    """Host seconds of a collective's parts, and the bytes received."""
+
     copy_out_s: float = 0.0
     collective_s: float = 0.0
     copy_back_s: float = 0.0
@@ -61,9 +71,9 @@ def _padded(n: int) -> int:
 def from_host(buf: torch.Tensor, like: torch.Tensor, times: StagingTimes, device=None) -> torch.Tensor:
     """A new tensor of ``like``'s dtype and shape on ``device`` (default:
     ``like``'s; ``like`` may be a meta tensor) whose bytes are ``buf``'s."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
     out = buf.to(like.device if device is None else device, copy=True).view(like.dtype).reshape(like.shape)
-    times.copy_back_s += time.perf_counter() - t0
+    times.copy_back_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
     times.received_bytes += buf.numel() * buf.element_size()
     return out
 
@@ -132,9 +142,9 @@ class HostExchange:
     def _barrier(self, mesh, times: StagingTimes) -> None:
         import torch.distributed as dist
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
         dist.barrier(group=mesh.group)
-        times.collective_s += time.perf_counter() - t0
+        times.collective_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
 
     def all_gather(self, tensors: List[Optional[torch.Tensor]], mesh, times: StagingTimes,
                    consume: bool = False, senders: Optional[int] = None) -> Iterator[Tuple[int, List[torch.Tensor]]]:
@@ -146,19 +156,19 @@ class HostExchange:
         caller must exhaust the iterator. ``consume`` drops each entry of
         ``tensors`` once its bytes are on the host."""
         senders = mesh.width if senders is None else senders
-        sends = self.rank < senders
+        sends = mesh.index(self.rank) < senders
         for bucket in self._buckets(tensors):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
             own = self.slots[self.rank]
             for i, off, n in bucket:
                 if sends:
                     own[off:off + n].copy_(_bytes(tensors[i]))
                 if consume:
                     tensors[i] = None
-            times.copy_out_s += time.perf_counter() - t0
+            times.copy_out_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
             self._barrier(mesh, times)
             for i, off, n in bucket:
-                yield i, [self.slots[d][off:off + n] for d in range(senders)]
+                yield i, [self.slots[mesh.ranks[d]][off:off + n] for d in range(senders)]
             self._barrier(mesh, times)  # every rank has read the slots
 
     def assemble(self, shards: List[Optional[torch.Tensor]], shardings: list, likes: List[torch.Tensor],
@@ -174,18 +184,19 @@ class HostExchange:
         shard_likes = [torch.empty(s.shard_shape, dtype=like.dtype, device="meta")
                        for s, like in zip(shardings, likes)]
         for bucket in self._buckets(shard_likes):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
             own = self.slots[self.rank]
             for i, off, n in bucket:
                 if shards[i] is not None:
                     own[off:off + n].copy_(_bytes(shards[i]))
-            times.copy_out_s += time.perf_counter() - t0
+            times.copy_out_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
             self._barrier(mesh, times)
             for i, off, n in bucket:
                 if not (want if isinstance(want, bool) else want[i]):
                     yield i, None
                     continue
-                parts = {index: self.slots[holder][off:off + n] for index, holder in shardings[i].holders().items()}
+                parts = {index: self.slots[mesh.ranks[holder]][off:off + n]
+                         for index, holder in shardings[i].holders().items()}
                 yield i, place_shards(parts, shardings[i], likes[i], shard_likes[i], times, device)
             self._barrier(mesh, times)
 
@@ -208,9 +219,10 @@ class HostExchange:
         ranks are this one's. Nothing is summed in transit. A rank's views
         hold until it asks for the next item; the caller must exhaust the
         iterator."""
-        sends = self.rank < senders
+        me = mesh.index(self.rank)
+        sends = me < senders
         for bucket in self._buckets(likes):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
             own = self.slots[self.rank]
             for i, off, n in bucket:
                 if sends:
@@ -219,23 +231,53 @@ class HostExchange:
                     for j, index in enumerate(sharding.holders()):
                         own[off + j * size:off + (j + 1) * size].copy_(_bytes(tensors[i][sharding.slices_of(index)]))
                 tensors[i] = None
-            times.copy_out_s += time.perf_counter() - t0
+            times.copy_out_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
             self._barrier(mesh, times)
             for i, off, n in bucket:
                 size = n // shardings[i].num_shards
-                at = off + slice_position(shardings[i], self.rank) * size
-                yield i, [self.slots[d][at:at + size] for d in range(senders)]
+                at = off + slice_position(shardings[i], me) * size
+                yield i, [self.slots[mesh.ranks[d]][at:at + size] for d in range(senders)]
             self._barrier(mesh, times)
+
+    def to_all(self, sends: List[Optional[torch.Tensor]], recv_likes: dict, mesh, times: StagingTimes,
+               device) -> dict:
+        """An all-to-all over ``mesh``: ``sends[q]`` (None for nothing) goes
+        to position q, every block of one call of one size; returns position
+        -> the tensor received from it (``recv_likes[p]``'s shape and dtype,
+        on ``device``) for each position p of ``recv_likes``. Blocks are
+        copies of bytes."""
+        sizes = {t.numel() * t.element_size() for t in [t for t in sends if t is not None] + list(recv_likes.values())}
+        if len(sizes) > 1:
+            raise ValueError(f"an all-to-all's blocks differ in size: {sorted(sizes)}")
+        stride = _padded(sizes.pop()) if sizes else 0
+        if stride * mesh.width > self.slot_bytes:
+            raise ValueError(f"an all-to-all of {mesh.width} blocks of {stride} bytes exceeds the host slot "
+                             f"({self.slot_bytes} bytes)")
+        t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
+        own = self.slots[self.rank]
+        for q, t in enumerate(sends):
+            if t is not None:
+                b = _bytes(t)
+                own[q * stride:q * stride + b.numel()].copy_(b)
+        times.copy_out_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
+        self._barrier(mesh, times)
+        me = mesh.index(self.rank)
+        got = {}
+        for p, like in recv_likes.items():
+            n = like.numel() * like.element_size()
+            got[p] = from_host(self.slots[mesh.ranks[p]][me * stride:me * stride + n], like, times, device)
+        self._barrier(mesh, times)
+        return got
 
     @torch.no_grad()
     def broadcast(self, tensors: List[torch.Tensor], mesh, times: StagingTimes) -> None:
         """Rank 0's bytes of each tensor into that tensor on every rank of the mesh."""
         for bucket in self._buckets(tensors):
             if self.rank == 0:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
                 for i, off, n in bucket:
                     self.slots[0][off:off + n].copy_(_bytes(tensors[i]))
-                times.copy_out_s += time.perf_counter() - t0
+                times.copy_out_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
             self._barrier(mesh, times)
             if self.rank != 0:
                 for i, off, n in bucket:

@@ -77,7 +77,11 @@ checkpoints hold the collapsed state, byte-equal to an unsharded run's.
 Local SGD keeps whole replicas, as in the JAX package.
 :class:`MeshTrainer` runs ``SEBSTrainer(mesh=...)`` through the same
 machinery: every rank of a fixed mesh stores its shards, and the stage's
-width of them compute.
+width of them compute. On a mesh whose ``model`` axis splits an MoE
+layer's experts, each worker also makes its axis groups
+(``launch/mesh.make_axis_groups``) and computes its experts over its
+``model`` group (``sharded.py``): that path holds the unsharded run within
+a tolerance, not to its bits.
 """
 from __future__ import annotations
 
@@ -85,10 +89,7 @@ import dataclasses
 import os
 import shutil
 import tempfile
-import time
-import traceback
 from datetime import timedelta
-from multiprocessing import connection
 from typing import Dict, List, Optional
 
 import torch
@@ -98,6 +99,14 @@ from repro_torch.core.stages import StepPlan
 from repro_torch.core.trainer import SEBSTrainer, TrainLog
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.distributed.planner import ElasticMeshPlanner, MeshPlan
+from repro_torch.distributed.procs import (
+    apply_settings,
+    caller_settings,
+    fail_worker,
+    join_workers,
+    slot_bytes,
+    stop_workers,
+)
 from repro_torch.distributed.reshard import (
     broadcast_state,
     build_sync_step,
@@ -110,7 +119,7 @@ from repro_torch.distributed.sharded import build_sharded_train_step, move_state
 from repro_torch.distributed.staging import StagingTimes, make_exchange
 from repro_torch.distributed.step import build_elastic_train_step, build_local_train_step
 from repro_torch.distributed.sync import CommAccountant, SyncScheduler, allreduce_bytes_per_device, sync_cost
-from repro_torch.launch.mesh import prefix_groups
+from repro_torch.launch.mesh import make_axis_groups, prefix_groups
 from repro_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.optim.base import Optimizer
@@ -155,6 +164,7 @@ class ElasticTrainer(SEBSTrainer):
         self.param_axes = param_axes
         self._sharded = param_axes is not None and sync_mode == "exact"
         self._held: Optional[int] = None    # ranks that store the state (sharded layouts)
+        self._axis = None                   # a worker's axis groups on a mesh (MeshTrainer)
         self.collective_timeout = collective_timeout
         self.deadline = deadline
         self._width: Optional[int] = None   # realized width (None = not placed yet)
@@ -172,6 +182,7 @@ class ElasticTrainer(SEBSTrainer):
                                         "sharded": [], "between_bytes": [], "update_peak_bytes": []}
         self._layouts: Dict[int, list] = {}
         self._run_peak = 0  # a sharded worker's peak bytes before its last reset of the card's peak
+        self._keep = False  # the state stays with the workers (run(init_seed=...)): no collapse, no copy back
         #: per rank, after run(): device, peak memory, kernel launches, staging seconds
         self.worker_stats: List[dict] = []
 
@@ -184,7 +195,7 @@ class ElasticTrainer(SEBSTrainer):
         d["_clock"] = None
         d["_steps"], d["_sync_steps"], d["worker_stats"] = {}, {}, []
         # a run's first placement is cold: rank 0 alone holds the state
-        d["_width"], d["_stacked"], d["_held"], d["_layouts"] = None, False, None, {}
+        d["_width"], d["_stacked"], d["_held"], d["_layouts"], d["_axis"] = None, False, None, {}, None
         return d
 
     def __setstate__(self, d: dict) -> None:
@@ -198,6 +209,10 @@ class ElasticTrainer(SEBSTrainer):
     def _store_width(self, width: int) -> int:
         """How many ranks store the state when ``width`` of them compute."""
         return width
+
+    def _axis_groups(self, rank: int, exchange):
+        """A worker's axis groups (None: the elastic widths are ("data",) meshes)."""
+        return None
 
     def _layout(self, n: int) -> list:
         """The shardings of the state's tensor leaves when ranks ``[0, n)``
@@ -218,7 +233,7 @@ class ElasticTrainer(SEBSTrainer):
                 self._steps[key] = build_sharded_train_step(
                     self.model, self.optimizer, self._layout(self._held)[:n_params], rank=self._rank,
                     width=mp.width, local_accum=mp.local_accum, xmesh=self.planner.mesh_for(self._held),
-                    grad_clip=self.grad_clip, times=self._times["sharded"])
+                    grad_clip=self.grad_clip, times=self._times["sharded"], axis=self._axis)
             elif stacked:
                 self._steps[key] = build_local_train_step(
                     self.model, self.optimizer, mesh, width=mp.width, local_accum=mp.local_accum,
@@ -248,25 +263,30 @@ class ElasticTrainer(SEBSTrainer):
         """Move the state to the new width. Average first if the replicas were
         drifting (local mode); then give rank 0's state to the workers that
         join. Placement never changes values."""
-        t0 = time.perf_counter()
+        t0 = self._clock()
         with self.tracer.span("train.reshard", old=self._width or 0, new=mp.width, stage=stage):
             state = self._transition_inner(state, mp, stage)
-        self._times["reshard_s"].append(time.perf_counter() - t0)
+        self._times["reshard_s"].append(self._clock() - t0)
         return state
 
-    def _move(self, state: Optional[TrainState], n_new: int) -> Optional[TrainState]:
+    def _move(self, state: Optional[TrainState], n_new: int, last: bool = False) -> Optional[TrainState]:
         """The sharded state from ranks ``[0, self._held)`` (rank 0 alone
-        before the first placement) to ranks ``[0, n_new)``."""
+        before the first placement) to ranks ``[0, n_new)``. ``last``: the
+        old layout is not read again, so each leaf's memory goes as it is
+        sent (as a first placement's whole state does)."""
         n_old = self._held or 1
         xw = max(n_old, n_new)
         if n_new != n_old and self._rank < xw:
             old = tensor_leaves(state) if state is not None and n_old == 1 else []
             state = move_state(state, self._skeleton, self._layout(n_old), self._layout(n_new), self._rank,
-                               self.planner.mesh_for(xw), StagingTimes())
+                               self.planner.mesh_for(xw), StagingTimes(), free_source=last or bool(old))
             # rank 0's whole state (its own copy of the caller's, a restore, or a width-1 stage's), which the
-            # callers' frames may still name: free its memory, so that only the shards stay
+            # callers' frames may still name: free its memory, so that only the shards stay, and give the
+            # card its blocks back (workers sharing a card would otherwise find them held by rank 0's cache)
             for t in old:
                 t.untyped_storage().resize_(0)
+            if old and old[0].device.type == "cuda":
+                torch.cuda.empty_cache()
         self._held = n_new
         return state if self._rank < n_new else None
 
@@ -392,13 +412,18 @@ class ElasticTrainer(SEBSTrainer):
     def _save_view(self, state: TrainState) -> TrainState:
         return collapse_state(state, self._rank)
 
-    def _collapse(self, state: Optional[TrainState]) -> Optional[TrainState]:
+    def _collapse(self, state: Optional[TrainState], last: bool = False) -> Optional[TrainState]:
         """A sharded state whole on rank 0 (None on the other ranks)."""
-        return self._move(state, 1)
+        return self._move(state, 1, last)
 
     def _finalize(self, state: TrainState) -> TrainState:
-        if self._sharded:
-            return self._collapse(state)
+        if self._sharded and not self._keep:
+            if self.pipeline.device.type == "cuda":
+                # the steps are over: what a worker's cache holds, rank 0 may need for the whole state
+                # (workers that share a card)
+                torch.cuda.empty_cache()
+            with self.tracer.span("train.collapse", width=self._held or 1):
+                return self._collapse(state, last=True)
         if self._stacked:
             if self._rank < self._width:
                 state = self._sync_step(self._width)(state)
@@ -452,16 +477,27 @@ class ElasticTrainer(SEBSTrainer):
 
     # -- the run ----------------------------------------------------------------
 
-    def run(self, state: TrainState, log_every: int = 10, *, checkpointer: Optional[CheckpointManager] = None,
-            save_every: int = 0, resume: bool = False, stop_after_updates: Optional[int] = None):
+    def run(self, state: Optional[TrainState], log_every: int = 10, *,
+            checkpointer: Optional[CheckpointManager] = None, save_every: int = 0, resume: bool = False,
+            stop_after_updates: Optional[int] = None, init_seed: Optional[int] = None):
         """Drive the schedule to its sample budget over the workers; returns
         (state, log) as :meth:`SEBSTrainer.run` does (see the module
-        docstring for the processes)."""
+        docstring for the processes). With ``init_seed`` in place of a
+        ``state`` (None), rank 0 builds the initial state on its own device
+        (``model.init(init_seed)`` and the optimizer's) and the state stays
+        with the workers: no final collapse, nothing copied back, and the
+        returned state holds meta tensors of its shapes. That is for a state
+        the caller cannot hold, or should not pass through the host."""
         if self._rank is not None:  # a worker: the loop itself
             return super().run(state, log_every, checkpointer=checkpointer, save_every=save_every,
                                resume=resume, stop_after_updates=stop_after_updates)
         if checkpointer is not None and not isinstance(checkpointer, CheckpointManager):
             raise TypeError(f"checkpointer must be a CheckpointManager, not {type(checkpointer).__name__}")
+        if (state is None) == (init_seed is None):
+            raise ValueError("pass either a state or an init_seed")
+        self._keep = init_seed is not None
+        if self._keep:
+            state = self._initial_state(init_seed, "meta")
         world = self.planner.device_budget
         if any(torch.device(d).type == "cuda" for d in self.planner.devices[:world]):
             if not torch.cuda.is_available():
@@ -476,12 +512,12 @@ class ElasticTrainer(SEBSTrainer):
         # the tensors go to rank 0 as torch.multiprocessing shares them: a CUDA
         # tensor by an IPC handle, a CPU one by moving its storage to shared
         # memory (in place); rank 0 copies them in and its final values back
-        shared = _map_state(lambda t: t.detach(), state)
+        shared = None if self._keep else _map_state(lambda t: t.detach(), state)
         workdir = tempfile.mkdtemp(prefix="elastic_")
         try:
-            job = {"workdir": workdir, "world": world, "trainer": self, "settings": _caller_settings(),
-                   "slot_bytes": _slot_bytes(state), "log_every": log_every, "save_every": save_every,
-                   "resume": resume, "stop_after_updates": stop_after_updates,
+            job = {"workdir": workdir, "world": world, "trainer": self, "settings": caller_settings(),
+                   "slot_bytes": slot_bytes(state), "log_every": log_every, "save_every": save_every,
+                   "resume": resume, "stop_after_updates": stop_after_updates, "init_seed": init_seed,
                    "ckpt": None if checkpointer is None else (checkpointer.directory, checkpointer.keep_last)}
             ctx = torch.multiprocessing.get_context("spawn")
             procs = [ctx.Process(target=_worker, args=(rank, job, [shared] if rank == 0 else []),
@@ -490,9 +526,9 @@ class ElasticTrainer(SEBSTrainer):
                 for p in procs:
                     p.start()
             except BaseException:
-                _stop([p for p in procs if p.pid is not None])
+                stop_workers([p for p in procs if p.pid is not None])
                 raise
-            _join(procs, workdir, self.deadline)
+            join_workers(procs, workdir, self.deadline)
             results = [torch.load(os.path.join(workdir, f"result_{r}.pt"), weights_only=False)
                        for r in range(world)]
         finally:
@@ -500,6 +536,10 @@ class ElasticTrainer(SEBSTrainer):
             if torch.cuda.is_initialized():
                 torch.cuda.ipc_collect()  # the blocks rank 0 held through IPC handles
         return self._adopt(state, results)
+
+    def _initial_state(self, seed: int, device) -> TrainState:
+        params = self.model.init(seed, device=device)
+        return TrainState(params, self.optimizer.init(params), 0)
 
     def _adopt(self, state: TrainState, results: List[dict]):
         """Rank 0's results into the caller's state and this trainer."""
@@ -561,7 +601,9 @@ class MeshTrainer(ElasticTrainer):
     of two dividing the accumulation count that fits the mesh, as the
     elastic planner chooses; every rank gathers, receives the summed
     gradient and updates its shards (``sharded.py``). So the losses and
-    params are bit-identical to :class:`ElasticTrainer`'s at budget 1.
+    params are bit-identical to :class:`ElasticTrainer`'s at budget 1, but
+    where an MoE layer's experts split over ``model``: computed over the
+    ``model`` groups, they hold that run within a tolerance (1e-6 at f32).
     Checkpoints are the single-process trainer's (no elastic meta keys)."""
 
     def __init__(self, base: SEBSTrainer):
@@ -577,6 +619,14 @@ class MeshTrainer(ElasticTrainer):
 
     def _store_width(self, width: int) -> int:
         return self.storage.size
+
+    def _axis_groups(self, rank: int, exchange):
+        """The rank's ``model`` and expert groups on the storage mesh, made
+        by every worker together: an MoE layer whose experts the rules split
+        over ``model`` computes them over the ``model`` group."""
+        if self.storage.shape.get("model", 1) < 2:
+            return None
+        return make_axis_groups(self.storage, rank, exchange)
 
     def _layout(self, n: int) -> list:
         if n == self.storage.size and n > 1 and n not in self._layouts:
@@ -606,22 +656,6 @@ def run_on_mesh(base: SEBSTrainer, state: TrainState, **run_kw):
 # -- the processes ------------------------------------------------------------------
 
 
-def _caller_settings() -> dict:
-    """The numerics settings a worker must share with its caller."""
-    return {"num_threads": torch.get_num_threads(), "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-            "matmul_precision": torch.get_float32_matmul_precision(),
-            "deterministic": torch.are_deterministic_algorithms_enabled()}
-
-
-def _apply_settings(s: dict) -> None:
-    torch.set_num_threads(s["num_threads"])
-    torch.backends.cuda.matmul.allow_tf32 = s["matmul_tf32"]
-    torch.backends.cudnn.allow_tf32 = s["cudnn_tf32"]
-    torch.set_float32_matmul_precision(s["matmul_precision"])
-    torch.use_deterministic_algorithms(s["deterministic"])
-
-
 def _launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count in this process."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -636,13 +670,6 @@ def _map_state(fn, state: TrainState) -> TrainState:
     """``fn`` applied to every tensor of ``state``."""
     f = lambda t: fn(t) if isinstance(t, torch.Tensor) else t  # noqa: E731
     return TrainState(_map(f, state.params), _map(f, state.opt_state), state.step)
-
-
-def _slot_bytes(state: TrainState) -> int:
-    """Bytes of a host slot: the largest tensor of the state, or of its f32
-    gradient."""
-    return max(64, *(t.numel() * max(t.element_size(), 4)
-                     for t in tree_leaves([state.params, state.opt_state]) if isinstance(t, torch.Tensor)))
 
 
 def _map(fn, tree):
@@ -665,12 +692,13 @@ def _worker(rank: int, job: dict, box: list) -> None:
     """One worker process: join the process group, run the loop, write the
     result (or the traceback) into the run's directory. Rank 0 gets the
     caller's state (in ``box``), writes its final values into it and drops
-    it before it exits, so that the parent may free CUDA memory it shared."""
+    it before it exits, so that the parent may free CUDA memory it shared;
+    or, given the job's ``init_seed``, builds the state on its device."""
     import torch.distributed as dist
 
     workdir = job["workdir"]
     try:
-        _apply_settings(job["settings"])
+        apply_settings(job["settings"])
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         trainer: ElasticTrainer = job["trainer"]
         device = torch.device(trainer.planner.devices[rank])
@@ -687,11 +715,13 @@ def _worker(rank: int, job: dict, box: list) -> None:
             if job["world"] > 1:
                 trainer.planner.exchange = make_exchange(workdir, rank, job["world"], job["slot_bytes"],
                                                          trainer.planner.devices)
+                trainer._axis = trainer._axis_groups(rank, trainer.planner.exchange)
             trainer.pipeline.device = device
             state = shared = None
             if rank == 0:
                 shared = box.pop()  # the process object holds its arguments to the end
-                state = _map_state(lambda t: t.to(device, copy=True), shared)
+                state = (trainer._initial_state(job["init_seed"], device) if shared is None
+                         else _map_state(lambda t: t.to(device, copy=True), shared))
             ckpt = None if job["ckpt"] is None else CheckpointManager(job["ckpt"][0], keep_last=job["ckpt"][1])
             try:
                 state, log = trainer.run(state, job["log_every"], checkpointer=ckpt, save_every=job["save_every"],
@@ -699,7 +729,7 @@ def _worker(rank: int, job: dict, box: list) -> None:
             finally:
                 if ckpt is not None:
                     ckpt.close()
-            if rank == 0:
+            if shared is not None:
                 _copy_tensors(shared, state)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
@@ -708,61 +738,4 @@ def _worker(rank: int, job: dict, box: list) -> None:
         finally:
             dist.destroy_process_group()
     except BaseException:
-        path = os.path.join(workdir, f"error_{rank}.txt")
-        with open(path + ".tmp", "w") as f:
-            f.write(f"{time.time():.9f}\n{traceback.format_exc()}")  # when, to find the first failure
-        os.replace(path + ".tmp", path)  # whole, or not there: the parent may stop this worker at any time
-        os._exit(1)
-
-
-def _stop(procs) -> None:
-    """Terminate ``procs`` (then kill what is left after 10 s)."""
-    for p in procs:
-        p.terminate()
-    for p in procs:
-        p.join(10)
-        if p.exitcode is None:
-            p.kill()
-            p.join()
-
-
-def _join(procs, workdir: str, deadline: Optional[float]) -> None:
-    """Wait for every worker. When one exits non-zero, or ``deadline``
-    seconds pass (or the wait itself is interrupted), terminate the rest;
-    raise with the first failing worker's traceback."""
-    t_end = None if deadline is None else time.monotonic() + deadline
-    alive, failed = list(procs), False
-    try:
-        while alive and not failed:
-            wait = 1.0 if t_end is None else max(0.0, min(1.0, t_end - time.monotonic()))
-            connection.wait([p.sentinel for p in alive], wait)
-            for p in list(alive):
-                if p.exitcode is not None:
-                    alive.remove(p)
-                    failed = failed or p.exitcode != 0
-            if t_end is not None and time.monotonic() >= t_end and alive:
-                break
-    finally:
-        _stop([p for p in procs if p.exitcode is None])
-    if not failed and not alive:
-        return
-    errors = []
-    for name in os.listdir(workdir):
-        if name.startswith("error_") and name.endswith(".txt"):
-            with open(os.path.join(workdir, name)) as f:
-                when, _, text = f.read().partition("\n")
-            errors.append((float(when), name[len("error_"):-len(".txt")], text))
-    errors.sort()
-    if errors:
-        _, first, text = errors[0]
-        others = [rank for _, rank, _ in errors[1:]]
-        detail = f"worker rank {first} failed:\n{text}"
-        if others:
-            detail += f"(ranks {', '.join(others)} failed after it)"
-    else:
-        codes = {p.name: p.exitcode for p in procs}
-        detail = f"the workers left no traceback here (exit codes {codes}; see their standard error)"
-    if not failed:
-        raise TimeoutError(f"the elastic run did not finish within {deadline} s; its workers were terminated. "
-                           + (detail if errors else ""))
-    raise RuntimeError(f"an elastic worker failed; the others were terminated. {detail}")
+        fail_worker(workdir, rank)

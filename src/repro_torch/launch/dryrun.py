@@ -30,17 +30,20 @@ numbers, under JAX's keys:
 - ``collectives`` (``roofline/collectives.py``): what the step's transport
   moves to the rank.
 
-What runs. The rules place storage only and compute is data-parallel over
-every rank (``distributed/sharded.py``): rank 0 runs
+What runs. Compute is data-parallel over every rank but for an MoE
+layer's experts, which the rules split over ``model`` and which run over
+the rank's ``model`` group (``distributed/sharded.py``): rank 0 runs
 ``build_sharded_train_step`` on its rows of the global batch (ranks past
 the batch's rows compute nothing and receive their slices), with a
-recording transport (:class:`RecordingExchange`) in place of the host
-slots or NCCL: each layer's gather (``all-gather``), each exchange of the
+recording transport (:class:`RecordingExchange`, over the rank's axis
+groups too, :func:`recording_axes`) in place of the host slots or NCCL:
+each layer's gather (``all-gather``; the experts' over the expert group),
+the experts' buffers to and from their ranks, each exchange of the
 gradient's slices and each leaf's assembly for the norm (``all-to-all``)
-is recorded, and its results are meta tensors. A one-rank mesh runs
-``train/step.py``'s step, which the trainer runs on one device. Prefill and decode gather the
-parameters the same way and run the model's ``prefill`` / ``decode_step``
-on the rank's rows of the batch and cache.
+are recorded, and their results are meta tensors. A one-rank mesh runs
+``train/step.py``'s step, which the trainer runs on one device. Prefill
+and decode run ``sharded_forward`` on the rank's rows of the batch and
+cache: each layer gathered where it runs, the experts as in training.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
@@ -64,13 +67,13 @@ from repro_torch.distributed.reshard import reshard_state, state_shardings
 from repro_torch.distributed.sharded import (
     _rebuild,
     build_sharded_train_step,
-    gather_params,
     own_shard,
+    sharded_forward,
     tensor_leaves,
     tensor_shardings,
 )
 from repro_torch.distributed.staging import StagingTimes
-from repro_torch.launch.mesh import DataMesh, make_production_mesh
+from repro_torch.launch.mesh import AxisGroups, DataMesh, axis_groups, make_production_mesh, rank_rows
 from repro_torch.models import LanguageModel
 from repro_torch.optim import make_optimizer
 from repro_torch.roofline.collectives import CollectiveLog
@@ -151,6 +154,12 @@ class RecordingExchange:
             tensors[i] = None
             yield i, [self.slot[:nbytes]] * senders
 
+    def to_all(self, sends, recv_likes, mesh, times: StagingTimes, device):
+        nbytes = sum(like.numel() * like.element_size() for like in recv_likes.values())
+        self.log.record("all-to-all", nbytes)
+        times.received_bytes += nbytes
+        return {p: torch.empty(like.shape, dtype=like.dtype, device=device) for p, like in recv_likes.items()}
+
     def all_gather(self, tensors, mesh, times: StagingTimes, consume: bool = False, senders: Optional[int] = None):
         senders = mesh.width if senders is None else senders
         for i in range(len(tensors)):
@@ -165,6 +174,15 @@ def recording_mesh(width: int, device, slot_bytes: int, rank: int = 0) -> DataMe
     """The ("data",) mesh of ``width`` ranks a counted step of ``rank`` runs over."""
     return DataMesh(tuple(torch.device(device) for _ in range(width)), None,
                     RecordingExchange(device, slot_bytes, rank) if width > 1 else None)
+
+
+def recording_axes(mesh, xmesh: DataMesh, rank: int = 0) -> Optional[AxisGroups]:
+    """``rank``'s axis groups on ``mesh``, their collectives recorded by
+    ``xmesh``'s transport (None on a mesh without a ``model`` axis of more
+    than one rank: nothing is split over one)."""
+    if xmesh.exchange is None or mesh.shape.get("model", 1) < 2:
+        return None
+    return axis_groups(mesh, rank, xmesh.exchange)
 
 
 # ---------------------------------------------------------------------------
@@ -207,17 +225,6 @@ def batch_argument_bytes(specs: dict, mesh, accum_steps: int = 1) -> int:
 # ---------------------------------------------------------------------------
 # the rank's work
 # ---------------------------------------------------------------------------
-
-
-def rank_rows(global_rows: int, ranks: int):
-    """(rows a computing rank takes, computing ranks): the rows spread over
-    every rank where they divide, else one row a rank over the first
-    ``global_rows`` ranks."""
-    if global_rows % ranks == 0:
-        return global_rows // ranks, ranks
-    if global_rows < ranks:
-        return 1, global_rows
-    raise ValueError(f"{global_rows} rows do not divide over {ranks} ranks")
 
 
 def local_batch(specs: dict, rows: int, device) -> dict:
@@ -294,7 +301,7 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
         xmesh = recording_mesh(mesh.size, device, largest, rank)
         n_params = len(tree_leaves(whole.params))
         step = build_sharded_train_step(model, optimizer, layout[:n_params], rank=rank, width=width,
-                                        local_accum=accum_steps, xmesh=xmesh)
+                                        local_accum=accum_steps, xmesh=xmesh, axis=recording_axes(mesh, xmesh, rank))
         batch = _stack(mb, accum_steps)
     del whole
     before = {id(t.untyped_storage()) for t in tensor_leaves(state)}
@@ -311,9 +318,10 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
 
 
 def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
-    """Rank 0's prefill or decode step on ``mesh``: the parameters gathered
-    from their shards, the model's step on the rank's rows of the batch and
-    cache. Its arguments are those the step reads, as XLA keeps only those:
+    """Rank 0's prefill or decode step on ``mesh``: the sharded serving
+    forward (``distributed/sharded.sharded_forward``: each layer gathered
+    where it runs, an MoE layer's experts over the ``model`` group) on the
+    rank's rows of the batch and cache. Its arguments are those the step reads, as XLA keeps only those:
     a prefill overwrites its attention cache unread, a decode reads no
     encoder weight, an RWKV6 decode no cache index."""
     model = LanguageModel(cfg)
@@ -324,7 +332,7 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
         specs = {"tokens": specs["tokens"]}
     compute = getattr(torch, cfg.compute_dtype)
     b = shape.global_batch
-    rows, _ = rank_rows(b, mesh.size)
+    rows, width = rank_rows(b, mesh.size)
     batch = local_batch(specs, rows, device)
     cache = abstract_cache(model, rows, shape.seq_len, device)
     shardings = tree_leaves(shard_tree(unstack_axes(param_axes, params), params, mesh))
@@ -332,6 +340,7 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
     mine = _rebuild(params, iter([own_shard(t, s, 0) for t, s in zip(tree_leaves(params), shardings)])) \
         if sharded else params
     xmesh = recording_mesh(mesh.size, device, 1) if sharded else None
+    axis = recording_axes(mesh, xmesh) if sharded else None
     index = memory = None
     if shape.kind == "decode":
         # the cache index a row (the engines' form; a scalar would be read on the host)
@@ -339,26 +348,32 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
         if cfg.is_encoder_decoder:
             memory = torch.zeros((rows, cfg.encoder_seq, cfg.d_model), dtype=compute, device=device)
     with torch.no_grad(), StepCounter() as counter:
-        full = gather_params(mine, shardings, 0, xmesh, StagingTimes()) if sharded else mine
-        inputs = {"params": tree_leaves(full), "cache": tree_leaves(cache), "batch": list(batch.values()),
+        inputs = {"params": tree_leaves(mine), "cache": tree_leaves(cache), "batch": list(batch.values()),
                   "index": [index] if index is not None else [], "memory": [memory] if memory is not None else []}
         counter.watch([t for ts in inputs.values() for t in ts])
-        if shape.kind == "prefill":
-            logits, new_cache = model.prefill(full, batch, cache)
+        gathered: set = set()
+        if sharded:
+            logits, new_cache = sharded_forward(model, mine, shardings, rank=0, width=width, xmesh=xmesh,
+                                                kind=shape.kind, batch=batch, cache=cache, cache_index=index,
+                                                memory=memory, axis=axis, gathered=gathered)
+        elif shape.kind == "prefill":
+            logits, new_cache = model.prefill(mine, batch, cache)
         else:
-            logits, new_cache = model.decode_step(full, batch["tokens"], cache, index, memory=memory)
+            logits, new_cache = model.decode_step(mine, batch["tokens"], cache, index, memory=memory)
         read = {k: [counter.was_read(t) for t in ts] for k, ts in inputs.items()}
+        if sharded:  # a gathered leaf is read (its shards travel; the recording reads none)
+            read["params"] = [i in gathered for i in range(len(inputs["params"]))]
         # outputs updated in place in an argument (a cache leaf the step read);
         # a cache it overwrote unread is an output, as in JAX
         kept = {id(t.untyped_storage()) for t, r in zip(inputs["cache"], read["cache"]) if r}
-        del full, inputs
+        del inputs
         outputs = [logits, tree_leaves(new_cache)]
         aliased = sum(t.numel() * t.element_size() for t in tree_leaves(new_cache)
                       if id(t.untyped_storage()) in kept)
     args = _read_argument_bytes(model, params, shardings, b, shape, specs, mesh, read)
     summary = {"memory": _memory(args, counter, outputs, aliased, 0), "cost": _cost(counter)}
     summary["collectives"] = (xmesh.exchange.log if xmesh is not None else CollectiveLog()).summary()
-    summary["work"] = {"rows_per_microbatch": rows, "computing_ranks": min(b, mesh.size), "microbatches": 1,
+    summary["work"] = {"rows_per_microbatch": rows, "computing_ranks": width, "microbatches": 1,
                        "largest_host_bytes": counter.largest_host_bytes}
     return summary
 

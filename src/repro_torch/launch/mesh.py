@@ -18,6 +18,14 @@ rank creates all the power-of-two prefix groups at start-up
 prefixes of one worker order, so replica r keeps its device across every
 stage it takes part in.
 
+A rank's axis groups (:meth:`Mesh.group_ranks`) are the ranks that share
+its every coordinate but those along some axes: its ``model`` group (the
+same ``data`` index) and its expert group (every axis but ``model``: the
+same ``model`` index). :func:`make_axis_groups` creates one process group
+for each, once a run, and gives the rank its two as :class:`GroupMesh`;
+the sharded step computes an MoE layer's experts over the ``model`` group
+(``distributed/sharded.py``).
+
 :func:`make_disagg_submeshes` carves two disjoint device grids for
 disaggregated serving.
 """
@@ -43,9 +51,11 @@ def visible_devices() -> List[torch.device]:
 class Mesh:
     """A grid of worker ranks: ``devices`` an object array of
     ``torch.device`` (one a rank; several ranks may share a card), laid out
-    over ``axis_names``. Its collectives span all its ranks (the run's
-    prefix groups, :func:`prefix_groups`): the sharded step gathers every
-    shard of a leaf over the whole mesh."""
+    over ``axis_names``. The sharded step gathers a leaf over the whole mesh
+    (the run's prefix groups, :func:`prefix_groups`), except an MoE layer's
+    experts split over ``model``: those it gathers over the rank's expert
+    group, and it exchanges their tokens over the rank's ``model`` group
+    (:func:`make_axis_groups`)."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
         grid = np.empty(np.shape(devices), object)
@@ -78,6 +88,29 @@ class Mesh:
     @property
     def device_list(self) -> List[torch.device]:
         return [self.device_of(r) for r in range(self.size)]
+
+    def group_ranks(self, rank: int, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The ranks that share every coordinate of ``rank`` but those along
+        ``axes``, in the mesh's row-major order (so a rank's position in
+        the tuple is its index on the sub-grid of ``axes``)."""
+        mine = self.coords(rank)
+        fixed = [a for a in self.axis_names if a not in axes]
+        return tuple(r for r in range(self.size) if all(self.coords(r)[a] == mine[a] for a in fixed))
+
+    def all_groups(self, axes: Sequence[str]) -> List[Tuple[int, ...]]:
+        """Every group of :meth:`group_ranks` over ``axes``, by lowest rank."""
+        seen: Dict[int, Tuple[int, ...]] = {}
+        for r in range(self.size):
+            ranks = self.group_ranks(r, axes)
+            seen.setdefault(ranks[0], ranks)
+        return [seen[k] for k in sorted(seen)]
+
+    def submesh(self, rank: int, axes: Sequence[str]) -> "Mesh":
+        """The sub-grid over ``axes`` (in mesh order) of ``rank``'s group."""
+        names = tuple(a for a in self.axis_names if a in axes)
+        grid = np.empty((len(self.group_ranks(rank, axes)),), object)
+        grid[:] = [self.devices.flat[r] for r in self.group_ranks(rank, axes)]
+        return Mesh(grid.reshape(tuple(self.shape[a] for a in names)), names)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]})"
@@ -168,6 +201,81 @@ class DataMesh:
     def coords(self, rank: int) -> Dict[str, int]:
         return {"data": rank}
 
+    # its ranks are the run's first ``width``: a rank's position is the rank
+    @property
+    def ranks(self) -> range:
+        return range(self.width)
+
+    def index(self, rank: int) -> int:
+        return rank
+
+
+@dataclass(frozen=True)
+class GroupMesh:
+    """One axis group of a mesh's ranks (:meth:`Mesh.group_ranks`): their
+    global ``ranks`` in the group's order, their devices, the group's gloo
+    process group and the run's exchange, whose collectives over this mesh
+    take positions in ``ranks`` where a :class:`DataMesh` takes ranks."""
+
+    ranks: tuple
+    devices: tuple
+    group: Any = None
+    exchange: Any = None
+
+    @property
+    def width(self) -> int:
+        return len(self.ranks)
+
+    def index(self, rank: int) -> int:
+        return self.ranks.index(rank)
+
+
+@dataclass(frozen=True)
+class AxisGroups:
+    """A rank's two axis groups on ``mesh``: ``model`` (its ``model``
+    group) and ``experts`` (every axis but ``model``: the ranks that store
+    the same experts)."""
+
+    mesh: Any
+    model: GroupMesh
+    experts: GroupMesh
+
+    @property
+    def expert_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.mesh.axis_names if a != "model")
+
+
+def axis_groups(mesh: Mesh, rank: int, exchange: Any = None, made: Optional[Dict[Tuple[int, ...], Any]] = None
+                ) -> AxisGroups:
+    """``rank``'s :class:`AxisGroups` on ``mesh``, their collectives through
+    ``exchange``; ``made`` maps a group's ranks to its gloo group (none for
+    the dry run's recording transport)."""
+    made = {} if made is None else made
+
+    def group(axes) -> GroupMesh:
+        ranks = mesh.group_ranks(rank, axes)
+        return GroupMesh(ranks, tuple(mesh.device_of(r) for r in ranks), made.get(ranks), exchange)
+
+    return AxisGroups(mesh, group(("model",)), group(tuple(a for a in mesh.axis_names if a != "model")))
+
+
+def make_axis_groups(mesh: Mesh, rank: int, exchange: Any) -> AxisGroups:
+    """``rank``'s :class:`AxisGroups` on ``mesh`` inside a worker process:
+    every rank of the run calls it together, and it creates a gloo group
+    for each ``model`` group and each expert group of more than one rank,
+    in one order, and the exchange's own where it keeps some (NCCL's
+    ``add_group``)."""
+    import torch.distributed as dist
+
+    made: Dict[Tuple[int, ...], Any] = {}
+    for axes in (("model",), tuple(a for a in mesh.axis_names if a != "model")):
+        for ranks in mesh.all_groups(axes):
+            if len(ranks) > 1:  # a group of one rank makes no collective
+                made[ranks] = dist.new_group(ranks=list(ranks), backend="gloo")
+                if hasattr(exchange, "add_group"):
+                    exchange.add_group(ranks)
+    return axis_groups(mesh, rank, exchange, made)
+
 
 def prefix_widths(world_size: int) -> List[int]:
     """The widths of the run's prefix groups: each power of two ``2 <= w <=
@@ -233,3 +341,14 @@ def make_disagg_submeshes(prefill_pods: int = 1, decode_pods: int = 1, data: int
     grid[:] = [torch.device(d) for d in devices[:need]]
     grid = grid.reshape(prefill_pods + decode_pods, data, model)
     return grid[:prefill_pods], grid[prefill_pods:]
+
+
+def rank_rows(global_rows: int, ranks: int):
+    """(rows a computing rank takes, computing ranks): the rows spread over
+    every rank where they divide, else one row a rank over the first
+    ``global_rows`` ranks."""
+    if global_rows % ranks == 0:
+        return global_rows // ranks, ranks
+    if global_rows < ranks:
+        return 1, global_rows
+    raise ValueError(f"{global_rows} rows do not divide over {ranks} ranks")

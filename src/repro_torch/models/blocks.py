@@ -306,14 +306,15 @@ MIXER_KEYS = frozenset({"norm1", "attn", "mamba", "tmix"})
 
 
 def whole(params, keep=None):
-    """``params`` as whole tensors. The sharded train step
-    (``distributed/sharded.py``) hands the model each layer's params, and
-    each other subtree, as the worker's stored shards: an object whose
-    ``whole(keep)`` gathers them (the top-level keys for which ``keep`` is
-    true, or all). Called first thing in a block's checkpoint region, the
-    gather is part of the region, so the backward's recomputation gathers
-    again and nothing whole outlives the region. A plain tree comes back
-    as it is."""
+    """``params`` as whole tensors. The sharded train step and the sharded
+    serving forward (``distributed/sharded.py``) hand the model each
+    layer's params, and each other subtree, as the worker's stored shards:
+    an object whose ``whole(keep)`` gathers them (the top-level keys for
+    which ``keep`` is true, or all). Called first thing in a block's
+    checkpoint region, the gather is part of the region, so the backward's
+    recomputation gathers again and nothing whole outlives the region; the
+    serving forward gathers each layer where it runs. A plain tree comes
+    back as it is."""
     gather = getattr(params, "whole", None)
     return params if gather is None else gather(keep)
 
@@ -421,9 +422,10 @@ def apply_segment(params, x, cfg: ModelConfig, seg: SegmentSpec, *, positions, c
                 aux = aux + a
         return x, None, aux
     new_cache = {name: list(layers) for name, layers in cache.items()}
+    shared = whole(params["shared"]) if seg.shared_attn else None
     for r in range(seg.repeat):
         for name, spec in _segment_blocks(seg):
-            p = params[name] if name == "shared" else params[name][r]
+            p = shared if name == "shared" else whole(params[name][r])
             x, new_cache[name][r], a = apply_block(
                 p, x, cfg, spec, positions=positions, cache=cache[name][r],
                 page_table=page_table, cache_index=cache_index, memory=memory, causal=causal,

@@ -13,9 +13,18 @@ assignments in slot-major order (slot 0 of every token before slot 1 of
 any), and an assignment past its expert's capacity is dropped.
 
 The JAX package computes the products outside any Pallas kernel, so they
-stay ``torch.einsum`` here. Each expert tensor is cast to the compute dtype
-just before its product and released after it: at arctic's width one bf16
-copy is 8.9 GB, and three at once would not fit beside the f32 weights.
+stay ``torch.einsum`` here (:func:`expert_products`). Each expert tensor is
+cast to the compute dtype just before its product and released after it:
+at arctic's width one bf16 copy is 8.9 GB, and three at once would not fit
+beside the f32 weights.
+
+Under the sharded step on a mesh whose ``model`` axis splits the experts
+(the rules map ``experts`` to ``model``; JAX constrains ``xe`` and ``h``
+there), the params carry a ``"group"`` entry and the rank's E/M experts
+only: routing and dispatch stay the rank's own, and ``group.products``
+sends each chunk of ``xe`` to the ``model`` rank holding those experts,
+runs its own experts on what its group sent and returns the outputs
+(``distributed/sharded.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +51,10 @@ def init(gen: torch.Generator, cfg, device="cuda"):
         "w_up": normal((e, d, dff), d**-0.5),
         "w_down": normal((e, dff, d), dff**-0.5),
     }
+
+
+#: the expert tensors (leading dimension ``experts``)
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def param_axes(cfg):
@@ -84,6 +97,15 @@ def capacity_of(cfg, group_size: int) -> int:
     return max(1, math.ceil(cfg.top_k * group_size / cfg.num_experts * cfg.moe_capacity_factor))
 
 
+def expert_products(xe, w_gate, w_up, w_down):
+    """Each expert's SwiGLU on its capacity buffer: xe (B, n, E, C, d) ->
+    (B, n, E, C, d) in xe's dtype, each weight cast to it for its product."""
+    gate = torch.einsum("bnecd,edf->bnecf", xe, w_gate.to(xe.dtype))
+    up = torch.einsum("bnecd,edf->bnecf", xe, w_up.to(xe.dtype))
+    h = F.silu(gate) * up
+    return torch.einsum("bnecf,efd->bnecd", h, w_down.to(xe.dtype))
+
+
 def apply(params, x, cfg):
     """x: (B, S, d). Returns (y (B, S, d), the load-balance aux loss, an f32
     scalar)."""
@@ -102,10 +124,11 @@ def apply(params, x, cfg):
     disp = disp.to(x.dtype)
     combine = combine.to(x.dtype)
     xe = torch.einsum("bngec,bngd->bnecd", disp, xg)
-    gate = torch.einsum("bnecd,edf->bnecf", xe, params["w_gate"].to(x.dtype))
-    up = torch.einsum("bnecd,edf->bnecf", xe, params["w_up"].to(x.dtype))
-    h = F.silu(gate) * up
-    ye = torch.einsum("bnecf,efd->bnecd", h, params["w_down"].to(x.dtype))
+    group = params.get("group")
+    if group is None:
+        ye = expert_products(xe, params["w_gate"], params["w_up"], params["w_down"])
+    else:
+        ye = group.products(xe, params)
     y = torch.einsum("bngec,bnecd->bngd", combine, ye).reshape(b, s, d)
 
     # Switch-style load balance: the share of assignments each expert took

@@ -334,14 +334,15 @@ class LanguageModel:
         (B, 1, V) f32 of the last position, cache: the KV updated in place,
         new recurrent state)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        embed = blocks.whole(params["embed"])
+        x = self._embed_inputs(params, batch, embed)
         if memory is None:
             memory = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None,
                                       memory=memory)
-        x = norm.apply(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-        return embedding.logits(params["embed"], x, cfg), new_cache
+        x = norm.apply(blocks.whole(params["final_norm"]), x[:, -1:, :], cfg.norm_eps)
+        return embedding.logits(embed, x, cfg), new_cache
 
     def decode_step(self, params, token, cache, cache_index, page_table=None, memory=None):
         """One-token decode. token: (B, 1) int; cache_index: scalar int (all
@@ -353,13 +354,14 @@ class LanguageModel:
         engine writes back with ``paged_state_merge``). An encoder-decoder
         model takes its ``memory`` (B, T, d)."""
         cfg = self.cfg
-        x = embedding.embed(params["embed"], token, cfg)
+        embed = blocks.whole(params["embed"])
+        x = embedding.embed(embed, token, cfg)
         idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
         positions = idx.expand(token.shape[0])[:, None]
         x, new_cache = self._segments(params, x, cache, positions=positions,
                                       page_table=page_table, cache_index=idx, memory=memory)
-        x = norm.apply(params["final_norm"], x, cfg.norm_eps)
-        return embedding.logits(params["embed"], x, cfg), new_cache
+        x = norm.apply(blocks.whole(params["final_norm"]), x, cfg.norm_eps)
+        return embedding.logits(embed, x, cfg), new_cache
 
     def prefill_chunk(self, params, tokens, cache, pos_start: int, slot: int, page_table, memory=None):
         """One chunk of a paged, chunked prefill: ``tokens`` (1, C) are the

@@ -10,10 +10,15 @@ conventions, per device:
 - reduce-scatter / all-to-all / collective-permute / broadcast: shape
 
 The port's sharded step makes all-gathers (each layer's gather, the whole
-leaves its output, in the forward and again in the recomputation; the
-microbatch scalars and the norm's per-leaf dots) and all-to-alls (the
-gradient's slices, ``senders`` slices of the rank's shard index of each
-leaf; each leaf assembled on its owner for the norm). The port has no
+leaves its output, in the forward and again in the recomputation; an MoE
+layer's split experts gathered over the rank's expert group, its E/M
+experts its output; the microbatch scalars, the norm's per-leaf dots and
+each sender's share of the experts' ‖g‖² over the ``model`` group) and
+all-to-alls (an MoE layer's capacity buffers to the ranks holding their
+experts and the outputs back, over the ``model`` group, what the rank
+receives; the gradient's slices, ``senders`` slices of the rank's shard
+index of each leaf, over the whole mesh or, for split experts, the expert
+group; each leaf assembled on its owner for the norm). The port has no
 loop to count once: a step's microbatches are recorded call by call, so
 ``in_while_bytes`` is 0.
 """

@@ -29,9 +29,9 @@ from repro_torch.utils.log import get_logger
 
 log = get_logger("hillclimb")
 
-TP_RS_REFUSAL = ("variant 'tp_rs' has no counterpart in the port: its sharding rules place storage only and its "
-                 "compute is data-parallel over every rank (distributed/sharded.py), so there is no "
-                 "tensor-parallel boundary to reduce-scatter")
+TP_RS_REFUSAL = ("variant 'tp_rs' has no counterpart in the port: attention and the dense MLPs are computed "
+                 "data-parallel over every rank (only an MoE layer's experts split over the mesh's 'model' groups, "
+                 "distributed/sharded.py), so there is no tensor-parallel boundary to reduce-scatter")
 
 
 def apply_variant(cfg, variant: str):

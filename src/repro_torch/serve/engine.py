@@ -79,14 +79,14 @@ def _engine_device(device, params) -> torch.device:
 
 
 def _put(array: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)  # repro-lint: disable=R105 -- host input to a worker's device, not pool state
 
 
 def _audio(memory, device) -> torch.Tensor:
     """A request's (or batch's) audio embeddings as a tensor on ``device``:
     a tensor as it is, an array through numpy."""
     if isinstance(memory, torch.Tensor):
-        return memory.to(device)
+        return memory.to(device)  # repro-lint: disable=R105 -- a request's audio input to the engine's device
     return _put(np.asarray(memory), device)
 
 
@@ -154,7 +154,7 @@ class ServeEngine:
                 break
             logits, cache = self.model.decode_step(self.params, token, cache, p + i, memory=memory)
             token = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32)
-        return torch.cat(out, dim=1).cpu().numpy()
+        return torch.cat(out, dim=1).cpu().numpy()  # repro-lint: disable=R105 -- generated tokens read on the host
 
 
 class ContinuousBatchingEngine:
@@ -333,7 +333,8 @@ class ContinuousBatchingEngine:
             self.stats["ticks"] += 1
             self.stats["decoded_tokens"] += n_active
             self.stats["stage_history"].append(self.admission.stage)
-            nxt = nxt.cpu().numpy()  # block: the tick's tokens reach the host
+            # block: the tick's tokens reach the host
+            nxt = nxt.cpu().numpy()  # repro-lint: disable=R105 -- sampled tokens read on the host
             t_now = self._clock()
             self.stats["decode_tick_s"].append(t_now - t_tick)
             self.tracer.complete("serve.decode_tick", t_tick, t_now, width=width, decoded=n_active)
@@ -655,7 +656,8 @@ class PagedContinuousBatchingEngine:
             self.stats["decoded_tokens"] += n_decoded
             self.stats["prefill_tokens_computed"] += n_forced
             self.stats["stage_history"].append(self.admission.stage)
-            nxt = nxt.cpu().numpy()  # block: the tick's tokens reach the host
+            # block: the tick's tokens reach the host
+            nxt = nxt.cpu().numpy()  # repro-lint: disable=R105 -- sampled tokens read on the host
             if n_decoded > 0:
                 t_now = self._clock()
                 self.stats["decode_tick_s"].append(t_now - t_tick)
@@ -718,13 +720,6 @@ class PagedContinuousBatchingEngine:
                 self.stats["prefix_tokens_reused"] / max(self.stats["prompt_tokens_total"], 1)
             ),
         }
-
-
-def _params_on(params, device):
-    """``params`` on ``device``: the same tensors where they lie there
-    already (as ``jax.device_put`` makes no copy on the same device), so two
-    workers on one card share one set of weights; copies on another."""
-    return tree_map(lambda leaf: leaf.to(device), params)
 
 
 class _DisaggWorker:
@@ -931,13 +926,16 @@ class DisaggregatedEngine:
         self.num_pages = num_pages if num_pages is not None else 1 + max_slots * self.max_pages
         self.prefill_pages = (prefill_pages if prefill_pages is not None
                               else 1 + self.prefill_slots * self.max_pages)
-        # every placement across devices happens here and in _stream
+        # every placement across devices happens here and in _stream; a worker's
+        # weights are the given tensors where they lie on its device already (as
+        # jax.device_put makes no copy on the same device), so two workers on one
+        # card share one set of weights, and copies on another
         self.prefill = _PrefillWorker(
-            model, _params_on(params, self.prefill_device), self.prefill_device, self.prefill_slots,
-            self.prefill_pages, page_size, self.prefix_sharing, prefill_chunks, seed,
+            model, tree_map(lambda leaf: leaf.to(self.prefill_device), params), self.prefill_device,
+            self.prefill_slots, self.prefill_pages, page_size, self.prefix_sharing, prefill_chunks, seed,
         )
         self.decode = _DecodeWorker(
-            model, _params_on(params, self.decode_device), self.decode_device, self.admission,
+            model, tree_map(lambda leaf: leaf.to(self.decode_device), params), self.decode_device, self.admission,
             self.num_pages, page_size, self.prefix_sharing, max_slots, seed,
         )
         if self.decode_device == self.prefill_device:
@@ -1066,7 +1064,7 @@ class DisaggregatedEngine:
             self.prefill.generator,
         )
         self.stats["prefill_tokens_computed"] += n_forced
-        for i in pslots.advance(nxt.cpu().numpy()):
+        for i in pslots.advance(nxt.cpu().numpy()):  # repro-lint: disable=R105 -- sampled tokens read on the host
             # prompt done AND max_new_tokens == 1: finished without ever
             # touching the seam (advance appended the first token already)
             slot = pslots.slots[i]
@@ -1255,7 +1253,8 @@ class DisaggregatedEngine:
                 self.stats["ticks"] += 1
                 self.stats["decoded_tokens"] += n_decoded
                 self.stats["stage_history"].append(self.admission.stage)
-                nxt = nxt.cpu().numpy()  # block: tokens on the host, before any prefill
+                # block: tokens on the host, before any prefill
+                nxt = nxt.cpu().numpy()  # repro-lint: disable=R105 -- sampled tokens read on the host
                 t_now = self._clock()
                 self.stats["decode_tick_s"].append(t_now - t_tick)
                 self.tracer.complete("serve.decode_tick", t_tick, t_now, width=width, decoded=n_decoded)

@@ -17,13 +17,17 @@ in row-major order, and along a dimension sharded over ``("pod", "data")``
 a rank's shard index is ``pod_idx * data + data_idx``; so the shards,
 concatenated in index order, are the leaf bit for bit.
 
-The rules place **storage only**. The port computes data-parallel over
-every rank of a mesh (``distributed/sharded.py``): a worker gathers its
-shards into whole leaves before each step and updates only its own slices
-after it. There is no GSPMD to split a matmul across a ``model`` group, so
-the JAX package's ``constrain`` (a ``with_sharding_constraint`` on an
-activation) and ``legacy_manual_axes`` (shard_map's manual axes on old jax)
-have no counterpart here.
+The rules place storage, and compute follows them in one place only. The
+port computes data-parallel over every rank of a mesh
+(``distributed/sharded.py``): a worker gathers each layer's shards into
+whole leaves where the layer runs and updates only its own slices after
+the step; but an MoE layer's experts, which the rules split over ``model``,
+are gathered over the rank's expert group and computed over its ``model``
+group, as the JAX package's ``constrain`` of the dispatch, ``xe`` and ``h``
+splits them. There is no GSPMD to split any other matmul across a
+``model`` group, so ``constrain`` (a ``with_sharding_constraint`` on an
+activation) and ``legacy_manual_axes`` (shard_map's manual axes on old
+jax) have no counterpart here.
 """
 from __future__ import annotations
 

@@ -19,7 +19,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
                                                                     ROOT / "tools" / "sample_bench.py",
                                                                     ROOT / "tools" / "trace_check.py",
                                                                     ROOT / "tools" / "disagg_check.py",
-                                                                    ROOT / "tools" / "mesh_check.py"]
+                                                                    ROOT / "tools" / "mesh_check.py",
+                                                                    ROOT / "tools" / "lint_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -56,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.experiments.adaptive_sebs, repro_torch.experiments.sebs_vs_stagewise\n"
         "import repro_torch.distributed, repro_torch.launch.mesh, repro_torch.experiments.table_comm\n"
         "import repro_torch.analysis.sanitize, repro_torch.sharding, repro_torch.distributed.sharded\n"
+        "import repro_torch.analysis.core, repro_torch.analysis.rules_determinism\n"
         "import repro_torch.distributed.nccl\n"
         "from repro_torch.configs import ARCHS, get_config\n"
         "[get_config(a, 'smoke') for a in ARCHS]\n"

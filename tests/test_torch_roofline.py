@@ -105,7 +105,7 @@ def test_hillclimb_variants_give_jaxs_configs(variant):
 def test_hillclimb_refuses_tp_rs_with_its_reason():
     cfg = tshapes.config_for("qwen2.5-3b", "train_4k")
     for variant in ("tp_rs", "tp_rs+save_out"):
-        with pytest.raises(ValueError, match="place storage only.*data-parallel"):
+        with pytest.raises(ValueError, match="data-parallel over every rank.*experts split"):
             hillclimb.apply_variant(cfg, variant)
     with pytest.raises(ValueError, match="unknown variant"):
         hillclimb.apply_variant(cfg, "nope")

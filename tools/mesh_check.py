@@ -1,7 +1,26 @@
-"""chip_smoke.py's phases 30-31 alone, and the sharded mesh across cards.
+"""chip_smoke.py's phases 30-31 and 34-36 alone, and the sharded mesh across cards.
 
     python3 tools/mesh_check.py               # phases 30-31 on one card
+    python3 tools/mesh_check.py --experts     # phases 34-36 on one card
     python3 tools/mesh_check.py --four-cards  # a machine with four cards
+    python3 tools/mesh_check.py --four-cards --arch arctic-480b --layers 1
+
+``--experts``: builds the kernels, then ``chip_smoke.expert_parallel_smoke``
+(dbrx and arctic smoke on a (2, 2) mesh of four workers on cuda:0, the
+experts over the model groups, held to the one-process run),
+``chip_smoke.dbrx_expert_parallel`` (dbrx-132b full width at 1 layer on
+(1, 2), each worker's peak against the dry run's count) and
+``chip_smoke.sharded_serving`` (the sharded prefill and decode against the
+single-process engine).
+
+``--four-cards --arch A`` with an MoE arch: a (1, 4) mesh over the four
+cards, each holding E/4 experts whole (no gather of them), A at full width
+cut to ``--layers`` layers, one update of 4 rows of 513 tokens (one a
+card), pSGD. The dry run counts each card's peak first; the run happens
+only where every count is under 80 GB, and each card's peak is then held
+to its count (10%), with the update's ms and the experts' all-to-all ms.
+The state is built from a seed on rank 0's card and stays on the cards
+(``run_on_mesh(..., init_seed=0)``).
 
 One card: builds the kernels, runs phase 26's reference (ElasticTrainer at
 budget 1, qwen2.5-3b full width cut to 2 layers, pSGD on phase 7's
@@ -24,6 +43,7 @@ and the launcher's ``--mesh single`` at smoke size on the four cards.
 Every number printed carries the card's name and power limit. Any failed
 check raises.
 """
+import argparse
 import gc
 import os
 import subprocess
@@ -57,6 +77,63 @@ def reference(cs, cfg, device="cuda:0"):
     return kept
 
 
+# seconds the four-card MoE run may take (a first run that passed arctic's 55 GB state through the host did
+# not end within 600 s; the state is now built on rank 0's card)
+FOUR_CARD_EXPERTS_DEADLINE = 1800.0
+
+
+def four_card_experts(cs, arch: str, layers: int, smi: str) -> None:
+    """``arch`` at full width cut to ``layers`` on a (1, 4) mesh over the four
+    cards (NCCL), counted first; see the module's docstring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.distributed import run_on_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+
+    if torch.cuda.device_count() < 4:
+        cs.fail(f"--four-cards needs four cards, {torch.cuda.device_count()} visible")
+    cfg = cs.moe_cut(arch, layers)
+    shape = InputShape("update", 513, 4, "train")
+    meta_mesh = make_host_mesh(1, 4, devices=["meta"] * 4)
+    t = time.perf_counter()
+    counts = [dryrun.count_train(cfg, shape, meta_mesh, optimizer_name="psgd", rank=r)["memory"]
+              ["peak_bytes_per_device"] for r in range(4)]
+    print(f"{arch} at {layers} layer(s) on (1, 4): the dry run counts each card's peak "
+          + ", ".join(f"{c / 1e9:.2f}" for c in counts) + f" GB ({time.perf_counter() - t:.1f} s on the host)",
+          flush=True)
+    if max(counts) >= 80e9:
+        print(f"not run: a card's count is {max(counts) / 1e9:.2f} GB, over 80 GB", flush=True)
+        return
+    grid = np.empty((4,), object)
+    grid[:] = [torch.device("cuda", i) for i in range(4)]
+    mesh = Mesh(grid.reshape(1, 4), ("data", "model"))
+    model = LanguageModel(cfg)
+    opt = make_optimizer("psgd", gamma=1e4)
+    trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=4, rho=2.0, num_stages=1, eta=0.7),
+                          DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), mesh), mesh=mesh,
+                          param_axes=model.param_axes(), microbatch=1, tracer=Tracer(),
+                          deadline=FOUR_CARD_EXPERTS_DEADLINE)
+    t = time.perf_counter()
+    # the state built from a seed on rank 0's card and kept on the workers: nothing crosses the host
+    _, log = run_on_mesh(trainer, None, init_seed=0, log_every=1)
+    wall = time.perf_counter() - t
+    cs.shard_peak_check(f"{arch} (1, 4) over 4 cards", cfg, trainer, meta_mesh, smi, stage=0, shape=shape)
+    span = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
+    rows = trainer.worker_stats[0]["sharded"][0]
+    print(f"{arch} {layers} layer(s) on (1, 4) over 4 cards (NCCL): loss {log.losses[0]:.4f}, update {span[0]:.1f} "
+          f"ms, experts' all-to-alls {rows['experts_s'] * 1e3:.1f} ms and gathers {rows['gather_s'] * 1e3:.1f} ms "
+          f"of host time on rank 0 (enqueue times: NCCL runs on its own stream), {wall:.1f} s in all | {smi}",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -69,7 +146,13 @@ def main() -> None:
         raise RuntimeError(msg)
 
     cs.fail = fail
-    four = "--four-cards" in sys.argv
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--four-cards", action="store_true")
+    ap.add_argument("--experts", action="store_true")
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--layers", type=int, default=1)
+    args = ap.parse_args()
+    four = args.four_cards
     smi = cs.nvidia_smi()
     print(smi, flush=True)
     if not torch.cuda.is_available():
@@ -79,6 +162,14 @@ def main() -> None:
     print(f"build {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} cards", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.experts:
+        cs.expert_parallel_smoke(smi)
+        cs.dbrx_expert_parallel(smi)
+        cs.sharded_serving(smi)
+        return
+    if four and get_config(args.arch, "full").num_experts:
+        four_card_experts(cs, args.arch, args.layers, smi)
+        return
     cut = cs.elastic_cut(get_config("qwen2.5-3b", "full"))
     if not four:
         ref = reference(cs, cut)
