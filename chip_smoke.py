@@ -174,18 +174,19 @@
     pSGD update).
 
 26. Elastic exact-sync training (``repro_torch.distributed``): qwen2.5-3b at
-    full width cut to 2 layers, phase 7's schedule with pSGD, on devices
-    [cuda:0] x budget for budgets 1, 2 and 4 (one worker process each,
-    sharing the card; gloo for control, the partial sums through shared
-    host slots; the caller's state to rank 0 by CUDA IPC). One microbatch's
-    gradient has the same bits twice; losses, stages, batch sizes, GNS and
-    final params are bit-identical across the budgets; the widths run are
-    {1}, {1, 2}, {1, 2, 4}; the ledger is the one sync.py predicts; every
-    worker launched the flash forward and backward for its microbatches and
-    the fused pSGD for its updates. A run killed at update 9 under budget 4
-    (saves at 4 and 8) resumes under budget 2 bit-identically; the
+    full width cut to 1 layer, phase 7's schedule with pSGD, on devices
+    [cuda:0] x budget (one worker process each, sharing the card; gloo for
+    control, the partial sums through shared host slots; the caller's state
+    to rank 0 by CUDA IPC): budget 1 whole; budget 4 killed at update 9
+    (widths 1, 2, 4; saves at 4 and 8); resumed under budget 2 (width 2,
+    two microbatches a worker) to the end. One microbatch's gradient has
+    the same bits twice; the killed run's 9 and the resumed run's 12
+    losses, stages, batch sizes and GNS, and the resumed run's final
+    params, are bit-identical to budget 1's; each run's widths and the
+    ledger sync.py predicts; every worker launched the flash forward and
+    backward for its microbatches and the fused pSGD for its updates. The
     launcher's --dp-elastic runs on the visible card. Prints update ms by
-    stage and budget, the all-gather's host ms (copy out, barriers, copy
+    stage and run, the all-gather's host ms (copy out, barriers, copy
     back), the reshards' ms and each worker's peak, with the card's name
     and power limit.
 27. Local SGD on the same model at budget 4 (momentum 0.9, local_interval 2,
@@ -204,7 +205,7 @@
     barriers / copy back) and the optimizer's ms and the updates' ms by
     stage, and each worker's peak.
 31. ElasticTrainer(param_axes=...) at budget 4: losses and params
-    bit-identical to phase 26's budget 4; the same peaks against the count
+    bit-identical to phase 26's budget 1; the same peaks against the count
     (the ("data",) mesh of 4) and timings.
 32. The dry run and the roofline (run right after phase 9, on its state):
     (a) qwen2.5-3b train_4k counted on meta tensors on the (16, 16) mesh
@@ -243,9 +244,41 @@
     update's ms, the experts' all-to-alls', the gathers' and the
     collectives' parts.
 36. The sharded serving forward (``distributed/mesh_serve.py``) on (2, 2)
-    x cuda:0, qwen2.5-3b and dbrx-132b smoke at f32 from one spawn: the
-    prefill and 3 greedy decode steps' logits against the single-process
-    engine's calls, qwen bit-identical, dbrx within 1e-4 of their scale.
+    x cuda:0, qwen2.5-3b and dbrx-132b smoke at f32 (a prompt a worker;
+    dbrx's experts gathered over the expert groups), in one spawn of four
+    workers with phase 37(c) (run after phase 37's training): the prefill
+    and 3 greedy decode steps' logits against the single-process engine's
+    calls, qwen bit-identical, dbrx within 1e-4 of their scale.
+37. Tensor parallelism (``distributed/sharded.py``'s ``TensorParallel``):
+    the ``model`` groups split attention, the dense MLPs and the
+    vocabulary. (a) SEBSTrainer(mesh=make_host_mesh(1, 2),
+    tensor_parallel=True) on cuda:0 x 2, qwen2.5-3b smoke at f32 with
+    ``tp_reduce_scatter``, momentum, 6 updates, against the same schedule
+    in one process: the ladder equal, losses within 1e-4 relative and every
+    param within 1e-4 of its leaf's norm. (b) qwen2.5-3b at full width (36
+    layers) on (1, 2), the boundaries all-reduced, the state built from a
+    seed on rank 0's card: one update of 4 rows of 513 tokens (the rank's
+    8 query heads over its 1 kv head: the flash kernels at G 8), momentum;
+    each worker's peak within 10% of the dry run's count of its rank with
+    tensor parallelism; the first update's loss within 2^-7 relative of
+    the one-process loss of its rows (bf16); the update's ms and the
+    boundary exchanges' ms. (c) ``serve_on_mesh(..., tensor_parallel=True)``
+    on (2, 2), phase 36's spawn (two rows a model group, the split leaves
+    gathered over the data groups): qwen smoke at f32 (a prefill and 3
+    greedy decode steps) against the single-process engine's calls, tokens
+    equal and logits within 1e-4 of their scale, its ``tp_reduce_scatter``
+    twin bit-equal; qwen2.5-3b at full width (bf16), logits within 0.1 of
+    their scale and the prefill's greedy tokens equal to the engine's (the
+    decode steps' printed beside them). Phase 3 holds the flash kernels at
+    G 8 (B 4, S 513, 8/1 heads, D 128) to their plain versions.
+
+    The multi-worker runs share spawns, in this order: phase 31, phase
+    26's killed run and phase 27 (four workers); phases 30 and 34 (four,
+    (2, 2)); phases 37(b), 35 and 37(a) (two, (1, 2)); phases 36 and 37(c)
+    (four, (2, 2)). ``distributed.run_together`` runs each as it runs alone
+    (its own process groups and host slots, the card's peak and the launch
+    counts zeroed before it, its memory freed after it); a run with memory
+    gates goes first in its spawn.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -3509,7 +3542,7 @@ def paper_experiments() -> dict:
 
 
 # Phases 26-27: elastic multi-worker SEBS training, four workers sharing the card.
-ELASTIC_LAYERS = 2           # qwen2.5-3b at full width, cut in depth (the bit-identity gates do not
+ELASTIC_LAYERS = 1           # qwen2.5-3b at full width, cut in depth (the bit-identity gates do not
                              # depend on depth; tools/mesh_check.py --four-cards runs all 36 layers)
 ELASTIC_DEADLINE = 600.0     # seconds an elastic run may take in all
 ELASTIC_SAVE_EVERY = 4       # the killed budget-4 run saves at 4 and 8 (5 GB each)
@@ -3519,14 +3552,22 @@ def elastic_cut(cfg):
     return cfg.replace(segments=(dataclasses.replace(cfg.segments[0], repeat=ELASTIC_LAYERS),))
 
 
-def elastic_run(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}), eta: float = 1.0,
-                sync_mode: str = "exact", local_interval: int = 4, copy_params: bool = True, param_axes=None,
-                **run_kw):
-    """One ElasticTrainer run on ``budget`` workers of cuda:0 from ``params``
+def elastic_run(cfg, params, budget: int, **kw):
+    """One ElasticTrainer run (``elastic_setup``) in a spawn of its own.
+    Returns (log, wall s, trainer, final state)."""
+    trainer, state, run_kw = elastic_setup(cfg, params, budget, **kw)
+    t0 = time.perf_counter()
+    state, log = trainer.run(state, **run_kw)
+    return log, time.perf_counter() - t0, trainer, state
+
+
+def elastic_setup(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}), eta: float = 1.0,
+                  sync_mode: str = "exact", local_interval: int = 4, copy_params: bool = True, param_axes=None,
+                  **run_kw) -> tuple:
+    """An ElasticTrainer run on ``budget`` workers of cuda:0 from ``params``
     (a copy of them unless ``copy_params`` is false; on the card, rank 0
     reads them through CUDA IPC) on phase 7's schedule (SEBS b1 4, C1 16,
-    rho 2, 3 stages, 513-token rows). Returns (log, wall s, trainer, final
-    state)."""
+    rho 2, 3 stages, 513-token rows): (trainer, state, run keywords)."""
     import torch
 
     from repro_torch.core import SEBS
@@ -3545,9 +3586,7 @@ def elastic_run(cfg, params, budget: int, *, optimizer=("psgd", {"gamma": 1e4}),
         sync_mode=sync_mode, local_interval=local_interval, device_budget=budget,
         devices=[torch.device("cuda", 0)] * budget, tracer=Tracer(), deadline=ELASTIC_DEADLINE,
         param_axes=param_axes)
-    t0 = time.perf_counter()
-    state, log = trainer.run(TrainState(params, opt.init(params), 0), log_every=1, **run_kw)
-    return log, time.perf_counter() - t0, trainer, state
+    return trainer, TrainState(params, opt.init(params), 0), {"log_every": 1, **run_kw}
 
 
 def elastic_expected(trainer, log, first: int = 0) -> tuple:
@@ -3595,16 +3634,17 @@ def elastic_launch_check(label: str, trainer, log, layers: int, fused: str, firs
     return total
 
 
-def elastic_times(trainer, log) -> dict:
+def elastic_times(trainer, log, first: int = 0) -> dict:
     """Median update ms per stage (rank 0's spans), the all-gather's host ms
     per update by width (copy out, gather, copy back), the reshards' ms, and
-    each worker's peak GiB."""
+    each worker's peak GiB; of the updates the workers ran (after update
+    ``first``, where the run resumed there)."""
     spans = [ev["dur"] for ev in trainer.tracer.events if ev.get("name") == "train.update"]
     per_stage: dict = {}
-    for st, dur in zip(log.stages, spans):
+    for st, dur in zip(log.stages[first:], spans):
         per_stage.setdefault(st, []).append(dur * 1e3)
     widths = [trainer.planner.plan_for(p).width
-              for p, _ in zip(trainer.controller.plans(), log.steps)]
+              for p, _ in zip(trainer.controller.plans(), log.steps)][first:]
     gathers: dict = {}
     for w, t in zip([w for w in widths if w > 1], trainer.worker_stats[0]["allgather"]):
         gathers.setdefault(w, []).append(t)
@@ -3647,7 +3687,7 @@ def params_leaves(params):
 
 
 def print_elastic(label: str, budget: int, log, wall: float, times: dict, smi: str) -> None:
-    print(f"phase {label} budget {budget}: {len(log.steps)} updates in {wall:.1f} s | update ms by stage "
+    print(f"phase {label} budget {budget}: {len(log.steps)} updates (the spawn {wall:.1f} s) | update ms by stage "
           + ", ".join(f"{st} {ms:.1f}" for st, ms in times["update_ms"].items())
           + " | all-gather host ms an update by width (copy out / barriers / copy back) "
           + ", ".join(f"W{w} {p['copy_out']:.1f} / {p['collective']:.1f} / {p['copy_back']:.1f}"
@@ -3657,12 +3697,18 @@ def print_elastic(label: str, budget: int, log, wall: float, times: dict, smi: s
           + f" | {smi}", flush=True)
 
 
-def elastic_exact(cfg, smi: str) -> dict:
-    """Phase 26: exact sync at budgets 1, 2 and 4 on one card (bit-identical
-    losses, stages, batch sizes, GNS and params; widths {1}, {1, 2},
-    {1, 2, 4}; the ledger sync.py predicts; every worker's launches); a run
-    killed at update 9 under budget 4 resumed under budget 2 (bit-identical);
-    the launcher's --dp-elastic on the visible card."""
+def elastic_phases(cfg, smi: str) -> tuple:
+    """Phase 26: exact sync at budget 1, then a run killed at update 9 under
+    budget 4 (widths 1, 2, 4; saves at 4 and 8) and resumed under budget 2
+    (width 2 with two microbatches a worker), on one card: the killed run's
+    9 losses, stages, batch sizes and GNS, and the resumed run's 12 and its
+    final params, bit-identical to budget 1's; the widths run; the ledger
+    sync.py predicts; every worker's launches. The killed run shares one
+    spawn of four workers (``distributed.run_together``) with phase 31,
+    which runs first (its memory gates read the workers' allocations), and
+    phase 27. Then the launcher's --dp-elastic on the visible card. Returns
+    (phase 26's record, phase 27's, phase 31's, budget 1's log and a host
+    copy of its params)."""
     import os
     import shutil
     import subprocess
@@ -3671,6 +3717,7 @@ def elastic_exact(cfg, smi: str) -> dict:
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import run_together
     from repro_torch.models import LanguageModel
     from repro_torch.utils.tree import tree_leaves
 
@@ -3679,66 +3726,75 @@ def elastic_exact(cfg, smi: str) -> dict:
     same_gradient_bits_twice(cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
-
-    def same(a, b) -> bool:
-        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params), strict=True))
-
-    torch.cuda.empty_cache()
     print(f"phase 26 elastic: the card {torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free at the start", flush=True)
-    runs, out, total = {}, {}, {}
-    for budget in (1, 2, 4):
-        log, wall, tr, state = elastic_run(cfg, params, budget)
-        runs[budget] = (log, state if budget == 1 else same(state, runs[1][1]))
+    out, total = {}, {}
+
+    def record(label: str, budget: int, log, wall: float, tr, widths_want: list, first: int = 0) -> None:
         widths = sorted({k[1] for k in tr._steps})
-        if widths != [1, 2, 4][:budget.bit_length()]:
-            fail(f"elastic budget {budget}: widths {widths}")
+        if widths != widths_want:
+            fail(f"elastic {label}: widths {widths}, not {widths_want}")
         _, _, predicted = elastic_expected(tr, log)
         if tr.accountant.summary() != predicted:
-            fail(f"elastic budget {budget}: ledger {tr.accountant.summary()} is not sync.py's {predicted}")
-        launches = elastic_launch_check(f"elastic budget {budget}", tr, log, layers, "fused_psgd")
-        for k, v in launches.items():
+            fail(f"elastic {label}: ledger {tr.accountant.summary()} is not sync.py's {predicted}")
+        for k, v in elastic_launch_check(f"elastic {label}", tr, log, layers, "fused_psgd", first).items():
             total[k] = total.get(k, 0) + v
-        times = elastic_times(tr, log)
-        print_elastic("26 elastic", budget, log, wall, times, smi)
-        out[budget] = {"wall_s": wall, "losses": log.losses, "widths": widths, "ledger": predicted,
-                       "launches_by_rank": [s["launches"] for s in tr.worker_stats], **times}
-        del state, tr
-        gc.collect()
-    log1, state1 = runs[1]
+        times = elastic_times(tr, log, first)
+        print_elastic(f"26 elastic {label}", budget, log, wall, times, smi)
+        out[label] = {"budget": budget, "wall_s": wall, "losses": log.losses, "widths": widths, "ledger": predicted,
+                      "launches_by_rank": [s["launches"] for s in tr.worker_stats], **times}
+
+    log1, wall, tr, state1 = elastic_run(cfg, params, 1)
+    record("exact", 1, log1, wall, tr, [1])
     if not all(math.isfinite(x) for x in log1.losses):
         fail(f"elastic: a loss is not finite: {log1.losses}")
-    for budget in (2, 4):
-        log, same_params = runs[budget]
-        if (log.losses != log1.losses or log.stages != log1.stages or log.batch_sizes != log1.batch_sizes
-                or json.dumps(log.noise_scales) != json.dumps(log1.noise_scales) or not same_params):
-            fail(f"elastic: budget {budget} is not bit-identical to budget 1 (losses {log.losses} vs {log1.losses},"
-                 f" GNS {log.noise_scales} vs {log1.noise_scales}, params equal {same_params})")
+    del tr
+    gc.collect()
+    # phases 30-31 are held to budget 1's run: its log and a host copy of its params
+    reference = (log1, [t.detach().cpu() for t in tree_leaves(state1.params)])
 
-    # killed at 9 under budget 4 (saves at 4 and 8), resumed under budget 2
-    directory = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    # phase 31, then killed at 9 under budget 4 (saves at 4 and 8), then phase 27: one spawn; then
+    # resumed under budget 2
+    directory, local_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_"), tempfile.mkdtemp(prefix="chip_smoke_local_")
     try:
-        with CheckpointManager(directory, keep_last=1) as ckpt:
-            klog, kwall, ktr, _ = elastic_run(cfg, params, 4, checkpointer=ckpt,
-                                              save_every=ELASTIC_SAVE_EVERY, stop_after_updates=9)
+        sharded = _elastic_sharded_setup(cfg)
+        local = _local_setup(cfg)
+        with CheckpointManager(directory, keep_last=1) as ckpt, CheckpointManager(local_dir, keep_last=1) as lckpt:
+            killed = elastic_setup(cfg, params, 4, checkpointer=ckpt, save_every=ELASTIC_SAVE_EVERY,
+                                   stop_after_updates=9)
+            local["run"][2]["checkpointer"] = lckpt
+            t0 = time.perf_counter()
+            done = run_together([sharded["run"], killed, local["run"]])
+            kwall = time.perf_counter() - t0
+        print(f"phases 26, 27, 31: one spawn of four workers on cuda:0 ran {len(done)} runs in {kwall:.1f} s "
+              f"| {smi}", flush=True)
+        sharded_record = _elastic_sharded_check(sharded, *done[0], kwall, smi, reference)
+        local_record = _local_check(local, *done[2], kwall, smi)
+        ktr, (_, klog) = killed[0], done[1]
+        record("killed at 9", 4, klog, kwall, ktr, [1, 2, 4])
+        del ktr, killed, done
+        gc.collect()
         with CheckpointManager(directory, keep_last=1) as ckpt:
             rlog, rwall, rtr, rstate = elastic_run(cfg, params, 2, checkpointer=ckpt,
                                                    save_every=ELASTIC_SAVE_EVERY, resume=True)
+        record("resumed (updates 9-12)", 2, rlog, rwall, rtr, [2], first=8)
+        del rtr
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    for label, tr, log, first in (("killed", ktr, klog, 0), ("resumed", rtr, rlog, 8)):
-        for k, v in elastic_launch_check(f"elastic {label}", tr, log, layers, "fused_psgd", first).items():
-            total[k] = total.get(k, 0) + v
-    same_params = same(rstate, state1)
-    if (klog.steps != list(range(1, 10)) or rlog.losses != log1.losses or rlog.stages != log1.stages
-            or not same_params):
-        fail(f"elastic resume: killed at 9 under budget 4, resumed under budget 2: losses {rlog.losses} vs "
-             f"{log1.losses}, params equal {same_params}")
-    print(f"phase 26 elastic: budgets 1, 2, 4 bit-identical (losses, stages, batches, GNS, params); killed at 9 "
-          f"under budget 4 ({kwall:.1f} s, saves at 4, 8) and resumed under budget 2 ({rwall:.1f} s): "
-          f"bit-identical | {smi}", flush=True)
-    # phases 30-31 are held to budget 1's run (budgets 2 and 4 equal it): its log and a host copy of its params
-    reference = (log1, [t.detach().cpu() for t in tree_leaves(state1.params)])
-    del rstate, state1, runs, params
+        shutil.rmtree(local_dir, ignore_errors=True)
+    same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(rstate.params), tree_leaves(state1.params),
+                                                        strict=True))
+    for label, log, n in (("killed at 9 under budget 4", klog, 9), ("resumed under budget 2", rlog, 12)):
+        if (log.steps != log1.steps[:n] or log.losses != log1.losses[:n] or log.stages != log1.stages[:n]
+                or log.batch_sizes != log1.batch_sizes[:n]
+                or json.dumps(log.noise_scales) != json.dumps(log1.noise_scales[:n])):
+            fail(f"elastic: the run {label} is not bit-identical to budget 1's (losses {log.losses} vs "
+                 f"{log1.losses}, GNS {log.noise_scales} vs {log1.noise_scales})")
+    if not same_params:
+        fail("elastic: the params resumed under budget 2 are not bit-identical to budget 1's")
+    print(f"phase 26 elastic: killed at 9 under budget 4 (saves at 4, 8; widths 1, 2, 4; the spawn with phases 27 "
+          f"and 31 {kwall:.1f} s) and resumed under budget 2 ({rwall:.1f} s): losses, stages, batches, GNS and final "
+          f"params bit-identical to budget 1's | {smi}", flush=True)
+    del rstate, state1, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3753,19 +3809,14 @@ def elastic_exact(cfg, smi: str) -> dict:
         fail(f"elastic launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
     print(f"phase 26 elastic launcher: --dp-elastic --variant smoke exit 0 in {time.perf_counter() - t0:.1f} s "
           f"| {comm[-1].strip()}", flush=True)
-    return {"budgets": out, "killed_wall_s": kwall, "resumed_wall_s": rwall, "launches": total}, reference
+    return {"runs": out, "launches": total}, local_record, sharded_record, reference
 
 
-def elastic_local(cfg, smi: str) -> dict:
-    """Phase 27: local SGD at budget 4 (momentum 0.9, local_interval 2,
-    save_every 3): saves snap to [3, 6, 10, 12]; finite losses; the state
-    collapsed at the end; fewer collectives than updates."""
-    import shutil
-    import tempfile
-
+def _local_setup(cfg) -> dict:
+    """Phase 27's run: local SGD at budget 4 (momentum 0.9, local_interval
+    2, save_every 3; the checkpointer is the caller's to add)."""
     import torch
 
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.models import LanguageModel
     from repro_torch.utils.tree import tree_leaves
 
@@ -3773,18 +3824,21 @@ def elastic_local(cfg, smi: str) -> dict:
     torch.cuda.empty_cache()
     free_gib = torch.cuda.mem_get_info()[0] / 2**30
     params = LanguageModel(cfg).init(0, device="cuda")
-    shapes = [t.shape for t in tree_leaves(params)]
-    directory = tempfile.mkdtemp(prefix="chip_smoke_local_")
-    try:
-        with CheckpointManager(directory, keep_last=1) as ckpt:
-            log, wall, tr, state = elastic_run(cfg, params, 4, optimizer=("momentum", {"beta": 0.9}),
-                                               eta=ETAS["momentum"], sync_mode="local", local_interval=2,
-                                               copy_params=False, checkpointer=ckpt, save_every=3)
-        saves = [ev["args"]["update"] for ev in tr.tracer.events if ev.get("name") == "train.save"]
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
+    run = elastic_setup(cfg, params, 4, optimizer=("momentum", {"beta": 0.9}), eta=ETAS["momentum"],
+                        sync_mode="local", local_interval=2, copy_params=False, save_every=3)
+    return {"cfg": cfg, "free_gib": free_gib, "shapes": [t.shape for t in tree_leaves(params)], "run": run}
+
+
+def _local_check(setup: dict, state, log, wall: float, smi: str) -> dict:
+    """Phase 27's gates: saves snap to [3, 6, 10, 12]; finite losses; the
+    state collapsed at the end; fewer collectives than updates; every
+    worker's launches."""
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, tr, free_gib = setup["cfg"], setup["run"][0], setup["free_gib"]
+    saves = [ev["args"]["update"] for ev in tr.tracer.events if ev.get("name") == "train.save"]
     acct = tr.accountant
-    shapes_ok = [t.shape for t in tree_leaves(state.params)] == shapes
+    shapes_ok = [t.shape for t in tree_leaves(state.params)] == setup["shapes"]
     if saves != [3, 6, 10, 12] or not all(math.isfinite(x) for x in log.losses) or tr._stacked or not shapes_ok:
         fail(f"elastic local SGD: saves {saves}, losses {log.losses}, still stacked {tr._stacked}, "
              f"shapes kept {shapes_ok}")
@@ -3799,6 +3853,7 @@ def elastic_local(cfg, smi: str) -> dict:
           f"{acct.total('collectives')} collectives for "
           f"{acct.total('updates')} updates, averages' host ms " + ", ".join(f"{x:.0f}" for x in sync_ms)
           + " | losses " + " ".join(f"{x:.4f}" for x in log.losses) + f" | {smi}", flush=True)
+    del setup["run"]
     return {"wall_s": wall, "losses": log.losses, "saves": saves, "ledger": acct.summary(), "sync_ms": sync_ms,
             "free_gib_at_start": free_gib,
             "launches": launches, **times}
@@ -3810,7 +3865,8 @@ SHARD_MEMORY_TOL = 0.02  # a worker's between-update memory_allocated against it
 SHARD_PEAK_TOL = 0.10  # a worker's peak in a stage-2 update against the dry run's count of its step
 
 
-def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str, stage: int = 2, shape=None) -> dict:
+def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str, stage: int = 2, shape=None,
+                     optimizer_name: str = "psgd", tensor_parallel: bool = False) -> dict:
     """Each worker's max_memory_allocated in the updates of ``stage`` (by
     default phase 7's stage 2: 4 microbatches of 4 x 513 tokens, one a
     rank; ``shape`` the update's rows) against the dry run's count of that
@@ -3828,7 +3884,8 @@ def shard_peak_check(label: str, cfg, trainer, meta_mesh, smi: str, stage: int =
     rows = []
     for r, stats in enumerate(trainer.worker_stats):
         stage2 = [(before, peak) for st, before, peak in stats["update_peak_bytes"] if st == stage]
-        mem = dryrun.count_train(cfg, shape, meta_mesh, optimizer_name="psgd", rank=r)["memory"]
+        mem = dryrun.count_train(cfg, shape, meta_mesh, optimizer_name=optimizer_name, rank=r,
+                                 tensor_parallel=tensor_parallel)["memory"]
         card, counted = max(p for _, p in stage2), mem["peak_bytes_per_device"]
         rows.append({"rank": r, "card_bytes": card, "counted_bytes": counted, "rel": card / counted - 1,
                      "card_before_bytes": [b for b, _ in stage2], "card_peaks": [p for _, p in stage2],
@@ -3898,13 +3955,17 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     """Phase 30: SEBSTrainer on a (2, 2) host mesh of four workers sharing
     cuda:0 (or on ``mesh``: ``tools/mesh_check.py`` passes the production
     mesh of four cards), the state sharded by qwen2.5-3b's param_axes (pSGD,
-    phase 7's schedule): losses and final params bit-identical to
-    ``reference`` (phase 26's budget 1); every worker launched the fused
-    pSGD once an update (on its shards) and the flash kernels for the
-    microbatches it computed; every worker's memory_allocated between
-    updates within SHARD_MEMORY_TOL of its shards' bytes as the specs count
-    them; each worker's stage-2 peak within SHARD_PEAK_TOL of the dry
-    run's count (``shard_peak_check``)."""
+    phase 7's schedule), alone in its spawn (chip_smoke runs it in phase
+    34's: ``mesh_phases_22``); see ``_mesh_sharded_check``."""
+    setup = _mesh_sharded_setup(cfg, mesh)
+    trainer, state, kw = setup["run"]
+    t0 = time.perf_counter()
+    state, log = trainer.run(state, **kw)
+    return _mesh_sharded_check(setup, state, log, time.perf_counter() - t0, smi, reference, label)
+
+
+def _mesh_sharded_setup(cfg, mesh=None) -> dict:
+    """Phase 30's run (trainer, state, run keywords) and its shards' bytes."""
     import numpy as np
     import torch
 
@@ -3932,9 +3993,24 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=16, rho=2.0, num_stages=3, eta=1.0),
                           DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), mesh), mesh=mesh,
                           param_axes=axes, microbatch=4, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
-    t0 = time.perf_counter()
-    state, log = trainer.run(state, log_every=1)
-    wall = time.perf_counter() - t0
+    return {"cfg": cfg, "mesh": mesh, "shard_bytes": shard_bytes, "whole_bytes": whole_bytes,
+            "run": (trainer, state, {"log_every": 1})}
+
+
+def _mesh_sharded_check(setup: dict, state, log, wall: float, smi: str, reference, label: str) -> dict:
+    """Phase 30's gates: losses and final params bit-identical to
+    ``reference`` (phase 26's budget 1); every worker launched the fused
+    pSGD once an update (on its shards) and the flash kernels for the
+    microbatches it computed; every worker's memory_allocated between
+    updates within SHARD_MEMORY_TOL of its shards' bytes as the specs count
+    them; each worker's stage-2 peak within SHARD_PEAK_TOL of the dry
+    run's count (``shard_peak_check``). ``wall``: the spawn's seconds."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, mesh, trainer = setup["cfg"], setup["mesh"], setup["run"][0]
+    shard_bytes, whole_bytes = setup["shard_bytes"], setup["whole_bytes"]
     same_as_reference(f"phase {label}", log, state.params, reference)
     total, micro = _mesh_launch_check(f"phase {label}", cfg, trainer, log, microbatch=4)
     for r, stats in enumerate(trainer.worker_stats):
@@ -3947,13 +4023,13 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
     meta_mesh = make_host_mesh(*mesh.shape.values(), devices=["meta"] * mesh.size)
     times["peaks"] = shard_peak_check(label, cfg, trainer, meta_mesh, smi)
     between = [s["between_bytes"] for s in trainer.worker_stats]
-    print(f"phase {label} on {[str(d) for d in mesh.device_list]}: {len(log.steps)} updates in {wall:.1f} s, "
+    print(f"phase {label} on {[str(d) for d in mesh.device_list]}: {len(log.steps)} updates (the spawn {wall:.1f} s), "
           f"bit-identical to the budget-1 run; each worker stores {shard_bytes / 1e9:.3f} GB of the state's {whole_bytes / 1e9:.3f} GB "
           f"(spec count), between updates " + ", ".join(f"{min(b) / 1e9:.3f}-{max(b) / 1e9:.3f}" for b in between)
           + f" GB by worker; launches by worker {[s['launches']['fused_psgd'] for s in trainer.worker_stats]} "
           f"fused pSGD, {micro} microbatches | {smi}", flush=True)
     print_shard_times(label, times, smi)
-    del state, params
+    del setup["run"], state
     gc.collect()
     torch.cuda.empty_cache()
     return {"wall_s": wall, "losses": log.losses, "shard_bytes": shard_bytes, "state_bytes": whole_bytes,
@@ -3961,27 +4037,46 @@ def mesh_sharded(cfg, smi: str, reference, mesh=None, label: str = "30 mesh (2, 
 
 
 def elastic_sharded(cfg, smi: str, reference) -> dict:
-    """Phase 31: ElasticTrainer(param_axes=...) at budget 4 (the replicas
-    of each width store their shards of ``embed``, FSDP): losses and params
-    bit-identical to phase 26's budget 4 (and so budget 1's)."""
+    """Phase 31 alone (chip_smoke runs it in phase 26's spawn:
+    ``elastic_phases``); see ``_elastic_sharded_check``."""
+    setup = _elastic_sharded_setup(cfg)
+    trainer, state, kw = setup["run"]
+    t0 = time.perf_counter()
+    state, log = trainer.run(state, **kw)
+    return _elastic_sharded_check(setup, state, log, time.perf_counter() - t0, smi, reference)
+
+
+def _elastic_sharded_setup(cfg) -> dict:
+    """Phase 31's run: ElasticTrainer(param_axes=...) at budget 4 (the
+    replicas of each width store their shards of ``embed``, FSDP)."""
     import torch
 
-    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.models import LanguageModel
 
     gc.collect()
     torch.cuda.empty_cache()
     model = LanguageModel(cfg)
     params = model.init(0, device="cuda")
-    log, wall, tr, state = elastic_run(cfg, params, 4, copy_params=False, param_axes=model.param_axes())
+    return {"cfg": cfg, "run": elastic_setup(cfg, params, 4, copy_params=False, param_axes=model.param_axes())}
+
+
+def _elastic_sharded_check(setup: dict, state, log, wall: float, smi: str, reference) -> dict:
+    """Phase 31's gates: losses and params bit-identical to phase 26's
+    budget 1; every worker's launches; the peaks and the memory between
+    updates against the dry run's count (the ("data",) mesh of 4)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    cfg, tr = setup["cfg"], setup["run"][0]
     same_as_reference("phase 31 elastic sharded", log, state.params, reference)
     launches = elastic_launch_check("phase 31 elastic sharded", tr, log, cfg.num_layers, "fused_psgd")
     times = shard_times(tr, log)
     times["peaks"] = shard_peak_check("31 elastic sharded", cfg, tr, make_data_mesh(4, ["meta"] * 4), smi)
-    print(f"phase 31 elastic sharded budget 4: {len(log.steps)} updates in {wall:.1f} s, bit-identical to phase 26 "
-          f"| {smi}", flush=True)
+    print(f"phase 31 elastic sharded budget 4: {len(log.steps)} updates (the spawn {wall:.1f} s), bit-identical to "
+          f"phase 26's budget 1 | {smi}", flush=True)
     print_shard_times("31 elastic sharded", times, smi)
-    del state, params, tr
+    del setup["run"], state
     gc.collect()
     torch.cuda.empty_cache()
     return {"wall_s": wall, "losses": log.losses, "launches": launches, **times}
@@ -3992,14 +4087,12 @@ def elastic_sharded(cfg, smi: str, reference) -> dict:
 EP_TOL = 1e-4  # the card at f32: losses, and each leaf against its norm, against the one-process run
 
 
-def _expert_parallel_run(arch: str, smi: str) -> dict:
-    """SEBSTrainer on a (2, 2) mesh of four workers on cuda:0 (host slots)
-    and the same schedule in one process, ``arch`` smoke at f32, pSGD: SEBS
-    b1 4, C1 8, rho 2, 3 stages of 64-token rows (6 updates), microbatch 2
+def _expert_parallel_setup(arch: str) -> dict:
+    """Phase 34's run of ``arch``: SEBSTrainer on a (2, 2) mesh of four
+    workers on cuda:0 (host slots), ``arch`` smoke at f32, pSGD: SEBS b1 4,
+    C1 8, rho 2, 3 stages of 64-token rows (6 updates), microbatch 2
     (widths 2, 4, 4: at width 2 ranks 2-3, a model group without rows,
-    replay).
-    Losses within EP_TOL relative, every param within EP_TOL of its leaf's
-    norm; whether the bits matched is printed; launches exact."""
+    replay); the same schedule run in one process first."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4013,7 +4106,7 @@ def _expert_parallel_run(arch: str, smi: str) -> dict:
 
     cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
     model = LanguageModel(cfg)
-    runs = {}
+    out = {"arch": arch, "cfg": cfg}
     for mesh in (None, make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)):
         opt = make_optimizer("psgd", gamma=1e4)
         pipe = DataPipeline(TokenDataset(cfg.vocab_size, 64, seed=0), "cuda" if mesh is None else mesh)
@@ -4021,11 +4114,26 @@ def _expert_parallel_run(arch: str, smi: str) -> dict:
         trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=8, rho=2.0, num_stages=3, eta=0.5), pipe,
                               microbatch=2, **kw)
         params = model.init(0, device="cuda")
-        t0 = time.perf_counter()
-        state, log = trainer.run(TrainState(params, opt.init(params), 0), log_every=1)
-        runs[mesh is not None] = (log, [t.detach().cpu() for t in tree_leaves(state.params)], trainer,
-                                  time.perf_counter() - t0)
-    (ref, ref_params, _, _), (log, params, trainer, wall) = runs[False], runs[True]
+        state = TrainState(params, opt.init(params), 0)
+        if mesh is None:
+            state, out["reference"] = trainer.run(state, log_every=1)
+            out["reference_params"] = [t.detach().cpu() for t in tree_leaves(state.params)]
+        else:
+            out["run"] = (trainer, state, {"log_every": 1})
+    return out
+
+
+def _expert_parallel_check(setup: dict, state, log, wall: float, smi: str) -> dict:
+    """Phase 34's gates for one arch: the ladder the one-process run's,
+    losses within EP_TOL relative, every param within EP_TOL of its leaf's
+    norm; whether the bits matched is printed; launches exact."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    arch, cfg, trainer = setup["arch"], setup["cfg"], setup["run"][0]
+    ref, ref_params = setup["reference"], setup["reference_params"]
+    params = [t.detach().cpu() for t in tree_leaves(state.params)]
     if log.stages != ref.stages or log.batch_sizes != ref.batch_sizes or not all(map(math.isfinite, log.losses)):
         fail(f"phase 34 {arch}: ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref.losses, strict=True))
@@ -4036,8 +4144,8 @@ def _expert_parallel_run(arch: str, smi: str) -> dict:
     bits = log.losses == ref.losses and all(torch.equal(a, b) for a, b in zip(params, ref_params))
     launches, _ = _mesh_launch_check(f"phase 34 {arch}", cfg, trainer, log, microbatch=2)
     experts_ms = [t["experts_s"] * 1e3 for t in trainer.worker_stats[0]["sharded"]]
-    print(f"phase 34 {arch} smoke f32 on (2, 2) x cuda:0: {len(log.steps)} updates in {wall:.1f} s, losses within "
-          f"{loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms of the one-process run "
+    print(f"phase 34 {arch} smoke f32 on (2, 2) x cuda:0: {len(log.steps)} updates (the spawn {wall:.1f} s), losses "
+          f"within {loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms of the one-process run "
           f"[{EP_TOL}]; bit-identical: {bits}; rank 0's experts' all-to-alls {sum(experts_ms):.1f} ms in all "
           f"| {smi}", flush=True)
     return {"wall_s": wall, "losses": log.losses, "reference_losses": ref.losses, "loss_rel": loss_rel,
@@ -4072,26 +4180,80 @@ def _mesh_launch_check(label: str, cfg, trainer, log, microbatch: int) -> tuple:
     return total, micro
 
 
+EP_ARCHS = ("dbrx-132b", "arctic-480b")
+
+
 def expert_parallel_smoke(smi: str) -> dict:
-    """Phase 34: the experts over the model groups on the card, dbrx and arctic smoke."""
-    return {arch: _expert_parallel_run(arch, smi) for arch in ("dbrx-132b", "arctic-480b")}
+    """Phase 34 alone: the experts over the model groups on the card, dbrx
+    and arctic smoke, in one spawn of four workers."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    setups = [_expert_parallel_setup(arch) for arch in EP_ARCHS]
+    t0 = time.perf_counter()
+    done = run_all_on_mesh([x["run"] for x in setups])
+    wall = time.perf_counter() - t0
+    return {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(setups, done)}
+
+
+def mesh_phases_22(cfg, smi: str, reference) -> tuple:
+    """Phases 30 and 34 in one spawn of four workers on (2, 2) x cuda:0
+    (``distributed.run_all_on_mesh``: each run as it runs alone, the
+    workers started once): phase 30's qwen2.5-3b first (its memory gates
+    read the workers' allocations), then dbrx and arctic smoke. Returns
+    (phase 30's record, phase 34's)."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    sharded = _mesh_sharded_setup(cfg)
+    experts = [_expert_parallel_setup(arch) for arch in EP_ARCHS]
+    t0 = time.perf_counter()
+    done = run_all_on_mesh([sharded["run"]] + [x["run"] for x in experts])
+    wall = time.perf_counter() - t0
+    print(f"phases 30, 34: one spawn of four workers on (2, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
+          f"| {smi}", flush=True)
+    record = _mesh_sharded_check(sharded, *done[0], wall, smi, reference, "30 mesh (2, 2)")
+    return record, {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(experts, done[1:])}
 
 
 def dbrx_expert_parallel(smi: str) -> dict:
-    """Phase 35: dbrx-132b at full width cut to 1 of its 40 layers on a
-    (1, 2) mesh, two workers on cuda:0, each holding 8 of the 16 experts:
+    """Phase 35 alone (chip_smoke runs it in phase 37's spawn:
+    ``mesh_phases_12``); see ``_dbrx_setup``."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    setup = _dbrx_setup()
+    t0 = time.perf_counter()
+    with expandable_segments():
+        (_, log), = run_all_on_mesh([setup["run"]])
+    return _dbrx_check(setup, log, time.perf_counter() - t0, smi)
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Workers spawned inside start with expandable segments: two workers of
+    ~25-29 GiB each share the card, and expandable segments keep their
+    caches from fragmenting (the workers read the setting when they start;
+    this process's allocator has started already)."""
+    old_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if old_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old_conf
+
+
+def _dbrx_setup() -> dict:
+    """Phase 35's run: dbrx-132b at full width cut to 1 of its 40 layers on
+    a (1, 2) mesh, two workers on cuda:0, each holding 8 of the 16 experts:
     one update of 4 rows of 513 tokens (one microbatch of 2 a worker; the
     stage-2 shape's two microbatches a worker count 45.8 GB each, and two
     do not fit one card), pSGD. The state (17.7 GB) is built from a seed on
-    rank 0's card and stays with the workers: nothing crosses the host.
-    Each worker's peak within SHARD_PEAK_TOL of the dry run's count of its
-    rank; the experts' all-to-all ms."""
+    rank 0's card and stays with the workers: nothing crosses the host."""
     import torch
 
-    from repro_torch.configs.shapes import InputShape
     from repro_torch.core import SEBS, SEBSTrainer
     from repro_torch.data import DataPipeline, TokenDataset
-    from repro_torch.distributed import run_on_mesh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import LanguageModel
     from repro_torch.obs import Tracer
@@ -4106,19 +4268,19 @@ def dbrx_expert_parallel(smi: str) -> dict:
     trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=4, rho=2.0, num_stages=1, eta=0.7),
                           DataPipeline(TokenDataset(cfg.vocab_size, 512, seed=0), mesh), mesh=mesh,
                           param_axes=model.param_axes(), microbatch=2, tracer=Tracer(), deadline=ELASTIC_DEADLINE)
-    t0 = time.perf_counter()
-    # two workers of ~29 GiB each share the card: expandable segments keep their caches from fragmenting
-    # (the workers read the setting when they start; this process's allocator has started already)
-    old_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        _, log = run_on_mesh(trainer, None, init_seed=0, log_every=1)
-    finally:
-        if old_conf is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old_conf
-    wall = time.perf_counter() - t0
+    return {"cfg": cfg, "run": (trainer, None, {"init_seed": 0, "log_every": 1})}
+
+
+def _dbrx_check(setup: dict, log, wall: float, smi: str) -> dict:
+    """Phase 35's gates: one finite update; each worker's peak within
+    SHARD_PEAK_TOL of the dry run's count of its rank. Prints the update's
+    ms, the experts' all-to-alls', the gathers' and the collectives'."""
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, trainer = setup["cfg"], setup["run"][0]
     if len(log.steps) != 1 or not math.isfinite(log.losses[0]):
         fail(f"phase 35: {len(log.steps)} updates, losses {log.losses}")
     meta_mesh = make_host_mesh(1, 2, devices=["meta"] * 2)
@@ -4137,22 +4299,269 @@ def dbrx_expert_parallel(smi: str) -> dict:
     print(f"phase 35 dbrx-132b 1 layer on (1, 2) x cuda:0: loss {log.losses[0]:.4f}, update {span[0]:.1f} ms "
           f"(rank 0: the experts' all-to-alls {out['experts_ms']:.1f} ms, the gathers {out['gather_ms']:.1f}, "
           f"collectives' copy out / barriers / copy back " + " / ".join(f"{v:.1f}" for v in out["exchange_ms"].values())
-          + f", optimizer {out['optimizer_ms']:.1f}); the run {wall:.1f} s, of which the first placement "
+          + f", optimizer {out['optimizer_ms']:.1f}); the spawn {wall:.1f} s, the first placement "
           f"{out['placement_s']:.1f} s | {smi}", flush=True)
-    del trainer
+    del setup["run"]
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def sharded_serving(smi: str) -> dict:
-    """Phase 36: the sharded serving forward (``distributed/mesh_serve``) on
-    a (2, 2) mesh of four workers on cuda:0, qwen2.5-3b and dbrx-132b smoke
-    at f32: 4 prompts of 12 tokens, one a worker, a prefill and 3 greedy
-    decode steps, each layer gathered where it runs (dbrx's experts over the
-    model groups). Held to the single-process engine's calls
-    (``prefill``, ``decode_step``) on the same rows: qwen bit-identical,
-    dbrx within EP_TOL of the logits' scale."""
+TP_TOL = 1e-4  # tensor parallelism on the card at f32: losses, each leaf against its norm, the logits' scale
+TP_BF16_TOL = 0.1  # at full width in bf16: the logits' scale (0.0214-0.0233 measured)
+TP_BF16_LOSS_TOL = 2.0**-7  # at full width in bf16: the first update's loss, relative
+
+
+def tp_kernel_checks(records: dict) -> None:
+    """Phase 3 at a tensor-parallel rank's attention shape: qwen2.5-3b's 16
+    query heads over 2 kv heads split over a model group of 2, the flash
+    forward and backward at B 4, S 513, 8 query heads over 1 kv head (G 8)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    flash_shape(records, gen, 4, 513, 8, 1, 128, suffix="_g8")
+
+
+def _tp_smoke_setup() -> dict:
+    """Phase 37(a)'s run: qwen2.5-3b smoke (f32, momentum; SEBS b1 4, C1
+    12, rho 2, 2 stages of 64-token rows: 6 updates, microbatch 2) on (1, 2)
+    x cuda:0 with tensor parallelism, its boundaries reduce-scattered
+    (``tp_reduce_scatter``; phase 37(b) trains the all-reduce's, and phase
+    36's serving holds the two to the same bits); the same schedule run in
+    one process first."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32", tp_reduce_scatter=True)
+    model = LanguageModel(cfg)
+    out = {"cfg": cfg}
+    for mesh in (None, make_host_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)):
+        opt = make_optimizer("momentum", beta=0.9)
+        pipe = DataPipeline(TokenDataset(cfg.vocab_size, 64, seed=0), "cuda" if mesh is None else mesh)
+        kw = {"mesh": mesh, "param_axes": model.param_axes(), "deadline": ELASTIC_DEADLINE,
+              "tensor_parallel": True} if mesh else {}
+        trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=12, rho=2.0, num_stages=2, eta=0.5), pipe,
+                              microbatch=2, **kw)
+        params = model.init(0, device="cuda")
+        state = TrainState(params, opt.init(params), 0)
+        if mesh is None:
+            state, out["reference"] = trainer.run(state, log_every=1)
+            out["reference_params"] = [t.detach().cpu() for t in tree_leaves(state.params)]
+        else:
+            out["run"] = (trainer, state, {"log_every": 1})
+    return out
+
+
+def _tp_smoke_check(setup: dict, state, log, wall: float, smi: str) -> dict:
+    """Phase 37(a)'s gates: the ladder the one-process run's, losses within
+    TP_TOL relative, every param within TP_TOL of its leaf's norm; every
+    worker's launches exact."""
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, trainer = setup["cfg"], setup["run"][0]
+    ref, ref_params = setup["reference"], setup["reference_params"]
+    params = [t.detach().cpu() for t in tree_leaves(state.params)]
+    if (log.stages != ref.stages or log.batch_sizes != ref.batch_sizes or len(log.steps) != 6
+            or not all(map(math.isfinite, log.losses))):
+        fail(f"phase 37(a): ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref.losses, strict=True))
+    leaf_rel = max(float((a - b).abs().max()) / float(b.norm()) for a, b in zip(params, ref_params, strict=True))
+    if loss_rel > TP_TOL or leaf_rel > TP_TOL:
+        fail(f"phase 37(a): losses {loss_rel:.3g} / params {leaf_rel:.3g} from the one-process run (allowed {TP_TOL})")
+    boundary = [sum(t["boundary_s"] for t in st["sharded"]) * 1e3 for st in trainer.worker_stats]
+    received = [sum(t["exchange"]["received_bytes"] for t in st["sharded"]) for st in trainer.worker_stats]
+    launches = {k: sum(st["launches"][k] for st in trainer.worker_stats) for k in trainer.worker_stats[0]["launches"]}
+    fwd = 2 * cfg.num_layers * sum(b // 2 for b in log.batch_sizes)  # a worker's: every microbatch, twice (remat)
+    want = {"flash_attention_fwd": 2 * fwd, "flash_attention_bwd": fwd, "fused_momentum": 2 * len(log.steps)}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"phase 37(a): the workers launched {launches}, not {want}")
+    print(f"phase 37(a) qwen2.5-3b smoke f32, tensor-parallel (reduce-scatter) on (1, 2) x cuda:0: {len(log.steps)} "
+          f"updates (the spawn {wall:.1f} s), losses within {loss_rel:.3g} relative, params within {leaf_rel:.3g} of "
+          f"their norms of the one-process run [{TP_TOL}]; bytes received by worker {received}, the boundary "
+          "exchanges " + "/".join(f"{x:.1f}" for x in boundary) + f" ms | {smi}", flush=True)
+    return {"wall_s": wall, "losses": log.losses, "reference_losses": ref.losses, "loss_rel": loss_rel,
+            "leaf_rel": leaf_rel, "received_bytes": received, "boundary_ms": boundary, "launches": launches}
+
+
+def _tp_full_width_setup(updates: int = 1) -> dict:
+    """Phase 37(b)'s run: qwen2.5-3b at full width on (1, 2) x cuda:0 with
+    tensor parallelism, the state (params and momentum, 24.7 GB in f32)
+    built from a seed on rank 0's card and kept on the workers: ``updates``
+    updates of 4 rows of 513 tokens (the first holds the workers' one-time
+    costs), one microbatch the group's (the flash kernels at the rank's 8
+    query heads over 1 kv head). First, on the card, the one-process loss
+    of the first update's rows on the params rank 0 builds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.loss import lm_loss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2.5-3b", "full")
+    model = LanguageModel(cfg)
+    data = TokenDataset(cfg.vocab_size, 512, seed=0)
+    with torch.no_grad():
+        params = model.init(0, device="cuda")
+        _, m = lm_loss(model, params, {"tokens": torch.from_numpy(data.batch(0, 4)["tokens"]).cuda()})
+        reference = float(m["loss"])
+        del params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(1, 2, devices=[torch.device("cuda", 0)] * 2)
+    opt = make_optimizer("momentum", beta=0.9)
+    trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=4 * updates, rho=2.0, num_stages=1, eta=0.5),
+                          DataPipeline(data, mesh), mesh=mesh,
+                          param_axes=model.param_axes(), microbatch=4, tracer=Tracer(), deadline=ELASTIC_DEADLINE,
+                          tensor_parallel=True)
+    return {"cfg": cfg, "updates": updates, "reference": reference,
+            "run": (trainer, None, {"init_seed": 0, "log_every": 1})}
+
+
+def _tp_full_width_check(setup: dict, log, wall: float, smi: str) -> dict:
+    """Phase 37(b)'s gates: the first update's loss within
+    TP_BF16_LOSS_TOL of the one-process loss; each worker's peak within
+    SHARD_PEAK_TOL of the dry run's count of its rank; launches exact.
+    Prints the updates' ms and their boundary exchanges', gathers' and
+    optimizer's ms."""
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, trainer, reference = setup["cfg"], setup["run"][0], setup["reference"]
+    if len(log.steps) != setup["updates"] or not all(map(math.isfinite, log.losses)):
+        fail(f"phase 37(b): {len(log.steps)} updates, losses {log.losses}")
+    loss_rel = abs(log.losses[0] - reference) / abs(reference)
+    if loss_rel > TP_BF16_LOSS_TOL:
+        fail(f"phase 37(b): the first update's loss {log.losses[0]!r} is {loss_rel:.3g} from the one-process "
+             f"loss {reference!r} (allowed {TP_BF16_LOSS_TOL:.3g})")
+    peaks = shard_peak_check("37(b) qwen tensor-parallel (1, 2)", cfg, trainer, make_host_mesh(1, 2, devices=["meta"] * 2),
+                             smi, stage=0, shape=InputShape("update", 513, 4, "train"), optimizer_name="momentum",
+                             tensor_parallel=True)
+    launches = {k: sum(st["launches"][k] for st in trainer.worker_stats) for k in trainer.worker_stats[0]["launches"]}
+    n = len(log.steps)  # each worker: a microbatch an update, the forward twice (remat)
+    want = {"flash_attention_fwd": 2 * 2 * cfg.num_layers * n, "flash_attention_bwd": 2 * cfg.num_layers * n,
+            "fused_momentum": 2 * n}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"phase 37(b): the workers launched {launches}, not {want}")
+    span = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
+
+    def by_worker(key: str, scale: float = 1e3) -> list:  # each update's reading on each worker
+        return [[u[key] * scale for u in st["sharded"]] for st in trainer.worker_stats]
+
+    out = {"wall_s": wall, "placement_s": trainer.worker_stats[0]["reshard_s"][0], "losses": log.losses,
+           "reference_loss": reference, "loss_rel": loss_rel,
+           "update_ms": span, "boundary_ms": by_worker("boundary_s"), "gather_ms": by_worker("gather_s"),
+           "optimizer_ms": by_worker("update_s"),
+           "received_bytes": [[u["exchange"]["received_bytes"] for u in st["sharded"]] for st in trainer.worker_stats],
+           "launches": launches, "peaks": peaks}
+    print(f"phase 37(b) qwen2.5-3b full width, tensor-parallel on (1, 2) x cuda:0: losses "
+          + ", ".join(f"{x:.4f}" for x in log.losses) + f" (the first {loss_rel:.3g} from the one-process "
+          f"{reference:.4f} [{TP_BF16_LOSS_TOL:.3g}]), updates " + ", ".join(f"{x:.1f}" for x in span)
+          + " ms (the boundary exchanges by update and worker " + "; ".join(
+              "/".join(f"{x:.1f}" for x in u) for u in zip(*out["boundary_ms"])) + " ms, the gathers " + "; ".join(
+              "/".join(f"{x:.1f}" for x in u) for u in zip(*out["gather_ms"])) + ", the optimizer " + "; ".join(
+              "/".join(f"{x:.1f}" for x in u) for u in zip(*out["optimizer_ms"]))
+          + f"); the spawn {wall:.1f} s, the first placement {out['placement_s']:.1f} s | {smi}", flush=True)
+    del setup["run"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_smoke_run(smi: str) -> dict:
+    """Phase 37(a) alone, in a spawn of its own."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    setup = _tp_smoke_setup()
+    t0 = time.perf_counter()
+    (state, log), = run_all_on_mesh([setup["run"]])
+    return _tp_smoke_check(setup, state, log, time.perf_counter() - t0, smi)
+
+
+def _tp_full_width_update(smi: str, updates: int = 1) -> dict:
+    """Phase 37(b) alone, in a spawn of its own."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    setup = _tp_full_width_setup(updates)
+    t0 = time.perf_counter()
+    with expandable_segments():
+        (_, log), = run_all_on_mesh([setup["run"]])
+    return _tp_full_width_check(setup, log, time.perf_counter() - t0, smi)
+
+
+def mesh_phases_12(smi: str) -> tuple:
+    """Phases 37(b), 35 and 37(a) in one spawn of two workers on (1, 2) x
+    cuda:0 (``distributed.run_all_on_mesh``: each run as it runs alone, the
+    workers started once, with expandable segments), the two full-width
+    runs first (their memory gates read the workers' allocations). Returns
+    (phase 35's record, phase 37's training records)."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    full, dbrx, smoke = _tp_full_width_setup(), _dbrx_setup(), _tp_smoke_setup()
+    t0 = time.perf_counter()
+    with expandable_segments():
+        done = run_all_on_mesh([full["run"], dbrx["run"], smoke["run"]])
+    wall = time.perf_counter() - t0
+    print(f"phases 35, 37(a, b): one spawn of two workers on (1, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
+          f"| {smi}", flush=True)
+    tensor = {"full_width": _tp_full_width_check(full, done[0][1], wall, smi)}
+    dbrx_record = _dbrx_check(dbrx, done[1][1], wall, smi)
+    tensor["smoke"] = _tp_smoke_check(smoke, *done[2], wall, smi)
+    return dbrx_record, tensor
+
+
+def _engine_greedy(model, params, tokens, rows: int) -> list:
+    """The single-process engine's calls (``prefill``, ``decode_step``) on
+    each ``rows`` rows of ``tokens``, greedy, 3 decode steps, f32 cache:
+    each step's logits (B, 1, V) on the host."""
+    import torch
+
+    out = []
+    s = tokens.shape[1]
+    with torch.no_grad():
+        for r in range(0, tokens.shape[0], rows):
+            cache = model.init_cache(rows, s + 4, dtype=torch.float32, device="cuda")
+            logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[r:r + rows]).cuda()}, cache)
+            steps = [logits.float().cpu()]
+            for t in range(3):
+                nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                logits, cache = model.decode_step(params, nxt, cache,
+                                                  torch.full((rows,), s + t, dtype=torch.int32, device="cuda"))
+                steps.append(logits.float().cpu())
+            out.append(steps)
+    return [torch.cat([w[i] for w in out]) for i in range(4)]
+
+
+def sharded_serving(smi: str) -> tuple:
+    """Phase 36 and phase 37(c), one spawn of four workers on cuda:0 on a
+    (2, 2) mesh (``distributed/mesh_serve.serve_on_mesh``), a prefill and 3
+    greedy decode steps each. Phase 36: qwen2.5-3b and dbrx-132b smoke at
+    f32, 4 prompts of 12 tokens (one a worker), each layer gathered where
+    it runs (dbrx's experts over the expert groups, their products over the
+    model groups), held to the single-process engine's calls on the same
+    rows: qwen bit-identical, dbrx within EP_TOL of the logits' scale.
+    Phase 37(c), with tensor parallelism (two rows a model group, the split
+    leaves gathered over the data groups): qwen smoke at f32 within TP_TOL
+    of the engine's, the same greedy tokens, its ``tp_reduce_scatter`` twin
+    bit-equal; qwen2.5-3b at full width (bf16, 4 prompts of 64 tokens):
+    logits within TP_BF16_TOL of their scale of the engine's, the prefill's
+    greedy tokens the engine's. Returns (phase 36's record, phase 37(c)'s)."""
     import numpy as np
     import torch
 
@@ -4161,41 +4570,64 @@ def sharded_serving(smi: str) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import LanguageModel
 
-    out = {}
-    mesh = make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
-    runs = {}
-    for arch in ("qwen2.5-3b", "dbrx-132b"):
-        model = LanguageModel(get_config(arch, "smoke").replace(compute_dtype="float32"))
-        tokens = np.random.default_rng(36).integers(0, model.cfg.vocab_size, (4, 12)).astype(np.int32)
-        runs[arch] = (model, model.init(0, device="cuda"), tokens)
+    qwen = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
+    runs = []  # (label, model, params, tokens, tensor-parallel)
+    for label, cfg, s, split in (("qwen2.5-3b", qwen, 12, False),
+                                 ("dbrx-132b", get_config("dbrx-132b", "smoke").replace(compute_dtype="float32"), 12,
+                                  False),
+                                 ("tp", qwen, 12, True), ("tp_rs", qwen.replace(tp_reduce_scatter=True), 12, True),
+                                 ("tp full width", get_config("qwen2.5-3b", "full"), 64, True)):
+        model = LanguageModel(cfg)
+        tokens = np.random.default_rng(36).integers(0, cfg.vocab_size, (4, s)).astype(np.int32)
+        runs.append((label, model, model.init(0, device="cuda"), tokens, split))
     t0 = time.perf_counter()
-    served = dict(zip(runs, serve_on_mesh(mesh, list(runs.values()), 4, deadline=ELASTIC_DEADLINE)))
-    wall = time.perf_counter() - t0  # one spawn of the four workers serves both
-    for arch, (model, params, tokens) in runs.items():
-        got = served[arch]
-        want = []
-        with torch.no_grad():
-            for r in range(4):
-                cache = model.init_cache(1, 16, dtype=torch.float32, device="cuda")
-                logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[r:r + 1]).cuda()}, cache)
-                steps = [logits]
-                for t in range(3):
-                    nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-                    logits, cache = model.decode_step(params, nxt, cache,
-                                                      torch.full((1,), 12 + t, dtype=torch.int32, device="cuda"))
-                    steps.append(logits)
-                want.append([x.float().cpu() for x in steps])
-        want = [torch.cat([w[i] for w in want]) for i in range(4)]
-        bits = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+    served = serve_on_mesh(make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4),
+                           [(m, p, t) for _, m, p, t, _ in runs], 4, tensor_parallel=[x for *_, x in runs],
+                           deadline=ELASTIC_DEADLINE)
+    wall = time.perf_counter() - t0  # one spawn of the four workers serves every run
+    got = {label: steps for (label, *_), steps in zip(runs, served)}
+    # each rank's rows: one a worker, or two a model group with tensor parallelism
+    want = {label: _engine_greedy(model, params, tokens, 2 if split else 1)
+            for label, model, params, tokens, split in runs if label != "tp_rs"}
+    del runs, served
+
+    def rel(label: str) -> float:
+        return max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got[label], want[label]))
+
+    def tokens_of(steps) -> list:
+        return [x[:, -1].argmax(-1).tolist() for x in steps]
+
+    experts = {}
+    for arch in ("qwen2.5-3b", "dbrx-132b"):
+        bits = all(torch.equal(a, b) for a, b in zip(got[arch], want[arch]))
+        err = rel(arch)
         if (arch == "qwen2.5-3b" and not bits) or err > EP_TOL:
             fail(f"phase 36 {arch}: the sharded forward's logits differ from the engine's by {err:.3g} of their "
                  f"scale (bit-identical: {bits})")
-        print(f"phase 36 {arch} smoke f32, sharded prefill + 3 decode steps on (2, 2) x cuda:0 ({wall:.1f} s both): "
-              f"logits within {err:.3g} of their scale of the single-process engine's, bit-identical: {bits} "
-              f"| {smi}", flush=True)
-        out[arch] = {"wall_s": wall, "rel_err": err, "bits": bits}
-    return out
+        print(f"phase 36 {arch} smoke f32, sharded prefill + 3 decode steps on (2, 2) x cuda:0 ({wall:.1f} s, one "
+              f"spawn of four workers with phase 37(c)): logits within {err:.3g} of their scale of the "
+              f"single-process engine's, bit-identical: {bits} | {smi}", flush=True)
+        experts[arch] = {"wall_s": wall, "rel_err": err, "bits": bits}
+    err, rs_bits = rel("tp"), all(torch.equal(a, b) for a, b in zip(got["tp_rs"], got["tp"]))
+    tokens_equal = tokens_of(got["tp"]) == tokens_of(want["tp"])
+    if err > TP_TOL or not tokens_equal or not rs_bits:
+        fail(f"phase 37(c): the tensor-parallel forward's logits are {err:.3g} of their scale from the engine's "
+             f"(tokens equal: {tokens_equal}; tp_reduce_scatter bit-equal: {rs_bits})")
+    full = got["tp full width"]
+    vocab = get_config("qwen2.5-3b", "full").padded_vocab
+    if any(x.shape != (4, 1, vocab) or not torch.isfinite(x).all() for x in full):
+        fail(f"phase 37(c): full-width logits {[tuple(x.shape) for x in full]}, not (4, 1, {vocab}), or not finite")
+    tp = {"wall_s": wall, "rel_err": err, "rs_bits": rs_bits, "full_tokens": tokens_of(full),
+          "engine_tokens": tokens_of(want["tp full width"]), "full_rel_err": rel("tp full width")}
+    if tp["full_rel_err"] > TP_BF16_TOL or tp["full_tokens"][0] != tp["engine_tokens"][0]:
+        fail(f"phase 37(c): at full width the logits are {tp['full_rel_err']:.3g} of their scale from the "
+             f"engine's [{TP_BF16_TOL}], the prefill's greedy tokens {tp['full_tokens'][0]} against the engine's "
+             f"{tp['engine_tokens'][0]}")
+    print(f"phase 37(c) serve_on_mesh tensor-parallel on (2, 2) x cuda:0: qwen smoke f32 tokens equal the engine's, "
+          f"logits within {err:.3g} of their scale [{TP_TOL}], tp_reduce_scatter bit-equal: {rs_bits}; full width "
+          f"bf16: logits within {tp['full_rel_err']:.3g} of their scale [{TP_BF16_TOL}], greedy tokens "
+          f"{tp['full_tokens']} (the engine's {tp['engine_tokens']}; the prefill's must be equal) | {smi}", flush=True)
+    return experts, tp
 
 
 # -- disaggregated prefill/decode serving (phases 28-29) ---------------------
@@ -4569,6 +5001,7 @@ def main() -> None:
     gla_serving_shape = gla_checks(records)
     zamba2_kernel_checks(records)
     moe_kernel_checks(records)
+    tp_kernel_checks(records)
     fwd_rec, bwd_rec = records["flash_attention_fwd"], records["flash_attention_bwd"]
     print(f"flash yardstick, ms a call (device ms in brackets): SDPA ({fwd_rec['library_backend']}) fwd "
           f"{fwd_rec['library_ms']:.4f} ({fwd_rec['library_device_ms']:.4f}), bwd {bwd_rec['library_ms']:.4f} "
@@ -4613,6 +5046,13 @@ def main() -> None:
           f"{records['flash_attention_fwd_g7']['library_ms']:.4f} | fused pSGD over dbrx's expert tensors "
           f"{records['fused_psgd_dbrx']['ms']:.3f} ms ({records['fused_psgd_dbrx']['elements']} elements; bound "
           f"{records['fused_psgd_dbrx']['bound'][0]:.3f})", flush=True)
+    print("a tensor-parallel rank's shape (G 8: B 4, S 513, 8/1 heads), ms a call L2-cold (device ms in brackets; "
+          "bound; plain): " + ", ".join(
+              f"{n} {records[n]['ms']:.4f} ({records[n]['device_ms']:.4f}; {records[n]['bound'][0]:.5f}; "
+              f"{records[n]['plain_ms']:.3f})" for n in ("flash_attention_fwd_g8", "flash_attention_bwd_g8"))
+          + f" | SDPA ({records['flash_attention_fwd_g8']['library_backend']}) fwd "
+          f"{records['flash_attention_fwd_g8']['library_ms']:.4f}, bwd "
+          f"{records['flash_attention_bwd_g8']['library_ms']:.4f}", flush=True)
     print(f"gla, ms a call L2-cold (device ms in brackets): fwd {records['gla_fwd']['ms']:.4f} "
           f"({records['gla_fwd']['device_ms']:.4f}), bwd {records['gla_bwd']['ms']:.4f} "
           f"({records['gla_bwd']['device_ms']:.4f}), fwd at the serving shape {gla_serving_shape['ms']:.4f} "
@@ -4834,25 +5274,23 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     elastic_cfg = elastic_cut(get_config("qwen2.5-3b", "full"))
-    elastic, elastic_reference = elastic_exact(elastic_cfg, smi)
-    phase_done("26 elastic exact sync")
-    local_sgd = elastic_local(elastic_cfg, smi)
-    phase_done("27 elastic local SGD")
-    # 30-31. rule-based storage sharding: SEBSTrainer on a (2, 2) mesh of four workers on the card, and
-    # ElasticTrainer with param_axes at budget 4, both held to phase 26's budget-1 run
-    sharded = {"mesh": mesh_sharded(elastic_cfg, smi, elastic_reference)}
-    phase_done("30 sharded mesh (2, 2)")
-    sharded["elastic"] = elastic_sharded(elastic_cfg, smi, elastic_reference)
+    elastic, local_sgd, sharded_elastic, elastic_reference = elastic_phases(elastic_cfg, smi)
+    sharded = {"elastic": sharded_elastic}
+    phase_done("26, 27, 31 elastic exact sync, local SGD, elastic sharded")
+    # 30 and 34, one spawn of four workers on (2, 2): qwen2.5-3b's sharded storage held to phase 26's
+    # budget 1, then an MoE layer's experts over the mesh's model groups at smoke size held to the
+    # one-process run
+    sharded["mesh"], experts_smoke = mesh_phases_22(elastic_cfg, smi, elastic_reference)
+    experts = {"smoke": experts_smoke}
     del elastic_reference
-    phase_done("31 elastic sharded")
-    # 34-36. an MoE layer's experts over the mesh's model groups: the (2, 2) runs at smoke size held to the
-    # one-process run, dbrx-132b at full width on (1, 2), and the sharded serving forward
-    experts = {"smoke": expert_parallel_smoke(smi)}
-    phase_done("34 experts over model groups, smoke")
-    experts["dbrx"] = dbrx_expert_parallel(smi)
-    phase_done("35 dbrx experts on (1, 2)")
-    experts["serving"] = sharded_serving(smi)
-    phase_done("36 sharded serving forward")
+    phase_done("30, 34 sharded mesh (2, 2), experts over model groups")
+    # 35 and 37(a, b), one spawn of two workers on (1, 2): dbrx-132b at full width, and attention, the
+    # dense MLPs and the vocabulary over the model groups (training)
+    experts["dbrx"], tensor = mesh_phases_12(smi)
+    phase_done("35, 37(a, b) dbrx experts, tensor-parallel training on (1, 2)")
+    # 36 and 37(c): the sharded serving forward, without and with tensor parallelism, one spawn
+    experts["serving"], tensor["serving"] = sharded_serving(smi)
+    phase_done("36, 37(c) sharded serving forward")
     # 28-29. disaggregated prefill/decode serving, both workers on the card,
     # on phase 4's and phase 15's weights and requests, under the sanitizers
     gc.collect()
@@ -4895,7 +5333,8 @@ def main() -> None:
         replaces[f"{kname}_mamba2"] = replaces[kname]
     for kname in ("flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7",
                   "paged_flash_decode_g6", "paged_flash_decode_g7", "paged_chunk_prefill_g6",
-                  "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000", "fused_psgd_dbrx"):
+                  "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000", "fused_psgd_dbrx",
+                  "flash_attention_fwd_g8", "flash_attention_bwd_g8"):
         replaces[kname] = replaces[kname.rsplit("_", 1)[0]]
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
@@ -4910,7 +5349,7 @@ def main() -> None:
         "gla_bwd": "gla/csrc/gla.cu",
     }
     sources.update({f"{n}{suffix}": sources[n] for n in list(sources)
-                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_v100352", "_v32000", "_dbrx")})
+                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_g8", "_v100352", "_v32000", "_dbrx")})
     all_launches = {**launches, **train_launches}
     # the dense serving path (phase 12) runs the flash forward and the sampler too
     for kname in ("flash_attention_fwd", "fused_sample"):
@@ -4938,6 +5377,14 @@ def main() -> None:
     all_launches["fused_sample_v100352"] = sum(run.get("fused_sample", 0) for run in dbrx_paths)
     all_launches["fused_sample_v32000"] = sum(run.get("fused_sample", 0) for run in arctic_paths)
     all_launches["fused_psgd_dbrx"] = dbrx_training["launches"]["fused_psgd"]
+    # the tensor-parallel full-width update (phase 37(b)): the flash kernels at a rank's G 8, the fused
+    # momentum over each worker's shards
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        all_launches[kname + "_g8"] = tensor["full_width"]["launches"][kname]
+    all_launches["fused_momentum"] += tensor["full_width"]["launches"]["fused_momentum"]
+    # phase 37(a), the smoke run at f32 (the flash kernels' f32 route), every worker's
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
+        all_launches[kname] += tensor["smoke"]["launches"][kname]
     # whisper's paths (phases 22-23): the encoder's flash launches, counted
     # apart as the non-causal ones, and the decoder's, the causal rest
     for part in ("encoder", "decoder"):
@@ -5026,7 +5473,7 @@ def main() -> None:
             "library_device_ms_default", "f32_route", "serving_prefill") if key in records[n]}
             for n in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_d80",
                       "flash_attention_bwd_d80", "flash_attention_fwd_g6", "flash_attention_bwd_g6",
-                      "flash_attention_fwd_g7")}},
+                      "flash_attention_fwd_g7", "flash_attention_fwd_g8", "flash_attention_bwd_g8")}},
         "zamba2_device_ms": {n: records[n]["device_ms"] for n in (
             "flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
             "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2")},
@@ -5054,7 +5501,7 @@ def main() -> None:
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
         "experiments": experiments, "fig1": fig1, "elastic": {"exact": elastic, "local_sgd": local_sgd},
-        "sharded": sharded, "experts": experts,
+        "sharded": sharded, "experts": experts, "tensor_parallel": tensor,
         "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,

@@ -33,7 +33,11 @@ the state by ``param_axes`` (``LanguageModel.param_axes()``; the rules of
 microbatches are spread data-parallel over the ranks, not split by the
 ``model`` axis as GSPMD splits them in the JAX package: the rules place
 storage only. The log and state are bit-identical to
-``ElasticTrainer``'s at budget 1. ``deadline`` bounds such a run's seconds. With
+``ElasticTrainer``'s at budget 1. With ``tensor_parallel=True`` (the dense
+decoders; a ``ValueError`` names the ``ROADMAP.md`` item for the others)
+the ``model`` groups split attention, the MLPs and the vocabulary as GSPMD
+does, and the microbatches spread over the groups: the log holds that run
+within a tolerance. ``deadline`` bounds such a run's seconds. With
 ``REPRO_SANITIZE=1`` the loop checks each update's loss and gradient norm
 for NaN/Inf and audits the tracer at the end of the run, as the JAX
 trainer does (:mod:`repro_torch.analysis.sanitize`); the elastic trainer's
@@ -109,12 +113,20 @@ class SEBSTrainer:
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
         deadline: Optional[float] = None,
+        tensor_parallel: bool = False,
     ):
         if param_axes is not None and mesh is None:
             raise ValueError("param_axes place the state on a mesh: pass mesh too")
+        if tensor_parallel:
+            if mesh is None:
+                raise ValueError("tensor_parallel splits compute over a mesh's model groups: pass mesh too")
+            from repro_torch.sharding.partitioning import check_tensor_parallel
+
+            check_tensor_parallel(model.cfg)
         self.model = model
         self.mesh = mesh
         self.param_axes = param_axes
+        self.tensor_parallel = tensor_parallel
         self.deadline = deadline
         self.optimizer = optimizer
         self.controller = StageController(schedule, microbatch=microbatch, mode=mode)

@@ -56,14 +56,16 @@ from repro_torch.distributed.sync import (
     allreduce_bytes_per_device,
     sync_cost,
 )
-from repro_torch.distributed.trainer import ElasticTrainer, MeshTrainer, run_on_mesh
+from repro_torch.distributed.trainer import ElasticTrainer, MeshTrainer, run_all_on_mesh, run_on_mesh, run_together
 
 __all__ = [
     "ElasticMeshPlanner",
     "MeshPlan",
     "ElasticTrainer",
     "MeshTrainer",
+    "run_all_on_mesh",
     "run_on_mesh",
+    "run_together",
     "build_sharded_train_step",
     "reshard_state",
     "state_shardings",

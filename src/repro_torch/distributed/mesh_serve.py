@@ -11,7 +11,11 @@ has rows (a rank without rows runs on meta tensors of a computing rank's
 shapes, serving its shards to every gather and its experts to its
 ``model`` group), prefills a dense cache, then decodes greedily: each
 layer is gathered where it runs, an MoE layer's experts split over
-``model`` are computed over the rank's ``model`` group. The launcher's
+``model`` are computed over the rank's ``model`` group. With
+``tensor_parallel`` the ``model`` groups split a dense decoder's compute
+(``sharded.TensorParallel``): the rows spread over the groups, every rank
+of a group takes the group's, keeps a cache of its kv heads and gets the
+logits gathered over the vocabulary. The launcher's
 serving path stays single-process; this is the sharded forward as code
 that runs, which the dry run's serving counts measure.
 """
@@ -21,7 +25,7 @@ import os
 import shutil
 import tempfile
 from datetime import timedelta
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -35,9 +39,10 @@ from repro_torch.distributed.procs import (
     stop_workers,
 )
 from repro_torch.distributed.reshard import state_shardings
-from repro_torch.distributed.sharded import _rebuild, own_shard, sharded_forward
+from repro_torch.distributed.sharded import _rebuild, local_cache, own_shard, sharded_forward, tensor_parallel
 from repro_torch.distributed.staging import make_exchange
-from repro_torch.launch.mesh import make_axis_groups, make_data_mesh, prefix_groups, rank_rows
+from repro_torch.sharding.partitioning import check_tensor_parallel
+from repro_torch.launch.mesh import make_axis_groups, make_data_mesh, prefix_groups, rank_rows, row_groups, row_index
 from repro_torch.train.state import TrainState
 from repro_torch.utils.tree import tree_leaves
 
@@ -75,21 +80,26 @@ def _serve(i: int, rank: int, job: dict, model, params, tokens: np.ndarray, xmes
     ``tokens``, a prefill and greedy decode steps; its logits saved."""
     mesh = job["mesh"]
     layout = tree_leaves(state_shardings(TrainState(params, {}, 0), mesh, model.param_axes()).params)
+    tp = tensor_parallel(model, params, mesh) if job["tensor_parallel"][i] else None
     mine = _rebuild(params, iter([own_shard(t.to(device), s, rank) for t, s in zip(tree_leaves(params), layout)]))
     del params
-    rows, width = rank_rows(tokens.shape[0], mesh.size)
+    rows, width = rank_rows(tokens.shape[0], row_groups(mesh, tp is not None))
+    row = row_index(mesh, rank, tp is not None)
     new, s = job["new_tokens"], tokens.shape[1]
-    computes = rank < width
+    computes = row < width
     on = device if computes else torch.device("meta")
-    cache = model.init_cache(rows, s + new, dtype=job["cache_dtype"], device=on)
+    if tp is not None:
+        cache = local_cache(model, mesh, rows, s + new, job["cache_dtype"], on)
+    else:
+        cache = model.init_cache(rows, s + new, dtype=job["cache_dtype"], device=on)
     if computes:
-        batch = {"tokens": torch.from_numpy(tokens[rank * rows:(rank + 1) * rows]).to(device)}
+        batch = {"tokens": torch.from_numpy(tokens[row * rows:(row + 1) * rows]).to(device)}
     else:
         batch = {"tokens": torch.empty((rows, s), dtype=torch.int32, device="meta")}
 
     def forward(kind, batch, cache, index=None):
         return sharded_forward(model, mine, layout, rank=rank, width=width, xmesh=xmesh, kind=kind, batch=batch,
-                               cache=cache, cache_index=index, axis=axis)
+                               cache=cache, cache_index=index, axis=axis, tp=tp)
 
     logits, cache = forward("prefill", batch, cache)
     out = [logits]
@@ -98,21 +108,30 @@ def _serve(i: int, rank: int, job: dict, model, params, tokens: np.ndarray, xmes
         index = torch.full((rows,), s + t, dtype=torch.int32, device=on)
         logits, cache = forward("decode", {"tokens": nxt}, cache, index)
         out.append(logits)
-    if computes:
-        torch.save([x.float().cpu() for x in out], os.path.join(job["workdir"], f"logits_{i}_{rank}.pt"))
+    lead = tp is None or rank == mesh.group_ranks(rank, ("model",))[0]  # a model group's logits, once
+    if computes and lead:
+        torch.save([x.float().cpu() for x in out], os.path.join(job["workdir"], f"logits_{i}_{row}.pt"))
 
 
 def serve_on_mesh(mesh, runs: list, new_tokens: int, *, cache_dtype=torch.float32, timeout: float = 120.0,
-                  deadline: Optional[float] = None) -> list:
+                  deadline: Optional[float] = None, tensor_parallel: Union[bool, Sequence[bool]] = False) -> list:
     """Greedy decoding on ``mesh``'s workers of each of ``runs``, (model,
     params, tokens) triples served one after another by the same workers
     (one spawn for them all): each worker stores its shards of ``params``
     (a whole tree, any device: each worker copies its shards to its own),
     and ``tokens`` (B, S) spread over the ranks as the dry run spreads rows
-    (``launch/mesh.rank_rows``). Returns, for each run, the logits of the
-    prefill and of each of the ``new_tokens - 1`` decode steps, each (B, 1,
-    V) f32 on the host, rows in rank order."""
+    (``launch/mesh.rank_rows``), or with ``tensor_parallel`` (a flag for
+    every run, or one a run) over the ``model`` groups (``row_groups``).
+    Returns, for each run, the logits of the prefill and of each of the
+    ``new_tokens - 1`` decode steps, each (B, 1, V) f32 on the host, rows in
+    rank order."""
     runs = [(model, params, np.asarray(tokens, np.int32)) for model, params, tokens in runs]
+    split = [tensor_parallel] * len(runs) if isinstance(tensor_parallel, bool) else list(tensor_parallel)
+    if len(split) != len(runs):
+        raise ValueError(f"{len(split)} tensor_parallel flags for {len(runs)} runs")
+    for (model, _, _), tp in zip(runs, split):
+        if tp:
+            check_tensor_parallel(model.cfg)
     if any(d.type == "cuda" for d in mesh.device_list):
         from repro_torch.kernels import _cuda
 
@@ -120,7 +139,7 @@ def serve_on_mesh(mesh, runs: list, new_tokens: int, *, cache_dtype=torch.float3
     workdir = tempfile.mkdtemp(prefix="mesh_serve_")
     try:
         job = {"workdir": workdir, "mesh": mesh, "new_tokens": new_tokens, "cache_dtype": cache_dtype,
-               "settings": caller_settings(), "timeout": timeout,
+               "settings": caller_settings(), "timeout": timeout, "tensor_parallel": split,
                "slot_bytes": max(slot_bytes(TrainState(params, {}, 0)) for _, params, _ in runs)}
         ctx = torch.multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_worker, args=(r, job, runs), name=f"mesh-serve-{r}") for r in range(mesh.size)]
@@ -133,7 +152,7 @@ def serve_on_mesh(mesh, runs: list, new_tokens: int, *, cache_dtype=torch.float3
         join_workers(procs, workdir, deadline)
         out = []
         for i, (_, _, tokens) in enumerate(runs):
-            width = rank_rows(tokens.shape[0], mesh.size)[1]
+            width = rank_rows(tokens.shape[0], row_groups(mesh, split[i]))[1]
             parts = [torch.load(os.path.join(workdir, f"logits_{i}_{r}.pt")) for r in range(width)]
             out.append([torch.cat([part[k] for part in parts]) for k in range(new_tokens)])
     finally:

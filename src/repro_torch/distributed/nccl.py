@@ -6,7 +6,9 @@ it; several workers on one card, or the CPU, take the shared host slots of
 The methods are :class:`~repro_torch.distributed.staging.HostExchange`'s,
 and so are the results, bit for bit: every collective here is a copy of
 bytes (``all_gather_into_tensor``, ``broadcast``, ``all_to_all_single``), never a reduce, whose
-sum would follow NCCL's order; the sums stay the callers' canonical trees.
+sum would follow NCCL's order; the sums stay the callers' canonical trees
+(the tensor-parallel boundaries' sum and reduce-scatter too,
+``staging.GroupCollectives``, over these all-gathers and all-to-alls).
 The groups are prefixes of the world (``launch.mesh.prefix_widths``), where
 a group rank is the global rank, and the run's axis groups
 (``launch.mesh.make_axis_groups``: one NCCL group each, made by
@@ -27,10 +29,10 @@ from typing import Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.staging import StagingTimes, _bytes, place_shards, slice_position
+from repro_torch.distributed.staging import GroupCollectives, StagingTimes, _bytes, place_shards, slice_position
 
 
-class DeviceExchange:
+class DeviceExchange(GroupCollectives):
     def __init__(self, rank: int, world: int, device: torch.device, backend: str = "nccl"):
         import torch.distributed as dist
 

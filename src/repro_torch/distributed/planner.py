@@ -53,6 +53,9 @@ class ElasticMeshPlanner:
         self.groups: Optional[Dict[int, Any]] = None
         self.exchange: Any = None
         self._meshes: Dict[int, DataMesh] = {}
+        #: the most replicas a width may take, where it is not the device budget (a mesh whose
+        #: ``model`` groups share their rows: its group count)
+        self.width_budget: Optional[int] = None
 
     def width_for(self, accum_steps: int) -> int:
         """Largest power of two dividing ``accum_steps``, capped at the budget.
@@ -60,8 +63,8 @@ class ElasticMeshPlanner:
         Power-of-two widths that divide the count are what the canonical
         reduction tree needs for cross-width bit-identity; counts that are
         not powers of two (rho not a power of two) degrade toward width 1."""
-        width = 1
-        while width * 2 <= self.device_budget and accum_steps % (width * 2) == 0:
+        width, budget = 1, self.width_budget or self.device_budget
+        while width * 2 <= budget and accum_steps % (width * 2) == 0:
             width *= 2
         return width
 

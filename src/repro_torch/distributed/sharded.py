@@ -74,18 +74,38 @@ meaning. A rank without rows whose ``model`` group has some runs the pass
 (on meta tensors, its experts' work real), so that it joins every
 all-to-all; a rank whose group has none replays.
 
-Only the expert path gives up bit-identity (the expert gradients' sums
-change order; ``tests/test_torch_expert_parallel.py`` holds it to the
-unsharded run within 1e-6). Everywhere else the losses and the gathered
-parameters are bit-identical to the elastic trainer's at any budget
+**Tensor parallelism** (``tp``, a :class:`TensorParallel`, opt-in: the
+dense decoders). The ranks of a ``model`` group share their rows and
+split a dense decoder's matmuls as the JAX package's GSPMD does: the
+attention heads, the MLP's hidden dimension and the vocabulary
+(``sharding/partitioning.compute_split_dim``), each split leaf gathered
+over the rank's expert group as its chunk. The residual carry between
+blocks is the rank's block of the sequence (:class:`_TensorGroup`); a
+layer gathers the sequence (:class:`_SeqGather`), computes its partial
+product and sums it over the group onto the rank's block
+(:class:`_SeqScatter`: an all-reduce and the block, or under
+``cfg.tp_reduce_scatter`` a reduce-scatter, the same bits); the loss
+takes the vocabulary's slices (``train/loss.py``). A split leaf's
+gradient is its chunk's, summed over the expert group; every other leaf's
+microbatch gradient (the norms, on the sequence slice; the kv projections
+where the kv heads do not divide the group; internvl2's projector) is a
+partial over the ``model`` group, summed over it first (its ‖g‖² taken
+once), then over the groups that compute. ``grad_sq_small`` is each
+rank's split leaves' squares summed over the group; ``grad_sq_big`` the
+stored shards' dots. A group without rows runs the meta pass and replays
+as above; its ranks exchange nothing among themselves.
+
+Only the expert and tensor-parallel paths give up bit-identity (their
+sums change order; ``tests/test_torch_expert_parallel.py`` and
+``tests/test_torch_tensor_parallel.py`` hold them to the unsharded run
+within 1e-6). Everywhere else the losses and the gathered parameters are
+bit-identical to the elastic trainer's at any budget
 (``tests/test_torch_mesh_train.py``), with one exception: LARS's and
 LAMB's trust ratios span a whole leaf, and under a sharded layout each
 worker's per-shard sums of squares are combined in shard order, not
-summed over the leaf at once (within 1e-6 relative). Attention, the dense
-MLPs and the routers stay data-parallel over every worker of the mesh:
-in the JAX package the ranks of one ``model`` group split those matmuls
-under GSPMD and share their rows; here a worker computes whole
-microbatches.
+summed over the leaf at once (within 1e-6 relative). Without ``tp``,
+attention, the dense MLPs and the routers stay data-parallel over every
+worker of the mesh: a worker computes whole microbatches.
 
 :func:`sharded_forward` is prefill or decode on a mesh, the params viewed
 as the step views them: each layer gathered where it runs, the experts
@@ -115,10 +135,11 @@ from repro_torch.distributed.step import (
     span_tree_sum,
 )
 from repro_torch.kernels.accounting import descriptors
-from repro_torch.models.layers import moe
-from repro_torch.sharding import NamedSharding
+from repro_torch.models.layers import attention, moe
+from repro_torch.sharding import NamedSharding, shard_tree
+from repro_torch.sharding.partitioning import axes_leaves, check_tensor_parallel, compute_split_dim
 from repro_torch.train.loss import lm_loss
-from repro_torch.train.state import TrainState
+from repro_torch.train.state import TrainState, unstack_axes
 from repro_torch.train.step import clip_by_global_norm
 from repro_torch.utils.tree import tree_leaves, tree_scale
 
@@ -128,12 +149,14 @@ class ShardTimes:
     """Host seconds of one sharded update's parts: the layer gathers'
     (forward and recomputation, waits included), every collective's parts
     as :class:`StagingTimes` (the gathers' too), the MoE experts'
-    all-to-alls (their share of those, copies included), the optimizer's."""
+    all-to-alls and the tensor-parallel boundaries' exchanges (their shares
+    of those, copies included), the optimizer's."""
 
     gather_s: float = 0.0
     exchange: StagingTimes = field(default_factory=StagingTimes)
     update_s: float = 0.0
     experts_s: float = 0.0
+    boundary_s: float = 0.0  # tensor parallelism's exchanges over the model group (copies and sums included)
 
 
 def tensor_leaves(state: TrainState) -> list:
@@ -286,6 +309,10 @@ class _Shards:
         out = _rebuild(tree, iter(_Gather.apply(self.run, tuple(ids), self.run.anchor)))
         if self.experts and "moe" in out:
             out["moe"] = dict(out["moe"], group=_ExpertGroup(self.run, self.experts))
+        if self.run.tensor is not None and isinstance(out, dict):
+            out = {k: dict(v, tp=self.run.tensor) if k in ("attn", "mlp") else v for k, v in out.items()}
+            if "table" in out or "unembed" in out:  # the embedding, or the head
+                out["tp"] = self.run.tensor
         return out
 
 
@@ -341,11 +368,180 @@ def _splits_experts(sharding) -> bool:
     return sharding.mesh.shape.get("model", 1) > 1 and sharding.spec[0] == "model"
 
 
-def _expert_sharding(sharding, sub) -> "NamedSharding":
-    """A split expert leaf's chunk (the rank's E/M experts) on its expert
-    group's sub-grid ``sub``: the leaf's other dimensions placed as before."""
+def _chunk_sharding(sharding, sub, dim: int = 0) -> "NamedSharding":
+    """A leaf's chunk that a ``model`` axis splits along ``dim`` (an MoE
+    layer's E/M experts; under tensor parallelism the rank's heads, hidden
+    slice or vocabulary slice) on the rank's expert group's sub-grid
+    ``sub``: the leaf's other dimensions placed as before."""
     m = sharding.mesh.shape["model"]
-    return NamedSharding(sub, (None,) + tuple(sharding.spec[1:]), (sharding.shape[0] // m,) + tuple(sharding.shape[1:]))
+    spec = tuple(None if k == dim else e for k, e in enumerate(sharding.spec))
+    return NamedSharding(sub, spec, tuple(n // m if k == dim else n for k, n in enumerate(sharding.shape)))
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """What the sharded step and forward need to split a dense decoder's
+    compute over the mesh's ``model`` groups: each param leaf's split
+    dimension (``compute_split_dim``; None for a leaf that runs whole) and
+    whether a boundary's sum lands on the sequence slice by a
+    reduce-scatter (``cfg.tp_reduce_scatter``) or an all-reduce."""
+
+    dims: tuple
+    reduce_scatter: bool = False
+
+
+def tensor_parallel(model, params, mesh, param_axes=None) -> Optional[TensorParallel]:
+    """The :class:`TensorParallel` of ``model``'s ``params`` (any tree of
+    its leaves' shapes) on ``mesh`` under the rules (``param_axes``, the
+    JAX layout, default ``model.param_axes()``); None on a mesh whose
+    ``model`` axis has one rank (nothing to split). Raises ``ValueError``
+    for a model it does not cover, or whose MLP or vocabulary the axis does
+    not divide."""
+    check_tensor_parallel(model.cfg)
+    m = mesh.shape.get("model", 1)
+    if m < 2:
+        return None
+    cfg = model.cfg
+    for name, n in (("d_ff", cfg.d_ff), ("padded vocabulary", cfg.padded_vocab)):
+        if n % m:
+            raise ValueError(f"tensor parallelism splits {cfg.name}'s {name} ({n}) over a model axis of {m}, "
+                             f"which does not divide it")
+    axes = unstack_axes(model.param_axes() if param_axes is None else param_axes, params)
+    shardings = tree_leaves(shard_tree(axes, params, mesh))
+    dims = tuple(compute_split_dim(a, s.spec) for a, s in zip(axes_leaves(axes), shardings, strict=True))
+    return TensorParallel(dims, cfg.tp_reduce_scatter)
+
+
+def local_cache(model, mesh, batch: int, cache_len: int, dtype, device):
+    """The dense cache a rank keeps under tensor parallelism on ``mesh``:
+    ``batch`` rows of its kv heads (``attention.local_kv_heads``)."""
+    cfg = model.cfg
+    heads = attention.local_kv_heads(cfg, mesh.shape.get("model", 1))
+    local = type(model)(cfg.replace(num_kv_heads=heads, head_dim=cfg.resolved_head_dim))
+    return local.init_cache(batch, cache_len, dtype=dtype, device=device)
+
+
+class _TensorGroup:
+    """A dense decoder computed over the rank's ``model`` group of M ranks
+    (the ``"tp"`` entry of the params the model gets: at the top, in each
+    attention and MLP subtree, in the embedding). The split leaves arrive
+    as the rank's heads, hidden slice or vocabulary slice; a layer gathers
+    the sequence before it, computes a partial product, and sums it over
+    the group onto the rank's slice. Between the blocks the residual carry
+    is the rank's block of ``c = ceil(S / M)`` positions of the sequence,
+    padded with zero rows to ``M c`` (the pad rows' outputs are cut before
+    they reach a real row, and nothing reads them). Every sum over the
+    group is the canonical tree in position order, so every rank of the
+    group holds the same bits. A group without rows (its ranks' tensors
+    are meta) exchanges nothing."""
+
+    def __init__(self, run: "_StepRun", reduce_scatter: bool):
+        self.run, self.reduce_scatter = run, reduce_scatter
+        g = run.axis.model
+        self.width, self.me = g.width, g.index(run.rank)
+        self.seq: Optional[int] = None  # the sequence's length, set by the embedding at each forward
+
+    @property
+    def block(self) -> int:
+        return -(-self.seq // self.width)
+
+    def _pad(self, t: torch.Tensor) -> torch.Tensor:
+        pad = self.width * self.block - t.shape[1]
+        return t if pad == 0 else torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))], dim=1)
+
+    # -- what the layers call
+    def slice(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a (B, S, ...) tensor that every rank of the
+        group holds whole: nothing is exchanged, and its gradient is the
+        block's."""
+        c = self.block
+        return self._pad(t)[:, self.me * c:(self.me + 1) * c]
+
+    def gather(self, x: torch.Tensor, trim: bool = True) -> torch.Tensor:
+        """The whole sequence (B, S, ...) from every rank's block (B, c,
+        ...): an all-gather, whose backward sums the gradient's partials
+        onto each block (:class:`_SeqGather`). Untrimmed, the (B, M c, ...)
+        padded sequence."""
+        full = _SeqGather.apply(self, x)
+        return full[:, :self.seq] if trim else full
+
+    def scatter(self, p: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of a partial product p (B, S, ...), the
+        rank's block of it (:class:`_SeqScatter`; backward an all-gather)."""
+        return _SeqScatter.apply(self, self._pad(p))
+
+    # -- the collectives
+    def _timed(self, fn, *args):
+        run = self.run
+        t0 = time.perf_counter()  # repro-lint: disable=R103 -- host timing only
+        out = fn(*args, run.axis.model, run.times.exchange, run.device)
+        run.times.boundary_s += time.perf_counter() - t0  # repro-lint: disable=R103 -- host timing only
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every position's ``t`` in position order (meta where the group has no rows)."""
+        if not self.run.computes:
+            return [torch.empty_like(t, device="meta") for _ in range(self.width)]
+        return self._timed(self.run.axis.model.exchange.group_all_gather, t.detach())
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every position's ``t`` by the ordered tree (an all-reduce)."""
+        if not self.run.computes:
+            return torch.empty_like(t, device="meta")
+        return self._timed(self.run.axis.model.exchange.group_sum, t.detach())
+
+    def all_gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, c, ...) blocks -> (B, M c, ...), in position order."""
+        return torch.cat(self.all_gather(x), dim=1)
+
+    def sum_seq(self, p: torch.Tensor) -> torch.Tensor:
+        """(B, M c, ...) partials -> the rank's (B, c, ...) block of their
+        sum: a reduce-scatter, or an all-reduce and the rank's block (the
+        same bits, twice the bytes)."""
+        c = p.shape[1] // self.width
+        if not self.run.computes:
+            return torch.empty((p.shape[0], c) + tuple(p.shape[2:]), dtype=p.dtype, device="meta")
+        if self.reduce_scatter:
+            return self._timed(self.run.axis.model.exchange.seq_reduce_scatter, p.detach())
+        return self.sum(p)[:, self.me * c:(self.me + 1) * c].clone()
+
+    def sum_leaves(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Gradients (f32) summed over the group, as one flat exchange."""
+        flat = self.sum(torch.cat([g.reshape(-1) for g in grads]))
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        return out
+
+
+class _SeqGather(torch.autograd.Function):
+    """The sequence gathered over the ``model`` group (all-gather); the
+    backward sums the gradient's partials onto each block."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return group.all_gather_seq(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.group.sum_seq(grad)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Partials summed over the ``model`` group onto the rank's block
+    (reduce-scatter, or all-reduce and the block); the backward gathers the
+    blocks' gradient (the partials' gradient is the whole sum's)."""
+
+    @staticmethod
+    def forward(ctx, group, p):
+        ctx.group = group
+        return group.sum_seq(p)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.group.all_gather_seq(grad)
 
 
 class _ExpertGroup:
@@ -475,13 +671,23 @@ class _StepRun:
     leaf's local tree over its microbatches, the summed slices it stores.
     With ``axis`` (the rank's :class:`~repro_torch.launch.mesh.AxisGroups`),
     an MoE layer's experts split over ``model`` are gathered over the
-    rank's expert group and computed over its ``model`` group."""
+    rank's expert group and computed over its ``model`` group. With
+    ``tp`` (a :class:`TensorParallel`, which needs ``axis``) ``width``
+    counts the ``model`` groups that compute rows, whose every rank
+    computes: the split leaves are gathered over the expert group (the
+    rank's chunk) and their gradients summed over it; every other leaf's
+    microbatch gradient is a partial over the ``model`` group (the norms
+    run on the sequence slice), summed over the group first and then over
+    the groups that compute."""
 
     def __init__(self, leaves: list, shardings: list, rank: int, width: int, local_accum: int, xmesh,
-                 times: ShardTimes, axis=None):
+                 times: ShardTimes, axis=None, tp: Optional[TensorParallel] = None):
         self.leaves, self.shardings, self.rank, self.width = leaves, shardings, rank, width
         self.local_accum, self.xmesh, self.times, self.axis = local_accum, xmesh, times, axis
-        self.computes = rank < width
+        if tp is not None and axis is None:
+            raise ValueError("tensor parallelism computes over the rank's axis groups: pass axis")
+        self.computes = (axis.experts.index(rank) if tp is not None else rank) < width
+        self.row_senders = width * axis.model.width if tp is not None else width  # ranks that send whole leaves
         self.device = leaves[0].device  # where this worker's shards and slices live
         self.compute_device = self.device if self.computes else torch.device("meta")
         with descriptors():
@@ -493,7 +699,21 @@ class _StepRun:
         # expert group, how many ranks of the model group and positions of the expert group compute rows
         self.ep: dict = {}
         self.expert_sq: dict = {}  # leaf index -> each sender's ‖g‖² of this microbatch (``_LocalExperts``)
-        if axis is not None:
+        self.tensor: Optional[_TensorGroup] = None
+        if tp is not None:
+            self.model_senders = axis.model.width if self.computes else 0
+            self.expert_senders = width
+            self.sub = axis.mesh.submesh(rank, axis.expert_axes)
+            self.tensor = _TensorGroup(self, tp.reduce_scatter)
+            pos = axis.experts.index(rank)
+            for i, dim in enumerate(tp.dims):
+                if dim is not None:
+                    sh = _chunk_sharding(shardings[i], self.sub, dim)
+                    with descriptors():
+                        like = torch.empty(sh.shape, dtype=leaves[i].dtype, device="meta")
+                        grad_like = torch.empty(sh.shape, dtype=torch.float32, device="meta")
+                    self.ep[i] = (sh, _holds(sh, pos), like, grad_like)
+        elif axis is not None:
             m = axis.model.width
             first = axis.model.ranks[0]
             self.model_senders = max(0, min(m, width - first))
@@ -512,7 +732,7 @@ class _StepRun:
         """For a layer's params (``tree``, leaf indices ``ids``) with an MoE
         whose experts split over ``model``: expert key -> leaf index
         (registered as split); else {}."""
-        if self.axis is None or not isinstance(tree, dict) or "moe" not in tree:
+        if self.axis is None or self.tensor is not None or not isinstance(tree, dict) or "moe" not in tree:
             return {}
         it, found = iter(ids), {}
         for k, v in tree.items():
@@ -523,7 +743,7 @@ class _StepRun:
             return {}
         pos = self.axis.experts.index(self.rank)
         for i in found.values():
-            sh = _expert_sharding(self.shardings[i], self.sub)
+            sh = _chunk_sharding(self.shardings[i], self.sub)
             with descriptors():
                 like = torch.empty(sh.shape, dtype=self.leaves[i].dtype, device="meta")
                 grad_like = torch.empty(sh.shape, dtype=torch.float32, device="meta")
@@ -600,6 +820,7 @@ class _StepRun:
         if self.program is not None:
             self.program.append(("give", ids))
         totals: List[Optional[torch.Tensor]] = []
+        partial = []  # tensor parallelism: (position in totals, leaf, gradient) of a partial over the model group
         for i, g in zip(ids, grads):
             if self.seen[i]:
                 raise RuntimeError(f"leaf {i} was gathered twice in one microbatch")
@@ -612,9 +833,20 @@ class _StepRun:
                 g = torch.zeros(like.shape, dtype=torch.float32, device=self.device)
             g = g.float()
             g = g if g.is_contiguous() else g.contiguous()
-            if i not in self.ep:  # a split expert leaf's ‖g‖² comes from its senders' shares
+            if self.tensor is not None and i not in self.ep:
+                partial.append((len(totals), i, g))
+                totals.append(None)
+                continue
+            if self.tensor is not None or i not in self.ep:  # a split expert leaf's: its senders' shares
                 self.dots[i] = _dot(g)
             totals.append(self.feeds[i].push(g))
+        if partial:
+            # the group's partials summed: the microbatch's gradient, whose ‖g‖² and sum are taken once, on the
+            # group's first rank (the others add zeros to the sum over the ranks that compute)
+            lead = self.tensor.me == 0
+            for (k, i, _), g in zip(partial, self.tensor.sum_leaves([g for _, _, g in partial])):
+                self.dots[i] = _dot(g) if lead else torch.zeros((), dtype=torch.float32, device=g.device)
+                totals[k] = self.feeds[i].push(g if lead else torch.zeros_like(g))
         if self.micro == self.local_accum - 1:
             self._slices(list(ids), totals)
 
@@ -624,7 +856,7 @@ class _StepRun:
         if rest:
             self._sum_slices([ids[k] for k in rest], [totals[k] for k in rest],
                              [self.shardings[ids[k]] for k in rest], [self.grad_likes[ids[k]] for k in rest],
-                             self.xmesh, self.width)
+                             self.xmesh, self.row_senders)
         if split:  # summed over the expert group: each position's partial covers its model group's rows
             self._sum_slices([ids[k] for k in split], [totals[k] for k in split],
                              [self.ep[ids[k]][0] for k in split], [self.ep[ids[k]][3] for k in split],
@@ -671,11 +903,13 @@ class _StepRun:
         unseen = [i for i, s in enumerate(self.seen) if not s]
         if unseen:
             self.give(unseen, [None] * len(unseen))
-        if self.ep and self.group_computes:
+        if self.ep and self.group_computes and self.tensor is None:
             self._expert_dots()
         if self.program is not None:
             self.program.append(("end", None))
         sq = sum(self.dots) if self.computes else None
+        if self.tensor is not None and self.computes:  # each rank's split leaves' squares, summed over the group
+            sq = self.tensor.sum(sq.reshape(1))[0]
         self.micro += 1
         self.seen, self.dots = [False] * len(self.seen), [None] * len(self.dots)
         return sq
@@ -687,6 +921,8 @@ class _StepRun:
         added in leaf order."""
         ex, W = self.xmesh.exchange, self.xmesh.width
         dots = torch.zeros(len(grads), dtype=torch.float32, device=self.device)
+        if self.tensor is not None:
+            return self._shard_sq(grads, owners, dots)
         idx = []
         for i, s in enumerate(self.shardings):
             if not s.replicated:
@@ -706,11 +942,35 @@ class _StepRun:
             every = [from_host(host[d], like, self.times.exchange, self.device) for d in range(W)]
         return sum(every[owners[i]][i] for i in range(len(grads)))
 
+    def _shard_sq(self, grads: list, owners: list, dots: torch.Tensor) -> torch.Tensor:
+        """``global_sq`` under tensor parallelism: each stored shard's dot on
+        its holder (a replicated leaf's on its owner), all-gathered, added
+        over a leaf's shards in index order and over the leaves in leaf
+        order. No leaf is assembled whole; the sum's order is not the
+        unsharded one's."""
+        ex, W = self.xmesh.exchange, self.xmesh.width
+        for i, s in enumerate(self.shardings):
+            if (owners[i] == self.rank) if s.replicated else self.holds[i]:
+                dots[i] = _dot(grads[i])
+        with descriptors():
+            like = dots.to("meta")
+        every = []
+        for _, host in ex.all_gather([dots], self.xmesh, self.times.exchange):
+            every = [from_host(host[d], like, self.times.exchange, self.device) for d in range(W)]
+        total = None
+        for i, s in enumerate(self.shardings):
+            terms = [every[owners[i]][i]] if s.replicated else [every[h][i] for h in s.holders().values()]
+            leaf = terms[0]
+            for t in terms[1:]:
+                leaf = leaf + t
+            total = leaf if total is None else total + leaf
+        return total
+
 
 @torch.no_grad()
 def sharded_forward(model, params, shardings: list, *, rank: int, width: int, xmesh, kind: str, batch: dict,
                     cache, cache_index=None, memory=None, axis=None, times: Optional[ShardTimes] = None,
-                    gathered: Optional[set] = None):
+                    gathered: Optional[set] = None, tp: Optional[TensorParallel] = None):
     """One worker's prefill (``kind`` "prefill") or decode step ("decode")
     on a mesh: ``params`` this worker's shards (``shardings`` place the
     leaves on the mesh whose ranks are ``xmesh``'s; every rank calls it),
@@ -722,11 +982,17 @@ def sharded_forward(model, params, shardings: list, *, rank: int, width: int, xm
     every gather and, where its ``model`` group has rows, runs its experts
     on them. Returns ``model.prefill``'s or ``model.decode_step``'s
     (logits, cache), meta where the rank has no rows; ``gathered`` collects
-    the indices of the leaves the step read."""
+    the indices of the leaves the step read. With ``tp`` the ``model``
+    groups split the compute (:class:`TensorParallel`): ``width`` counts
+    the groups with rows, every rank of such a group takes the group's
+    rows, ``cache`` holds the rank's kv heads (``attention.local_kv_heads``)
+    and the logits are gathered over the vocabulary."""
     leaves = tree_leaves(params)
-    run = _StepRun(leaves, shardings, rank, width, 1, xmesh, ShardTimes() if times is None else times, axis)
+    run = _StepRun(leaves, shardings, rank, width, 1, xmesh, ShardTimes() if times is None else times, axis, tp)
     run.gathered = gathered
     view = _view(params, {id(x): i for i, x in enumerate(leaves)}, run, [])
+    if run.tensor is not None:
+        view["tp"] = run.tensor
     if kind == "prefill":
         return model.prefill(view, batch, cache, memory=memory)
     return model.decode_step(view, batch["tokens"], cache, cache_index, memory=memory)
@@ -734,7 +1000,7 @@ def sharded_forward(model, params, shardings: list, *, rank: int, width: int, xm
 
 def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, width: int, local_accum: int, xmesh,
                              z_loss: float = 0.0, grad_clip: float = 0.0, times: Optional[List[ShardTimes]] = None,
-                             axis=None):
+                             axis=None, tp: Optional[TensorParallel] = None):
     """One worker's sharded step: ``step(state, batch, lr, stage) ->
     (state, metrics)``, ``state`` this worker's shards (updated in place),
     ``batch`` its chunk (local_accum, micro, ...) where ``rank < width``,
@@ -746,7 +1012,11 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
     :class:`~repro_torch.launch.mesh.AxisGroups` on the shardings' mesh)
     computes an MoE layer's experts over the ``model`` group where the
     rules split them over ``model``; without it every rank runs every
-    expert."""
+    expert. With ``tp`` (:class:`TensorParallel`, with ``axis``) the
+    ``model`` groups split a dense decoder's attention, MLPs and vocabulary:
+    ``width`` counts the groups that compute, each of whose ranks takes the
+    group's chunk; the metrics are combined over the expert group (one
+    rank of each ``model`` group)."""
     global_accum = width * local_accum
     sharded = any(not s.replicated for s in shardings)
     leaf_sums = _leaf_sums(shardings, rank, xmesh) if sharded and xmesh.width > 1 else None
@@ -766,9 +1036,11 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
             metrics = _metrics(total, grads, global_accum)
             sq_big = None
         else:
-            run = _StepRun(leaves, shardings, rank, width, local_accum, xmesh, t, axis)
+            run = _StepRun(leaves, shardings, rank, width, local_accum, xmesh, t, axis, tp)
             groups: list = []
             view = _view(state.params, {id(x): i for i, x in enumerate(leaves)}, run, groups)
+            if run.tensor is not None:
+                view["tp"] = run.tensor
             owners = _owners(groups, len(leaves), xmesh.width)
             terms = []
             key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
@@ -786,8 +1058,10 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
                         terms.append({"loss": m["loss"].detach(), "aux": m["aux"].detach(), "sq": sq})
                 run.program = None
             total = dict(span_tree_sum(lambda j: terms[j], local_accum, scalars), grads=[]) if run.computes else None
-            total = _combine_across(total, xmesh, t.exchange, senders=width, likes=[],
-                                    device=run.device)
+            if run.tensor is None:
+                total = _combine_across(total, xmesh, t.exchange, senders=width, likes=[], device=run.device)
+            elif axis.experts.width > 1:  # a model group's ranks hold the same metrics: one of each group sends
+                total = _combine_across(total, axis.experts, t.exchange, senders=width, likes=[], device=run.device)
             grads = tree_scale(run.summed, 1.0 / global_accum)
             run.summed = None
             sq_big = run.global_sq(grads, owners)

@@ -34,6 +34,14 @@ group's. :meth:`HostExchange.to_all` is the MoE layer's all-to-all over a
 ``model`` group: each rank writes its blocks into its slot in position
 order and reads, from each sender, the block of its own position.
 
+Tensor parallelism's boundaries (``sharded.py``'s ``_TensorGroup``) add
+three collectives over a ``model`` group, :class:`GroupCollectives`, which
+both routes inherit: an all-gather (along the sequence, or of a few
+scalars), a reduce-scatter along the sequence (an all-to-all of the blocks
+and their sum by the canonical tree in position order) and a sum (an
+all-reduce: that reduce-scatter, then an all-gather of the summed blocks).
+Their sums' bits depend neither on timing nor on the route.
+
 When every worker has a card of its own, the same collectives go through
 NCCL instead (:class:`repro_torch.distributed.nccl.DeviceExchange`, the
 same methods): :func:`make_exchange` chooses by the run's devices.
@@ -95,6 +103,48 @@ def slice_position(sharding, rank: int) -> int:
     return list(sharding.holders()).index(sharding.shard_index(rank))
 
 
+class GroupCollectives:
+    """The tensor-parallel boundaries' collectives over an axis group
+    ``mesh`` (a ``model`` group), built on the exchange's ``all_gather``
+    and ``to_all``: each rank passes tensors of one shape and dtype, and
+    every rank of the group gets the same bits."""
+
+    def group_all_gather(self, t: torch.Tensor, mesh, times: StagingTimes, device) -> List[torch.Tensor]:
+        """Every position's ``t``, in position order, as new tensors on ``device``."""
+        like = torch.empty(t.shape, dtype=t.dtype, device="meta")
+        parts: List[torch.Tensor] = []
+        for _, got in self.all_gather([t], mesh, times):
+            parts = [from_host(b, like, times, device) for b in got]
+        return parts
+
+    def group_sum(self, t: torch.Tensor, mesh, times: StagingTimes, device) -> torch.Tensor:
+        """The sum of every position's ``t`` (an all-reduce): its elements,
+        padded to M blocks, reduce-scattered (:meth:`seq_reduce_scatter`)
+        and the summed blocks all-gathered, a ring's bytes (2 x shape)."""
+        m, n = mesh.width, t.numel()
+        c = -(-n // m)
+        flat = t.reshape(1, n)
+        if m * c > n:
+            flat = torch.cat([flat, flat.new_zeros((1, m * c - n))], dim=1)
+        mine = self.seq_reduce_scatter(flat, mesh, times, device)
+        return torch.cat(self.group_all_gather(mine, mesh, times, device), dim=1)[0, :n].reshape(t.shape)
+
+    def seq_reduce_scatter(self, t: torch.Tensor, mesh, times: StagingTimes, device) -> torch.Tensor:
+        """``t`` (B, M c, ...) summed over the group's M positions, this
+        position's block (B, c, ...) of it (a reduce-scatter along dimension
+        1): block q of every rank to position q, added by the canonical tree
+        in position order. Elementwise, the bits of :meth:`group_sum`'s
+        block."""
+        from repro_torch.distributed.step import add_, span_tree_sum
+
+        m = mesh.width
+        c = t.shape[1] // m
+        sends = [t[:, q * c:(q + 1) * c].contiguous() for q in range(m)]
+        like = torch.empty(sends[0].shape, dtype=t.dtype, device="meta")
+        got = self.to_all(sends, {p: like for p in range(m)}, mesh, times, device)
+        return span_tree_sum(lambda p: got[p], m, add_)
+
+
 def make_exchange(directory: str, rank: int, world: int, slot_bytes: int, devices: list):
     """The run's collectives: NCCL (:class:`~repro_torch.distributed.nccl.DeviceExchange`)
     where the ``world`` workers each have a CUDA card of their own, else the
@@ -108,7 +158,7 @@ def make_exchange(directory: str, rank: int, world: int, slot_bytes: int, device
     return HostExchange(directory, rank, world, slot_bytes)
 
 
-class HostExchange:
+class HostExchange(GroupCollectives):
     """One slot of ``slot_bytes`` a rank, in ``directory``, mapped by every
     worker of the run; created by rank r for slot r, then a barrier of the
     default group (every rank calls the constructor together)."""

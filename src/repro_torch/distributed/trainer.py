@@ -48,6 +48,9 @@ leaves this trainer holding rank 0's accountant, pipeline position, schedule
 state and the steps it built (``_steps``, keyed (mode, width, local_accum)),
 and each worker's statistics in :attr:`worker_stats` (peak device memory,
 kernel launches, the host-staged collectives' seconds, the reshards').
+:func:`run_together` (and :func:`run_all_on_mesh` for mesh runs) runs
+several trainers of the same workers one after another in one spawn, each
+as it runs alone: the workers start once.
 
 **Bits.** Each worker takes the caller's ``torch.get_num_threads()``, TF32
 flags, float32 matmul precision and deterministic-algorithms flag, so a
@@ -81,16 +84,22 @@ width of them compute. On a mesh whose ``model`` axis splits an MoE
 layer's experts, each worker also makes its axis groups
 (``launch/mesh.make_axis_groups``) and computes its experts over its
 ``model`` group (``sharded.py``): that path holds the unsharded run within
-a tolerance, not to its bits.
+a tolerance, not to its bits. With ``SEBSTrainer(...,
+tensor_parallel=True)`` the ``model`` groups split a dense decoder's
+attention, MLPs and vocabulary (``sharded.TensorParallel``): the stage's
+width counts the groups that compute, the ranks of a group take its rows
+(``launch/mesh.row_index``), and that path too holds the unsharded run
+within a tolerance.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import shutil
 import tempfile
 from datetime import timedelta
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -115,11 +124,17 @@ from repro_torch.distributed.reshard import (
     skeleton_of,
     state_shardings,
 )
-from repro_torch.distributed.sharded import build_sharded_train_step, move_state, tensor_leaves, tensor_shardings
+from repro_torch.distributed.sharded import (
+    build_sharded_train_step,
+    move_state,
+    tensor_leaves,
+    tensor_parallel,
+    tensor_shardings,
+)
 from repro_torch.distributed.staging import StagingTimes, make_exchange
 from repro_torch.distributed.step import build_elastic_train_step, build_local_train_step
 from repro_torch.distributed.sync import CommAccountant, SyncScheduler, allreduce_bytes_per_device, sync_cost
-from repro_torch.launch.mesh import make_axis_groups, prefix_groups
+from repro_torch.launch.mesh import make_axis_groups, prefix_groups, row_groups, row_index
 from repro_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.optim.base import Optimizer
@@ -165,6 +180,7 @@ class ElasticTrainer(SEBSTrainer):
         self._sharded = param_axes is not None and sync_mode == "exact"
         self._held: Optional[int] = None    # ranks that store the state (sharded layouts)
         self._axis = None                   # a worker's axis groups on a mesh (MeshTrainer)
+        self._tp = None                     # a worker's TensorParallel on a mesh (MeshTrainer)
         self.collective_timeout = collective_timeout
         self.deadline = deadline
         self._width: Optional[int] = None   # realized width (None = not placed yet)
@@ -214,6 +230,14 @@ class ElasticTrainer(SEBSTrainer):
         """A worker's axis groups (None: the elastic widths are ("data",) meshes)."""
         return None
 
+    def _tensor_split(self):
+        """A worker's ``sharded.TensorParallel`` (None: data-parallel compute)."""
+        return None
+
+    def _row(self) -> int:
+        """This worker's place among the units that take rows: its rank."""
+        return self._rank
+
     def _layout(self, n: int) -> list:
         """The shardings of the state's tensor leaves when ranks ``[0, n)``
         store it (n = 1: rank 0 holds it whole)."""
@@ -233,7 +257,7 @@ class ElasticTrainer(SEBSTrainer):
                 self._steps[key] = build_sharded_train_step(
                     self.model, self.optimizer, self._layout(self._held)[:n_params], rank=self._rank,
                     width=mp.width, local_accum=mp.local_accum, xmesh=self.planner.mesh_for(self._held),
-                    grad_clip=self.grad_clip, times=self._times["sharded"], axis=self._axis)
+                    grad_clip=self.grad_clip, times=self._times["sharded"], axis=self._axis, tp=self._tp)
             elif stacked:
                 self._steps[key] = build_local_train_step(
                     self.model, self.optimizer, mesh, width=mp.width, local_accum=mp.local_accum,
@@ -326,13 +350,13 @@ class ElasticTrainer(SEBSTrainer):
 
     def _place_batch(self, batch: dict, plan: StepPlan) -> Optional[dict]:
         mp = self._mp
-        if self._rank >= mp.width:
+        if self._row() >= mp.width:
             if not self._sharded:
                 return None
             # a sharded step's rank that computes nothing runs it on meta tensors of a chunk's shapes
             return {k: torch.empty((mp.local_accum, plan.microbatch) + tuple(v.shape[1:]), dtype=v.dtype,
                                    device="meta") for k, v in batch.items()}
-        lo = self._rank * mp.local_accum
+        lo = self._row() * mp.local_accum
         return {k: v.reshape((plan.accum_steps, plan.microbatch) + tuple(v.shape[1:]))[lo:lo + mp.local_accum]
                 for k, v in batch.items()}
 
@@ -491,6 +515,16 @@ class ElasticTrainer(SEBSTrainer):
         if self._rank is not None:  # a worker: the loop itself
             return super().run(state, log_every, checkpointer=checkpointer, save_every=save_every,
                                resume=resume, stop_after_updates=stop_after_updates)
+        kw = {"log_every": log_every, "checkpointer": checkpointer, "save_every": save_every, "resume": resume,
+              "stop_after_updates": stop_after_updates, "init_seed": init_seed}
+        return run_together([(self, state, kw)])[0]
+
+    def _job(self, state: Optional[TrainState], log_every: int = 10, *,
+             checkpointer: Optional[CheckpointManager] = None, save_every: int = 0, resume: bool = False,
+             stop_after_updates: Optional[int] = None, init_seed: Optional[int] = None):
+        """What a worker needs for this run (see :meth:`run`): (the job, the
+        state tensors rank 0 takes from the caller or None, the caller's
+        state or its meta stand-in)."""
         if checkpointer is not None and not isinstance(checkpointer, CheckpointManager):
             raise TypeError(f"checkpointer must be a CheckpointManager, not {type(checkpointer).__name__}")
         if (state is None) == (init_seed is None):
@@ -498,13 +532,6 @@ class ElasticTrainer(SEBSTrainer):
         self._keep = init_seed is not None
         if self._keep:
             state = self._initial_state(init_seed, "meta")
-        world = self.planner.device_budget
-        if any(torch.device(d).type == "cuda" for d in self.planner.devices[:world]):
-            if not torch.cuda.is_available():
-                raise RuntimeError("the elastic trainer's devices name CUDA, and none is available")
-            from repro_torch.kernels import _cuda
-
-            _cuda.build()  # the workers load what the parent built
         if self._grad_bytes is None:
             self._grad_bytes = tree_size(state.params) * 4  # grads travel in f32
             self._state_bytes = float_state_bytes(state)
@@ -513,29 +540,11 @@ class ElasticTrainer(SEBSTrainer):
         # tensor by an IPC handle, a CPU one by moving its storage to shared
         # memory (in place); rank 0 copies them in and its final values back
         shared = None if self._keep else _map_state(lambda t: t.detach(), state)
-        workdir = tempfile.mkdtemp(prefix="elastic_")
-        try:
-            job = {"workdir": workdir, "world": world, "trainer": self, "settings": caller_settings(),
-                   "slot_bytes": slot_bytes(state), "log_every": log_every, "save_every": save_every,
-                   "resume": resume, "stop_after_updates": stop_after_updates, "init_seed": init_seed,
-                   "ckpt": None if checkpointer is None else (checkpointer.directory, checkpointer.keep_last)}
-            ctx = torch.multiprocessing.get_context("spawn")
-            procs = [ctx.Process(target=_worker, args=(rank, job, [shared] if rank == 0 else []),
-                                 name=f"elastic-{rank}") for rank in range(world)]
-            try:
-                for p in procs:
-                    p.start()
-            except BaseException:
-                stop_workers([p for p in procs if p.pid is not None])
-                raise
-            join_workers(procs, workdir, self.deadline)
-            results = [torch.load(os.path.join(workdir, f"result_{r}.pt"), weights_only=False)
-                       for r in range(world)]
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
-            if torch.cuda.is_initialized():
-                torch.cuda.ipc_collect()  # the blocks rank 0 held through IPC handles
-        return self._adopt(state, results)
+        job = {"trainer": self, "slot_bytes": slot_bytes(state), "log_every": log_every,
+               "save_every": save_every, "resume": resume, "stop_after_updates": stop_after_updates,
+               "init_seed": init_seed,
+               "ckpt": None if checkpointer is None else (checkpointer.directory, checkpointer.keep_last)}
+        return job, shared, state
 
     def _initial_state(self, seed: int, device) -> TrainState:
         params = self.model.init(seed, device=device)
@@ -604,6 +613,9 @@ class MeshTrainer(ElasticTrainer):
     params are bit-identical to :class:`ElasticTrainer`'s at budget 1, but
     where an MoE layer's experts split over ``model``: computed over the
     ``model`` groups, they hold that run within a tolerance (1e-6 at f32).
+    With ``base.tensor_parallel`` the microbatches spread over the
+    ``model`` groups (``width`` counts groups) and each group splits its
+    compute (within 1e-6 of that run at f32 too).
     Checkpoints are the single-process trainer's (no elastic meta keys)."""
 
     def __init__(self, base: SEBSTrainer):
@@ -616,9 +628,23 @@ class MeshTrainer(ElasticTrainer):
         # the caller's own controller, pipeline and host RNG: what the run moves on is the caller's
         self.controller, self.host_rng = base.controller, base.host_rng
         self.param_axes, self.storage, self._sharded = base.param_axes, mesh, True
+        self.tensor_parallel = base.tensor_parallel
+        if self.tensor_parallel:  # a stage's width counts the model groups that compute
+            self.planner.width_budget = row_groups(mesh, True)
 
     def _store_width(self, width: int) -> int:
         return self.storage.size
+
+    def _tensor_split(self):
+        """With ``tensor_parallel``, the ``model`` groups split a dense
+        decoder's compute (``sharded.tensor_parallel``; None on a mesh whose
+        ``model`` axis has one rank)."""
+        if not self.tensor_parallel:
+            return None
+        return tensor_parallel(self.model, self._skeleton.params, self.storage, self.param_axes)
+
+    def _row(self) -> int:
+        return row_index(self.storage, self._rank, self._tp is not None)
 
     def _axis_groups(self, rank: int, exchange):
         """The rank's ``model`` and expert groups on the storage mesh, made
@@ -647,10 +673,71 @@ class MeshTrainer(ElasticTrainer):
 
 def run_on_mesh(base: SEBSTrainer, state: TrainState, **run_kw):
     """``base.run`` on ``base.mesh`` (see :class:`MeshTrainer`)."""
-    runner = MeshTrainer(base)
-    state, log = runner.run(state, **run_kw)
-    base._steps, base._last_saved, base.worker_stats = runner._steps, runner._last_saved, runner.worker_stats
-    return state, log
+    return run_all_on_mesh([(base, state, run_kw)])[0]
+
+
+def run_all_on_mesh(runs: Sequence[Tuple[SEBSTrainer, Optional[TrainState], dict]]) -> list:
+    """Several :func:`run_on_mesh` runs, (base, state, run keywords) each,
+    on meshes of the same devices, one after another by one spawn of the
+    mesh's workers (:func:`run_together`). Returns each run's (state, log)."""
+    runners = [MeshTrainer(base) for base, _, _ in runs]
+    out = run_together([(runner, state, kw) for runner, (_, state, kw) in zip(runners, runs)])
+    for (base, _, _), runner in zip(runs, runners):
+        base._steps, base._last_saved, base.worker_stats = runner._steps, runner._last_saved, runner.worker_stats
+    return out
+
+
+def run_together(runs: Sequence[Tuple[ElasticTrainer, Optional[TrainState], dict]]) -> list:
+    """Each of ``runs``, (trainer, state, :meth:`ElasticTrainer.run`'s
+    keywords), one after another in one spawn of workers: every trainer's
+    budget of the same devices. A worker runs each as it would alone (its
+    own process groups and host slots, its card's peak and the kernels'
+    launch counts zeroed before it, its memory freed after it) and the
+    parent waits for them all (the sum of their deadlines). Returns each
+    run's (state, log), and leaves each trainer as its :meth:`run` does."""
+    first = runs[0][0].planner
+    world, devices = first.device_budget, [torch.device(d) for d in first.devices[:first.device_budget]]
+    for trainer, _, _ in runs[1:]:
+        planner = trainer.planner
+        if planner.device_budget != world or [torch.device(d) for d in planner.devices[:world]] != devices:
+            raise ValueError(f"runs together need the same workers: {planner.device_budget} on "
+                             f"{planner.devices[:planner.device_budget]}, not {world} on {devices}")
+    jobs, shared, states = [], [], []
+    for trainer, state, kw in runs:
+        job, box, state = trainer._job(state, **kw)
+        jobs.append(job)
+        shared.append(box)
+        states.append(state)
+    if any(d.type == "cuda" for d in devices):
+        if not torch.cuda.is_available():
+            raise RuntimeError("the elastic trainer's devices name CUDA, and none is available")
+        from repro_torch.kernels import _cuda
+
+        _cuda.build()  # the workers load what the parent built
+    deadlines = [trainer.deadline for trainer, _, _ in runs]
+    workdir = tempfile.mkdtemp(prefix="elastic_")
+    try:
+        for i in range(len(jobs)):
+            os.mkdir(os.path.join(workdir, f"run_{i}"))  # each run's host slots
+        common = {"workdir": workdir, "world": world, "settings": caller_settings(),
+                  "timeout": max(trainer.collective_timeout for trainer, _, _ in runs)}
+        ctx = torch.multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_worker, args=(rank, common, jobs, shared if rank == 0 else []),
+                             name=f"elastic-{rank}") for rank in range(world)]
+        try:
+            for p in procs:
+                p.start()
+        except BaseException:
+            stop_workers([p for p in procs if p.pid is not None])
+            raise
+        join_workers(procs, workdir, None if None in deadlines else sum(deadlines))
+        results = [[torch.load(os.path.join(workdir, f"result_{i}_{r}.pt"), weights_only=False)
+                    for r in range(world)] for i in range(len(jobs))]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        if torch.cuda.is_initialized():
+            torch.cuda.ipc_collect()  # the blocks rank 0 held through IPC handles
+    return [trainer._adopt(state, res) for (trainer, _, _), state, res in zip(runs, states, results)]
 
 
 # -- the processes ------------------------------------------------------------------
@@ -688,54 +775,80 @@ def _copy_tensors(dst: TrainState, src: TrainState) -> None:
             a.copy_(b)
 
 
-def _worker(rank: int, job: dict, box: list) -> None:
-    """One worker process: join the process group, run the loop, write the
-    result (or the traceback) into the run's directory. Rank 0 gets the
-    caller's state (in ``box``), writes its final values into it and drops
-    it before it exits, so that the parent may free CUDA memory it shared;
-    or, given the job's ``init_seed``, builds the state on its device."""
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.fused_optim import ops as optim_ops
+    from repro_torch.kernels.gla import ops as gla_ops
+    from repro_torch.kernels.paged_decode import ops as paged_ops
+
+    for ops in (flash_ops, optim_ops, gla_ops, paged_ops):
+        ops.reset_launches()
+
+
+def _worker(rank: int, common: dict, jobs: list, box: list) -> None:
+    """One worker process: join the process group, then run each job in
+    turn (:func:`_run_job`); the traceback of a failure goes into the run's
+    directory."""
     import torch.distributed as dist
 
-    workdir = job["workdir"]
+    workdir = common["workdir"]
     try:
-        apply_settings(job["settings"])
+        apply_settings(common["settings"])
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        trainer: ElasticTrainer = job["trainer"]
-        device = torch.device(trainer.planner.devices[rank])
+        device = torch.device(jobs[0]["trainer"].planner.devices[rank])
         if device.type == "cuda":
             if not torch.cuda.is_available() or (device.index or 0) >= torch.cuda.device_count():
                 raise RuntimeError(f"worker {rank}: its device {device} is not available")
             torch.cuda.set_device(device)
-            torch.cuda.reset_peak_memory_stats(device)
         dist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "store"), rank=rank,
-                                world_size=job["world"], timeout=timedelta(seconds=trainer.collective_timeout))
+                                world_size=common["world"], timeout=timedelta(seconds=common["timeout"]))
         try:
-            trainer._rank = rank
-            trainer.planner.groups, trainer.planner._meshes = prefix_groups(job["world"]), {}
-            if job["world"] > 1:
-                trainer.planner.exchange = make_exchange(workdir, rank, job["world"], job["slot_bytes"],
-                                                         trainer.planner.devices)
-                trainer._axis = trainer._axis_groups(rank, trainer.planner.exchange)
-            trainer.pipeline.device = device
-            state = shared = None
-            if rank == 0:
-                shared = box.pop()  # the process object holds its arguments to the end
-                state = (trainer._initial_state(job["init_seed"], device) if shared is None
-                         else _map_state(lambda t: t.to(device, copy=True), shared))
-            ckpt = None if job["ckpt"] is None else CheckpointManager(job["ckpt"][0], keep_last=job["ckpt"][1])
-            try:
-                state, log = trainer.run(state, job["log_every"], checkpointer=ckpt, save_every=job["save_every"],
-                                         resume=job["resume"], stop_after_updates=job["stop_after_updates"])
-            finally:
-                if ckpt is not None:
-                    ckpt.close()
-            if shared is not None:
-                _copy_tensors(shared, state)
+            for i in range(len(jobs)):
+                job, jobs[i] = jobs[i], None  # the process object holds its arguments to the end
+                _run_job(i, rank, common, job, box.pop(0) if rank == 0 else None, device)
+                del job
+                gc.collect()
                 if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                del shared  # releases the IPC handles
-            torch.save(trainer._result(state, log, device), os.path.join(workdir, f"result_{rank}.pt"))
+                    torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
     except BaseException:
         fail_worker(workdir, rank)
+
+
+def _run_job(i: int, rank: int, common: dict, job: dict, shared: Optional[TrainState], device) -> None:
+    """Run ``i`` of a spawn in this worker: the loop, then its result in the
+    run's directory. Rank 0 gets the caller's state (``shared``), writes
+    its final values into it and drops it, so that the parent may free
+    CUDA memory it shared; or, given the job's ``init_seed``, builds the
+    state on its device."""
+    world, workdir = common["world"], common["workdir"]
+    trainer: ElasticTrainer = job["trainer"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()
+    trainer._rank = rank
+    trainer.planner.groups, trainer.planner._meshes = prefix_groups(world), {}
+    if world > 1:
+        trainer.planner.exchange = make_exchange(os.path.join(workdir, f"run_{i}"), rank, world, job["slot_bytes"],
+                                                 trainer.planner.devices)
+        trainer._axis = trainer._axis_groups(rank, trainer.planner.exchange)
+        trainer._tp = trainer._tensor_split()
+    trainer.pipeline.device = device
+    state = None
+    if rank == 0:
+        state = (trainer._initial_state(job["init_seed"], device) if shared is None
+                 else _map_state(lambda t: t.to(device, copy=True), shared))
+    ckpt = None if job["ckpt"] is None else CheckpointManager(job["ckpt"][0], keep_last=job["ckpt"][1])
+    try:
+        state, log = trainer.run(state, job["log_every"], checkpointer=ckpt, save_every=job["save_every"],
+                                 resume=job["resume"], stop_after_updates=job["stop_after_updates"])
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    if shared is not None:
+        _copy_tensors(shared, state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        del shared  # releases the IPC handles
+    torch.save(trainer._result(state, log, device), os.path.join(workdir, f"result_{i}_{rank}.pt"))

@@ -44,9 +44,16 @@ are recorded, and their results are meta tensors. A one-rank mesh runs
 ``train/step.py``'s step, which the trainer runs on one device. Prefill
 and decode run ``sharded_forward`` on the rank's rows of the batch and
 cache: each layer gathered where it runs, the experts as in training.
+With ``--tensor-parallel`` (the dense decoders) the ``model`` groups split
+attention, the MLPs and the vocabulary, the rows spread over the groups
+(every rank of a group takes its group's), and the recording transport
+logs the groups' boundaries too: all-gathers, all-reduces and
+reduce-scatters (``cfg.tp_reduce_scatter``), each time a checkpoint
+region runs them (the forward and the recomputation).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k --tensor-parallel
   python -m repro_torch.launch.dryrun --all --multi-pod both
 """
 from __future__ import annotations
@@ -65,15 +72,29 @@ from repro_torch.configs import INPUT_SHAPES, list_archs
 from repro_torch.configs.shapes import InputShape, config_for, input_specs, shape_applicable
 from repro_torch.distributed.reshard import reshard_state, state_shardings
 from repro_torch.distributed.sharded import (
+    ShardTimes,
+    TensorParallel,
     _rebuild,
+    _StepRun,
+    _view,
     build_sharded_train_step,
+    local_cache,
     own_shard,
     sharded_forward,
     tensor_leaves,
     tensor_shardings,
 )
+from repro_torch.distributed.sharded import tensor_parallel as split_compute
 from repro_torch.distributed.staging import StagingTimes
-from repro_torch.launch.mesh import AxisGroups, DataMesh, axis_groups, make_production_mesh, rank_rows
+from repro_torch.launch.mesh import (
+    AxisGroups,
+    DataMesh,
+    axis_groups,
+    make_production_mesh,
+    rank_rows,
+    row_groups,
+    row_index,
+)
 from repro_torch.models import LanguageModel
 from repro_torch.optim import make_optimizer
 from repro_torch.roofline.collectives import CollectiveLog
@@ -169,6 +190,26 @@ class RecordingExchange:
                 tensors[i] = None
             yield i, [self.slot[:nbytes]] * senders
 
+    # the tensor-parallel boundaries (``staging.GroupCollectives``): each part received is a new tensor
+    def group_all_gather(self, t, mesh, times: StagingTimes, device):
+        nbytes = mesh.width * t.numel() * t.element_size()
+        self.log.record("all-gather", nbytes)
+        times.received_bytes += nbytes
+        return [torch.empty(t.shape, dtype=t.dtype, device=device) for _ in range(mesh.width)]
+
+    def group_sum(self, t, mesh, times: StagingTimes, device):
+        nbytes = mesh.width * -(-t.numel() // mesh.width) * t.element_size()  # padded to M blocks
+        self.log.record("all-reduce", nbytes)
+        times.received_bytes += 2 * nbytes
+        return torch.empty(t.shape, dtype=t.dtype, device=device)
+
+    def seq_reduce_scatter(self, t, mesh, times: StagingTimes, device):
+        nbytes = t.numel() * t.element_size()
+        self.log.record("reduce-scatter", nbytes)
+        times.received_bytes += nbytes
+        block = (t.shape[0], t.shape[1] // mesh.width) + tuple(t.shape[2:])
+        return [torch.empty(block, dtype=t.dtype, device=device) for _ in range(mesh.width)][0]
+
 
 def recording_mesh(width: int, device, slot_bytes: int, rank: int = 0) -> DataMesh:
     """The ("data",) mesh of ``width`` ranks a counted step of ``rank`` runs over."""
@@ -240,10 +281,12 @@ def _stack(batch: dict, accum: int) -> dict:
 
 def activation_bytes(model: LanguageModel, params, batch: dict) -> int:
     """Bytes one microbatch's forward leaves alive for its backward: the
-    storages its loss's graph keeps (under the config's remat policy)."""
-    leaves = tree_leaves(params)
-    for w in leaves:
-        w.requires_grad_(True)
+    storages its loss's graph keeps (under the config's remat policy).
+    ``params`` may be the sharded step's view (its gathers and boundaries
+    recorded by their own transport)."""
+    for w in tree_leaves(params):
+        if isinstance(w, torch.Tensor):
+            w.requires_grad_(True)
     with StepCounter() as c:
         total, _ = lm_loss(model, params, batch)
         kept = c.live_bytes - c.live_of(total)
@@ -270,11 +313,25 @@ def _cost(counter: StepCounter) -> dict:
             "kernels": {k: dict(v) for k, v in sorted(counter.kernels.items())}}
 
 
+def _split_activation_bytes(model, params, shardings: list, rank: int, width: int, mesh, batch: dict,
+                            tp: TensorParallel, device) -> int:
+    """:func:`activation_bytes` of the rank's microbatch under tensor
+    parallelism: the loss of the sharded step's view of its shards."""
+    xmesh = recording_mesh(mesh.size, device, 1, rank)
+    leaves = tree_leaves(params)
+    run = _StepRun(leaves, shardings, rank, width, 1, xmesh, ShardTimes(), recording_axes(mesh, xmesh, rank), tp)
+    view = _view(params, {id(t): i for i, t in enumerate(leaves)}, run, [])
+    view["tp"] = run.tensor
+    return activation_bytes(model, view, batch)
+
+
 def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mode: str = "psum_each",
-                optimizer_name: str = "momentum", device="meta", rank: int = 0) -> dict:
+                optimizer_name: str = "momentum", device="meta", rank: int = 0,
+                tensor_parallel: bool = False) -> dict:
     """Rank ``rank``'s train step on ``mesh`` (rank 0's by default), a rank
     that computes rows: memory, cost, collectives and the rank's share of
-    the work."""
+    the work. With ``tensor_parallel`` the ``model`` groups split the
+    compute (``sharded.TensorParallel``) and the rows spread over them."""
     if shape.global_batch % accum_steps:
         raise ValueError(f"global batch {shape.global_batch} does not split into {accum_steps} microbatches")
     model = LanguageModel(cfg)
@@ -283,11 +340,13 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
     specs = input_specs(cfg, shape)
     args = state_argument_bytes(whole, mesh, param_axes) + batch_argument_bytes(specs, mesh, accum_steps) \
         + 2 * SCALAR_BYTES
-    rows, width = rank_rows(shape.global_batch // accum_steps, mesh.size)
-    if rank >= width:
-        raise ValueError(f"rank {rank} computes no rows ({width} ranks do): its pass on meta tensors is not counted")
+    tp = split_compute(model, whole.params, mesh) if tensor_parallel else None
+    rows, width = rank_rows(shape.global_batch // accum_steps, row_groups(mesh, tp is not None))
+    if row_index(mesh, rank, tp is not None) >= width:
+        raise ValueError(f"rank {rank} computes no rows ({width} ranks or model groups do): its pass on meta tensors "
+                         f"is not counted")
     mb = local_batch(specs, rows, device)
-    activation = activation_bytes(model, whole.params, mb)
+    activation = activation_bytes(model, whole.params, mb) if tp is None else None
     for w in tree_leaves(whole.params):
         w.requires_grad_(False)
     if mesh.size == 1:
@@ -300,8 +359,12 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
         largest = max(4 * t.numel() for t in tensor_leaves(whole))
         xmesh = recording_mesh(mesh.size, device, largest, rank)
         n_params = len(tree_leaves(whole.params))
+        if tp is not None:
+            activation = _split_activation_bytes(model, state.params, layout[:n_params], rank, width, mesh, mb, tp,
+                                                 device)
         step = build_sharded_train_step(model, optimizer, layout[:n_params], rank=rank, width=width,
-                                        local_accum=accum_steps, xmesh=xmesh, axis=recording_axes(mesh, xmesh, rank))
+                                        local_accum=accum_steps, xmesh=xmesh, axis=recording_axes(mesh, xmesh, rank),
+                                        tp=tp)
         batch = _stack(mb, accum_steps)
     del whole
     before = {id(t.untyped_storage()) for t in tensor_leaves(state)}
@@ -312,18 +375,27 @@ def count_train(cfg, shape: InputShape, mesh, *, accum_steps: int = 1, accum_mod
                       if id(t.untyped_storage()) in before)
         summary = {"memory": _memory(args, counter, outputs, aliased, activation), "cost": _cost(counter)}
     summary["collectives"] = (xmesh.exchange.log if xmesh is not None and xmesh.exchange else CollectiveLog()).summary()
-    summary["work"] = {"rows_per_microbatch": rows, "computing_ranks": width, "microbatches": accum_steps,
-                       "largest_host_bytes": counter.largest_host_bytes}
+    summary["work"] = _work(rows, width, mesh, tp, accum_steps, counter)
     return summary
 
 
-def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
+def _work(rows: int, width: int, mesh, tp, microbatches: int, counter: StepCounter) -> dict:
+    """The rank's share of the work: its rows a microbatch and the ranks
+    that compute (under tensor parallelism, every rank of ``width`` groups)."""
+    ranks = width * mesh.shape.get("model", 1) if tp is not None else width
+    return {"rows_per_microbatch": rows, "computing_ranks": ranks, "microbatches": microbatches,
+            "tensor_parallel": tp is not None, "largest_host_bytes": counter.largest_host_bytes}
+
+
+def count_serve(cfg, shape: InputShape, mesh, device="meta", tensor_parallel: bool = False) -> dict:
     """Rank 0's prefill or decode step on ``mesh``: the sharded serving
     forward (``distributed/sharded.sharded_forward``: each layer gathered
     where it runs, an MoE layer's experts over the ``model`` group) on the
     rank's rows of the batch and cache. Its arguments are those the step reads, as XLA keeps only those:
     a prefill overwrites its attention cache unread, a decode reads no
-    encoder weight, an RWKV6 decode no cache index."""
+    encoder weight, an RWKV6 decode no cache index. With
+    ``tensor_parallel`` the ``model`` groups split the compute, the rows
+    spread over them and the rank's cache holds its kv heads."""
     model = LanguageModel(cfg)
     params = abstract_params(model, device)
     param_axes = model.param_axes()
@@ -332,9 +404,13 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
         specs = {"tokens": specs["tokens"]}
     compute = getattr(torch, cfg.compute_dtype)
     b = shape.global_batch
-    rows, width = rank_rows(b, mesh.size)
+    tp = split_compute(model, params, mesh) if tensor_parallel else None
+    rows, width = rank_rows(b, row_groups(mesh, tp is not None))
     batch = local_batch(specs, rows, device)
-    cache = abstract_cache(model, rows, shape.seq_len, device)
+    if tp is not None:
+        cache = local_cache(model, mesh, rows, shape.seq_len, torch.bfloat16, device)
+    else:
+        cache = abstract_cache(model, rows, shape.seq_len, device)
     shardings = tree_leaves(shard_tree(unstack_axes(param_axes, params), params, mesh))
     sharded = mesh.size > 1 and any(not s.replicated for s in shardings)
     mine = _rebuild(params, iter([own_shard(t, s, 0) for t, s in zip(tree_leaves(params), shardings)])) \
@@ -355,7 +431,7 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
         if sharded:
             logits, new_cache = sharded_forward(model, mine, shardings, rank=0, width=width, xmesh=xmesh,
                                                 kind=shape.kind, batch=batch, cache=cache, cache_index=index,
-                                                memory=memory, axis=axis, gathered=gathered)
+                                                memory=memory, axis=axis, gathered=gathered, tp=tp)
         elif shape.kind == "prefill":
             logits, new_cache = model.prefill(mine, batch, cache)
         else:
@@ -373,8 +449,7 @@ def count_serve(cfg, shape: InputShape, mesh, device="meta") -> dict:
     args = _read_argument_bytes(model, params, shardings, b, shape, specs, mesh, read)
     summary = {"memory": _memory(args, counter, outputs, aliased, 0), "cost": _cost(counter)}
     summary["collectives"] = (xmesh.exchange.log if xmesh is not None else CollectiveLog()).summary()
-    summary["work"] = {"rows_per_microbatch": rows, "computing_ranks": width, "microbatches": 1,
-                       "largest_host_bytes": counter.largest_host_bytes}
+    summary["work"] = _work(rows, width, mesh, tp, 1, counter)
     return summary
 
 
@@ -398,7 +473,7 @@ def _read_argument_bytes(model, params, shardings, b: int, shape: InputShape, sp
 def count_combo(cfg, shape: InputShape, mesh, **kw) -> dict:
     if shape.kind == "train":
         return count_train(cfg, shape, mesh, **kw)
-    return count_serve(cfg, shape, mesh, **{k: v for k, v in kw.items() if k == "device"})
+    return count_serve(cfg, shape, mesh, **{k: v for k, v in kw.items() if k in ("device", "tensor_parallel")})
 
 
 # ---------------------------------------------------------------------------
@@ -411,13 +486,13 @@ def production_mesh(multi_pod: bool):
 
 
 def run_combo(arch: str, shape_name: str, multi_pod: bool, *, accum_steps: int = 1,
-              accum_mode: str = "psum_each", mesh=None, cfg=None) -> dict:
+              accum_mode: str = "psum_each", mesh=None, cfg=None, tensor_parallel: bool = False) -> dict:
     shape = INPUT_SHAPES[shape_name]
     cfg = config_for(arch, shape_name) if cfg is None else cfg
     mesh = production_mesh(multi_pod) if mesh is None else mesh
     t0 = time.time()
-    summary = count_combo(cfg, shape, mesh, **(
-        {"accum_steps": accum_steps, "accum_mode": accum_mode} if shape.kind == "train" else {}))
+    kw = {"accum_steps": accum_steps, "accum_mode": accum_mode} if shape.kind == "train" else {}
+    summary = count_combo(cfg, shape, mesh, tensor_parallel=tensor_parallel, **kw)
     summary.update(
         devices=mesh.size, mesh=dict(mesh.shape),
         arch=arch, shape=shape_name, config=cfg.name, kind=shape.kind,
@@ -438,6 +513,9 @@ def main() -> None:
     ap.add_argument("--multi-pod", default="false", choices=["false", "true", "both"])
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--accum-mode", default="psum_each", choices=["psum_each", "deferred"])
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="split attention, the dense MLPs and the vocabulary over the mesh's model groups "
+                         "(the dense decoders)")
     ap.add_argument("--out", default="results/torch/dryrun")
     args = ap.parse_args()
 
@@ -456,9 +534,10 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     failures = []
     for arch, shape, mp in combos:
-        tag = f"{arch}_{shape}_{'pod2' if mp else 'pod1'}"
+        tag = f"{arch}_{shape}_{'pod2' if mp else 'pod1'}{'_tp' if args.tensor_parallel else ''}"
         try:
-            summary = run_combo(arch, shape, mp, accum_steps=args.accum_steps, accum_mode=args.accum_mode)
+            summary = run_combo(arch, shape, mp, accum_steps=args.accum_steps, accum_mode=args.accum_mode,
+                                tensor_parallel=args.tensor_parallel)
             with open(os.path.join(args.out, tag + ".json"), "w") as f:
                 json.dump(summary, f, indent=1)
             log.info(

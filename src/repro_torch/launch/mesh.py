@@ -21,7 +21,8 @@ stage it takes part in.
 A rank's axis groups (:meth:`Mesh.group_ranks`) are the ranks that share
 its every coordinate but those along some axes: its ``model`` group (the
 same ``data`` index) and its expert group (every axis but ``model``: the
-same ``model`` index). :func:`make_axis_groups` creates one process group
+same ``model`` index; under tensor parallelism it gathers the rank's
+slices of the split leaves). :func:`make_axis_groups` creates one process group
 for each, once a run, and gives the rank its two as :class:`GroupMesh`;
 the sharded step computes an MoE layer's experts over the ``model`` group
 (``distributed/sharded.py``).
@@ -341,6 +342,20 @@ def make_disagg_submeshes(prefill_pods: int = 1, decode_pods: int = 1, data: int
     grid[:] = [torch.device(d) for d in devices[:need]]
     grid = grid.reshape(prefill_pods + decode_pods, data, model)
     return grid[:prefill_pods], grid[prefill_pods:]
+
+
+def row_groups(mesh, tensor_parallel: bool = False) -> int:
+    """The units rows spread over: every rank of ``mesh``, or under tensor
+    parallelism its ``model`` groups (the ranks of a group share their rows
+    and split each matmul), ``mesh.size // model``."""
+    return mesh.size // mesh.shape.get("model", 1) if tensor_parallel else mesh.size
+
+
+def row_index(mesh, rank: int, tensor_parallel: bool = False) -> int:
+    """``rank``'s place among :func:`row_groups`: the rank, or under tensor
+    parallelism its ``model`` group's data index (``model`` is the mesh's
+    last axis, so a group's ranks are consecutive)."""
+    return rank // mesh.shape.get("model", 1) if tensor_parallel else rank
 
 
 def rank_rows(global_rows: int, ranks: int):

@@ -35,6 +35,16 @@ the missing input. The default engine is
 naming how many it needs (the engine API, ``DisaggregatedEngine``, runs
 both workers on one card); with ``--device cpu`` the devices are that many
 CPU devices, all the CPU.
+
+``--mesh single|multi`` (with ``--engine static``, greedy) serves the
+``--batch`` prompts on the production mesh of the visible cards (one CPU
+worker with ``--device cpu``) through the sharded serving forward
+(``distributed/mesh_serve.serve_on_mesh``: each layer gathered where it
+runs); ``--tensor-parallel`` also splits a dense decoder's attention, MLPs
+and vocabulary over the mesh's ``model`` groups. It needs ``--mesh``, and
+names the ``ROADMAP.md`` item for a family it does not cover yet.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine static --mesh single --tensor-parallel --device cpu
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.sharding.partitioning import check_tensor_parallel
 from repro_torch.launch.mesh import make_disagg_submeshes, visible_devices
 from repro_torch.models import LanguageModel
 from repro_torch.obs import MetricsRegistry, Tracer
@@ -93,6 +104,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--no-prefix-cache", dest="prefix_cache", action="store_false")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give all requests a common prompt prefix of this length")
+    ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"],
+                    help="static: serve on the production mesh through the sharded forward (greedy)")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="with --mesh: split attention, the dense MLPs and the vocabulary over the mesh's "
+                         "model groups (the dense decoders)")
     ap.add_argument("--prefill-devices", type=int, default=1, help="disagg: pods in the prefill submesh")
     ap.add_argument("--decode-devices", type=int, default=1, help="disagg: pods in the decode submesh")
     ap.add_argument("--prefill-slots", type=int, default=2, help="disagg: prefill worker ring width")
@@ -159,6 +175,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             ap.error("--prefill-slots must be >= 1")
         if args.prefill_pages is not None and args.prefill_pages < 2:
             ap.error(f"--prefill-pages must be >= 2 (pool reserves scratch page 0; got {args.prefill_pages})")
+    if args.tensor_parallel and args.mesh == "none":
+        ap.error("--tensor-parallel splits compute over a mesh's model groups: it needs --mesh")
+    if args.mesh != "none" and (args.engine != "static" or args.temperature > 0):
+        ap.error("--mesh serves a static batch greedily: it needs --engine static and --temperature 0")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs a CUDA device, and none is "
                            "available; pass --device cpu to run the plain versions on the CPU")
@@ -178,6 +198,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
+    if args.tensor_parallel:
+        try:
+            check_tensor_parallel(cfg)
+        except ValueError as e:
+            ap.error(f"--tensor-parallel: {e}")
     if cfg.is_encoder_decoder:
         # the JAX launcher reaches its engines' "requires audio memory" error here
         ap.error(f"--arch {args.arch}: the encoder-decoder model requires per-request audio memory "
@@ -187,6 +212,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     params = model.init(args.seed, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
+
+    if args.mesh != "none":
+        return _serve_on_mesh(args, ap, model, params, rng)
 
     if args.engine == "static":
         prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
@@ -275,6 +303,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if metrics is not None:
         metrics.dump(args.metrics)
     return results
+
+
+def _serve_on_mesh(args, ap, model, params, rng) -> dict:
+    """``--mesh``: the static batch served greedily by the mesh's workers."""
+    from repro_torch.distributed.mesh_serve import serve_on_mesh
+    from repro_torch.launch.mesh import make_production_mesh
+
+    devices = [torch.device("cpu")] if args.device == "cpu" else None
+    try:
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi", devices=devices)
+    except ValueError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
+    prompts = rng.integers(0, model.cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    t0 = time.perf_counter()
+    steps, = serve_on_mesh(mesh, [(model, params, prompts)], args.new_tokens, tensor_parallel=args.tensor_parallel)
+    wall = time.perf_counter() - t0
+    new = torch.cat([logits[:, -1].argmax(-1, keepdim=True) for logits in steps], dim=1).numpy()
+    out = np.concatenate([prompts, new.astype(np.int32)], axis=1)
+    for i, row in enumerate(out):
+        log.info("req %d: %s -> %s", i, row[: args.prompt_len].tolist()[-8:], row[args.prompt_len:].tolist())
+    log.info("mesh %s over %d worker(s)%s: %d prompts in %.3f s (spawn included)", mesh.shape, mesh.size,
+             " (tensor-parallel)" if args.tensor_parallel else "", args.batch, wall)
+    return dict(enumerate(out))
 
 
 if __name__ == "__main__":

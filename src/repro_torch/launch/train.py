@@ -41,7 +41,11 @@ with the model's ``param_axes``: each worker stores its shards of the state
 by the rules (``sharding/partitioning.py``) and the microbatches are spread
 data-parallel over every worker (NCCL between them). With ``--device cpu``
 the mesh is one CPU worker. It implies accumulate mode, and ``--mesh`` with
-``--dp-elastic`` is an error, as in the JAX launcher.
+``--dp-elastic`` is an error, as in the JAX launcher. ``--tensor-parallel``
+(with ``--mesh``) splits a dense decoder's attention, MLPs and vocabulary
+over the mesh's ``model`` groups, as GSPMD does in the JAX package; a
+family it does not cover yet is an error naming its ``ROADMAP.md`` item. A
+mesh whose ``model`` axis has one rank (one card) has nothing to split.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.sharding.partitioning import check_tensor_parallel
 from repro_torch.core import SEBS, AdaptiveSEBS, ClassicalStagewise, SEBSTrainer
 from repro_torch.data import DataPipeline, TokenDataset
 from repro_torch.distributed import ElasticTrainer
@@ -87,6 +92,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0, help="random weights and the data stream")
     ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="with --mesh: split attention, the dense MLPs and the vocabulary over the mesh's "
+                         "model groups (the dense decoders)")
     ap.add_argument("--dp-elastic", action="store_true",
                     help="elastic data parallelism: the number of worker processes follows the SEBS "
                          "stage ladder (repro_torch.distributed). Builds its own per-stage worker groups "
@@ -122,6 +130,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
     if args.dp_elastic and args.mesh != "none":
         ap.error("--dp-elastic builds its own per-stage worker groups; drop --mesh")
+    if args.tensor_parallel and args.mesh == "none":
+        ap.error("--tensor-parallel splits compute over a mesh's model groups: it needs --mesh")
     if args.optimizer not in OPTIMIZERS:
         ap.error(f"unknown --optimizer {args.optimizer!r}; available: {sorted(OPTIMIZERS)}")
     for flag, value, low in (("--b1", args.b1, 1), ("--c1", args.c1, 1), ("--stages", args.stages, 1),
@@ -156,6 +166,11 @@ def main(argv: Optional[Sequence[str]] = None):
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch, args.variant)
+    if args.tensor_parallel:
+        try:
+            check_tensor_parallel(cfg)
+        except ValueError as e:
+            ap.error(f"--tensor-parallel: {e}")
     if cfg.is_encoder_decoder:
         # the JAX launcher fails on the missing audio_embeds at its first update
         ap.error(f"--arch {args.arch}: the encoder-decoder model trains on batches with audio_embeds "
@@ -207,7 +222,7 @@ def main(argv: Optional[Sequence[str]] = None):
             DataPipeline(ds, mesh) if mesh is not None else DataPipeline(ds, device=args.device),
             mesh=mesh, param_axes=model.param_axes() if mesh is not None else None,
             microbatch=args.b1, mode=args.mode, accum_mode=args.accum_mode, seed=args.seed,
-            tracer=tracer, metrics=metrics,
+            tracer=tracer, metrics=metrics, tensor_parallel=args.tensor_parallel,
         )
     state = init_train_state(model, optimizer, seed=args.seed, device=args.device)
     checkpointer = CheckpointManager(args.ckpt_dir, keep_last=args.ckpt_keep) if args.ckpt_dir else None

@@ -38,6 +38,19 @@ Five execution modes are ported:
 - paged decode (``s == 1`` with a paged cache): one token per slot, each at
   its own depth.
 
+Under tensor parallelism (a ``"tp"`` entry in the params: the sharded
+step's group, ``distributed/sharded.py``) the layer takes the rank's block
+of the sequence and splits its work over the mesh's ``model`` group as the
+JAX package's ``constrain`` of q and the output does: where the heads
+divide the group, the rank projects its query heads and the kv heads they
+read (its slice of them where the kv heads divide the group too), runs the
+same attention on the gathered sequence, and its output projection is a
+partial sum over the group, summed onto its block. Where they do not
+(JAX's score fallback to ``seq_sp``: 14 heads over 16), every head runs on
+the rank's query rows, its block, against the key prefix: the flash
+kernel's queries are right-aligned. Serving keeps a dense cache of the
+rank's kv heads (:func:`local_kv_heads`).
+
 A ``page_table`` names the cache paged; without one it is dense
 ``(B, cache_len, hkv, hd)``, as in the JAX package. The paged modes go
 through kernels/paged_decode.
@@ -245,6 +258,65 @@ def _dense_decode_attention(q, k_cache, v_cache, write_pos, cap, sliding_window)
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
+def kv_heads_read(cfg, width: int, me: int):
+    """[lo, hi): the kv heads that the query heads of position ``me`` of a
+    ``model`` group of ``width`` read, where the query heads divide the
+    group and the kv heads do not."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    qm, g = hq // width, hq // hkv
+    lo, hi = me * qm // g, ((me + 1) * qm - 1) // g + 1
+    if qm % (hi - lo):
+        raise ValueError(f"{qm} query heads a rank do not group over the {hi - lo} kv heads they read")
+    return lo, hi
+
+
+def local_kv_heads(cfg, width: int) -> int:
+    """The kv heads a rank of a ``model`` group of ``width`` projects and
+    caches under tensor parallelism: its slice where they divide the group,
+    else those its query heads read, or every one where the query heads do
+    not divide the group."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if hq % width:
+        return hkv
+    if hkv % width == 0:
+        return hkv // width
+    lo, hi = kv_heads_read(cfg, width, 0)
+    return hi - lo
+
+
+def _apply_split(params, x, cfg, tp, *, positions, cache, cache_index, sliding_window, causal):
+    """:func:`apply` over the rank's ``model`` group ``tp``: ``x`` (B, c, d)
+    is the rank's block of the sequence, and so is the output."""
+    local = {k: v for k, v in params.items() if k != "tp"}
+    kw = dict(positions=positions, cache=cache, cache_index=cache_index, sliding_window=sliding_window,
+              causal=causal)
+    if cfg.num_heads % tp.width == 0:
+        if cfg.num_kv_heads % tp.width:  # whole kv projections: the rank's query heads read a few heads of them
+            lo, hi = kv_heads_read(cfg, tp.width, tp.me)
+            local.update({k: local[k][:, lo:hi] for k in ("wk", "wv")})
+            local.update({k: local[k][lo:hi] for k in ("bk", "bv") if k in local})
+        y, cache = apply(local, tp.gather(x), cfg, **kw)
+        return tp.scatter(y), cache
+    if cache is not None:  # serving: every head on every rank of the group, each keeping its block
+        y, cache = apply(local, tp.gather(x), cfg, **kw)
+        return tp.slice(y), cache
+    if not causal:
+        raise ValueError("the query-row split of attention runs causal attention only")
+    # the rank's query rows, every head, against the key prefix [0, hi)
+    c = tp.block
+    lo, hi = tp.me * c, (tp.me + 1) * c
+    q, k, v = _project_qkv(local, x, tp.gather(x, trim=False)[:, :hi])
+    q_pos = torch.arange(lo, hi, device=x.device)[None, :]
+    k_pos = torch.arange(hi, device=x.device)[None, :]
+    q = rope.apply_rope(q, q_pos, cfg.rope_theta)
+    k = rope.apply_rope(k, k_pos, cfg.rope_theta)
+    if cfg.attn_logit_softcap is None:
+        out = flash_ops.flash_attention(q, k, v, causal=True, sliding_window=sliding_window)
+    else:
+        out = _sdpa(q, k, v, _mask(q_pos, k_pos, sliding_window), cfg)
+    return torch.einsum("bsnh,nhd->bsd", out, local["wo"].to(out.dtype)), None
+
+
 def apply(
     params,
     x,
@@ -268,7 +340,17 @@ def apply(
     decode: ``x`` is (B, 1, d) and ``cache_index`` a scalar or (B,) int.
     chunked prefill: a paged cache, ``x`` (B, C, d), ``cache_index`` None,
     and ``positions`` (B, C) contiguous from each row's start.
+    Under tensor parallelism (``params["tp"]``) ``x`` and the output are the
+    rank's block of the sequence and a dense cache holds its kv heads;
+    ``positions`` are the whole sequence's.
     """
+    tp = params.get("tp")
+    if tp is not None:
+        if page_table is not None or memory is not None:
+            raise ValueError("tensor parallelism splits self-attention over a dense cache or none; paged serving "
+                             "on a mesh is ROADMAP.md Queue 1 item 6e")
+        return _apply_split(params, x, cfg, tp, positions=positions, cache=cache, cache_index=cache_index,
+                            sliding_window=sliding_window, causal=causal)
     b, s, _ = x.shape
     if memory is not None:
         q, k, v = _project_qkv(params, x, memory)

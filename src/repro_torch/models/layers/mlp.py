@@ -1,4 +1,10 @@
-"""SwiGLU MLP (llama/qwen/gemma family)."""
+"""SwiGLU MLP (llama/qwen/gemma family).
+
+Under tensor parallelism (a ``"tp"`` entry in the params, the sharded
+step's group) ``w_gate`` and ``w_up`` hold the rank's columns of the hidden
+dimension and ``w_down`` its rows, as JAX's ``constrain`` of the hidden
+state to ``mlp`` splits them: the rank's block of the sequence is gathered,
+and the partial products are summed over the ``model`` group onto it."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +31,13 @@ def param_axes(cfg):
 
 
 def apply(params, x):
+    tp = params.get("tp")
+    if tp is not None:
+        return tp.scatter(_swiglu(params, tp.gather(x)))
+    return _swiglu(params, x)
+
+
+def _swiglu(params, x):
     dtype = x.dtype
     up = x @ params["w_up"].to(dtype)
     gate = x @ params["w_gate"].to(dtype)

@@ -22,6 +22,16 @@ layer at once, which the steps update in place. Per recurrent layer, its
 state at ``state_batch`` rows (one per slot), which a step computes anew
 and the ``paged_state_*`` helpers write back into the slot rows.
 
+Under tensor parallelism (a ``"tp"`` entry at the top of the params: the
+sharded step's group over the mesh's ``model`` group,
+``distributed/sharded.py``) the forward's ends split too: the
+vocabulary-parallel lookup leaves each rank its block of the sequence, the
+blocks carry that block (sequence-parallel, as JAX's ``seq_sp`` constraint
+at each block boundary), the final norm runs on it, the sequence is
+gathered, and the head gives the rank's slice of the vocabulary's logits
+(``train/loss.py`` takes the cross-entropy over the slices). The serving
+steps gather the logits over the vocabulary.
+
 An encoder-decoder model (whisper) adds a non-causal encoder segment over
 the batch's ``audio_embeds`` (B, T, d): stubbed frame embeddings, as in the
 JAX package, whose mel/conv frontend is out of scope there too. Its output,
@@ -39,6 +49,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import VISION_EMBED_DIM, BlockSpec, ModelConfig, SegmentSpec
 from repro_torch.models import blocks
 from repro_torch.models.layers import embedding, norm
+
+
+def _group(params):
+    """The tensor-parallel group the params carry (see the module), or None."""
+    return params.get("tp") if isinstance(params, dict) else None
 
 
 class LanguageModel:
@@ -133,7 +148,14 @@ class LanguageModel:
             h = batch["vision_embeds"].to(x.dtype) @ proj["w1"].to(x.dtype)
             h = F.gelu(h, approximate="tanh") @ proj["w2"].to(x.dtype)
             nv = cfg.num_vision_tokens
-            x = torch.cat([h[:, :nv], x[:, nv:]], dim=1)
+            tp = _group(params)
+            if tp is None:
+                return torch.cat([h[:, :nv], x[:, nv:]], dim=1)
+            # the rank's block of the sequence: its positions below nv take the projections
+            b, s = batch["tokens"].shape
+            front = tp.slice(torch.arange(s, device=x.device).expand(b, s) < nv)
+            hv = tp.slice(torch.cat([h[:, :nv], h.new_zeros((b, s - nv, h.shape[2]))], dim=1))
+            x = torch.where(front[..., None], hv, x)
         return x
 
     # -- train forward --------------------------------------------------------
@@ -145,17 +167,20 @@ class LanguageModel:
         without a router). Each subtree is made whole (``blocks.whole``)
         where it is used: a tied table once, for the lookup and the head."""
         cfg = self.cfg
+        tp = _group(params)
         tied = cfg.tie_embeddings
         table = blocks.whole(params["embed"], None if tied else (lambda k: k == "table"))
         x = self._embed_inputs(params, batch, table)
         memory = self._encode(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = torch.arange(batch["tokens"].shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(cfg.segments):
             x, _, a = blocks.apply_segment(params[f"seg{i}"], x, cfg, seg, positions=positions,
                                            memory=memory)
             aux = aux + a
         x = norm.apply(blocks.whole(params["final_norm"]), x, cfg.norm_eps)
+        if tp is not None:
+            x = tp.gather(x)
         head = table if tied else blocks.whole(params["embed"], lambda k: k == "unembed")
         return embedding.logits(head, x, cfg), aux
 
@@ -334,15 +359,24 @@ class LanguageModel:
         (B, 1, V) f32 of the last position, cache: the KV updated in place,
         new recurrent state)."""
         cfg = self.cfg
+        tp = _group(params)
         embed = blocks.whole(params["embed"])
         x = self._embed_inputs(params, batch, embed)
         if memory is None:
             memory = self._encode(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = torch.arange(batch["tokens"].shape[1], device=x.device)[None, :]
         x, new_cache = self._segments(params, x, cache, positions=positions, page_table=None,
                                       memory=memory)
+        if tp is not None:
+            x = tp.gather(x)
         x = norm.apply(blocks.whole(params["final_norm"]), x[:, -1:, :], cfg.norm_eps)
-        return embedding.logits(embed, x, cfg), new_cache
+        return self._whole_vocab(tp, embedding.logits(embed, x, cfg)), new_cache
+
+    @staticmethod
+    def _whole_vocab(tp, logits):
+        """Serving's logits over the whole vocabulary: a tensor-parallel
+        rank's slices gathered in position order."""
+        return logits if tp is None else torch.cat(tp.all_gather(logits), dim=-1)
 
     def decode_step(self, params, token, cache, cache_index, page_table=None, memory=None):
         """One-token decode. token: (B, 1) int; cache_index: scalar int (all
@@ -354,14 +388,17 @@ class LanguageModel:
         engine writes back with ``paged_state_merge``). An encoder-decoder
         model takes its ``memory`` (B, T, d)."""
         cfg = self.cfg
+        tp = _group(params)
         embed = blocks.whole(params["embed"])
         x = embedding.embed(embed, token, cfg)
         idx = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
         positions = idx.expand(token.shape[0])[:, None]
         x, new_cache = self._segments(params, x, cache, positions=positions,
                                       page_table=page_table, cache_index=idx, memory=memory)
+        if tp is not None:
+            x = tp.gather(x)
         x = norm.apply(blocks.whole(params["final_norm"]), x, cfg.norm_eps)
-        return embedding.logits(embed, x, cfg), new_cache
+        return self._whole_vocab(tp, embedding.logits(embed, x, cfg)), new_cache
 
     def prefill_chunk(self, params, tokens, cache, pos_start: int, slot: int, page_table, memory=None):
         """One chunk of a paged, chunked prefill: ``tokens`` (1, C) are the

@@ -18,7 +18,15 @@ all-to-alls (an MoE layer's capacity buffers to the ranks holding their
 experts and the outputs back, over the ``model`` group, what the rank
 receives; the gradient's slices, ``senders`` slices of the rank's shard
 index of each leaf, over the whole mesh or, for split experts, the expert
-group; each leaf assembled on its owner for the norm). The port has no
+group; each leaf assembled on its owner for the norm). Under tensor
+parallelism (``sharded.py``'s ``_TensorGroup``) the ``model`` group's
+boundaries add all-gathers along the sequence (and of the loss's row
+maxima and the vocabulary's logits in serving), all-reduces and
+reduce-scatters along the sequence (``cfg.tp_reduce_scatter``), each in
+the forward, the recomputation and the backward. The port's all-reduce is
+a reduce-scatter (M blocks of shape / M, summed in position order) and an
+all-gather of the summed blocks: a ring's 2 × shape, its elements padded
+to a multiple of M. The port has no
 loop to count once: a step's microbatches are recorded call by call, so
 ``in_while_bytes`` is 0.
 """

@@ -6,12 +6,16 @@ one CLI call.
   python -m repro_torch.roofline.hillclimb --arch qwen2.5-3b --shape train_4k \\
       --variant save_out --accum 4
 
-Variants compose with "+": "base", "save_out" (the save_block_outputs
-remat policy), "dots_nb" (dots_no_batch), "bf16_params", and SEBS
-accumulation via --accum N (+ --accum-mode deferred). "tp_rs"
-(reduce-scatter tensor-parallel boundaries) is refused: the port's
-sharding rules place storage only and its compute is data-parallel, so it
-has no tensor-parallel boundary to reduce-scatter.
+Variants compose with "+": "base", "tp_rs" (``tp_reduce_scatter``: the
+tensor-parallel boundaries' sums land on the sequence slices by a
+reduce-scatter, not an all-reduce; it counts with ``--tensor-parallel``),
+"save_out" (the save_block_outputs remat policy), "dots_nb"
+(dots_no_batch), "bf16_params", and SEBS accumulation via --accum N (+
+--accum-mode deferred). ``--tensor-parallel`` splits a dense decoder's
+attention, MLPs and vocabulary over the mesh's ``model`` groups
+(``distributed/sharded.py``'s ``TensorParallel``).
+
+  python -m repro_torch.roofline.hillclimb --arch qwen2.5-3b --variant tp_rs
 """
 from __future__ import annotations
 
@@ -29,17 +33,12 @@ from repro_torch.utils.log import get_logger
 
 log = get_logger("hillclimb")
 
-TP_RS_REFUSAL = ("variant 'tp_rs' has no counterpart in the port: attention and the dense MLPs are computed "
-                 "data-parallel over every rank (only an MoE layer's experts split over the mesh's 'model' groups, "
-                 "distributed/sharded.py), so there is no tensor-parallel boundary to reduce-scatter")
-
-
 def apply_variant(cfg, variant: str):
     for part in variant.split("+"):
         if part in ("base", ""):
             continue
         elif part == "tp_rs":
-            raise ValueError(TP_RS_REFUSAL)
+            cfg = cfg.replace(tp_reduce_scatter=True)
         elif part == "save_out":
             cfg = cfg.replace(remat_policy="save_block_outputs")
         elif part == "dots_nb":
@@ -52,14 +51,15 @@ def apply_variant(cfg, variant: str):
 
 
 def measure(arch: str, shape_name: str, variant: str = "base", *, accum: int = 1,
-            accum_mode: str = "psum_each", with_memory: bool = False) -> dict:
+            accum_mode: str = "psum_each", with_memory: bool = False, tensor_parallel: bool = False) -> dict:
     shape = INPUT_SHAPES[shape_name]
     cfg = apply_variant(config_for(arch, shape_name), variant)
     mesh = dr.production_mesh(multi_pod=False)
+    tensor_parallel = tensor_parallel or cfg.tp_reduce_scatter  # tp_rs changes a tensor-parallel step only
 
-    kw = {}
+    kw = {"tensor_parallel": tensor_parallel}
     if shape.kind == "train":
-        kw = {"accum_steps": accum, "accum_mode": accum_mode}
+        kw.update(accum_steps=accum, accum_mode=accum_mode)
     counted = depth_counts(cfg, shape, mesh, **kw)
     costs, summaries = counted["costs"], counted["summaries"]
     meta = {
@@ -78,10 +78,11 @@ def measure(arch: str, shape_name: str, variant: str = "base", *, accum: int = 1
         collective_bytes=costs["collective_bytes"],
     )
     out = {
-        "arch": arch, "shape": shape_name, "variant": variant,
+        "arch": arch, "shape": shape_name, "variant": variant, "tensor_parallel": tensor_parallel,
         "accum": accum, "accum_mode": accum_mode,
         "compute_s": terms.compute_s, "memory_s": terms.memory_s,
-        "collective_s": terms.collective_s, "dominant": terms.dominant,
+        "collective_s": terms.collective_s, "collective_bytes": costs["collective_bytes"],
+        "dominant": terms.dominant,
         "useful_ratio": terms.useful_ratio,
         "per_layer_coll_bytes": costs["per_layer"]["collective_bytes"],
         "coll_by_type_r2": summaries[2]["collectives"]["by_type_bytes"],
@@ -108,19 +109,21 @@ def main() -> None:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--accum-mode", default="psum_each")
     ap.add_argument("--with-memory", action="store_true")
+    ap.add_argument("--tensor-parallel", action="store_true")
     ap.add_argument("--out", default="results/torch/hillclimb")
     args = ap.parse_args()
 
     t0 = time.time()
     res = measure(args.arch, args.shape, args.variant, accum=args.accum,
-                  accum_mode=args.accum_mode, with_memory=args.with_memory)
+                  accum_mode=args.accum_mode, with_memory=args.with_memory, tensor_parallel=args.tensor_parallel)
     os.makedirs(args.out, exist_ok=True)
-    tag = f"{args.arch}_{args.shape}_{args.variant.replace('+', '-')}_a{args.accum}{args.accum_mode[0]}"
+    tag = (f"{args.arch}_{args.shape}_{args.variant.replace('+', '-')}_a{args.accum}{args.accum_mode[0]}"
+           f"{'_tp' if res['tensor_parallel'] else ''}")
     with open(os.path.join(args.out, tag + ".json"), "w") as f:
         json.dump(res, f, indent=1)
     log.info(
-        "%s: compute=%.3fs memory=%.3fs coll=%.3fs dominant=%s useful=%.2f (%.0fs)%s",
-        tag, res["compute_s"], res["memory_s"], res["collective_s"],
+        "%s: compute=%.3fs memory=%.3fs coll=%.3fs (%.4g B) dominant=%s useful=%.2f (%.0fs)%s",
+        tag, res["compute_s"], res["memory_s"], res["collective_s"], res["collective_bytes"],
         res["dominant"], res["useful_ratio"], time.time() - t0,
         f" peak={res['peak_gb_per_device']:.1f}GB" if args.with_memory else "",
     )

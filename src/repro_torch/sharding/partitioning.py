@@ -17,17 +17,21 @@ in row-major order, and along a dimension sharded over ``("pod", "data")``
 a rank's shard index is ``pod_idx * data + data_idx``; so the shards,
 concatenated in index order, are the leaf bit for bit.
 
-The rules place storage, and compute follows them in one place only. The
-port computes data-parallel over every rank of a mesh
+The rules place storage, and by default compute follows them in one place
+only. The port computes data-parallel over every rank of a mesh
 (``distributed/sharded.py``): a worker gathers each layer's shards into
 whole leaves where the layer runs and updates only its own slices after
 the step; but an MoE layer's experts, which the rules split over ``model``,
 are gathered over the rank's expert group and computed over its ``model``
 group, as the JAX package's ``constrain`` of the dispatch, ``xe`` and ``h``
-splits them. There is no GSPMD to split any other matmul across a
-``model`` group, so ``constrain`` (a ``with_sharding_constraint`` on an
-activation) and ``legacy_manual_axes`` (shard_map's manual axes on old
-jax) have no counterpart here.
+splits them. With ``tensor_parallel`` (the dense decoders,
+:func:`check_tensor_parallel`) the ``model`` groups also split what JAX's
+``constrain`` splits in a dense decoder: the attention heads, the MLP's
+hidden dimension and the vocabulary (:data:`TENSOR_PARALLEL_AXES`, a
+leaf's dimension by :func:`compute_split_dim`), with a sequence-parallel
+residual carry between the blocks. ``constrain`` itself (a
+``with_sharding_constraint`` on an activation) and ``legacy_manual_axes``
+(shard_map's manual axes on old jax) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -118,6 +122,58 @@ def batch_spec(mesh, extra_dims: int = 1, batch_size: Optional[int] = None) -> S
             prod *= sizes[a]
         axes = keep
     return (tuple(axes) if len(axes) > 1 else (axes[0] if axes else None),) + (None,) * extra_dims
+
+
+#: logical axes along which a mesh's ``model`` axis splits compute under
+#: tensor parallelism: JAX's ``constrain`` of q and the attention output
+#: (``heads``; the kv projections by ``kv_heads``), the MLP's hidden state
+#: (``mlp``) and the logits (``vocab``)
+TENSOR_PARALLEL_AXES: Tuple[str, ...] = ("heads", "kv_heads", "mlp", "vocab")
+
+#: the families tensor parallelism does not cover yet -> the ``ROADMAP.md`` item that ports each
+TENSOR_PARALLEL_TODO: Dict[str, str] = {
+    "moe": "Queue 1 item 6a (the MoE family: routing a rank's sequence slice, the routers, arctic's dense "
+           "residual MLP)",
+    "ssm": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
+    "hybrid": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
+    "audio": "Queue 1 item 6c (whisper's encoder and cross attention)",
+}
+
+
+def check_tensor_parallel(cfg) -> None:
+    """Raises ``ValueError`` where tensor parallelism does not cover ``cfg``
+    (it covers the dense decoders: attention blocks with the dense FFN),
+    naming the ``ROADMAP.md`` item that ports its family: such a model must
+    not quietly compute data-parallel."""
+    todo = TENSOR_PARALLEL_TODO.get(cfg.family)
+    plain = all(b.mixer in ("attn", "swa") and b.ffn == "dense" for seg in cfg.segments for b in seg.body) \
+        and not any(seg.shared_attn for seg in cfg.segments) and not cfg.is_encoder_decoder
+    if todo is not None or not plain:
+        raise ValueError(f"tensor_parallel=True does not cover {cfg.name} (family {cfg.family!r}): it splits the "
+                         f"dense decoders' attention, MLPs and vocabulary; ROADMAP.md "
+                         f"{todo or 'Queue 1 item 6'} ports the rest")
+
+
+def compute_split_dim(logical_axes: Sequence[Optional[str]], spec: Spec) -> Optional[int]:
+    """The dimension of a leaf that a ``model`` axis splits for compute
+    under tensor parallelism: the one whose logical axis is in
+    :data:`TENSOR_PARALLEL_AXES` and whose spec entry (``spec``, the leaf's
+    :func:`logical_to_mesh_spec`) is ``"model"``. The rules put ``model``
+    there only where it divides the dimension, so their divisibility
+    fallback decides compute too; ``head_dim``'s fallback (2 kv heads over
+    16) splits storage only. None where no dimension is split."""
+    for i, (ax, entry) in enumerate(zip(logical_axes, spec)):
+        if ax in TENSOR_PARALLEL_AXES and entry == "model":
+            return i
+    return None
+
+
+def axes_leaves(axes) -> list:
+    """The axes tuples of a logical-axes tree, in the order ``tree_leaves``
+    takes the matching tensors (dict entries in their order)."""
+    out: list = []
+    map_axes(out.append, axes)
+    return out
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:

@@ -1,7 +1,8 @@
-"""chip_smoke.py's phases 30-31 and 34-36 alone, and the sharded mesh across cards.
+"""chip_smoke.py's phases 30-31, 34-36 and 37 alone, and the sharded mesh across cards.
 
     python3 tools/mesh_check.py               # phases 30-31 on one card
     python3 tools/mesh_check.py --experts     # phases 34-36 on one card
+    python3 tools/mesh_check.py --tensor-parallel  # phases 36-37 and the G 8 kernel shape on one card
     python3 tools/mesh_check.py --four-cards  # a machine with four cards
     python3 tools/mesh_check.py --four-cards --arch arctic-480b --layers 1
 
@@ -13,6 +14,15 @@ experts over the model groups, held to the one-process run),
 ``chip_smoke.sharded_serving`` (the sharded prefill and decode against the
 single-process engine).
 
+``--tensor-parallel``: builds the kernels, holds the flash kernels at a
+tensor-parallel rank's shape (G 8: B 4, S 513, 8/1 heads) to their plain
+versions (``chip_smoke.tp_kernel_checks``), then phase 37: qwen smoke on
+(1, 2) with ``tp_reduce_scatter`` held to the one-process run, qwen2.5-3b
+at full width on (1, 2) (two updates here, one in chip_smoke; each
+worker's peak against the dry run's count), and ``chip_smoke.sharded_serving``
+(phases 36 and 37(c): ``serve_on_mesh`` without and with
+``tensor_parallel``, the ``tp_reduce_scatter`` twin bit-equal).
+
 ``--four-cards --arch A`` with an MoE arch: a (1, 4) mesh over the four
 cards, each holding E/4 experts whole (no gather of them), A at full width
 cut to ``--layers`` layers, one update of 4 rows of 513 tokens (one a
@@ -23,7 +33,7 @@ The state is built from a seed on rank 0's card and stays on the cards
 (``run_on_mesh(..., init_seed=0)``).
 
 One card: builds the kernels, runs phase 26's reference (ElasticTrainer at
-budget 1, qwen2.5-3b full width cut to 2 layers, pSGD on phase 7's
+budget 1, qwen2.5-3b full width cut to 1 layer (``ELASTIC_LAYERS``), pSGD on phase 7's
 schedule: SEBS b1 4, C1 16, rho 2, 3 stages, 513-token rows, microbatch
 4), then ``chip_smoke.mesh_sharded`` (SEBSTrainer on a (2, 2) mesh of four
 workers sharing cuda:0, host slots) and ``chip_smoke.elastic_sharded``
@@ -149,6 +159,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--four-cards", action="store_true")
     ap.add_argument("--experts", action="store_true")
+    ap.add_argument("--tensor-parallel", action="store_true")
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--layers", type=int, default=1)
     args = ap.parse_args()
@@ -162,6 +173,19 @@ def main() -> None:
     print(f"build {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} cards", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tensor_parallel:
+        records: dict = {}
+        cs.tp_kernel_checks(records)
+        for name in ("flash_attention_fwd_g8", "flash_attention_bwd_g8"):
+            r = records[name]
+            print(f"{name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}; bound {r['bound'][0]:.5f}; plain "
+                  f"{r['plain_ms']:.3f}; SDPA {r['library_ms']:.4f}); max abs err {r['max_abs_err']:.3g}", flush=True)
+        t1 = time.perf_counter()
+        cs._tp_smoke_run(smi)
+        cs._tp_full_width_update(smi, updates=2)
+        print(f"phase 37(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
+        cs.sharded_serving(smi)
+        return
     if args.experts:
         cs.expert_parallel_smoke(smi)
         cs.dbrx_expert_parallel(smi)
