@@ -271,14 +271,34 @@
     their scale and the prefill's greedy tokens equal to the engine's (the
     decode steps' printed beside them). Phase 3 holds the flash kernels at
     G 8 (B 4, S 513, 8/1 heads, D 128) to their plain versions.
+38. Tensor parallelism for the MoE family: a ``model`` group's ranks
+    split the heads, the experts (each routes the group's whole sequence
+    and runs its E/M experts on their capacity buffers) and arctic's
+    residual MLP. (a) In phase 34's spawn: SEBSTrainer(mesh=(2, 2),
+    tensor_parallel=True) on cuda:0 x 4, dbrx-132b and arctic-480b smoke
+    at f32, phase 34's schedule (pSGD, 6 updates), against phase 34's
+    one-process run: the ladder equal, losses within 1e-4 relative and
+    every param within 1e-4 of its leaf's norm; each arch's
+    ``tp_reduce_scatter`` twin bit-equal, with fewer bytes received;
+    launches exact. (b) In phase 35's spawn: dbrx-132b at full width cut
+    to 1 of its 40 layers on (1, 2), the state built from a seed on rank
+    0's card: one momentum update of 4 rows of 513 tokens (a rank: 24 of
+    48 query heads over 4 of 8 kv heads, 8 of 16 experts); the loss within
+    2^-7 relative of the one-process loss of its rows, each worker's peak
+    within 10% of the dry run's count of its rank with tensor parallelism.
+    (c) In phase 36's spawn: ``serve_on_mesh(..., tensor_parallel=True)``
+    of dbrx smoke at f32 on (2, 2): greedy tokens equal the
+    single-process engine's, logits within 1e-4 of their scale. Phase 3
+    holds the flash kernels at a rank's shape (B 4, S 513, 24/4 heads of
+    128: G 6) to their plain versions.
 
     The multi-worker runs share spawns, in this order: phase 31, phase
-    26's killed run and phase 27 (four workers); phases 30 and 34 (four,
-    (2, 2)); phases 37(b), 35 and 37(a) (two, (1, 2)); phases 36 and 37(c)
-    (four, (2, 2)). ``distributed.run_together`` runs each as it runs alone
-    (its own process groups and host slots, the card's peak and the launch
-    counts zeroed before it, its memory freed after it); a run with memory
-    gates goes first in its spawn.
+    26's killed run and phase 27 (four workers); phases 30, 34 and 38(a)
+    (four, (2, 2)); phases 37(b), 35, 38(b) and 37(a) (two, (1, 2)); phases
+    36, 37(c) and 38(c) (four, (2, 2)). ``distributed.run_together`` runs
+    each as it runs alone (its own process groups and host slots, the
+    card's peak and the launch counts zeroed before it, its memory freed
+    after it); a run with memory gates goes first in its spawn.
 
 28. Disaggregated prefill/decode serving (``DisaggregatedEngine``, both
     workers on cuda:0: two pools, two caches, the export / move / import
@@ -4195,23 +4215,104 @@ def expert_parallel_smoke(smi: str) -> dict:
     return {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(setups, done)}
 
 
+def _moe_tp_setup(ep: dict, reduce_scatter: bool) -> dict:
+    """Phase 38(a)'s run of one arch: phase 34's schedule of ``ep`` (its
+    setup: the arch smoke at f32, pSGD, its one-process run the reference)
+    on (2, 2) x cuda:0 with tensor parallelism, the boundaries all-reduced
+    or reduce-scattered (``tp_reduce_scatter``)."""
+    import torch
+
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+
+    cfg = ep["cfg"].replace(tp_reduce_scatter=reduce_scatter)
+    model = LanguageModel(cfg)
+    mesh = make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
+    opt = make_optimizer("psgd", gamma=1e4)
+    trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=8, rho=2.0, num_stages=3, eta=0.5),
+                          DataPipeline(TokenDataset(cfg.vocab_size, 64, seed=0), mesh), microbatch=2, mesh=mesh,
+                          param_axes=model.param_axes(), deadline=ELASTIC_DEADLINE, tensor_parallel=True)
+    params = model.init(0, device="cuda")
+    return {"arch": ep["arch"], "cfg": cfg, "run": (trainer, TrainState(params, opt.init(params), 0),
+                                                    {"log_every": 1})}
+
+
+def _moe_tp_check(ep: dict, runs: list, done: list, wall: float, smi: str) -> dict:
+    """Phase 38(a)'s gates for one arch: the all-reduce run (``runs[0]``,
+    its (state, log) ``done[0]``) against phase 34's one-process run (the
+    ladder, losses within TP_TOL relative, every param within TP_TOL of its
+    leaf's norm); the reduce-scatter twin bit-equal to it, with fewer bytes
+    received; each run's launches exact: every rank of a model group runs
+    the flash kernels for each of its group's microbatches, every worker
+    the fused pSGD once an update."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    arch, cfg = ep["arch"], ep["cfg"]
+    ref, ref_params = ep["reference"], ep["reference_params"]
+    (state, log), (rs_state, rs_log) = done
+    params = [t.detach().cpu() for t in tree_leaves(state.params)]
+    if log.stages != ref.stages or log.batch_sizes != ref.batch_sizes or not all(map(math.isfinite, log.losses)):
+        fail(f"phase 38(a) {arch}: ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref.losses, strict=True))
+    leaf_rel = max(float((a - b).abs().max()) / float(b.norm()) for a, b in zip(params, ref_params, strict=True))
+    if loss_rel > TP_TOL or leaf_rel > TP_TOL:
+        fail(f"phase 38(a) {arch}: losses {loss_rel:.3g} / params {leaf_rel:.3g} from the one-process run "
+             f"(allowed {TP_TOL})")
+    rs_bits = rs_log.losses == log.losses and all(
+        torch.equal(a.detach().cpu(), b) for a, b in zip(tree_leaves(rs_state.params), params))
+    received = [[sum(t["exchange"]["received_bytes"] for t in st["sharded"]) for st in run[0].worker_stats]
+                for run in runs]
+    if not rs_bits or not sum(received[1]) < sum(received[0]):
+        fail(f"phase 38(a) {arch}: tp_reduce_scatter bit-equal {rs_bits}, bytes received {received}")
+    micro = sum(b // 2 for b in log.batch_sizes)  # a model group's ranks each run every microbatch of the group
+    m = runs[0][0].mesh.shape["model"]
+    want = {"flash_attention_fwd": 2 * m * cfg.num_layers * micro, "flash_attention_bwd": m * cfg.num_layers * micro,
+            "fused_psgd": len(runs[0][0].worker_stats) * len(log.steps)}
+    launches = {}
+    for run in runs:
+        got = {k: sum(st["launches"][k] for st in run[0].worker_stats) for k in run[0].worker_stats[0]["launches"]}
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"phase 38(a) {arch}: the workers launched {got}, not {want}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    print(f"phase 38(a) {arch} smoke f32, tensor-parallel on (2, 2) x cuda:0: {len(log.steps)} updates (the spawn "
+          f"{wall:.1f} s), losses within {loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms of "
+          f"phase 34's one-process run [{TP_TOL}]; tp_reduce_scatter bit-equal: {rs_bits}, bytes received by "
+          f"worker {received[0]} against {received[1]} | {smi}", flush=True)
+    return {"wall_s": wall, "losses": log.losses, "reference_losses": ref.losses, "loss_rel": loss_rel,
+            "leaf_rel": leaf_rel, "rs_bits": rs_bits, "received_bytes": received, "launches": launches}
+
+
 def mesh_phases_22(cfg, smi: str, reference) -> tuple:
-    """Phases 30 and 34 in one spawn of four workers on (2, 2) x cuda:0
-    (``distributed.run_all_on_mesh``: each run as it runs alone, the
+    """Phases 30, 34 and 38(a) in one spawn of four workers on (2, 2) x
+    cuda:0 (``distributed.run_all_on_mesh``: each run as it runs alone, the
     workers started once): phase 30's qwen2.5-3b first (its memory gates
-    read the workers' allocations), then dbrx and arctic smoke. Returns
-    (phase 30's record, phase 34's)."""
+    read the workers' allocations), then dbrx and arctic smoke with their
+    experts over the model groups, then with tensor parallelism (the
+    all-reduce's and the reduce-scatter's run of each). Returns (phase
+    30's record, phase 34's, phase 38(a)'s)."""
     from repro_torch.distributed import run_all_on_mesh
 
     sharded = _mesh_sharded_setup(cfg)
     experts = [_expert_parallel_setup(arch) for arch in EP_ARCHS]
+    tensor = [[_moe_tp_setup(x, rs) for rs in (False, True)] for x in experts]
     t0 = time.perf_counter()
-    done = run_all_on_mesh([sharded["run"]] + [x["run"] for x in experts])
+    done = run_all_on_mesh([sharded["run"]] + [x["run"] for x in experts]
+                           + [run["run"] for pair in tensor for run in pair])
     wall = time.perf_counter() - t0
-    print(f"phases 30, 34: one spawn of four workers on (2, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
+    print(f"phases 30, 34, 38(a): one spawn of four workers on (2, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
           f"| {smi}", flush=True)
     record = _mesh_sharded_check(sharded, *done[0], wall, smi, reference, "30 mesh (2, 2)")
-    return record, {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(experts, done[1:])}
+    n = len(experts)
+    ep = {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(experts, done[1:1 + n])}
+    tp = {x["arch"]: _moe_tp_check(x, [run["run"] for run in pair], done[1 + n + 2 * i:3 + n + 2 * i], wall, smi)
+          for i, (x, pair) in enumerate(zip(experts, tensor))}
+    return record, ep, tp
 
 
 def dbrx_expert_parallel(smi: str) -> dict:
@@ -4313,13 +4414,16 @@ TP_BF16_LOSS_TOL = 2.0**-7  # at full width in bf16: the first update's loss, re
 
 
 def tp_kernel_checks(records: dict) -> None:
-    """Phase 3 at a tensor-parallel rank's attention shape: qwen2.5-3b's 16
-    query heads over 2 kv heads split over a model group of 2, the flash
-    forward and backward at B 4, S 513, 8 query heads over 1 kv head (G 8)."""
+    """Phase 3 at a tensor-parallel rank's attention shapes over a model
+    group of 2, the flash forward and backward at B 4, S 513: qwen2.5-3b's
+    16 query heads over 2 kv heads, a rank's 8 over 1 (G 8); dbrx-132b's
+    48 over 8, a rank's 24 over 4 (G 6, ``_g6tp``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(37)
     flash_shape(records, gen, 4, 513, 8, 1, 128, suffix="_g8")
+    hq, hkv, d = MOE_SHAPES["dbrx-132b"]
+    flash_shape(records, gen, 4, 513, hq // 2, hkv // 2, d, suffix="_g6tp")
 
 
 def _tp_smoke_setup() -> dict:
@@ -4391,14 +4495,17 @@ def _tp_smoke_check(setup: dict, state, log, wall: float, smi: str) -> dict:
             "leaf_rel": leaf_rel, "received_bytes": received, "boundary_ms": boundary, "launches": launches}
 
 
-def _tp_full_width_setup(updates: int = 1) -> dict:
-    """Phase 37(b)'s run: qwen2.5-3b at full width on (1, 2) x cuda:0 with
-    tensor parallelism, the state (params and momentum, 24.7 GB in f32)
-    built from a seed on rank 0's card and kept on the workers: ``updates``
-    updates of 4 rows of 513 tokens (the first holds the workers' one-time
-    costs), one microbatch the group's (the flash kernels at the rank's 8
-    query heads over 1 kv head). First, on the card, the one-process loss
-    of the first update's rows on the params rank 0 builds."""
+def _tp_full_width_setup(updates: int = 1, cfg=None, label: str = "37(b)") -> dict:
+    """Phase 37(b)'s run (``label``): qwen2.5-3b at full width (or
+    ``cfg``: phase 38(b)'s dbrx-132b at 1 of 40 layers) on (1, 2) x cuda:0
+    with tensor parallelism, the state (params and momentum in f32: qwen's
+    24.7 GB) built from a seed on rank 0's card and kept on the workers:
+    ``updates`` updates of 4 rows of 513 tokens (the first holds the
+    workers' one-time costs), one microbatch the group's (the flash kernels
+    at the rank's query heads over its kv heads: qwen's 8 over 1, dbrx's 24
+    over 4; dbrx's 8 of 16 experts a rank). First, on the card, the
+    one-process loss of the first update's rows on the params rank 0
+    builds."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4412,7 +4519,7 @@ def _tp_full_width_setup(updates: int = 1) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen2.5-3b", "full")
+    cfg = get_config("qwen2.5-3b", "full") if cfg is None else cfg
     model = LanguageModel(cfg)
     data = TokenDataset(cfg.vocab_size, 512, seed=0)
     with torch.no_grad():
@@ -4428,12 +4535,12 @@ def _tp_full_width_setup(updates: int = 1) -> dict:
                           DataPipeline(data, mesh), mesh=mesh,
                           param_axes=model.param_axes(), microbatch=4, tracer=Tracer(), deadline=ELASTIC_DEADLINE,
                           tensor_parallel=True)
-    return {"cfg": cfg, "updates": updates, "reference": reference,
+    return {"cfg": cfg, "updates": updates, "reference": reference, "label": label,
             "run": (trainer, None, {"init_seed": 0, "log_every": 1})}
 
 
 def _tp_full_width_check(setup: dict, log, wall: float, smi: str) -> dict:
-    """Phase 37(b)'s gates: the first update's loss within
+    """Phase 37(b)'s (or 38(b)'s) gates: the first update's loss within
     TP_BF16_LOSS_TOL of the one-process loss; each worker's peak within
     SHARD_PEAK_TOL of the dry run's count of its rank; launches exact.
     Prints the updates' ms and their boundary exchanges', gathers' and
@@ -4443,22 +4550,23 @@ def _tp_full_width_check(setup: dict, log, wall: float, smi: str) -> dict:
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.mesh import make_host_mesh
 
-    cfg, trainer, reference = setup["cfg"], setup["run"][0], setup["reference"]
+    cfg, trainer, reference, label = setup["cfg"], setup["run"][0], setup["reference"], setup["label"]
     if len(log.steps) != setup["updates"] or not all(map(math.isfinite, log.losses)):
-        fail(f"phase 37(b): {len(log.steps)} updates, losses {log.losses}")
+        fail(f"phase {label}: {len(log.steps)} updates, losses {log.losses}")
     loss_rel = abs(log.losses[0] - reference) / abs(reference)
     if loss_rel > TP_BF16_LOSS_TOL:
-        fail(f"phase 37(b): the first update's loss {log.losses[0]!r} is {loss_rel:.3g} from the one-process "
+        fail(f"phase {label}: the first update's loss {log.losses[0]!r} is {loss_rel:.3g} from the one-process "
              f"loss {reference!r} (allowed {TP_BF16_LOSS_TOL:.3g})")
-    peaks = shard_peak_check("37(b) qwen tensor-parallel (1, 2)", cfg, trainer, make_host_mesh(1, 2, devices=["meta"] * 2),
-                             smi, stage=0, shape=InputShape("update", 513, 4, "train"), optimizer_name="momentum",
+    peaks = shard_peak_check(f"{label} {cfg.name} tensor-parallel (1, 2)", cfg, trainer,
+                             make_host_mesh(1, 2, devices=["meta"] * 2), smi, stage=0,
+                             shape=InputShape("update", 513, 4, "train"), optimizer_name="momentum",
                              tensor_parallel=True)
     launches = {k: sum(st["launches"][k] for st in trainer.worker_stats) for k in trainer.worker_stats[0]["launches"]}
     n = len(log.steps)  # each worker: a microbatch an update, the forward twice (remat)
     want = {"flash_attention_fwd": 2 * 2 * cfg.num_layers * n, "flash_attention_bwd": 2 * cfg.num_layers * n,
             "fused_momentum": 2 * n}
     if any(launches[k] != v for k, v in want.items()):
-        fail(f"phase 37(b): the workers launched {launches}, not {want}")
+        fail(f"phase {label}: the workers launched {launches}, not {want}")
     span = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
 
     def by_worker(key: str, scale: float = 1e3) -> list:  # each update's reading on each worker
@@ -4470,7 +4578,8 @@ def _tp_full_width_check(setup: dict, log, wall: float, smi: str) -> dict:
            "optimizer_ms": by_worker("update_s"),
            "received_bytes": [[u["exchange"]["received_bytes"] for u in st["sharded"]] for st in trainer.worker_stats],
            "launches": launches, "peaks": peaks}
-    print(f"phase 37(b) qwen2.5-3b full width, tensor-parallel on (1, 2) x cuda:0: losses "
+    print(f"phase {label} {cfg.name} full width at {cfg.num_layers} layers, tensor-parallel on (1, 2) x cuda:0: "
+          "losses "
           + ", ".join(f"{x:.4f}" for x in log.losses) + f" (the first {loss_rel:.3g} from the one-process "
           f"{reference:.4f} [{TP_BF16_LOSS_TOL:.3g}]), updates " + ", ".join(f"{x:.1f}" for x in span)
           + " ms (the boundary exchanges by update and worker " + "; ".join(
@@ -4505,25 +4614,51 @@ def _tp_full_width_update(smi: str, updates: int = 1) -> dict:
     return _tp_full_width_check(setup, log, time.perf_counter() - t0, smi)
 
 
-def mesh_phases_12(smi: str) -> tuple:
-    """Phases 37(b), 35 and 37(a) in one spawn of two workers on (1, 2) x
-    cuda:0 (``distributed.run_all_on_mesh``: each run as it runs alone, the
-    workers started once, with expandable segments), the two full-width
-    runs first (their memory gates read the workers' allocations). Returns
-    (phase 35's record, phase 37's training records)."""
+def moe_tensor_parallel(smi: str, updates: int = 1) -> dict:
+    """Phases 38(a) and 38(b) alone (``tools/mesh_check.py
+    --tensor-parallel --arch dbrx-132b``), a spawn each: the smoke runs
+    against phase 34's one-process runs (made here, without phase 34's own
+    mesh runs), then dbrx-132b at 1 full-width layer, ``updates`` updates."""
     from repro_torch.distributed import run_all_on_mesh
 
-    full, dbrx, smoke = _tp_full_width_setup(), _dbrx_setup(), _tp_smoke_setup()
+    experts = [_expert_parallel_setup(arch) for arch in EP_ARCHS]
+    tensor = [[_moe_tp_setup(x, rs) for rs in (False, True)] for x in experts]
+    t0 = time.perf_counter()
+    done = run_all_on_mesh([run["run"] for pair in tensor for run in pair])
+    wall = time.perf_counter() - t0
+    smoke = {x["arch"]: _moe_tp_check(x, [run["run"] for run in pair], done[2 * i:2 * i + 2], wall, smi)
+             for i, (x, pair) in enumerate(zip(experts, tensor))}
+    del experts, tensor, done
+    setup = _tp_full_width_setup(updates, cfg=moe_cut("dbrx-132b", 1), label="38(b)")
     t0 = time.perf_counter()
     with expandable_segments():
-        done = run_all_on_mesh([full["run"], dbrx["run"], smoke["run"]])
+        (_, log), = run_all_on_mesh([setup["run"]])
+    return {"smoke": smoke, "full_width": _tp_full_width_check(setup, log, time.perf_counter() - t0, smi)}
+
+
+def mesh_phases_12(smi: str) -> tuple:
+    """Phases 37(b), 35, 38(b) and 37(a) in one spawn of two workers on
+    (1, 2) x cuda:0 (``distributed.run_all_on_mesh``: each run as it runs
+    alone, the workers started once, with expandable segments), the
+    full-width runs first (their memory gates read the workers'
+    allocations). Returns (phase 35's record, phase 37's training records,
+    phase 38(b)'s)."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    full, dbrx = _tp_full_width_setup(), _dbrx_setup()
+    dbrx_tp = _tp_full_width_setup(cfg=moe_cut("dbrx-132b", 1), label="38(b)")
+    smoke = _tp_smoke_setup()
+    t0 = time.perf_counter()
+    with expandable_segments():
+        done = run_all_on_mesh([full["run"], dbrx["run"], dbrx_tp["run"], smoke["run"]])
     wall = time.perf_counter() - t0
-    print(f"phases 35, 37(a, b): one spawn of two workers on (1, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
-          f"| {smi}", flush=True)
+    print(f"phases 35, 37(a, b), 38(b): one spawn of two workers on (1, 2) x cuda:0 ran {len(done)} runs in "
+          f"{wall:.1f} s | {smi}", flush=True)
     tensor = {"full_width": _tp_full_width_check(full, done[0][1], wall, smi)}
     dbrx_record = _dbrx_check(dbrx, done[1][1], wall, smi)
-    tensor["smoke"] = _tp_smoke_check(smoke, *done[2], wall, smi)
-    return dbrx_record, tensor
+    dbrx_tp_record = _tp_full_width_check(dbrx_tp, done[2][1], wall, smi)
+    tensor["smoke"] = _tp_smoke_check(smoke, *done[3], wall, smi)
+    return dbrx_record, tensor, dbrx_tp_record
 
 
 def _engine_greedy(model, params, tokens, rows: int) -> list:
@@ -4549,7 +4684,7 @@ def _engine_greedy(model, params, tokens, rows: int) -> list:
 
 
 def sharded_serving(smi: str) -> tuple:
-    """Phase 36 and phase 37(c), one spawn of four workers on cuda:0 on a
+    """Phases 36, 37(c) and 38(c), one spawn of four workers on cuda:0 on a
     (2, 2) mesh (``distributed/mesh_serve.serve_on_mesh``), a prefill and 3
     greedy decode steps each. Phase 36: qwen2.5-3b and dbrx-132b smoke at
     f32, 4 prompts of 12 tokens (one a worker), each layer gathered where
@@ -4561,7 +4696,9 @@ def sharded_serving(smi: str) -> tuple:
     of the engine's, the same greedy tokens, its ``tp_reduce_scatter`` twin
     bit-equal; qwen2.5-3b at full width (bf16, 4 prompts of 64 tokens):
     logits within TP_BF16_TOL of their scale of the engine's, the prefill's
-    greedy tokens the engine's. Returns (phase 36's record, phase 37(c)'s)."""
+    greedy tokens the engine's. Phase 38(c): dbrx smoke at f32 with tensor
+    parallelism, greedy tokens the engine's, logits within TP_TOL of their
+    scale. Returns (phase 36's record, phase 37(c)'s, phase 38(c)'s)."""
     import numpy as np
     import torch
 
@@ -4571,12 +4708,12 @@ def sharded_serving(smi: str) -> tuple:
     from repro_torch.models import LanguageModel
 
     qwen = get_config("qwen2.5-3b", "smoke").replace(compute_dtype="float32")
+    dbrx = get_config("dbrx-132b", "smoke").replace(compute_dtype="float32")
     runs = []  # (label, model, params, tokens, tensor-parallel)
-    for label, cfg, s, split in (("qwen2.5-3b", qwen, 12, False),
-                                 ("dbrx-132b", get_config("dbrx-132b", "smoke").replace(compute_dtype="float32"), 12,
-                                  False),
+    for label, cfg, s, split in (("qwen2.5-3b", qwen, 12, False), ("dbrx-132b", dbrx, 12, False),
                                  ("tp", qwen, 12, True), ("tp_rs", qwen.replace(tp_reduce_scatter=True), 12, True),
-                                 ("tp full width", get_config("qwen2.5-3b", "full"), 64, True)):
+                                 ("tp full width", get_config("qwen2.5-3b", "full"), 64, True),
+                                 ("tp dbrx", dbrx, 12, True)):
         model = LanguageModel(cfg)
         tokens = np.random.default_rng(36).integers(0, cfg.vocab_size, (4, s)).astype(np.int32)
         runs.append((label, model, model.init(0, device="cuda"), tokens, split))
@@ -4627,7 +4764,15 @@ def sharded_serving(smi: str) -> tuple:
           f"logits within {err:.3g} of their scale [{TP_TOL}], tp_reduce_scatter bit-equal: {rs_bits}; full width "
           f"bf16: logits within {tp['full_rel_err']:.3g} of their scale [{TP_BF16_TOL}], greedy tokens "
           f"{tp['full_tokens']} (the engine's {tp['engine_tokens']}; the prefill's must be equal) | {smi}", flush=True)
-    return experts, tp
+    moe = {"rel_err": rel("tp dbrx"), "tokens": tokens_of(got["tp dbrx"]),
+           "engine_tokens": tokens_of(want["tp dbrx"])}
+    if moe["rel_err"] > TP_TOL or moe["tokens"] != moe["engine_tokens"]:
+        fail(f"phase 38(c): dbrx's tensor-parallel logits are {moe['rel_err']:.3g} of their scale from the engine's "
+             f"[{TP_TOL}], greedy tokens {moe['tokens']} against {moe['engine_tokens']}")
+    print(f"phase 38(c) serve_on_mesh tensor-parallel on (2, 2) x cuda:0: dbrx smoke f32 (a rank: 2 of 4 query heads, "
+          f"2 of 4 experts) greedy tokens equal the engine's, logits within {moe['rel_err']:.3g} of their scale "
+          f"[{TP_TOL}] | {smi}", flush=True)
+    return experts, tp, moe
 
 
 # -- disaggregated prefill/decode serving (phases 28-29) ---------------------
@@ -5280,17 +5425,18 @@ def main() -> None:
     # 30 and 34, one spawn of four workers on (2, 2): qwen2.5-3b's sharded storage held to phase 26's
     # budget 1, then an MoE layer's experts over the mesh's model groups at smoke size held to the
     # one-process run
-    sharded["mesh"], experts_smoke = mesh_phases_22(elastic_cfg, smi, elastic_reference)
+    sharded["mesh"], experts_smoke, moe_tp_smoke = mesh_phases_22(elastic_cfg, smi, elastic_reference)
     experts = {"smoke": experts_smoke}
     del elastic_reference
-    phase_done("30, 34 sharded mesh (2, 2), experts over model groups")
-    # 35 and 37(a, b), one spawn of two workers on (1, 2): dbrx-132b at full width, and attention, the
-    # dense MLPs and the vocabulary over the model groups (training)
-    experts["dbrx"], tensor = mesh_phases_12(smi)
-    phase_done("35, 37(a, b) dbrx experts, tensor-parallel training on (1, 2)")
-    # 36 and 37(c): the sharded serving forward, without and with tensor parallelism, one spawn
-    experts["serving"], tensor["serving"] = sharded_serving(smi)
-    phase_done("36, 37(c) sharded serving forward")
+    phase_done("30, 34, 38(a) sharded mesh (2, 2), experts over model groups, MoE tensor-parallel")
+    # 35, 37(a, b) and 38(b), one spawn of two workers on (1, 2): dbrx-132b at full width, and attention,
+    # the MLPs, the experts and the vocabulary over the model groups (training)
+    experts["dbrx"], tensor, moe_tp_full = mesh_phases_12(smi)
+    moe_tp = {"smoke": moe_tp_smoke, "full_width": moe_tp_full}
+    phase_done("35, 37(a, b), 38(b) dbrx experts, tensor-parallel training on (1, 2)")
+    # 36, 37(c) and 38(c): the sharded serving forward, without and with tensor parallelism, one spawn
+    experts["serving"], tensor["serving"], moe_tp["serving"] = sharded_serving(smi)
+    phase_done("36, 37(c), 38(c) sharded serving forward")
     # 28-29. disaggregated prefill/decode serving, both workers on the card,
     # on phase 4's and phase 15's weights and requests, under the sanitizers
     gc.collect()
@@ -5334,7 +5480,8 @@ def main() -> None:
     for kname in ("flash_attention_fwd_g6", "flash_attention_bwd_g6", "flash_attention_fwd_g7",
                   "paged_flash_decode_g6", "paged_flash_decode_g7", "paged_chunk_prefill_g6",
                   "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000", "fused_psgd_dbrx",
-                  "flash_attention_fwd_g8", "flash_attention_bwd_g8"):
+                  "flash_attention_fwd_g8", "flash_attention_bwd_g8", "flash_attention_fwd_g6tp",
+                  "flash_attention_bwd_g6tp"):
         replaces[kname] = replaces[kname.rsplit("_", 1)[0]]
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
@@ -5349,7 +5496,8 @@ def main() -> None:
         "gla_bwd": "gla/csrc/gla.cu",
     }
     sources.update({f"{n}{suffix}": sources[n] for n in list(sources)
-                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_g8", "_v100352", "_v32000", "_dbrx")})
+                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_g8", "_g6tp", "_v100352", "_v32000",
+                                   "_dbrx")})
     all_launches = {**launches, **train_launches}
     # the dense serving path (phase 12) runs the flash forward and the sampler too
     for kname in ("flash_attention_fwd", "fused_sample"):
@@ -5385,6 +5533,14 @@ def main() -> None:
     # phase 37(a), the smoke run at f32 (the flash kernels' f32 route), every worker's
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_momentum"):
         all_launches[kname] += tensor["smoke"]["launches"][kname]
+    # the MoE family's tensor-parallel paths (phase 38): dbrx at 1 full-width layer, the flash kernels
+    # at a rank's 24/4 heads and the fused momentum over each worker's shards (b); the smoke runs at
+    # f32, both arches and both boundary sums, every worker's (a)
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        all_launches[kname + "_g6tp"] = moe_tp["full_width"]["launches"][kname]
+    all_launches["fused_momentum"] += moe_tp["full_width"]["launches"]["fused_momentum"]
+    for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += sum(run["launches"][kname] for run in moe_tp["smoke"].values())
     # whisper's paths (phases 22-23): the encoder's flash launches, counted
     # apart as the non-causal ones, and the decoder's, the causal rest
     for part in ("encoder", "decoder"):
@@ -5473,7 +5629,8 @@ def main() -> None:
             "library_device_ms_default", "f32_route", "serving_prefill") if key in records[n]}
             for n in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_d80",
                       "flash_attention_bwd_d80", "flash_attention_fwd_g6", "flash_attention_bwd_g6",
-                      "flash_attention_fwd_g7", "flash_attention_fwd_g8", "flash_attention_bwd_g8")}},
+                      "flash_attention_fwd_g7", "flash_attention_fwd_g8", "flash_attention_bwd_g8",
+                      "flash_attention_fwd_g6tp", "flash_attention_bwd_g6tp")}},
         "zamba2_device_ms": {n: records[n]["device_ms"] for n in (
             "flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
             "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2")},
@@ -5501,7 +5658,7 @@ def main() -> None:
                         "library_backend", "library_ms_default", "library_device_ms", "library_device_ms_default")}
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
         "experiments": experiments, "fig1": fig1, "elastic": {"exact": elastic, "local_sgd": local_sgd},
-        "sharded": sharded, "experts": experts, "tensor_parallel": tensor,
+        "sharded": sharded, "experts": experts, "tensor_parallel": tensor, "moe_tensor_parallel": moe_tp,
         "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,

@@ -75,22 +75,27 @@ meaning. A rank without rows whose ``model`` group has some runs the pass
 all-to-all; a rank whose group has none replays.
 
 **Tensor parallelism** (``tp``, a :class:`TensorParallel`, opt-in: the
-dense decoders). The ranks of a ``model`` group share their rows and
-split a dense decoder's matmuls as the JAX package's GSPMD does: the
-attention heads, the MLP's hidden dimension and the vocabulary
-(``sharding/partitioning.compute_split_dim``), each split leaf gathered
-over the rank's expert group as its chunk. The residual carry between
-blocks is the rank's block of the sequence (:class:`_TensorGroup`); a
-layer gathers the sequence (:class:`_SeqGather`), computes its partial
-product and sums it over the group onto the rank's block
-(:class:`_SeqScatter`: an all-reduce and the block, or under
-``cfg.tp_reduce_scatter`` a reduce-scatter, the same bits); the loss
-takes the vocabulary's slices (``train/loss.py``). A split leaf's
-gradient is its chunk's, summed over the expert group; every other leaf's
-microbatch gradient (the norms, on the sequence slice; the kv projections
-where the kv heads do not divide the group; internvl2's projector) is a
-partial over the ``model`` group, summed over it first (its ‖g‖² taken
-once), then over the groups that compute. ``grad_sq_small`` is each
+dense decoders and the MoE family). The ranks of a ``model`` group share
+their rows and split the matmuls as the JAX package's GSPMD does: the
+attention heads, the MLP's hidden dimension, an MoE layer's experts and
+the vocabulary (``sharding/partitioning.compute_split_dim``), each split
+leaf gathered over the rank's expert group as its chunk. An MoE layer
+routes the group's whole sequence on every rank and runs the rank's
+experts on their capacity buffers (``models/layers/moe.py``); its one
+partial, arctic's residual MLP included, is summed like any other. The
+residual carry between blocks is the rank's block of the sequence
+(:class:`_TensorGroup`); a layer gathers the sequence
+(:class:`_SeqGather`), computes its partial product and sums it over the
+group onto the rank's block (:class:`_SeqScatter`: an all-reduce and the
+block, or under ``cfg.tp_reduce_scatter`` a reduce-scatter, the same
+bits); the loss takes the vocabulary's slices (``train/loss.py``). A
+split leaf's gradient is its chunk's, summed over the expert group; every
+other leaf's microbatch gradient (the norms, on the sequence slice; the
+kv projections where the kv heads do not divide the group; internvl2's
+projector; the routers, through the rank's experts' combine weights and
+its block's share of the aux loss) is a partial over the ``model`` group,
+summed over it first (its ‖g‖² taken once), then over the groups that
+compute. ``grad_sq_small`` is each
 rank's split leaves' squares summed over the group; ``grad_sq_big`` the
 stored shards' dots. A group without rows runs the meta pass and replays
 as above; its ranks exchange nothing among themselves.
@@ -310,7 +315,7 @@ class _Shards:
         if self.experts and "moe" in out:
             out["moe"] = dict(out["moe"], group=_ExpertGroup(self.run, self.experts))
         if self.run.tensor is not None and isinstance(out, dict):
-            out = {k: dict(v, tp=self.run.tensor) if k in ("attn", "mlp") else v for k, v in out.items()}
+            out = {k: dict(v, tp=self.run.tensor) if k in ("attn", "mlp", "moe") else v for k, v in out.items()}
             if "table" in out or "unembed" in out:  # the embedding, or the head
                 out["tp"] = self.run.tensor
         return out
@@ -380,8 +385,8 @@ def _chunk_sharding(sharding, sub, dim: int = 0) -> "NamedSharding":
 
 @dataclass(frozen=True)
 class TensorParallel:
-    """What the sharded step and forward need to split a dense decoder's
-    compute over the mesh's ``model`` groups: each param leaf's split
+    """What the sharded step and forward need to split a dense decoder's or
+    an MoE model's compute over the mesh's ``model`` groups: each param leaf's split
     dimension (``compute_split_dim``; None for a leaf that runs whole) and
     whether a boundary's sum lands on the sequence slice by a
     reduce-scatter (``cfg.tp_reduce_scatter``) or an all-reduce."""
@@ -395,14 +400,20 @@ def tensor_parallel(model, params, mesh, param_axes=None) -> Optional[TensorPara
     its leaves' shapes) on ``mesh`` under the rules (``param_axes``, the
     JAX layout, default ``model.param_axes()``); None on a mesh whose
     ``model`` axis has one rank (nothing to split). Raises ``ValueError``
-    for a model it does not cover, or whose MLP or vocabulary the axis does
-    not divide."""
+    for a model it does not cover, or where the axis does not divide what
+    it splits: the vocabulary, a dense MLP's hidden dimension (arctic's
+    residual MLP's too), the experts."""
     check_tensor_parallel(model.cfg)
     m = mesh.shape.get("model", 1)
     if m < 2:
         return None
     cfg = model.cfg
-    for name, n in (("d_ff", cfg.d_ff), ("padded vocabulary", cfg.padded_vocab)):
+    split = [("padded vocabulary", cfg.padded_vocab)]
+    if any(b.ffn == "dense" for seg in cfg.segments for b in seg.body) or cfg.moe_dense_residual:
+        split.append(("d_ff", cfg.d_ff))  # a dense MLP's hidden dimension (not the experts', which runs whole)
+    if any(b.ffn == "moe" for seg in cfg.segments for b in seg.body):
+        split.append(("experts", cfg.num_experts))
+    for name, n in split:
         if n % m:
             raise ValueError(f"tensor parallelism splits {cfg.name}'s {name} ({n}) over a model axis of {m}, "
                              f"which does not divide it")
@@ -422,13 +433,14 @@ def local_cache(model, mesh, batch: int, cache_len: int, dtype, device):
 
 
 class _TensorGroup:
-    """A dense decoder computed over the rank's ``model`` group of M ranks
-    (the ``"tp"`` entry of the params the model gets: at the top, in each
-    attention and MLP subtree, in the embedding). The split leaves arrive
-    as the rank's heads, hidden slice or vocabulary slice; a layer gathers
-    the sequence before it, computes a partial product, and sums it over
-    the group onto the rank's slice. Between the blocks the residual carry
-    is the rank's block of ``c = ceil(S / M)`` positions of the sequence,
+    """A dense decoder or an MoE model computed over the rank's ``model``
+    group of M ranks (the ``"tp"`` entry of the params the model gets: at
+    the top, in each attention, MLP and MoE subtree, in the embedding).
+    The split leaves arrive as the rank's heads, hidden slice, experts or
+    vocabulary slice; a layer gathers the sequence before it, computes a
+    partial product, and sums it over the group onto the rank's slice.
+    Between the blocks the residual carry is the rank's block of
+    ``c = ceil(S / M)`` positions of the sequence,
     padded with zero rows to ``M c`` (the pad rows' outputs are cut before
     they reach a real row, and nothing reads them). Every sum over the
     group is the canonical tree in position order, so every rank of the
@@ -469,6 +481,12 @@ class _TensorGroup:
         """The sum over the group of a partial product p (B, S, ...), the
         rank's block of it (:class:`_SeqScatter`; backward an all-gather)."""
         return _SeqScatter.apply(self, self._pad(p))
+
+    def total(self, p: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of a scalar partial p (an MoE layer's aux
+        loss over the rank's block), whose gradient reaches each rank's own
+        partial (:class:`_GroupTotal`)."""
+        return _GroupTotal.apply(self, p)
 
     # -- the collectives
     def _timed(self, fn, *args):
@@ -542,6 +560,21 @@ class _SeqScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return None, ctx.group.all_gather_seq(grad)
+
+
+class _GroupTotal(torch.autograd.Function):
+    """A scalar partial summed over the ``model`` group (all-reduce); the
+    backward is the identity: each rank's loss holds the sum once, and
+    the gradients of the partials are summed over the group with the
+    leaves'."""
+
+    @staticmethod
+    def forward(ctx, group, p):
+        return group.sum(p.reshape(1))[0].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
 
 
 class _ExpertGroup:
@@ -1013,7 +1046,7 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
     computes an MoE layer's experts over the ``model`` group where the
     rules split them over ``model``; without it every rank runs every
     expert. With ``tp`` (:class:`TensorParallel`, with ``axis``) the
-    ``model`` groups split a dense decoder's attention, MLPs and vocabulary:
+    ``model`` groups split the attention, MLPs, experts and vocabulary:
     ``width`` counts the groups that compute, each of whose ranks takes the
     group's chunk; the metrics are combined over the expert group (one
     rank of each ``model`` group)."""

@@ -289,9 +289,7 @@ def _ffn_part(params, x, cfg: ModelConfig, spec: BlockSpec, *, positions, cache=
     if spec.ffn == "dense":
         return x + mlp.apply(params["mlp"], h), new_cache, 0.0
     if spec.ffn == "moe":
-        y, aux = moe.apply(params["moe"], h, cfg)
-        if cfg.moe_dense_residual:
-            y = y + mlp.apply(params["mlp"], h)
+        y, aux = moe.apply(params["moe"], h, cfg, dense=params["mlp"] if cfg.moe_dense_residual else None)
         return x + y, new_cache, aux
     rc = None if cache is None else cache["rwkv"]
     y, shift_c = rwkv6.apply_channel_mix(params["cmix"], h, cfg, cache=rc)

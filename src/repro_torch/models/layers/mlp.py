@@ -33,11 +33,13 @@ def param_axes(cfg):
 def apply(params, x):
     tp = params.get("tp")
     if tp is not None:
-        return tp.scatter(_swiglu(params, tp.gather(x)))
-    return _swiglu(params, x)
+        return tp.scatter(swiglu(params, tp.gather(x)))
+    return swiglu(params, x)
 
 
-def _swiglu(params, x):
+def swiglu(params, x):
+    """The MLP on x, no exchange: under tensor parallelism the rank's
+    partial product over its slice of the hidden dimension."""
     dtype = x.dtype
     up = x @ params["w_up"].to(dtype)
     gate = x @ params["w_gate"].to(dtype)

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with GShard/Switch-style grouped capacity dispatch
 (dbrx-132b: 16 experts, top-4; arctic-480b: 128 experts, top-2, beside a
-dense residual MLP that ``blocks.py`` adds).
+dense residual MLP, whose params ``blocks.py`` passes to :func:`apply`).
 
 The (batch, seq) token axis is split into groups of ``gs = min(1024, S)``
 tokens; each group routes its tokens into a per-expert capacity buffer of
@@ -25,6 +25,22 @@ only: routing and dispatch stay the rank's own, and ``group.products``
 sends each chunk of ``xe`` to the ``model`` rank holding those experts,
 runs its own experts on what its group sent and returns the outputs
 (``distributed/sharded.py``).
+
+Under tensor parallelism (a ``"tp"`` entry: the ranks of a ``model`` group
+share their rows, :func:`_apply_split`) the layout is the one GSPMD gives
+the JAX package: the sequence whole on every rank, the experts (and
+arctic's residual MLP's hidden dimension) split over the group. A rank
+gathers its group's sequence, trimmed, so that the carry's pad rows never
+take capacity; routes every token of each routing group with the
+replicated router, so its dispatch is the unsplit run's to the integer;
+runs its E/M experts on their capacity buffers only; adds arctic's
+residual MLP as its partial over its hidden slice; and sums that one
+partial over the group onto its block of the sequence (one all-reduce, or
+a reduce-scatter under ``cfg.tp_reduce_scatter``, JAX's ``seq_sp`` output).
+The aux loss is linear in ``prob_frac`` (``token_frac`` takes no
+gradient): each rank takes ``prob_frac`` over its block of the sequence, so
+that the router's gradient, summed over the group as every replicated
+leaf's is, counts the aux once; its value is the group's sum.
 """
 from __future__ import annotations
 
@@ -32,6 +48,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import mlp
 
 GROUP_SIZE = 1024
 
@@ -106,23 +124,38 @@ def expert_products(xe, w_gate, w_up, w_down):
     return torch.einsum("bnecf,efd->bnecd", h, w_down.to(xe.dtype))
 
 
-def apply(params, x, cfg):
-    """x: (B, S, d). Returns (y (B, S, d), the load-balance aux loss, an f32
-    scalar)."""
+def _route(params, x, cfg):
+    """x (B, S, d) -> (xg (B, n, gs, d), probs (B, n, gs, E) f32, dispatch
+    and combine (B, n, gs, E, C) in x's dtype)."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
     gs = min(GROUP_SIZE, s)
     n = s // gs
     if n * gs != s:
         raise ValueError(f"seq {s} not divisible by group size {gs}")
-    capacity = capacity_of(cfg, gs)
-
     xg = x.reshape(b, n, gs, d)
     logits = torch.einsum("bngd,de->bnge", xg.float(), params["router"])
     probs = torch.softmax(logits, dim=-1)
-    disp, combine = dispatch_tensors(probs, k, capacity)
-    disp = disp.to(x.dtype)
-    combine = combine.to(x.dtype)
+    disp, combine = dispatch_tensors(probs, cfg.top_k, capacity_of(cfg, gs))
+    return xg, probs, disp.to(x.dtype), combine.to(x.dtype)
+
+
+def _aux(disp, prob_frac, e: int):
+    """Switch-style load balance: the share of assignments each expert took
+    (from the cast dispatch tensor, as in the JAX package) times its mean
+    probability ``prob_frac`` (B, n, E)."""
+    token_frac = disp.float().sum(-1).mean(-2)  # (b, n, e)
+    return e * (token_frac * prob_frac).sum(-1).mean()
+
+
+def apply(params, x, cfg, dense=None):
+    """x: (B, S, d). Returns (y (B, S, d), the load-balance aux loss, an f32
+    scalar); ``dense`` (arctic's residual MLP's params) adds its output to
+    y."""
+    tp = params.get("tp")
+    if tp is not None:
+        return _apply_split(params, x, cfg, tp, dense)
+    b, s, d = x.shape
+    xg, probs, disp, combine = _route(params, x, cfg)
     xe = torch.einsum("bngec,bngd->bnecd", disp, xg)
     group = params.get("group")
     if group is None:
@@ -130,11 +163,28 @@ def apply(params, x, cfg):
     else:
         ye = group.products(xe, params)
     y = torch.einsum("bngec,bnecd->bngd", combine, ye).reshape(b, s, d)
+    if dense is not None:
+        y = y + mlp.apply(dense, x)
+    return y, _aux(disp, probs.mean(-2), cfg.num_experts)
 
-    # Switch-style load balance: the share of assignments each expert took
-    # (from the cast dispatch tensor, as in the JAX package) times its mean
-    # probability
-    token_frac = disp.float().sum(-1).mean(-2)  # (b, n, e)
-    prob_frac = probs.mean(-2)
-    aux = e * (token_frac * prob_frac).sum(-1).mean()
-    return y, aux
+
+def _apply_split(params, x, cfg, tp, dense):
+    """:func:`apply` over the rank's ``model`` group ``tp`` (see the
+    module): ``x`` (B, c, d) is the rank's block of the sequence, and so is
+    the output; the expert tensors hold the rank's E/M experts and
+    ``dense``'s its hidden slice."""
+    xs = tp.gather(x)  # the group's sequence, trimmed
+    b, s, d = xs.shape
+    xg, probs, disp, combine = _route(params, xs, cfg)
+    k = cfg.num_experts // tp.width
+    mine = slice(tp.me * k, (tp.me + 1) * k)
+    xe = torch.einsum("bngec,bngd->bnecd", disp[..., mine, :], xg)
+    ye = expert_products(xe, params["w_gate"], params["w_up"], params["w_down"])
+    y = torch.einsum("bngec,bnecd->bngd", combine[..., mine, :], ye).reshape(b, s, d)
+    if dense is not None:
+        y = y + mlp.swiglu(dense, xs)
+    n, gs = xg.shape[1], xg.shape[2]
+    pos = torch.arange(s, device=xs.device).reshape(n, gs)
+    block = ((pos >= tp.me * tp.block) & (pos < (tp.me + 1) * tp.block)).to(probs.dtype)
+    aux = tp.total(_aux(disp, (probs * block[..., None]).sum(-2) / gs, cfg.num_experts))
+    return tp.scatter(y), aux

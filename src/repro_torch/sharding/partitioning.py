@@ -24,10 +24,10 @@ whole leaves where the layer runs and updates only its own slices after
 the step; but an MoE layer's experts, which the rules split over ``model``,
 are gathered over the rank's expert group and computed over its ``model``
 group, as the JAX package's ``constrain`` of the dispatch, ``xe`` and ``h``
-splits them. With ``tensor_parallel`` (the dense decoders,
-:func:`check_tensor_parallel`) the ``model`` groups also split what JAX's
-``constrain`` splits in a dense decoder: the attention heads, the MLP's
-hidden dimension and the vocabulary (:data:`TENSOR_PARALLEL_AXES`, a
+splits them. With ``tensor_parallel`` (the dense decoders and the MoE
+family, :func:`check_tensor_parallel`) the ``model`` groups also split what
+JAX's ``constrain`` splits there: the attention heads, the MLP's hidden
+dimension, the experts and the vocabulary (:data:`TENSOR_PARALLEL_AXES`, a
 leaf's dimension by :func:`compute_split_dim`), with a sequence-parallel
 residual carry between the blocks. ``constrain`` itself (a
 ``with_sharding_constraint`` on an activation) and ``legacy_manual_axes``
@@ -127,13 +127,13 @@ def batch_spec(mesh, extra_dims: int = 1, batch_size: Optional[int] = None) -> S
 #: logical axes along which a mesh's ``model`` axis splits compute under
 #: tensor parallelism: JAX's ``constrain`` of q and the attention output
 #: (``heads``; the kv projections by ``kv_heads``), the MLP's hidden state
-#: (``mlp``) and the logits (``vocab``)
-TENSOR_PARALLEL_AXES: Tuple[str, ...] = ("heads", "kv_heads", "mlp", "vocab")
+#: (``mlp``), the logits (``vocab``) and an MoE layer's capacity buffers
+#: (``experts``: an expert tensor's first dimension, which takes ``model``
+#: before its ``mlp`` can)
+TENSOR_PARALLEL_AXES: Tuple[str, ...] = ("heads", "kv_heads", "mlp", "vocab", "experts")
 
 #: the families tensor parallelism does not cover yet -> the ``ROADMAP.md`` item that ports each
 TENSOR_PARALLEL_TODO: Dict[str, str] = {
-    "moe": "Queue 1 item 6a (the MoE family: routing a rank's sequence slice, the routers, arctic's dense "
-           "residual MLP)",
     "ssm": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
     "hybrid": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
     "audio": "Queue 1 item 6c (whisper's encoder and cross attention)",
@@ -142,16 +142,16 @@ TENSOR_PARALLEL_TODO: Dict[str, str] = {
 
 def check_tensor_parallel(cfg) -> None:
     """Raises ``ValueError`` where tensor parallelism does not cover ``cfg``
-    (it covers the dense decoders: attention blocks with the dense FFN),
-    naming the ``ROADMAP.md`` item that ports its family: such a model must
-    not quietly compute data-parallel."""
+    (it covers the dense decoders and the MoE family: attention blocks with
+    the dense or the MoE FFN), naming the ``ROADMAP.md`` item that ports its
+    family: such a model must not quietly compute data-parallel."""
     todo = TENSOR_PARALLEL_TODO.get(cfg.family)
-    plain = all(b.mixer in ("attn", "swa") and b.ffn == "dense" for seg in cfg.segments for b in seg.body) \
+    plain = all(b.mixer in ("attn", "swa") and b.ffn in ("dense", "moe") for seg in cfg.segments for b in seg.body) \
         and not any(seg.shared_attn for seg in cfg.segments) and not cfg.is_encoder_decoder
     if todo is not None or not plain:
         raise ValueError(f"tensor_parallel=True does not cover {cfg.name} (family {cfg.family!r}): it splits the "
-                         f"dense decoders' attention, MLPs and vocabulary; ROADMAP.md "
-                         f"{todo or 'Queue 1 item 6'} ports the rest")
+                         f"attention, MLPs, experts and vocabulary of the dense decoders and the MoE family; "
+                         f"ROADMAP.md {todo or 'Queue 1 item 6'} ports the rest")
 
 
 def compute_split_dim(logical_axes: Sequence[Optional[str]], spec: Spec) -> Optional[int]:

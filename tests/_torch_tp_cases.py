@@ -48,7 +48,11 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
     leaf (its name) the largest difference of this rank's shard from the
     whole run's slice, the leaf's norm, how far it moved from its initial
     value and whether the bits are equal, a digest of this rank's params,
-    the bytes it received and the boundaries' host seconds."""
+    the bytes it received and the boundaries' host seconds. An MoE model's
+    routing (``moe.dispatch_tensors``: each token's capacity slot at each
+    expert, every call of the forward and the recomputation) is recorded in
+    both runs, and ``dispatch`` says whether the sharded run's equal the
+    whole run's calls on the same microbatches, to the integer."""
     import torch
 
     from repro_torch.configs import get_config
@@ -87,6 +91,7 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
     initial = [t.clone() for t in tensor_leaves(whole)[:n]]
     row = rank // mesh.shape["model"]
     got, want = [], []
+    routes, dispatch = _record_dispatch(), []
     for s in range(updates):
         batch = _batch(cfg, s, width, local_accum, rows, seq)
         if row < width:
@@ -94,8 +99,15 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
         else:
             chunk = {k: torch.empty((local_accum,) + tuple(v.shape[1:]), dtype=v.dtype, device="meta")
                      for k, v in batch.items()}
+        routes.clear()
         mine, metrics = step(mine, chunk, 0.05, 0)
+        split = list(routes)
+        routes.clear()
         whole, ref = ref_step(whole, batch, 0.05, 0)
+        if split or routes:  # each microbatch makes the same calls, forward and recomputation
+            per = len(routes) // (width * local_accum)
+            same = routes[row * local_accum * per:(row + 1) * local_accum * per]
+            dispatch.append(len(split) == len(same) > 0 and all(torch.equal(a, b) for a, b in zip(split, same)))
         got.append({k: float(metrics[k]) for k in METRICS})
         want.append({k: float(ref[k]) for k in METRICS})
     leaves = []
@@ -106,9 +118,37 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
                        "norm": float(b.detach().norm()), "moved": float((b - b0).detach().abs().max()),
                        "equal": bool(torch.equal(a, b_mine))})
     digest = hashlib.sha256(b"".join(t.detach().numpy().tobytes() for t in tensor_leaves(mine)[:n])).hexdigest()
-    return {"got": got, "want": want, "leaves": leaves, "digest": digest,
+    _record_dispatch(stop=True)
+    return {"got": got, "want": want, "leaves": leaves, "digest": digest, "dispatch": dispatch,
             "received": sum(t.exchange.received_bytes for t in times),
             "boundary_s": sum(t.boundary_s for t in times)}
+
+
+def _record_dispatch(stop=False):
+    """Records each real (not meta) call of ``moe.dispatch_tensors`` as
+    (..., T, E) int64: the token's capacity slot at the expert plus one, 0
+    where it holds none. Returns the list the calls go to; ``stop`` puts the
+    function back."""
+    import torch
+
+    from repro_torch.models.layers import moe
+
+    plain = getattr(moe.dispatch_tensors, "plain", moe.dispatch_tensors)
+    if stop:
+        moe.dispatch_tensors = plain
+        return None
+    calls = []
+
+    def recorded(probs, top_k, capacity):
+        disp, combine = plain(probs, top_k, capacity)
+        if disp.device.type != "meta":
+            slots = torch.arange(1, capacity + 1, dtype=disp.dtype, device=disp.device)
+            calls.append((disp.detach() * slots).sum(-1).round().long())
+        return disp, combine
+
+    recorded.plain = plain
+    moe.dispatch_tensors = recorded
+    return calls
 
 
 def _leaf_names(params, prefix=""):

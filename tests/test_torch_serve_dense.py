@@ -39,6 +39,8 @@ from repro_torch.serve import ContinuousBatchingEngine, ServeEngine  # noqa: E40
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 TOL = 1e-4
+# an f32 cache leaf of the prefill, against its scale (f32 rounding: qwen measured 8.5e-7)
+CACHE_F32_TOL = 1e-5
 ARCHS = ("qwen2.5-3b", "rwkv6-1.6b", "zamba2-2.7b")
 _WEIGHTS: dict = {}
 _JAX_RUNS: dict = {}
@@ -235,20 +237,79 @@ def test_attention_dense_branches_match_jax(window, cap):
             np.testing.assert_allclose(tcache[n].float().numpy(), np.asarray(jcache[n], np.float32), atol=1e-6)
 
 
+def _port_cache(jcache):
+    """JAX's dense cache (each segment's blocks stacked over their repeats)
+    in the port's layout (a list a repeat), bit for bit."""
+    def leaf(a):
+        a = np.asarray(a)
+        t = torch.from_numpy(a.astype(np.float32))
+        return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
+
+    out = {}
+    for seg, blocks in jcache.items():
+        out[seg] = {}
+        for name, tree in blocks.items():
+            n = jax.tree.leaves(tree)[0].shape[0]
+            out[seg][name] = [jax.tree.map(lambda a, i=i: leaf(a[i]), tree) for i in range(n)]
+    return out
+
+
+def _jax_cache(cache):
+    """The port's dense cache in JAX's layout (the repeats stacked), bit for
+    bit: the inverse of :func:`_port_cache`."""
+    def leaf(t):
+        return jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+
+    return {seg: {name: jax.tree.map(lambda *xs: jnp.stack([leaf(x) for x in xs]), *layers)
+                  for name, layers in blocks.items()} for seg, blocks in cache.items()}
+
+
+def _sorted_leaves(cache):
+    """A port-layout cache's tensors, dict keys in sorted order."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in _sorted_leaves(cache[k])]
+    if isinstance(cache, list):
+        return [t for v in cache for t in _sorted_leaves(v)]
+    return [cache]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_jax(arch):
+    """The prefill's logits within ``TOL``; then the decode step. Its
+    logits read the prefill's cache, stored in bf16, and an f32 value of the
+    prefill that lies within f32 rounding of a bf16 midpoint rounds to one
+    side in one package and to the other in the other (which f32 roundings
+    a host gives depends on its BLAS kernels): a flipped entry moves by one
+    bf16 step (2^-8 of its magnitude), and 4 such entries moved qwen's
+    decode logits by 1.6e-4. So the caches are held first (each package's
+    bf16 cache is its f32 cache rounded, and the f32 caches agree within
+    ``CACHE_F32_TOL`` of a leaf's scale, f32 rounding: every flip is one of
+    these roundings), and then each decode step against the other
+    package's on the same cache, within ``TOL``: the port's from its own
+    cache against JAX's from the port's, JAX's from its own cache against
+    the port's from JAX's."""
     jmodel, jparams, tmodel, tparams = _weights(arch)
     prompts = _prompts(n=2, length=7)
     jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompts)}, jmodel.init_cache(2, 16))
+    _, jcache32 = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompts)},
+                                 jmodel.init_cache(2, 16, dtype=jnp.float32))
+    token = np.asarray([[3], [9]], np.int32)
+    idx = np.asarray([7, 7], np.int32)
     with torch.inference_mode():
         tlogits, tcache = tmodel.prefill(tparams, {"tokens": torch.from_numpy(prompts)},
                                          tmodel.init_cache(2, 16, device="cpu"))
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=TOL, rtol=TOL)
-        token = np.asarray([[3], [9]], np.int32)
-        idx = np.asarray([7, 7], np.int32)
-        jlogits, _ = jmodel.decode_step(jparams, jnp.asarray(token), jcache, jnp.asarray(idx))
-        tlogits, _ = tmodel.decode_step(tparams, torch.from_numpy(token), tcache, torch.from_numpy(idx))
-    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=TOL, rtol=TOL)
+        _, tcache32 = tmodel.prefill(tparams, {"tokens": torch.from_numpy(prompts)},
+                                     tmodel.init_cache(2, 16, dtype=torch.float32, device="cpu"))
+        for own, own32 in ((tcache, tcache32), (_port_cache(jcache), _port_cache(jcache32))):
+            for a, a32 in zip(_sorted_leaves(own), _sorted_leaves(own32), strict=True):
+                assert torch.equal(a, a32.to(a.dtype))
+        for a32, b32 in zip(_sorted_leaves(tcache32), _sorted_leaves(_port_cache(jcache32)), strict=True):
+            assert float((a32 - b32).abs().max()) <= CACHE_F32_TOL * float(b32.abs().max())
+        for cache in (tcache, _port_cache(jcache)):
+            jlogits, _ = jmodel.decode_step(jparams, jnp.asarray(token), _jax_cache(cache), jnp.asarray(idx))
+            tlogits, _ = tmodel.decode_step(tparams, torch.from_numpy(token), cache, torch.from_numpy(idx))
+            np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("engine", ["static", "continuous"])

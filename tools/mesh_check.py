@@ -1,8 +1,9 @@
-"""chip_smoke.py's phases 30-31, 34-36 and 37 alone, and the sharded mesh across cards.
+"""chip_smoke.py's phases 30-31, 34-36, 37 and 38 alone, and the sharded mesh across cards.
 
     python3 tools/mesh_check.py               # phases 30-31 on one card
     python3 tools/mesh_check.py --experts     # phases 34-36 on one card
     python3 tools/mesh_check.py --tensor-parallel  # phases 36-37 and the G 8 kernel shape on one card
+    python3 tools/mesh_check.py --tensor-parallel --arch dbrx-132b  # phase 38 (the MoE family) on one card
     python3 tools/mesh_check.py --four-cards  # a machine with four cards
     python3 tools/mesh_check.py --four-cards --arch arctic-480b --layers 1
 
@@ -21,7 +22,14 @@ versions (``chip_smoke.tp_kernel_checks``), then phase 37: qwen smoke on
 at full width on (1, 2) (two updates here, one in chip_smoke; each
 worker's peak against the dry run's count), and ``chip_smoke.sharded_serving``
 (phases 36 and 37(c): ``serve_on_mesh`` without and with
-``tensor_parallel``, the ``tp_reduce_scatter`` twin bit-equal).
+``tensor_parallel``, the ``tp_reduce_scatter`` twin bit-equal). With an
+MoE ``--arch`` (dbrx-132b or arctic-480b) it runs phase 38 instead, after
+the same kernel checks (G 6 at a rank's 24/4 heads too):
+``chip_smoke.moe_tensor_parallel`` (dbrx and arctic smoke on (2, 2) with
+tensor parallelism held to the one-process run, each ``tp_reduce_scatter``
+twin bit-equal; dbrx-132b at 1 full-width layer on (1, 2), two updates,
+each worker's peak against the dry run's count) and
+``chip_smoke.sharded_serving`` (38(c) among its runs).
 
 ``--four-cards --arch A`` with an MoE arch: a (1, 4) mesh over the four
 cards, each holding E/4 experts whole (no gather of them), A at full width
@@ -176,14 +184,21 @@ def main() -> None:
     if args.tensor_parallel:
         records: dict = {}
         cs.tp_kernel_checks(records)
-        for name in ("flash_attention_fwd_g8", "flash_attention_bwd_g8"):
+        for name in ("flash_attention_fwd_g8", "flash_attention_bwd_g8", "flash_attention_fwd_g6tp",
+                     "flash_attention_bwd_g6tp"):
             r = records[name]
             print(f"{name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}; bound {r['bound'][0]:.5f}; plain "
-                  f"{r['plain_ms']:.3f}; SDPA {r['library_ms']:.4f}); max abs err {r['max_abs_err']:.3g}", flush=True)
+                  f"{r['plain_ms']:.3f}; SDPA {r['library_ms']:.4f} (device {r['library_device_ms']:.4f}), "
+                  f"default dispatch {r['library_ms_default']:.4f} (device {r['library_device_ms_default']:.4f})); "
+                  f"max abs err {r['max_abs_err']:.3g} | {smi}", flush=True)
         t1 = time.perf_counter()
-        cs._tp_smoke_run(smi)
-        cs._tp_full_width_update(smi, updates=2)
-        print(f"phase 37(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
+        if get_config(args.arch, "full").num_experts:
+            cs.moe_tensor_parallel(smi, updates=2)
+            print(f"phase 38(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
+        else:
+            cs._tp_smoke_run(smi)
+            cs._tp_full_width_update(smi, updates=2)
+            print(f"phase 37(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
         cs.sharded_serving(smi)
         return
     if args.experts:
