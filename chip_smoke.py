@@ -291,11 +291,35 @@
     single-process engine's, logits within 1e-4 of their scale. Phase 3
     holds the flash kernels at a rank's shape (B 4, S 513, 24/4 heads of
     128: G 6) to their plain versions.
+39. Tensor parallelism for the recurrent families: a ``model`` group's
+    ranks split rwkv6's heads and channel mix, Mamba2's heads (its packed
+    in_proj and conv run whole, its gated norm's sum of squares summed over
+    the group) and zamba2's shared block. (a) In phase 34's spawn:
+    SEBSTrainer(mesh=(2, 2), tensor_parallel=True) on cuda:0 x 4, rwkv6
+    smoke (phase 34's schedule's first stage, 2 updates: its trajectory
+    magnifies rounding, RECURRENT_TP_STAGES) and zamba2 smoke (ssm_state
+    64, 6 updates) at f32, pSGD, each against its one-process run on the
+    card: the ladder equal, losses within 1e-4 relative and every param
+    within 1e-4 of its leaf's norm; each ``tp_reduce_scatter`` twin
+    bit-equal with fewer bytes received; launches exact. (b) In phase 35's
+    spawn: rwkv6-1.6b at full width cut to 2 of 24 layers and zamba2-2.7b
+    to 1 of 9 repeats on (1, 2), the state built from a seed on rank 0's
+    card: one momentum update of 4 rows of 513 tokens each (a rank: 16 of
+    32 rwkv heads, 40 of 80 Mamba2 heads, 16/16 of the shared block's
+    32/32 heads of 80); the loss within 2^-7 relative of the one-process
+    loss of its rows, each worker's peak within 10% of the dry run's count
+    of its rank with tensor parallelism; launches exact. (c) In phase 36's
+    spawn: ``serve_on_mesh(..., tensor_parallel=True)`` of rwkv6 smoke and
+    zamba2 smoke (ssm_state 64) at f32 on (2, 2): greedy tokens equal the
+    single-process engine's, logits within 1e-4 of their scale. Phase 3
+    holds the GLA kernels at a rank's heads (B 4, S 513: rwkv6's H 16,
+    Mamba2's H 40 with q and k broadcast) and the flash kernels at
+    zamba2's rank (16/16 heads of 80) to their plain versions.
 
     The multi-worker runs share spawns, in this order: phase 31, phase
-    26's killed run and phase 27 (four workers); phases 30, 34 and 38(a)
-    (four, (2, 2)); phases 37(b), 35, 38(b) and 37(a) (two, (1, 2)); phases
-    36, 37(c) and 38(c) (four, (2, 2)). ``distributed.run_together`` runs
+    26's killed run and phase 27 (four workers); phases 30, 34, 38(a) and
+    39(a) (four, (2, 2)); phases 37(b), 35, 38(b), 39(b) and 37(a) (two,
+    (1, 2)); phases 36, 37(c), 38(c) and 39(c) (four, (2, 2)). ``distributed.run_together`` runs
     each as it runs alone (its own process groups and host slots, the
     card's peak and the launch counts zeroed before it, its memory freed
     after it); a run with memory gates goes first in its spawn.
@@ -2072,21 +2096,22 @@ def paged_shape_checks(records: dict, suffix: str, hq: int, hkv: int, d: int, se
     )
 
 
-def mamba2_gla_inputs(gen, b: int, s: int, steep: float = 1.0):
+def mamba2_gla_inputs(gen, b: int, s: int, steep: float = 1.0, heads: int = None):
     """GLA's operands as Mamba2 makes them at zamba2-2.7b's width, bf16 with
-    f32 log_w: q = C and k = B (B, S, 64) shared by the 80 heads, v = dt x,
-    log_w = -softplus(dt) exp(A_log) on every k channel with A_log =
-    log(linspace(1, 16, 80)) as initialized (``steep`` multiplies it) and
-    dt_bias 0; and a gradient dy."""
+    f32 log_w: q = C and k = B (B, S, 64) shared by the 80 heads (or
+    ``heads``: a tensor-parallel rank's), v = dt x, log_w = -softplus(dt)
+    exp(A_log) on every k channel with A_log = log(linspace(1, 16, 80)) as
+    initialized (the rank's first ``heads`` of them; ``steep`` multiplies
+    it) and dt_bias 0; and a gradient dy."""
     import torch
     import torch.nn.functional as F
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    h = MAMBA2_HEADS
+    h = MAMBA2_HEADS if heads is None else heads
     dtp = F.softplus(rand(b, s, h))
-    a = torch.linspace(1.0, 16.0, h, device="cuda") * steep
+    a = torch.linspace(1.0, 16.0, MAMBA2_HEADS, device="cuda")[:h] * steep
     lw = (-dtp * a)[..., None].expand(b, s, h, 64).contiguous()
     q, k = (rand(b, s, 1, 64).expand(b, s, h, 64).to(torch.bfloat16).contiguous() for _ in range(2))
     v = (rand(b, s, h, 64) * dtp[..., None]).to(torch.bfloat16)
@@ -4241,14 +4266,14 @@ def _moe_tp_setup(ep: dict, reduce_scatter: bool) -> dict:
                                                     {"log_every": 1})}
 
 
-def _moe_tp_check(ep: dict, runs: list, done: list, wall: float, smi: str) -> dict:
-    """Phase 38(a)'s gates for one arch: the all-reduce run (``runs[0]``,
-    its (state, log) ``done[0]``) against phase 34's one-process run (the
-    ladder, losses within TP_TOL relative, every param within TP_TOL of its
-    leaf's norm); the reduce-scatter twin bit-equal to it, with fewer bytes
-    received; each run's launches exact: every rank of a model group runs
-    the flash kernels for each of its group's microbatches, every worker
-    the fused pSGD once an update."""
+def _tp_pair_check(label: str, ep: dict, runs: list, done: list, wall: float, smi: str) -> dict:
+    """Phase 38(a)'s or 39(a)'s gates (``label``) for one arch: the
+    all-reduce run (``runs[0]``, its (state, log) ``done[0]``) against the
+    one-process run of ``ep`` (the ladder, losses within TP_TOL relative,
+    every param within TP_TOL of its leaf's norm); the reduce-scatter twin
+    bit-equal to it, with fewer bytes received; each run's launches exact
+    (``tp_launch_want``: every rank of a model group runs each of its
+    group's microbatches, every worker the fused pSGD once an update)."""
     import torch
 
     from repro_torch.utils.tree import tree_leaves
@@ -4258,34 +4283,116 @@ def _moe_tp_check(ep: dict, runs: list, done: list, wall: float, smi: str) -> di
     (state, log), (rs_state, rs_log) = done
     params = [t.detach().cpu() for t in tree_leaves(state.params)]
     if log.stages != ref.stages or log.batch_sizes != ref.batch_sizes or not all(map(math.isfinite, log.losses)):
-        fail(f"phase 38(a) {arch}: ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
+        fail(f"phase {label} {arch}: ladder {log.batch_sizes} vs {ref.batch_sizes}, losses {log.losses}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(log.losses, ref.losses, strict=True))
     leaf_rel = max(float((a - b).abs().max()) / float(b.norm()) for a, b in zip(params, ref_params, strict=True))
     if loss_rel > TP_TOL or leaf_rel > TP_TOL:
-        fail(f"phase 38(a) {arch}: losses {loss_rel:.3g} / params {leaf_rel:.3g} from the one-process run "
+        fail(f"phase {label} {arch}: losses {loss_rel:.3g} / params {leaf_rel:.3g} from the one-process run "
              f"(allowed {TP_TOL})")
     rs_bits = rs_log.losses == log.losses and all(
         torch.equal(a.detach().cpu(), b) for a, b in zip(tree_leaves(rs_state.params), params))
     received = [[sum(t["exchange"]["received_bytes"] for t in st["sharded"]) for st in run[0].worker_stats]
                 for run in runs]
     if not rs_bits or not sum(received[1]) < sum(received[0]):
-        fail(f"phase 38(a) {arch}: tp_reduce_scatter bit-equal {rs_bits}, bytes received {received}")
-    micro = sum(b // 2 for b in log.batch_sizes)  # a model group's ranks each run every microbatch of the group
-    m = runs[0][0].mesh.shape["model"]
-    want = {"flash_attention_fwd": 2 * m * cfg.num_layers * micro, "flash_attention_bwd": m * cfg.num_layers * micro,
-            "fused_psgd": len(runs[0][0].worker_stats) * len(log.steps)}
+        fail(f"phase {label} {arch}: tp_reduce_scatter bit-equal {rs_bits}, bytes received {received}")
+    micro = sum(b // 2 for b in log.batch_sizes)  # microbatches of 2 rows, over the model groups
+    m, workers = runs[0][0].mesh.shape["model"], len(runs[0][0].worker_stats)
+    want = tp_launch_want(cfg, m * micro, workers * len(log.steps), "fused_psgd")
     launches = {}
     for run in runs:
         got = {k: sum(st["launches"][k] for st in run[0].worker_stats) for k in run[0].worker_stats[0]["launches"]}
         if any(got[k] != v for k, v in want.items()):
-            fail(f"phase 38(a) {arch}: the workers launched {got}, not {want}")
+            fail(f"phase {label} {arch}: the workers launched {got}, not {want}")
         launches = {k: launches.get(k, 0) + v for k, v in got.items()}
-    print(f"phase 38(a) {arch} smoke f32, tensor-parallel on (2, 2) x cuda:0: {len(log.steps)} updates (the spawn "
-          f"{wall:.1f} s), losses within {loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms of "
-          f"phase 34's one-process run [{TP_TOL}]; tp_reduce_scatter bit-equal: {rs_bits}, bytes received by "
-          f"worker {received[0]} against {received[1]} | {smi}", flush=True)
+    boundary = [sum(t["boundary_s"] for t in st["sharded"]) * 1e3 for st in runs[0][0].worker_stats]
+    print(f"phase {label} {arch} smoke f32, tensor-parallel on (2, 2) x cuda:0: {len(log.steps)} updates (the "
+          f"spawn {wall:.1f} s), losses within {loss_rel:.3g} relative, params within {leaf_rel:.3g} of their norms "
+          f"of the one-process run [{TP_TOL}]; tp_reduce_scatter bit-equal: {rs_bits}, bytes received by worker "
+          f"{received[0]} against {received[1]}; the boundary exchanges " + "/".join(f"{x:.1f}" for x in boundary)
+          + f" ms | {smi}", flush=True)
     return {"wall_s": wall, "losses": log.losses, "reference_losses": ref.losses, "loss_rel": loss_rel,
-            "leaf_rel": leaf_rel, "rs_bits": rs_bits, "received_bytes": received, "launches": launches}
+            "leaf_rel": leaf_rel, "rs_bits": rs_bits, "received_bytes": received, "boundary_ms": boundary,
+            "launches": launches}
+
+
+#: phase 39(a)'s schedule, stages of phase 34's (SEBS b1 4, C1 8, rho 2): rwkv6 smoke magnifies a rounding
+#: along its trajectory (on the CPU, its split run 6.5e-5 of a leaf's norm from the one-process run after the
+#: first stage's 2 updates, 2.2e-2 after the 6 of three stages, as the one-process run differs from itself when
+#: its microbatches are summed in another order), so it runs the first stage; zamba2 all three
+RECURRENT_TP_STAGES = {"rwkv6-1.6b": 1, "zamba2-2.7b": 3}
+RECURRENT_TP_ARCHS = tuple(RECURRENT_TP_STAGES)
+
+
+def _recurrent_tp_setup(arch: str) -> dict:
+    """Phase 39(a)'s runs of ``arch``: rwkv6 smoke or zamba2 smoke
+    (``zamba2_smoke``: ssm_state 64, the GLA kernels' K) at f32, pSGD on
+    phase 34's schedule cut to RECURRENT_TP_STAGES (64-token rows,
+    microbatch 2), run in one process on the card first (the reference),
+    then set up on (2, 2) x cuda:0 with tensor parallelism, the boundaries
+    all-reduced and reduce-scattered (``tp_reduce_scatter``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import SEBS, SEBSTrainer
+    from repro_torch.data import DataPipeline, TokenDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = (zamba2_smoke() if arch == "zamba2-2.7b" else get_config(arch, "smoke")).replace(compute_dtype="float32")
+    mesh = make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
+    out = {"arch": arch, "cfg": cfg, "runs": []}
+    for on, rs in ((None, False), (mesh, False), (mesh, True)):
+        model = LanguageModel(cfg.replace(tp_reduce_scatter=rs))
+        opt = make_optimizer("psgd", gamma=1e4)
+        pipe = DataPipeline(TokenDataset(cfg.vocab_size, 64, seed=0), "cuda" if on is None else on)
+        kw = {"mesh": on, "param_axes": model.param_axes(), "deadline": ELASTIC_DEADLINE,
+              "tensor_parallel": True} if on else {}
+        trainer = SEBSTrainer(model, opt, SEBS(b1=4, C1=8, rho=2.0, num_stages=RECURRENT_TP_STAGES[arch], eta=0.5),
+                              pipe, microbatch=2, **kw)
+        params = model.init(0, device="cuda")
+        state = TrainState(params, opt.init(params), 0)
+        if on is None:
+            state, out["reference"] = trainer.run(state, log_every=1)
+            out["reference_params"] = [t.detach().cpu() for t in tree_leaves(state.params)]
+        else:
+            out["runs"].append((trainer, state, {"log_every": 1}))
+    return out
+
+
+def recurrent_cut(arch: str):
+    """Phase 39(b)'s configuration: rwkv6-1.6b at full width cut to 2 of
+    its 24 layers, zamba2-2.7b to 1 of its 9 repeats (6 Mamba2 layers and
+    the shared block)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, "full")
+    return cfg.replace(segments=(dataclasses.replace(cfg.segments[0], repeat=2 if arch == "rwkv6-1.6b" else 1),))
+
+
+def recurrent_tensor_parallel(smi: str, updates: int = 1) -> dict:
+    """Phase 39(a) and 39(b) alone (``tools/mesh_check.py --tensor-parallel
+    --arch rwkv6-1.6b``), a spawn each: the smoke runs against their
+    one-process runs, then the full-width cuts, ``updates`` updates each."""
+    from repro_torch.distributed import run_all_on_mesh
+
+    setups = [_recurrent_tp_setup(arch) for arch in RECURRENT_TP_ARCHS]
+    t0 = time.perf_counter()
+    done = run_all_on_mesh([run for x in setups for run in x["runs"]])
+    wall = time.perf_counter() - t0
+    smoke = {x["arch"]: _tp_pair_check("39(a)", x, x["runs"], done[2 * i:2 * i + 2], wall, smi)
+             for i, x in enumerate(setups)}
+    del setups, done
+    full = {}
+    for arch in RECURRENT_TP_ARCHS:
+        setup = _tp_full_width_setup(updates, cfg=recurrent_cut(arch), label=f"39(b) {arch}")
+        t0 = time.perf_counter()
+        with expandable_segments():
+            (_, log), = run_all_on_mesh([setup["run"]])
+        full[arch] = _tp_full_width_check(setup, log, time.perf_counter() - t0, smi)
+    return {"smoke": smoke, "full_width": full}
 
 
 def mesh_phases_22(cfg, smi: str, reference) -> tuple:
@@ -4295,24 +4402,31 @@ def mesh_phases_22(cfg, smi: str, reference) -> tuple:
     read the workers' allocations), then dbrx and arctic smoke with their
     experts over the model groups, then with tensor parallelism (the
     all-reduce's and the reduce-scatter's run of each). Returns (phase
-    30's record, phase 34's, phase 38(a)'s)."""
+    30's record, phase 34's, phase 38(a)'s, phase 39(a)'s). Phase 39(a)'s
+    rwkv6 and zamba2 smoke runs with tensor parallelism follow 38(a)'s."""
     from repro_torch.distributed import run_all_on_mesh
 
     sharded = _mesh_sharded_setup(cfg)
     experts = [_expert_parallel_setup(arch) for arch in EP_ARCHS]
     tensor = [[_moe_tp_setup(x, rs) for rs in (False, True)] for x in experts]
+    recurrent = [_recurrent_tp_setup(arch) for arch in RECURRENT_TP_ARCHS]
     t0 = time.perf_counter()
     done = run_all_on_mesh([sharded["run"]] + [x["run"] for x in experts]
-                           + [run["run"] for pair in tensor for run in pair])
+                           + [run["run"] for pair in tensor for run in pair]
+                           + [run for x in recurrent for run in x["runs"]])
     wall = time.perf_counter() - t0
-    print(f"phases 30, 34, 38(a): one spawn of four workers on (2, 2) x cuda:0 ran {len(done)} runs in {wall:.1f} s "
-          f"| {smi}", flush=True)
+    print(f"phases 30, 34, 38(a), 39(a): one spawn of four workers on (2, 2) x cuda:0 ran {len(done)} runs in "
+          f"{wall:.1f} s | {smi}", flush=True)
     record = _mesh_sharded_check(sharded, *done[0], wall, smi, reference, "30 mesh (2, 2)")
     n = len(experts)
     ep = {x["arch"]: _expert_parallel_check(x, *run, wall, smi) for x, run in zip(experts, done[1:1 + n])}
-    tp = {x["arch"]: _moe_tp_check(x, [run["run"] for run in pair], done[1 + n + 2 * i:3 + n + 2 * i], wall, smi)
+    tp = {x["arch"]: _tp_pair_check("38(a)", x, [run["run"] for run in pair], done[1 + n + 2 * i:3 + n + 2 * i],
+                                    wall, smi)
           for i, (x, pair) in enumerate(zip(experts, tensor))}
-    return record, ep, tp
+    first = 1 + n + 2 * len(tensor)
+    rec = {x["arch"]: _tp_pair_check("39(a)", x, x["runs"], done[first + 2 * i:first + 2 * i + 2], wall, smi)
+           for i, x in enumerate(recurrent)}
+    return record, ep, tp, rec
 
 
 def dbrx_expert_parallel(smi: str) -> dict:
@@ -4426,6 +4540,92 @@ def tp_kernel_checks(records: dict) -> None:
     flash_shape(records, gen, 4, 513, hq // 2, hkv // 2, d, suffix="_g6tp")
 
 
+def gla_rank_shape(records: dict, gen, suffix: str, heads: int, include_current: bool) -> None:
+    """The GLA kernels at a tensor-parallel rank's heads (B 4, S 513):
+    rwkv6's route (a bonus; ``include_current`` False) or Mamba2's (the
+    current token included, q and k one (B, S, 64) pair broadcast over the
+    heads), forward and backward against the plain recurrence within
+    GLA_TOL, a planted fault each (the bonus or the current token's term
+    left out of y; each chunk's total decay term left out of dlog_w); the
+    same bits twice; L2-cold, device and plain times and the bound. Into
+    ``records["gla_fwd" + suffix]`` and ``records["gla_bwd" + suffix]``."""
+    import torch
+
+    from repro_torch.kernels.gla import ops, ref
+
+    if include_current:
+        q, k, v, lw, dy = mamba2_gla_inputs(gen, 4, 513, heads=heads)
+        u = None
+    else:
+        q, k, v, lw, u, _, dy = gla_inputs(gen, 4, 513, heads, initial_state=False)
+    shape = f"B 4, S 513, H {heads}{', Mamba2' if include_current else ''}"
+    y, final, states = ops.forward(q, k, v, lw, u, include_current=include_current, save_states=True)
+    expect_y, expect_final = ref.gla_fwd_ref(q, k, v, lw, bonus_u=u, include_current=include_current)
+    if include_current:  # the current token's term q_t . (k_t v_t) left out
+        fault_y = expect_y.float() - (q.float() * k.float()).sum(-1, keepdim=True) * v.float()
+    else:  # the bonus left out
+        fault_y = ref.gla_fwd_ref(q, k, v, lw, include_current=False)[0]
+    fwd = [check_scaled(f"gla_fwd{suffix} y ({shape})", y, expect_y, "y", fault_y),
+           check_scaled(f"gla_fwd{suffix} final state ({shape})", final, expect_final, "float32")]
+    grads = ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=include_current)
+    expect = ref.gla_bwd_ref(q, k, v, lw, u, None, dy, None, include_current=include_current)
+    again = ops.backward(q, k, v, lw, u, None, states, final, dy, None, include_current=include_current)
+    if not all(torch.equal(x, y_) for x, y_ in zip(grads, again) if x is not None):
+        fail(f"gla_bwd{suffix}: two runs on the same inputs differ")
+    fault = dlog_w_without_chunk_totals(q, k, v, lw, u, dy, expect[3], include_current=include_current)
+    bwd = []
+    for name, g, e in zip(("dq", "dk", "dv", "dlog_w", "du"), grads, expect):
+        if g is None:
+            continue
+        tol = "grad" if g.dtype == torch.bfloat16 else "float32"
+        bwd.append(check_scaled(f"gla_bwd{suffix} {name} ({shape})", g, e, tol, fault if name == "dlog_w" else None))
+    sets = [(q.clone(), k.clone(), v.clone(), lw.clone(), u) for _ in range(copies_for(nbytes(q, k, v, lw)))]
+    bwd_sets = [(*x, None, states.clone(), final.clone(), dy.clone(), None) for x in sets]
+    fwd_fn = functools.partial(ops.forward, include_current=include_current, save_states=True)
+    bwd_fn = functools.partial(ops.backward, include_current=include_current)
+    records["gla_fwd" + suffix] = dict(
+        **merge(fwd),
+        ms=timed(fwd_fn, sets, 50), device_ms=device_ms(fwd_fn, sets, 20),
+        plain_ms=timed(lambda q_, k_, v_, lw_, u_: ref.gla_fwd_ref(q_, k_, v_, lw_, bonus_u=u_,
+                                                                   include_current=include_current), sets, 2),
+        bound=cost_bound(ops.cost(q, k, v, lw, u), BF16_FLOPS), library_ms=None)
+    records["gla_bwd" + suffix] = dict(
+        **merge(bwd),
+        ms=timed(bwd_fn, bwd_sets, 20), device_ms=device_ms(bwd_fn, bwd_sets, 10),
+        plain_ms=timed(lambda *a: ref.gla_bwd_ref(*a[:6], a[8], a[9], include_current=include_current),
+                       bwd_sets, 1),
+        bound=cost_bound(ops.cost(q, k, v, lw, u, backward=True), BF16_FLOPS), library_ms=None)
+
+
+def recurrent_tp_kernel_checks(records: dict) -> None:
+    """Phase 3 at a tensor-parallel rank's shapes of the recurrent families
+    over a model group of 2 (phase 39(b)'s runs): GLA at rwkv6-1.6b's 16 of
+    32 heads (``_tp``) and Mamba2's 40 of 80 (``_mamba2tp``), the flash
+    kernels at zamba2's shared block's 16/16 of 32 heads of 80 (``_d80tp``),
+    B 4, S 513."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    flash_shape(records, gen, 4, 513, ZAMBA2_HEADS // 2, ZAMBA2_HEADS // 2, ZAMBA2_HEAD_DIM, suffix="_d80tp")
+    gla_rank_shape(records, gen, "_tp", 16, include_current=False)
+    gla_rank_shape(records, gen, "_mamba2tp", MAMBA2_HEADS // 2, include_current=True)
+
+
+def tp_launch_want(cfg, rank_micro: int, updates: int, fused: str) -> dict:
+    """The kernels' launches of a tensor-parallel training run (remat on)
+    whose ranks ran ``rank_micro`` microbatches in all (a model group's
+    every rank runs each of its group's): the flash forward twice and the
+    backward once for each application of an attention block (zamba2's
+    shared block once a repeat), the GLA kernels the same for each rwkv6 or
+    Mamba2 layer, and the fused update ``fused`` ``updates`` times (once an
+    update on each worker)."""
+    attn = sum(seg.repeat * (sum(b.mixer in ("attn", "swa") for b in seg.body) + int(seg.shared_attn))
+               for seg in cfg.segments)
+    gla = sum(seg.repeat * sum(b.mixer in ("rwkv6", "mamba2") for b in seg.body) for seg in cfg.segments)
+    return {"flash_attention_fwd": 2 * attn * rank_micro, "flash_attention_bwd": attn * rank_micro,
+            "gla_fwd": 2 * gla * rank_micro, "gla_bwd": gla * rank_micro, fused: updates}
+
+
 def _tp_smoke_setup() -> dict:
     """Phase 37(a)'s run: qwen2.5-3b smoke (f32, momentum; SEBS b1 4, C1
     12, rho 2, 2 stages of 64-token rows: 6 updates, microbatch 2) on (1, 2)
@@ -4483,8 +4683,8 @@ def _tp_smoke_check(setup: dict, state, log, wall: float, smi: str) -> dict:
     boundary = [sum(t["boundary_s"] for t in st["sharded"]) * 1e3 for st in trainer.worker_stats]
     received = [sum(t["exchange"]["received_bytes"] for t in st["sharded"]) for st in trainer.worker_stats]
     launches = {k: sum(st["launches"][k] for st in trainer.worker_stats) for k in trainer.worker_stats[0]["launches"]}
-    fwd = 2 * cfg.num_layers * sum(b // 2 for b in log.batch_sizes)  # a worker's: every microbatch, twice (remat)
-    want = {"flash_attention_fwd": 2 * fwd, "flash_attention_bwd": fwd, "fused_momentum": 2 * len(log.steps)}
+    # each of the two workers runs every microbatch (of 2 rows)
+    want = tp_launch_want(cfg, 2 * sum(b // 2 for b in log.batch_sizes), 2 * len(log.steps), "fused_momentum")
     if any(launches[k] != v for k, v in want.items()):
         fail(f"phase 37(a): the workers launched {launches}, not {want}")
     print(f"phase 37(a) qwen2.5-3b smoke f32, tensor-parallel (reduce-scatter) on (1, 2) x cuda:0: {len(log.steps)} "
@@ -4497,13 +4697,15 @@ def _tp_smoke_check(setup: dict, state, log, wall: float, smi: str) -> dict:
 
 def _tp_full_width_setup(updates: int = 1, cfg=None, label: str = "37(b)") -> dict:
     """Phase 37(b)'s run (``label``): qwen2.5-3b at full width (or
-    ``cfg``: phase 38(b)'s dbrx-132b at 1 of 40 layers) on (1, 2) x cuda:0
+    ``cfg``: phase 38(b)'s dbrx-132b at 1 of 40 layers, phase 39(b)'s
+    rwkv6-1.6b at 2 of 24 layers and zamba2-2.7b at 1 of 9 repeats) on (1, 2) x cuda:0
     with tensor parallelism, the state (params and momentum in f32: qwen's
     24.7 GB) built from a seed on rank 0's card and kept on the workers:
     ``updates`` updates of 4 rows of 513 tokens (the first holds the
     workers' one-time costs), one microbatch the group's (the flash kernels
     at the rank's query heads over its kv heads: qwen's 8 over 1, dbrx's 24
-    over 4; dbrx's 8 of 16 experts a rank). First, on the card, the
+    over 4, zamba2's 16 over 16; dbrx's 8 of 16 experts a rank; the GLA
+    kernels at rwkv6's 16 of 32 heads, Mamba2's 40 of 80). First, on the card, the
     one-process loss of the first update's rows on the params rank 0
     builds."""
     import torch
@@ -4562,9 +4764,8 @@ def _tp_full_width_check(setup: dict, log, wall: float, smi: str) -> dict:
                              shape=InputShape("update", 513, 4, "train"), optimizer_name="momentum",
                              tensor_parallel=True)
     launches = {k: sum(st["launches"][k] for st in trainer.worker_stats) for k in trainer.worker_stats[0]["launches"]}
-    n = len(log.steps)  # each worker: a microbatch an update, the forward twice (remat)
-    want = {"flash_attention_fwd": 2 * 2 * cfg.num_layers * n, "flash_attention_bwd": 2 * cfg.num_layers * n,
-            "fused_momentum": 2 * n}
+    n = len(log.steps)  # each worker: a microbatch an update
+    want = tp_launch_want(cfg, 2 * n, 2 * n, "fused_momentum")
     if any(launches[k] != v for k, v in want.items()):
         fail(f"phase {label}: the workers launched {launches}, not {want}")
     span = [ev["dur"] * 1e3 for ev in trainer.tracer.events if ev.get("name") == "train.update"]
@@ -4626,7 +4827,7 @@ def moe_tensor_parallel(smi: str, updates: int = 1) -> dict:
     t0 = time.perf_counter()
     done = run_all_on_mesh([run["run"] for pair in tensor for run in pair])
     wall = time.perf_counter() - t0
-    smoke = {x["arch"]: _moe_tp_check(x, [run["run"] for run in pair], done[2 * i:2 * i + 2], wall, smi)
+    smoke = {x["arch"]: _tp_pair_check("38(a)", x, [run["run"] for run in pair], done[2 * i:2 * i + 2], wall, smi)
              for i, (x, pair) in enumerate(zip(experts, tensor))}
     del experts, tensor, done
     setup = _tp_full_width_setup(updates, cfg=moe_cut("dbrx-132b", 1), label="38(b)")
@@ -4637,28 +4838,32 @@ def moe_tensor_parallel(smi: str, updates: int = 1) -> dict:
 
 
 def mesh_phases_12(smi: str) -> tuple:
-    """Phases 37(b), 35, 38(b) and 37(a) in one spawn of two workers on
-    (1, 2) x cuda:0 (``distributed.run_all_on_mesh``: each run as it runs
-    alone, the workers started once, with expandable segments), the
+    """Phases 37(b), 35, 38(b), 39(b) and 37(a) in one spawn of two workers
+    on (1, 2) x cuda:0 (``distributed.run_all_on_mesh``: each run as it
+    runs alone, the workers started once, with expandable segments), the
     full-width runs first (their memory gates read the workers'
     allocations). Returns (phase 35's record, phase 37's training records,
-    phase 38(b)'s)."""
+    phase 38(b)'s, phase 39(b)'s by arch)."""
     from repro_torch.distributed import run_all_on_mesh
 
     full, dbrx = _tp_full_width_setup(), _dbrx_setup()
     dbrx_tp = _tp_full_width_setup(cfg=moe_cut("dbrx-132b", 1), label="38(b)")
+    recurrent = [_tp_full_width_setup(cfg=recurrent_cut(arch), label=f"39(b) {arch}") for arch in RECURRENT_TP_ARCHS]
     smoke = _tp_smoke_setup()
     t0 = time.perf_counter()
     with expandable_segments():
-        done = run_all_on_mesh([full["run"], dbrx["run"], dbrx_tp["run"], smoke["run"]])
+        done = run_all_on_mesh([full["run"], dbrx["run"], dbrx_tp["run"]] + [x["run"] for x in recurrent]
+                               + [smoke["run"]])
     wall = time.perf_counter() - t0
-    print(f"phases 35, 37(a, b), 38(b): one spawn of two workers on (1, 2) x cuda:0 ran {len(done)} runs in "
+    print(f"phases 35, 37(a, b), 38(b), 39(b): one spawn of two workers on (1, 2) x cuda:0 ran {len(done)} runs in "
           f"{wall:.1f} s | {smi}", flush=True)
     tensor = {"full_width": _tp_full_width_check(full, done[0][1], wall, smi)}
     dbrx_record = _dbrx_check(dbrx, done[1][1], wall, smi)
     dbrx_tp_record = _tp_full_width_check(dbrx_tp, done[2][1], wall, smi)
-    tensor["smoke"] = _tp_smoke_check(smoke, *done[3], wall, smi)
-    return dbrx_record, tensor, dbrx_tp_record
+    recurrent_records = {arch: _tp_full_width_check(x, done[3 + i][1], wall, smi)
+                         for i, (arch, x) in enumerate(zip(RECURRENT_TP_ARCHS, recurrent))}
+    tensor["smoke"] = _tp_smoke_check(smoke, *done[-1], wall, smi)
+    return dbrx_record, tensor, dbrx_tp_record, recurrent_records
 
 
 def _engine_greedy(model, params, tokens, rows: int) -> list:
@@ -4698,7 +4903,9 @@ def sharded_serving(smi: str) -> tuple:
     logits within TP_BF16_TOL of their scale of the engine's, the prefill's
     greedy tokens the engine's. Phase 38(c): dbrx smoke at f32 with tensor
     parallelism, greedy tokens the engine's, logits within TP_TOL of their
-    scale. Returns (phase 36's record, phase 37(c)'s, phase 38(c)'s)."""
+    scale. Phase 39(c): the same for rwkv6 smoke and zamba2 smoke (ssm_state
+    64), each rank keeping its heads' recurrent state. Returns (phase 36's
+    record, phase 37(c)'s, phase 38(c)'s, phase 39(c)'s)."""
     import numpy as np
     import torch
 
@@ -4713,7 +4920,10 @@ def sharded_serving(smi: str) -> tuple:
     for label, cfg, s, split in (("qwen2.5-3b", qwen, 12, False), ("dbrx-132b", dbrx, 12, False),
                                  ("tp", qwen, 12, True), ("tp_rs", qwen.replace(tp_reduce_scatter=True), 12, True),
                                  ("tp full width", get_config("qwen2.5-3b", "full"), 64, True),
-                                 ("tp dbrx", dbrx, 12, True)):
+                                 ("tp dbrx", dbrx, 12, True),
+                                 ("tp rwkv6-1.6b", get_config("rwkv6-1.6b", "smoke").replace(compute_dtype="float32"),
+                                  12, True),
+                                 ("tp zamba2-2.7b", zamba2_smoke().replace(compute_dtype="float32"), 12, True)):
         model = LanguageModel(cfg)
         tokens = np.random.default_rng(36).integers(0, cfg.vocab_size, (4, s)).astype(np.int32)
         runs.append((label, model, model.init(0, device="cuda"), tokens, split))
@@ -4772,7 +4982,19 @@ def sharded_serving(smi: str) -> tuple:
     print(f"phase 38(c) serve_on_mesh tensor-parallel on (2, 2) x cuda:0: dbrx smoke f32 (a rank: 2 of 4 query heads, "
           f"2 of 4 experts) greedy tokens equal the engine's, logits within {moe['rel_err']:.3g} of their scale "
           f"[{TP_TOL}] | {smi}", flush=True)
-    return experts, tp, moe
+    recurrent = {}
+    for arch in RECURRENT_TP_ARCHS:
+        label = "tp " + arch
+        rec = {"rel_err": rel(label), "tokens": tokens_of(got[label]), "engine_tokens": tokens_of(want[label])}
+        if rec["rel_err"] > TP_TOL or rec["tokens"] != rec["engine_tokens"]:
+            fail(f"phase 39(c): {arch}'s tensor-parallel logits are {rec['rel_err']:.3g} of their scale from the "
+                 f"engine's [{TP_TOL}], greedy tokens {rec['tokens']} against {rec['engine_tokens']}")
+        recurrent[arch] = rec
+    print(f"phase 39(c) serve_on_mesh tensor-parallel on (2, 2) x cuda:0: rwkv6 smoke f32 (a rank: 2 of 4 heads) "
+          f"and zamba2 smoke f32 (4 of 8 Mamba2 heads, 2 of the shared block's 4) greedy tokens equal the engine's, "
+          f"logits within {recurrent['rwkv6-1.6b']['rel_err']:.3g} and {recurrent['zamba2-2.7b']['rel_err']:.3g} of "
+          f"their scale [{TP_TOL}] | {smi}", flush=True)
+    return experts, tp, moe, recurrent
 
 
 # -- disaggregated prefill/decode serving (phases 28-29) ---------------------
@@ -5147,6 +5369,7 @@ def main() -> None:
     zamba2_kernel_checks(records)
     moe_kernel_checks(records)
     tp_kernel_checks(records)
+    recurrent_tp_kernel_checks(records)
     fwd_rec, bwd_rec = records["flash_attention_fwd"], records["flash_attention_bwd"]
     print(f"flash yardstick, ms a call (device ms in brackets): SDPA ({fwd_rec['library_backend']}) fwd "
           f"{fwd_rec['library_ms']:.4f} ({fwd_rec['library_device_ms']:.4f}), bwd {bwd_rec['library_ms']:.4f} "
@@ -5425,18 +5648,21 @@ def main() -> None:
     # 30 and 34, one spawn of four workers on (2, 2): qwen2.5-3b's sharded storage held to phase 26's
     # budget 1, then an MoE layer's experts over the mesh's model groups at smoke size held to the
     # one-process run
-    sharded["mesh"], experts_smoke, moe_tp_smoke = mesh_phases_22(elastic_cfg, smi, elastic_reference)
+    sharded["mesh"], experts_smoke, moe_tp_smoke, rec_tp_smoke = mesh_phases_22(elastic_cfg, smi,
+                                                                                  elastic_reference)
     experts = {"smoke": experts_smoke}
     del elastic_reference
-    phase_done("30, 34, 38(a) sharded mesh (2, 2), experts over model groups, MoE tensor-parallel")
+    phase_done("30, 34, 38(a), 39(a) sharded mesh (2, 2), experts over model groups, MoE and recurrent "
+               "tensor-parallel")
     # 35, 37(a, b) and 38(b), one spawn of two workers on (1, 2): dbrx-132b at full width, and attention,
     # the MLPs, the experts and the vocabulary over the model groups (training)
-    experts["dbrx"], tensor, moe_tp_full = mesh_phases_12(smi)
+    experts["dbrx"], tensor, moe_tp_full, rec_tp_full = mesh_phases_12(smi)
     moe_tp = {"smoke": moe_tp_smoke, "full_width": moe_tp_full}
-    phase_done("35, 37(a, b), 38(b) dbrx experts, tensor-parallel training on (1, 2)")
-    # 36, 37(c) and 38(c): the sharded serving forward, without and with tensor parallelism, one spawn
-    experts["serving"], tensor["serving"], moe_tp["serving"] = sharded_serving(smi)
-    phase_done("36, 37(c), 38(c) sharded serving forward")
+    rec_tp = {"smoke": rec_tp_smoke, "full_width": rec_tp_full}
+    phase_done("35, 37(a, b), 38(b), 39(b) dbrx experts, tensor-parallel training on (1, 2)")
+    # 36, 37(c), 38(c) and 39(c): the sharded serving forward, without and with tensor parallelism, one spawn
+    experts["serving"], tensor["serving"], moe_tp["serving"], rec_tp["serving"] = sharded_serving(smi)
+    phase_done("36, 37(c), 38(c), 39(c) sharded serving forward")
     # 28-29. disaggregated prefill/decode serving, both workers on the card,
     # on phase 4's and phase 15's weights and requests, under the sanitizers
     gc.collect()
@@ -5481,7 +5707,8 @@ def main() -> None:
                   "paged_flash_decode_g6", "paged_flash_decode_g7", "paged_chunk_prefill_g6",
                   "paged_chunk_prefill_g7", "fused_sample_v100352", "fused_sample_v32000", "fused_psgd_dbrx",
                   "flash_attention_fwd_g8", "flash_attention_bwd_g8", "flash_attention_fwd_g6tp",
-                  "flash_attention_bwd_g6tp"):
+                  "flash_attention_bwd_g6tp", "flash_attention_fwd_d80tp", "flash_attention_bwd_d80tp",
+                  "gla_fwd_tp", "gla_bwd_tp", "gla_fwd_mamba2tp", "gla_bwd_mamba2tp"):
         replaces[kname] = replaces[kname.rsplit("_", 1)[0]]
     sources = {
         "paged_flash_decode": "paged_decode/csrc/paged_attention.cu",
@@ -5496,8 +5723,8 @@ def main() -> None:
         "gla_bwd": "gla/csrc/gla.cu",
     }
     sources.update({f"{n}{suffix}": sources[n] for n in list(sources)
-                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_g8", "_g6tp", "_v100352", "_v32000",
-                                   "_dbrx")})
+                    for suffix in ("_d80", "_mamba2", "_g6", "_g7", "_g8", "_g6tp", "_d80tp", "_tp", "_mamba2tp",
+                                   "_v100352", "_v32000", "_dbrx")})
     all_launches = {**launches, **train_launches}
     # the dense serving path (phase 12) runs the flash forward and the sampler too
     for kname in ("flash_attention_fwd", "fused_sample"):
@@ -5541,6 +5768,19 @@ def main() -> None:
     all_launches["fused_momentum"] += moe_tp["full_width"]["launches"]["fused_momentum"]
     for kname in ("flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
         all_launches[kname] += sum(run["launches"][kname] for run in moe_tp["smoke"].values())
+    # the recurrent families' tensor-parallel paths (phase 39): rwkv6 at 2 and zamba2 at 6 full-width layers,
+    # the GLA kernels at a rank's 16 and 40 heads, zamba2's shared block at its 16/16 heads of 80, the fused
+    # momentum over each worker's shards (b); the smoke runs at f32 (the GLA kernels' and zamba2's flash
+    # kernels' f32 routes, the fused pSGD), both boundary sums, every worker's (a)
+    rec_full = rec_tp["full_width"]
+    for kname in ("gla_fwd", "gla_bwd"):
+        all_launches[kname + "_tp"] = rec_full["rwkv6-1.6b"]["launches"][kname]
+        all_launches[kname + "_mamba2tp"] = rec_full["zamba2-2.7b"]["launches"][kname]
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        all_launches[kname + "_d80tp"] = rec_full["zamba2-2.7b"]["launches"][kname]
+    all_launches["fused_momentum"] += sum(run["launches"]["fused_momentum"] for run in rec_full.values())
+    for kname in ("gla_fwd", "gla_bwd", "flash_attention_fwd", "flash_attention_bwd", "fused_psgd"):
+        all_launches[kname] += sum(run["launches"][kname] for run in rec_tp["smoke"].values())
     # whisper's paths (phases 22-23): the encoder's flash launches, counted
     # apart as the non-causal ones, and the decoder's, the causal rest
     for part in ("encoder", "decoder"):
@@ -5630,7 +5870,8 @@ def main() -> None:
             for n in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_d80",
                       "flash_attention_bwd_d80", "flash_attention_fwd_g6", "flash_attention_bwd_g6",
                       "flash_attention_fwd_g7", "flash_attention_fwd_g8", "flash_attention_bwd_g8",
-                      "flash_attention_fwd_g6tp", "flash_attention_bwd_g6tp")}},
+                      "flash_attention_fwd_g6tp", "flash_attention_bwd_g6tp", "flash_attention_fwd_d80tp",
+                      "flash_attention_bwd_d80tp")}},
         "zamba2_device_ms": {n: records[n]["device_ms"] for n in (
             "flash_attention_fwd_d80", "flash_attention_bwd_d80", "paged_flash_decode_d80",
             "paged_chunk_prefill_d80", "gla_fwd_mamba2", "gla_bwd_mamba2")},
@@ -5659,6 +5900,10 @@ def main() -> None:
                         for n in records if n.startswith("flash_attention") and "whisper" in n}},
         "experiments": experiments, "fig1": fig1, "elastic": {"exact": elastic, "local_sgd": local_sgd},
         "sharded": sharded, "experts": experts, "tensor_parallel": tensor, "moe_tensor_parallel": moe_tp,
+        "recurrent_tensor_parallel": rec_tp,
+        "recurrent_tp_device_ms": {n: records[n]["device_ms"] for n in (
+            "gla_fwd_tp", "gla_bwd_tp", "gla_fwd_mamba2tp", "gla_bwd_mamba2tp", "flash_attention_fwd_d80tp",
+            "flash_attention_bwd_d80tp")},
         "remat": remat,
         "disagg": disagg,
         "dense_serving": dense, "resume": resume, "adaptive": adaptive, "phase_s": phase_s,

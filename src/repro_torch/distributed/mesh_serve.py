@@ -12,10 +12,11 @@ shapes, serving its shards to every gather and its experts to its
 ``model`` group), prefills a dense cache, then decodes greedily: each
 layer is gathered where it runs, an MoE layer's experts split over
 ``model`` are computed over the rank's ``model`` group. With
-``tensor_parallel`` the ``model`` groups split a dense decoder's or an MoE
-model's compute (``sharded.TensorParallel``): the rows spread over the
+``tensor_parallel`` the ``model`` groups split the compute of every family
+but whisper (``sharded.TensorParallel``): the rows spread over the
 groups, every rank of a group takes the group's, keeps a cache of its kv
-heads and gets the logits gathered over the vocabulary. The launcher's
+heads or its recurrent heads' state (``sharded.local_cache``) and gets the
+logits gathered over the vocabulary. The launcher's
 serving path stays single-process; this is the sharded forward as code
 that runs, which the dry run's serving counts measure.
 """

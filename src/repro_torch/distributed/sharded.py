@@ -75,14 +75,20 @@ meaning. A rank without rows whose ``model`` group has some runs the pass
 all-to-all; a rank whose group has none replays.
 
 **Tensor parallelism** (``tp``, a :class:`TensorParallel`, opt-in: the
-dense decoders and the MoE family). The ranks of a ``model`` group share
-their rows and split the matmuls as the JAX package's GSPMD does: the
-attention heads, the MLP's hidden dimension, an MoE layer's experts and
-the vocabulary (``sharding/partitioning.compute_split_dim``), each split
-leaf gathered over the rank's expert group as its chunk. An MoE layer
-routes the group's whole sequence on every rank and runs the rank's
-experts on their capacity buffers (``models/layers/moe.py``); its one
-partial, arctic's residual MLP included, is summed like any other. The
+dense decoders, the MoE family, rwkv6 and zamba2). The ranks of a
+``model`` group share their rows and split the matmuls as the JAX
+package's GSPMD does: the attention heads, the MLP's hidden dimension, an
+MoE layer's experts, the vocabulary, rwkv6's heads and Mamba2's
+(``sharding/partitioning.compute_split_dim``), each split leaf gathered
+over the rank's expert group as its chunk. An MoE layer routes the group's
+whole sequence on every rank and runs the rank's experts on their
+capacity buffers (``models/layers/moe.py``); its one partial, arctic's
+residual MLP included, is summed like any other. rwkv6's time mix and
+Mamba2 run the rank's heads on the gathered sequence and sum one partial
+(``models/layers/rwkv6.py``, ``mamba2.py``); Mamba2's packed projection
+and conv run whole, and its gated norm's sum of squares is summed over
+the group (:class:`_GroupSum`). zamba2's shared block is gathered once a
+segment and split like a dense decoder's block at each application. The
 residual carry between blocks is the rank's block of the sequence
 (:class:`_TensorGroup`); a layer gathers the sequence
 (:class:`_SeqGather`), computes its partial product and sums it over the
@@ -93,7 +99,9 @@ split leaf's gradient is its chunk's, summed over the expert group; every
 other leaf's microbatch gradient (the norms, on the sequence slice; the
 kv projections where the kv heads do not divide the group; internvl2's
 projector; the routers, through the rank's experts' combine weights and
-its block's share of the aux loss) is a partial over the ``model`` group,
+its block's share of the aux loss; the leaves of
+``partitioning.TENSOR_PARALLEL_WHOLE`` and those rwkv6 reads by head) is a
+partial over the ``model`` group,
 summed over it first (its ‖g‖² taken once), then over the groups that
 compute. ``grad_sq_small`` is each
 rank's split leaves' squares summed over the group; ``grad_sq_big`` the
@@ -142,7 +150,7 @@ from repro_torch.distributed.step import (
 from repro_torch.kernels.accounting import descriptors
 from repro_torch.models.layers import attention, moe
 from repro_torch.sharding import NamedSharding, shard_tree
-from repro_torch.sharding.partitioning import axes_leaves, check_tensor_parallel, compute_split_dim
+from repro_torch.sharding.partitioning import axes_leaves, axes_paths, check_tensor_parallel, compute_split_dim
 from repro_torch.train.loss import lm_loss
 from repro_torch.train.state import TrainState, unstack_axes
 from repro_torch.train.step import clip_by_global_norm
@@ -288,6 +296,10 @@ def _leaf_sums(shardings: list, rank: int, xmesh):
     return combine
 
 
+#: the subtrees of a block whose layers split under tensor parallelism (they get the ``"tp"`` entry)
+_SPLIT_LAYERS = ("attn", "mlp", "moe", "tmix", "cmix", "mamba")
+
+
 class _Shards:
     """A subtree of the params as this worker stores it: its shards (leaf
     indices ``ids`` of the step's leaves); ``whole(keep)`` gathers the
@@ -315,7 +327,7 @@ class _Shards:
         if self.experts and "moe" in out:
             out["moe"] = dict(out["moe"], group=_ExpertGroup(self.run, self.experts))
         if self.run.tensor is not None and isinstance(out, dict):
-            out = {k: dict(v, tp=self.run.tensor) if k in ("attn", "mlp", "moe") else v for k, v in out.items()}
+            out = {k: dict(v, tp=self.run.tensor) if k in _SPLIT_LAYERS else v for k, v in out.items()}
             if "table" in out or "unembed" in out:  # the embedding, or the head
                 out["tp"] = self.run.tensor
         return out
@@ -385,8 +397,8 @@ def _chunk_sharding(sharding, sub, dim: int = 0) -> "NamedSharding":
 
 @dataclass(frozen=True)
 class TensorParallel:
-    """What the sharded step and forward need to split a dense decoder's or
-    an MoE model's compute over the mesh's ``model`` groups: each param leaf's split
+    """What the sharded step and forward need to split a model's compute
+    over the mesh's ``model`` groups: each param leaf's split
     dimension (``compute_split_dim``; None for a leaf that runs whole) and
     whether a boundary's sum lands on the sequence slice by a
     reduce-scatter (``cfg.tp_reduce_scatter``) or an all-reduce."""
@@ -402,44 +414,74 @@ def tensor_parallel(model, params, mesh, param_axes=None) -> Optional[TensorPara
     ``model`` axis has one rank (nothing to split). Raises ``ValueError``
     for a model it does not cover, or where the axis does not divide what
     it splits: the vocabulary, a dense MLP's hidden dimension (arctic's
-    residual MLP's too), the experts."""
+    residual MLP's and zamba2's shared block's too), the experts, rwkv6's
+    heads and its channel mix's hidden dimension, Mamba2's heads."""
     check_tensor_parallel(model.cfg)
     m = mesh.shape.get("model", 1)
     if m < 2:
         return None
     cfg = model.cfg
+    kinds = {(b.mixer, b.ffn) for seg in cfg.segments for b in seg.body}
     split = [("padded vocabulary", cfg.padded_vocab)]
-    if any(b.ffn == "dense" for seg in cfg.segments for b in seg.body) or cfg.moe_dense_residual:
-        split.append(("d_ff", cfg.d_ff))  # a dense MLP's hidden dimension (not the experts', which runs whole)
-    if any(b.ffn == "moe" for seg in cfg.segments for b in seg.body):
+    if (any(f == "dense" for _, f in kinds) or cfg.moe_dense_residual or any(seg.shared_attn for seg in cfg.segments)
+            or ("rwkv6", "rwkv_cmix") in kinds):
+        split.append(("d_ff", cfg.d_ff))  # a dense MLP's or the channel mix's hidden dimension (not the experts')
+    if any(f == "moe" for _, f in kinds):
         split.append(("experts", cfg.num_experts))
+    if ("rwkv6", "rwkv_cmix") in kinds:
+        split.append(("rwkv heads (d_model / rwkv_head_dim)", cfg.d_model // cfg.rwkv_head_dim))
+    if ("mamba2", "none") in kinds:
+        split.append(("Mamba2 heads (ssm_expand d_model / ssm_head_dim)",
+                      cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim))
     for name, n in split:
         if n % m:
             raise ValueError(f"tensor parallelism splits {cfg.name}'s {name} ({n}) over a model axis of {m}, "
                              f"which does not divide it")
     axes = unstack_axes(model.param_axes() if param_axes is None else param_axes, params)
     shardings = tree_leaves(shard_tree(axes, params, mesh))
-    dims = tuple(compute_split_dim(a, s.spec) for a, s in zip(axes_leaves(axes), shardings, strict=True))
+    dims = tuple(compute_split_dim(a, s.spec, p)
+                 for a, p, s in zip(axes_leaves(axes), axes_paths(axes), shardings, strict=True))
     return TensorParallel(dims, cfg.tp_reduce_scatter)
 
 
 def local_cache(model, mesh, batch: int, cache_len: int, dtype, device):
     """The dense cache a rank keeps under tensor parallelism on ``mesh``:
-    ``batch`` rows of its kv heads (``attention.local_kv_heads``)."""
+    ``batch`` rows of its kv heads (``attention.local_kv_heads``); of a
+    recurrent layer, its heads' state (rwkv6's ``wkv``, Mamba2's ``ssm``)
+    and Mamba2's conv window of its heads' x channels and all of B and C,
+    rwkv6's token shifts whole."""
     cfg = model.cfg
-    heads = attention.local_kv_heads(cfg, mesh.shape.get("model", 1))
+    m = mesh.shape.get("model", 1)
+    heads = attention.local_kv_heads(cfg, m)
     local = type(model)(cfg.replace(num_kv_heads=heads, head_dim=cfg.resolved_head_dim))
-    return local.init_cache(batch, cache_len, dtype=dtype, device=device)
+    cache = local.init_cache(batch, cache_len, dtype=dtype, device=device)
+    if m < 2:
+        return cache
+    d_in = cfg.ssm_expand * cfg.d_model
+
+    def rank_state(layer: dict) -> dict:
+        if "rwkv" in layer:
+            wkv = layer["rwkv"]["wkv"]
+            shape = wkv.shape[:1] + (wkv.shape[1] // m,) + wkv.shape[2:]
+            return {"rwkv": dict(layer["rwkv"], wkv=wkv.new_zeros(shape))}
+        if "mamba" in layer:
+            ssm, conv = layer["mamba"]["ssm"], layer["mamba"]["conv"]
+            return {"mamba": {"ssm": ssm.new_zeros((ssm.shape[0], ssm.shape[1] // m) + ssm.shape[2:]),
+                              "conv": conv.new_zeros(conv.shape[:2] + (d_in // m + 2 * cfg.ssm_state,))}}
+        return layer
+
+    return {seg: {name: [rank_state(layer) for layer in layers] for name, layers in blocks.items()}
+            for seg, blocks in cache.items()}
 
 
 class _TensorGroup:
-    """A dense decoder or an MoE model computed over the rank's ``model``
-    group of M ranks (the ``"tp"`` entry of the params the model gets: at
-    the top, in each attention, MLP and MoE subtree, in the embedding).
-    The split leaves arrive as the rank's heads, hidden slice, experts or
-    vocabulary slice; a layer gathers the sequence before it, computes a
-    partial product, and sums it over the group onto the rank's slice.
-    Between the blocks the residual carry is the rank's block of
+    """A model computed over the rank's ``model`` group of M ranks (the
+    ``"tp"`` entry of the params the model gets: at the top, in each
+    attention, MLP, MoE, time-mix, channel-mix and Mamba2 subtree, in the
+    embedding). The split leaves arrive as the rank's heads, hidden slice,
+    experts or vocabulary slice; a layer gathers the sequence before it,
+    computes a partial product, and sums it over the group onto the rank's
+    slice. Between the blocks the residual carry is the rank's block of
     ``c = ceil(S / M)`` positions of the sequence,
     padded with zero rows to ``M c`` (the pad rows' outputs are cut before
     they reach a real row, and nothing reads them). Every sum over the
@@ -487,6 +529,13 @@ class _TensorGroup:
         loss over the rank's block), whose gradient reaches each rank's own
         partial (:class:`_GroupTotal`)."""
         return _GroupTotal.apply(self, p)
+
+    def reduce(self, p: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of a partial p that every rank then reads
+        whole (Mamba2's gated norm's sum of squares over the rank's
+        channels): an all-reduce whose backward all-reduces the gradient's
+        partials (:class:`_GroupSum`)."""
+        return _GroupSum.apply(self, p)
 
     # -- the collectives
     def _timed(self, fn, *args):
@@ -575,6 +624,21 @@ class _GroupTotal(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return None, grad
+
+
+class _GroupSum(torch.autograd.Function):
+    """A partial summed over the ``model`` group (all-reduce) and read whole
+    by every rank's own part of the layer; the backward sums each rank's
+    partial of the gradient, the whole sum's gradient, over the group."""
+
+    @staticmethod
+    def forward(ctx, group, p):
+        ctx.group = group
+        return group.sum(p)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.group.sum(grad.contiguous())
 
 
 class _ExpertGroup:
@@ -1018,8 +1082,8 @@ def sharded_forward(model, params, shardings: list, *, rank: int, width: int, xm
     the indices of the leaves the step read. With ``tp`` the ``model``
     groups split the compute (:class:`TensorParallel`): ``width`` counts
     the groups with rows, every rank of such a group takes the group's
-    rows, ``cache`` holds the rank's kv heads (``attention.local_kv_heads``)
-    and the logits are gathered over the vocabulary."""
+    rows, ``cache`` holds the rank's kv heads or recurrent heads
+    (:func:`local_cache`) and the logits are gathered over the vocabulary."""
     leaves = tree_leaves(params)
     run = _StepRun(leaves, shardings, rank, width, 1, xmesh, ShardTimes() if times is None else times, axis, tp)
     run.gathered = gathered
@@ -1046,7 +1110,8 @@ def build_sharded_train_step(model, optimizer, shardings: list, *, rank: int, wi
     computes an MoE layer's experts over the ``model`` group where the
     rules split them over ``model``; without it every rank runs every
     expert. With ``tp`` (:class:`TensorParallel`, with ``axis``) the
-    ``model`` groups split the attention, MLPs, experts and vocabulary:
+    ``model`` groups split the attention, MLPs, experts, vocabulary and
+    recurrent heads:
     ``width`` counts the groups that compute, each of whose ranks takes the
     group's chunk; the metrics are combined over the expert group (one
     rank of each ``model`` group)."""

@@ -120,14 +120,25 @@ class GroupCollectives:
     def group_sum(self, t: torch.Tensor, mesh, times: StagingTimes, device) -> torch.Tensor:
         """The sum of every position's ``t`` (an all-reduce): its elements,
         padded to M blocks, reduce-scattered (:meth:`seq_reduce_scatter`)
-        and the summed blocks all-gathered, a ring's bytes (2 x shape)."""
+        and the summed blocks all-gathered, a ring's bytes (2 x shape); in
+        pieces of M x :meth:`_block_elements` where a route bounds a block
+        (elementwise, the same bits and bytes)."""
         m, n = mesh.width, t.numel()
         c = -(-n // m)
         flat = t.reshape(1, n)
         if m * c > n:
             flat = torch.cat([flat, flat.new_zeros((1, m * c - n))], dim=1)
-        mine = self.seq_reduce_scatter(flat, mesh, times, device)
-        return torch.cat(self.group_all_gather(mine, mesh, times, device), dim=1)[0, :n].reshape(t.shape)
+        step = self._block_elements(m, t.element_size()) or c
+        sums = []
+        for lo in range(0, m * c, m * step):
+            mine = self.seq_reduce_scatter(flat[:, lo:lo + m * step], mesh, times, device)
+            sums.append(torch.cat(self.group_all_gather(mine, mesh, times, device), dim=1))
+        return torch.cat(sums, dim=1)[0, :n].reshape(t.shape)
+
+    def _block_elements(self, m: int, itemsize: int) -> Optional[int]:
+        """The most elements of a block one all-to-all of M blocks carries
+        (None: no bound)."""
+        return None
 
     def seq_reduce_scatter(self, t: torch.Tensor, mesh, times: StagingTimes, device) -> torch.Tensor:
         """``t`` (B, M c, ...) summed over the group's M positions, this
@@ -174,6 +185,10 @@ class HostExchange(GroupCollectives):
         self.slots = [own if r == rank else torch.from_file(path(r), shared=True, size=self.slot_bytes,
                                                             dtype=torch.uint8)
                       for r in range(world)]
+
+    def _block_elements(self, m: int, itemsize: int) -> Optional[int]:
+        """M blocks of one all-to-all fit the slot, each at an aligned stride."""
+        return max(1, self.slot_bytes // m // ALIGN * ALIGN // itemsize)
 
     def _buckets(self, tensors: List[torch.Tensor]) -> List[List[Tuple[int, int, int]]]:
         """Runs of (index, offset, bytes) that fill a slot, in order."""

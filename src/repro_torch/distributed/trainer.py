@@ -86,7 +86,7 @@ layer's experts, each worker also makes its axis groups
 ``model`` group (``sharded.py``): that path holds the unsharded run within
 a tolerance, not to its bits. With ``SEBSTrainer(...,
 tensor_parallel=True)`` the ``model`` groups split the attention, MLPs,
-experts and vocabulary (``sharded.TensorParallel``): the stage's
+experts, vocabulary and recurrent heads (``sharded.TensorParallel``): the stage's
 width counts the groups that compute, the ranks of a group take its rows
 (``launch/mesh.row_index``), and that path too holds the unsharded run
 within a tolerance.

@@ -44,9 +44,9 @@ are recorded, and their results are meta tensors. A one-rank mesh runs
 ``train/step.py``'s step, which the trainer runs on one device. Prefill
 and decode run ``sharded_forward`` on the rank's rows of the batch and
 cache: each layer gathered where it runs, the experts as in training.
-With ``--tensor-parallel`` (the dense decoders and the MoE family) the
-``model`` groups split attention, the MLPs, the experts and the
-vocabulary, the rows spread over the groups
+With ``--tensor-parallel`` (the dense decoders, the MoE family, rwkv6 and
+zamba2) the ``model`` groups split attention, the MLPs, the experts, the
+vocabulary and the recurrent layers' heads, the rows spread over the groups
 (every rank of a group takes its group's), and the recording transport
 logs the groups' boundaries too: all-gathers, all-reduces and
 reduce-scatters (``cfg.tp_reduce_scatter``), each time a checkpoint
@@ -515,8 +515,8 @@ def main() -> None:
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--accum-mode", default="psum_each", choices=["psum_each", "deferred"])
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="split attention, the dense MLPs, the experts and the vocabulary over the mesh's model "
-                         "groups (the dense decoders and the MoE family)")
+                    help="split attention, the dense MLPs, the experts, the vocabulary and rwkv6's and Mamba2's "
+                         "heads over the mesh's model groups (every family but whisper)")
     ap.add_argument("--out", default="results/torch/dryrun")
     args = ap.parse_args()
 

@@ -40,9 +40,10 @@ CPU devices, all the CPU.
 ``--batch`` prompts on the production mesh of the visible cards (one CPU
 worker with ``--device cpu``) through the sharded serving forward
 (``distributed/mesh_serve.serve_on_mesh``: each layer gathered where it
-runs); ``--tensor-parallel`` also splits the attention, MLPs, experts and
-vocabulary of a dense decoder or an MoE model over the mesh's ``model``
-groups. It needs ``--mesh``, and
+runs); ``--tensor-parallel`` also splits the attention, MLPs, experts,
+vocabulary and recurrent heads of every family but whisper (rwkv6's and
+Mamba2's heads, zamba2's shared block) over the mesh's ``model`` groups,
+each rank keeping the cache of its heads. It needs ``--mesh``, and
 names the ``ROADMAP.md`` item for a family it does not cover yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine static --mesh single --tensor-parallel --device cpu
@@ -108,8 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"],
                     help="static: serve on the production mesh through the sharded forward (greedy)")
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="with --mesh: split attention, the dense MLPs, the experts and the vocabulary over "
-                         "the mesh's model groups (the dense decoders and the MoE family)")
+                    help="with --mesh: split attention, the dense MLPs, the experts, the vocabulary and rwkv6's "
+                         "and Mamba2's heads over the mesh's model groups (every family but whisper)")
     ap.add_argument("--prefill-devices", type=int, default=1, help="disagg: pods in the prefill submesh")
     ap.add_argument("--decode-devices", type=int, default=1, help="disagg: pods in the decode submesh")
     ap.add_argument("--prefill-slots", type=int, default=2, help="disagg: prefill worker ring width")

@@ -42,9 +42,9 @@ by the rules (``sharding/partitioning.py``) and the microbatches are spread
 data-parallel over every worker (NCCL between them). With ``--device cpu``
 the mesh is one CPU worker. It implies accumulate mode, and ``--mesh`` with
 ``--dp-elastic`` is an error, as in the JAX launcher. ``--tensor-parallel``
-(with ``--mesh``) splits the attention, MLPs, experts and vocabulary of a
-dense decoder or an MoE model over the mesh's ``model`` groups, as GSPMD
-does in the JAX package; a
+(with ``--mesh``) splits the attention, MLPs, experts, vocabulary and
+recurrent heads (rwkv6's, Mamba2's) over the mesh's ``model`` groups, as
+GSPMD does in the JAX package; a
 family it does not cover yet is an error naming its ``ROADMAP.md`` item. A
 mesh whose ``model`` axis has one rank (one card) has nothing to split.
 """
@@ -94,8 +94,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--seed", type=int, default=0, help="random weights and the data stream")
     ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="with --mesh: split attention, the dense MLPs, the experts and the vocabulary over "
-                         "the mesh's model groups (the dense decoders and the MoE family)")
+                    help="with --mesh: split attention, the dense MLPs, the experts, the vocabulary and rwkv6's "
+                         "and Mamba2's heads over the mesh's model groups (every family but whisper)")
     ap.add_argument("--dp-elastic", action="store_true",
                     help="elastic data parallelism: the number of worker processes follows the SEBS "
                          "stage ladder (repro_torch.distributed). Builds its own per-stage worker groups "

@@ -61,6 +61,13 @@ state and conv window). In the paged cache, attention KV lives in the
 shared page pool and the recurrent state stays per slot at
 ``state_batch`` rows.
 
+Under tensor parallelism (the sharded step's ``"tp"`` group in the
+attention, MLP, MoE, time-mix, channel-mix and Mamba2 subtrees) each layer
+takes and returns the rank's block of the sequence; the blocks themselves
+are unchanged. zamba2's shared block is gathered once a segment and applied
+before each repeat with that one set of split weights, so its gradient
+accumulates over every application, as unsplit.
+
 Each block also returns its router's load-balance loss (the MoE FFN's aux;
 0.0 for a block without a router), which ``apply_segment`` sums over the
 layers; under remat it is an output of the rematerialized block, so the

@@ -16,6 +16,10 @@ decode step stays plain PyTorch, as in the JAX package, which has no kernel
 for it.
 
 Shapes: q, k, log_w: (B, S, H, K); v: (B, S, H, V); state: (B, H, K, V).
+Under tensor parallelism H is a rank's heads (rwkv6's H/M, Mamba2's H/M
+with q and k broadcast from its B and C); the operands may be views of a
+packed projection or broadcasts, and ``gla_ops`` hands the kernels
+contiguous, 16-byte-aligned copies of them.
 """
 from __future__ import annotations
 

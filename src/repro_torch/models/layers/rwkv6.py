@@ -12,6 +12,22 @@ previous token's activations plus the (H, K, V) wkv state.
 
 The JAX package's names, shapes, scales and dtypes (the decay path in f32);
 its sharding constraints are left out.
+
+Under tensor parallelism (a ``"tp"`` entry in the params: the sharded
+step's group over the mesh's ``model`` group, ``distributed/sharded.py``)
+each mixer takes the rank's block of the sequence, gathers the sequence
+(the token shift needs the token before the block) and splits its work as
+GSPMD splits the JAX package's under its constraints. The time mix runs
+the rank's H/M heads: ``w_r``, ``w_k``, ``w_v`` and ``w_g`` arrive as
+their columns, ``bonus_u`` as its heads and ``w_o`` as its rows; the
+leaves that carry ``embed`` but are read by head (``decay_base``,
+``ln_scale``, ``decay_lora_b``'s columns) arrive whole and the rank slices
+its heads' part; the group norm is per head, so nothing crosses the group
+before ``w_o``, whose partial product is summed onto the rank's block. The
+channel mix splits its hidden dimension (``w_k``'s columns, ``w_v``'s
+rows): ``kv`` is summed onto the rank's block before the receptance, whole
+``w_r`` on that block, multiplies it. The cache's ``wkv`` holds the rank's
+heads; its token shifts stay whole.
 """
 from __future__ import annotations
 
@@ -122,9 +138,26 @@ def _lerp(x, x_prev, mu):
 
 
 def apply_time_mix(params, x, cfg, *, cache=None, decode: bool = False):
-    """Returns (y, new_wkv_state, new_shift). x: (B, S, d)."""
-    b, s, d = x.shape
+    """Returns (y, new_wkv_state, new_shift). x: (B, S, d); under tensor
+    parallelism (``params["tp"]``) the rank's block of the sequence, and so
+    is y (see the module)."""
+    tp = params.get("tp")
+    if tp is None:
+        return _time_mix(params, x, cfg, cache, decode, slice(None))
     nh, hd = _dims(cfg)
+    c = nh // tp.width * hd  # the rank's channels: its heads'
+    y, state, shift = _time_mix(params, tp.gather(x), cfg, cache, decode, slice(tp.me * c, (tp.me + 1) * c))
+    return tp.scatter(y), state, shift
+
+
+def _time_mix(params, x, cfg, cache, decode: bool, mine: slice):
+    """The time mix over the whole sequence x, on the heads whose channels
+    ``mine`` names (every channel, or a rank's: its projections arrive as
+    those columns and rows, the per-channel leaves whole). Returns (y, the
+    heads' wkv state, the shift); y is a partial sum over the heads where
+    they are a rank's."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
     dtype = x.dtype
     prev = cache["shift_t"] if cache is not None else torch.zeros((b, d), dtype=dtype, device=x.device)
     x_prev = _token_shift(x, prev)
@@ -139,9 +172,10 @@ def apply_time_mix(params, x, cfg, *, cache=None, decode: bool = False):
     k = xk @ params["w_k"].to(dtype)
     v = xv @ params["w_v"].to(dtype)
     g = xg @ params["w_g"].to(dtype)
+    nh = r.shape[-1] // hd
     # data-dependent decay (Finch): w = exp(-exp(base + lora))
-    lora = (torch.tanh(xw.float()) @ params["decay_lora_a"]) @ params["decay_lora_b"]
-    log_w = -torch.exp(params["decay_base"] + lora)  # (B, S, d), < 0
+    lora = (torch.tanh(xw.float()) @ params["decay_lora_a"]) @ params["decay_lora_b"][:, mine]
+    log_w = -torch.exp(params["decay_base"][mine] + lora)  # (B, S, channels), < 0
 
     r = r.reshape(b, s, nh, hd)
     kh = k.reshape(b, s, nh, hd)
@@ -165,20 +199,25 @@ def apply_time_mix(params, x, cfg, *, cache=None, decode: bool = False):
     yf = y.float()
     var = yf.square().mean(dim=-1, keepdim=True)
     yn = yf * (var + cfg.norm_eps) ** -0.5
-    yn = yn.reshape(b, s, d) * (1.0 + params["ln_scale"].float())
+    yn = yn.reshape(b, s, nh * hd) * (1.0 + params["ln_scale"][mine].float())
     yn = (yn * F.silu(g.float())).to(dtype)
     return yn @ params["w_o"].to(dtype), new_state, new_shift
 
 
 def apply_channel_mix(params, x, cfg, *, cache=None):
-    """Returns (y, new_shift)."""
-    b, s, d = x.shape
-    dtype = x.dtype
-    prev = cache["shift_c"] if cache is not None else torch.zeros((b, d), dtype=dtype, device=x.device)
-    x_prev = _token_shift(x, prev)
-    xk = _lerp(x, x_prev, params["mu_k"])
-    xr = _lerp(x, x_prev, params["mu_r"])
+    """Returns (y, new_shift). Under tensor parallelism x and y are the
+    rank's block of the sequence (see the module)."""
+    tp = params.get("tp")
+    xs = x if tp is None else tp.gather(x)
+    b, s, d = xs.shape
+    dtype = xs.dtype
+    prev = cache["shift_c"] if cache is not None else torch.zeros((b, d), dtype=dtype, device=xs.device)
+    x_prev = _token_shift(xs, prev)
+    xk = _lerp(xs, x_prev, params["mu_k"])
+    xr = _lerp(xs, x_prev, params["mu_r"])
     k = torch.square(F.relu(xk @ params["w_k"].to(dtype)))
     kv = k @ params["w_v"].to(dtype)
+    if tp is not None:  # kv summed onto the rank's block, where the receptance multiplies it
+        kv, xr = tp.scatter(kv), tp.slice(xr)
     r = torch.sigmoid((xr @ params["w_r"].to(dtype)).float())
-    return (r * kv.float()).to(dtype), x[:, -1, :]
+    return (r * kv.float()).to(dtype), xs[:, -1, :]

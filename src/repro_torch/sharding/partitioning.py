@@ -24,12 +24,14 @@ whole leaves where the layer runs and updates only its own slices after
 the step; but an MoE layer's experts, which the rules split over ``model``,
 are gathered over the rank's expert group and computed over its ``model``
 group, as the JAX package's ``constrain`` of the dispatch, ``xe`` and ``h``
-splits them. With ``tensor_parallel`` (the dense decoders and the MoE
-family, :func:`check_tensor_parallel`) the ``model`` groups also split what
-JAX's ``constrain`` splits there: the attention heads, the MLP's hidden
-dimension, the experts and the vocabulary (:data:`TENSOR_PARALLEL_AXES`, a
-leaf's dimension by :func:`compute_split_dim`), with a sequence-parallel
-residual carry between the blocks. ``constrain`` itself (a
+splits them. With ``tensor_parallel`` (the dense decoders, the MoE
+family and the recurrent families, :func:`check_tensor_parallel`) the
+``model`` groups also split what JAX's ``constrain`` splits there: the
+attention heads, the MLP's hidden dimension, the experts, the vocabulary,
+rwkv6's heads and Mamba2's inner channels and heads
+(:data:`TENSOR_PARALLEL_AXES`, a leaf's dimension by
+:func:`compute_split_dim`; the packed leaves of :data:`TENSOR_PARALLEL_WHOLE`
+run whole), with a sequence-parallel residual carry between the blocks. ``constrain`` itself (a
 ``with_sharding_constraint`` on an activation) and ``legacy_manual_axes``
 (shard_map's manual axes on old jax) have no counterpart here.
 """
@@ -126,42 +128,65 @@ def batch_spec(mesh, extra_dims: int = 1, batch_size: Optional[int] = None) -> S
 
 #: logical axes along which a mesh's ``model`` axis splits compute under
 #: tensor parallelism: JAX's ``constrain`` of q and the attention output
-#: (``heads``; the kv projections by ``kv_heads``), the MLP's hidden state
-#: (``mlp``), the logits (``vocab``) and an MoE layer's capacity buffers
+#: (``heads``, rwkv6's receptance, keys, values and gate too; the kv
+#: projections by ``kv_heads``), the MLP's hidden state (``mlp``, rwkv6's
+#: channel mix too), the logits (``vocab``), an MoE layer's capacity buffers
 #: (``experts``: an expert tensor's first dimension, which takes ``model``
-#: before its ``mlp`` can)
-TENSOR_PARALLEL_AXES: Tuple[str, ...] = ("heads", "kv_heads", "mlp", "vocab", "experts")
+#: before its ``mlp`` can) and Mamba2's inner channels and heads
+#: (``ssm_inner``: its output projection's rows and its norm's scale;
+#: ``ssm_heads``: its per-head leaves and rwkv6's bonus)
+TENSOR_PARALLEL_AXES: Tuple[str, ...] = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_inner", "ssm_heads")
+
+#: (subtree, leaf) of the leaves that run whole under tensor parallelism
+#: although :data:`TENSOR_PARALLEL_AXES` names one of their dimensions:
+#: Mamba2's ``in_proj``, ``conv_w`` and ``conv_b``, whose ``ssm_inner``
+#: columns pack x | z | B | C | dt (x | B | C for the conv), so that the
+#: rules' contiguous cut falls across heads while a rank needs its heads'
+#: x, z and dt and all of B and C (the layer takes those columns; their
+#: gradients are partials over the group, summed as a replicated leaf's
+#: are); and rwkv6's channel-mix receptance ``w_r`` (``("embed",
+#: "heads")``), which multiplies the summed ``kv`` on the rank's block of
+#: the sequence. Storage stays as the rules place it.
+TENSOR_PARALLEL_WHOLE = frozenset({("mamba", "in_proj"), ("mamba", "conv_w"), ("mamba", "conv_b"), ("cmix", "w_r")})
 
 #: the families tensor parallelism does not cover yet -> the ``ROADMAP.md`` item that ports each
 TENSOR_PARALLEL_TODO: Dict[str, str] = {
-    "ssm": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
-    "hybrid": "Queue 1 item 6b (rwkv6's heads and mlp, Mamba2's ssm_inner and ssm_heads)",
     "audio": "Queue 1 item 6c (whisper's encoder and cross attention)",
 }
+
+#: the (mixer, ffn) block kinds tensor parallelism covers (zamba2's shared
+#: block is ``("attn", "dense")``)
+TENSOR_PARALLEL_BLOCKS = frozenset({("attn", "dense"), ("swa", "dense"), ("attn", "moe"), ("swa", "moe"),
+                                    ("rwkv6", "rwkv_cmix"), ("mamba2", "none")})
 
 
 def check_tensor_parallel(cfg) -> None:
     """Raises ``ValueError`` where tensor parallelism does not cover ``cfg``
-    (it covers the dense decoders and the MoE family: attention blocks with
-    the dense or the MoE FFN), naming the ``ROADMAP.md`` item that ports its
-    family: such a model must not quietly compute data-parallel."""
+    (it covers the dense decoders, the MoE family, rwkv6 and zamba2: the
+    block kinds of :data:`TENSOR_PARALLEL_BLOCKS`, zamba2's shared block
+    among them), naming the ``ROADMAP.md`` item that ports its family: such
+    a model must not quietly compute data-parallel."""
     todo = TENSOR_PARALLEL_TODO.get(cfg.family)
-    plain = all(b.mixer in ("attn", "swa") and b.ffn in ("dense", "moe") for seg in cfg.segments for b in seg.body) \
-        and not any(seg.shared_attn for seg in cfg.segments) and not cfg.is_encoder_decoder
-    if todo is not None or not plain:
+    covered = all((b.mixer, b.ffn) in TENSOR_PARALLEL_BLOCKS for seg in cfg.segments for b in seg.body) \
+        and not cfg.is_encoder_decoder
+    if todo is not None or not covered:
         raise ValueError(f"tensor_parallel=True does not cover {cfg.name} (family {cfg.family!r}): it splits the "
-                         f"attention, MLPs, experts and vocabulary of the dense decoders and the MoE family; "
-                         f"ROADMAP.md {todo or 'Queue 1 item 6'} ports the rest")
+                         f"dense decoders, the MoE family, rwkv6 and zamba2; ROADMAP.md "
+                         f"{todo or 'Queue 1 item 6'} ports the rest")
 
 
-def compute_split_dim(logical_axes: Sequence[Optional[str]], spec: Spec) -> Optional[int]:
+def compute_split_dim(logical_axes: Sequence[Optional[str]], spec: Spec, path: Sequence = ()) -> Optional[int]:
     """The dimension of a leaf that a ``model`` axis splits for compute
     under tensor parallelism: the one whose logical axis is in
     :data:`TENSOR_PARALLEL_AXES` and whose spec entry (``spec``, the leaf's
     :func:`logical_to_mesh_spec`) is ``"model"``. The rules put ``model``
     there only where it divides the dimension, so their divisibility
     fallback decides compute too; ``head_dim``'s fallback (2 kv heads over
-    16) splits storage only. None where no dimension is split."""
+    16) splits storage only. None where no dimension is split, and for a
+    leaf of :data:`TENSOR_PARALLEL_WHOLE` (``path``, its keys in the params
+    tree: :func:`axes_paths`)."""
+    if tuple(path[-2:]) in TENSOR_PARALLEL_WHOLE:
+        return None
     for i, (ax, entry) in enumerate(zip(logical_axes, spec)):
         if ax in TENSOR_PARALLEL_AXES and entry == "model":
             return i
@@ -174,6 +199,16 @@ def axes_leaves(axes) -> list:
     out: list = []
     map_axes(out.append, axes)
     return out
+
+
+def axes_paths(axes, path: Tuple = ()) -> list:
+    """The key path (dict keys and list positions) of each axes tuple of a
+    logical-axes tree, in :func:`axes_leaves`'s order."""
+    if is_axes_leaf(axes):
+        return [path]
+    if isinstance(axes, dict):
+        return [p for k, v in axes.items() for p in axes_paths(v, path + (k,))]
+    return [p for i, v in enumerate(axes) for p in axes_paths(v, path + (i,))]
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:

@@ -1,7 +1,8 @@
-"""Workers of ``tests/test_torch_tensor_parallel.py`` (a module without JAX:
-spawned workers import it). One spawn a mesh shape runs every case of
-that shape, in order, and writes ``result_<rank>`` (JSON) and, for the
-layer case, ``layer_<rank>.npz``."""
+"""Workers of ``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_tp_recurrent.py`` (a module without JAX: spawned workers
+import it). One spawn a mesh shape runs every case of that shape, in
+order, and writes ``result_<rank>`` (JSON) and, for the layer cases,
+``layer_<rank>.npz`` and ``recurrent_<rank>.npz``."""
 import hashlib
 import json
 import os
@@ -39,7 +40,7 @@ def _batch(cfg, s, width, local_accum, rows, seq):
     return batch
 
 
-def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, rows=2, seq=8):
+def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, rows=2, seq=8, resync=False):
     """``updates`` sharded momentum steps (clip 1.0) of ``arch`` smoke (f32,
     ``overrides``) with tensor parallelism over the mesh's model groups,
     groups ``[0, width)`` taking ``local_accum`` microbatches of ``rows`` x
@@ -52,7 +53,12 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
     routing (``moe.dispatch_tensors``: each token's capacity slot at each
     expert, every call of the forward and the recomputation) is recorded in
     both runs, and ``dispatch`` says whether the sharded run's equal the
-    whole run's calls on the same microbatches, to the integer."""
+    whole run's calls on the same microbatches, to the integer. With
+    ``resync`` each update starts the sharded step from the whole run's
+    state (its shards of the params and the momentum): each update's
+    metrics and the last update's leaves are then one step's differences
+    from the same state, which a run whose trajectory magnifies rounding
+    (rwkv6 smoke) needs."""
     import torch
 
     from repro_torch.configs import get_config
@@ -110,6 +116,10 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
             dispatch.append(len(split) == len(same) > 0 and all(torch.equal(a, b) for a, b in zip(split, same)))
         got.append({k: float(metrics[k]) for k in METRICS})
         want.append({k: float(ref[k]) for k in METRICS})
+        if resync and s < updates - 1:
+            mine = reshard_state(TrainState(tree_map(lambda t: t.detach().clone(), whole.params),
+                                            tree_map(_clone, whole.opt_state), whole.step), mesh,
+                                 model.param_axes(), rank)
     leaves = []
     for name, a, b, b0, sh in zip(names, tensor_leaves(mine)[:n], tensor_leaves(whole)[:n], initial, layout[:n],
                                   strict=True):
@@ -122,6 +132,10 @@ def _train(ctx, arch, overrides, width, local_accum, updates, reduce_scatter, ro
     return {"got": got, "want": want, "leaves": leaves, "digest": digest, "dispatch": dispatch,
             "received": sum(t.exchange.received_bytes for t in times),
             "boundary_s": sum(t.boundary_s for t in times)}
+
+
+def _clone(x):
+    return x.detach().clone() if hasattr(x, "detach") else x
 
 
 def _record_dispatch(stop=False):
@@ -231,10 +245,93 @@ def _loss(ctx, z_loss):
     return {"total": float(total), "loss": float(m["loss"])}
 
 
+def _recurrent(ctx, workdir):
+    """The rwkv6 time and channel mix (rwkv6 smoke) and Mamba2 (zamba2
+    smoke) of ``recurrent.npz``, f32, stored as this rank's shards,
+    gathered as the step gathers a layer and applied over the model group:
+    the time mix and Mamba2 over the sequence from the file's cache, then a
+    decode step from the cache they leave (the rank's heads of the state;
+    Mamba2's conv window of its x channels and all of B and C); the
+    channel mix over the sequence. Writes the gathered outputs and the
+    rank's caches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharded import (
+        ShardTimes,
+        TensorParallel,
+        _rebuild,
+        _StepRun,
+        _view,
+        local_cache,
+        own_shard,
+    )
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.layers import mamba2, rwkv6
+    from repro_torch.sharding import shard_tree
+    from repro_torch.sharding.partitioning import axes_leaves, axes_paths, compute_split_dim
+    from repro_torch.utils.tree import tree_leaves
+
+    rank, mesh = ctx["rank"], ctx["mesh"]
+    data = np.load(os.path.join(workdir, "recurrent.npz"))
+    out = {}
+    for arch, keys in (("rwkv6-1.6b", ("tmix", "cmix")), ("zamba2-2.7b", ("mamba",))):
+        cfg = get_config(arch, "smoke").replace(compute_dtype="float32")
+        model = LanguageModel(cfg)
+        axes = {"tmix": rwkv6.time_mix_axes(cfg), "cmix": rwkv6.channel_mix_axes(cfg), "mamba": mamba2.param_axes(cfg)}
+        axes = {"layer": {k: axes[k] for k in keys}}
+        tree = {"layer": {k: {n: torch.from_numpy(data[f"{k}.{n}"]) for n in axes["layer"][k]} for k in keys}}
+        shardings = tree_leaves(shard_tree(axes, tree, mesh))
+        tp = TensorParallel(tuple(compute_split_dim(a, sh.spec, p)
+                                  for a, p, sh in zip(axes_leaves(axes), axes_paths(axes), shardings)))
+        mine = _rebuild(tree, iter([own_shard(t, s, rank) for t, s in zip(tree_leaves(tree), shardings)]))
+        leaves = tree_leaves(mine)
+        run = _StepRun(leaves, shardings, rank, mesh.size // mesh.shape["model"], 1, ctx["xmesh"], ShardTimes(),
+                       ctx["axis"], tp)
+        view = _view(mine, {id(t): i for i, t in enumerate(leaves)}, run, [])
+        group = run.tensor
+        x, x1 = torch.from_numpy(data["x"]), torch.from_numpy(data["x1"])
+        b, s = x.shape[:2]
+        cache = local_cache(model, mesh, b, s + 1, torch.float32, "cpu")["seg0"]["b0"][0]
+        with torch.no_grad():
+            layer = view["layer"].whole()
+            group.seq = s
+            if arch == "rwkv6-1.6b":
+                h = cfg.d_model // cfg.rwkv_head_dim // group.width
+                rc = {"wkv": torch.from_numpy(data["wkv"])[:, group.me * h:(group.me + 1) * h],
+                      "shift_t": torch.from_numpy(data["shift_t"]), "shift_c": torch.from_numpy(data["shift_c"])}
+                assert rc["wkv"].shape == cache["rwkv"]["wkv"].shape
+                y, wkv, shift = rwkv6.apply_time_mix(layer["tmix"], group.slice(x), cfg, cache=rc)
+                out["tmix"] = group.gather(y)
+                yc, shift_c = rwkv6.apply_channel_mix(layer["cmix"], group.slice(x), cfg, cache=rc)
+                out["cmix"], out["cmix_shift"] = group.gather(yc), shift_c
+                group.seq = 1
+                y1, wkv1, _ = rwkv6.apply_time_mix(layer["tmix"], group.slice(x1), cfg,
+                                                   cache={"wkv": wkv, "shift_t": shift}, decode=True)
+                out["tmix_decode"], out["wkv"], out["wkv_decode"] = group.gather(y1), wkv, wkv1
+            else:
+                d_in = cfg.ssm_expand * cfg.d_model
+                h = d_in // cfg.ssm_head_dim // group.width
+                c = h * cfg.ssm_head_dim
+                conv = torch.from_numpy(data["conv"])
+                mc = {"ssm": torch.from_numpy(data["ssm"])[:, group.me * h:(group.me + 1) * h],
+                      "conv": torch.cat([conv[..., group.me * c:(group.me + 1) * c], conv[..., d_in:]], dim=-1)}
+                assert all(mc[k].shape == cache["mamba"][k].shape for k in mc)
+                y, mc = mamba2.apply(layer["mamba"], group.slice(x), cfg, cache=mc)
+                out["mamba"], out["ssm"], out["conv"] = group.gather(y), mc["ssm"], mc["conv"]
+                group.seq = 1
+                y1, mc = mamba2.apply(layer["mamba"], group.slice(x1), cfg, cache=mc,
+                                      cache_index=torch.full((b,), s, dtype=torch.int32))
+                out["mamba_decode"], out["ssm_decode"], out["conv_decode"] = group.gather(y1), mc["ssm"], mc["conv"]
+    np.savez(os.path.join(workdir, f"recurrent_{rank}.npz"), **{k: v.numpy() for k, v in out.items()})
+    return {}
+
+
 def tp_worker(rank, world, workdir, shape, cases, device_exchange=False):
     """One of ``world`` CPU workers on a ``shape`` (data, model) host mesh
     with its axis groups: runs ``cases`` ((name, kind, kwargs) triples:
-    ``train``, ``layer``, ``loss``) in order, and writes their results."""
+    ``train``, ``layer``, ``loss``, ``recurrent``) in order, and writes
+    their results."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_axis_groups, make_data_mesh, make_host_mesh, prefix_groups
@@ -250,6 +347,8 @@ def tp_worker(rank, world, workdir, shape, cases, device_exchange=False):
                 out[name] = _train(ctx, **kw)
             elif kind == "layer":
                 out[name] = _layer(ctx, workdir)
+            elif kind == "recurrent":
+                out[name] = _recurrent(ctx, workdir)
             else:
                 out[name] = _loss(ctx, **kw)
         with open(os.path.join(workdir, f"result_{rank}"), "w") as f:

@@ -7,7 +7,7 @@ runs:
   train, prefill and decode, on a (2, 2) mesh of 4 host devices (built with
   ``Auto`` axes in a subprocess: under jax 0.9 ``make_host_mesh``'s default
   ``Explicit`` axes fail the JAX package's own ``constrain``), and for
-  dbrx's and arctic's under ``tensor_parallel``;
+  dbrx's, arctic's, rwkv6's and zamba2's under ``tensor_parallel``;
 - the meta count equals the count of the same step on real CPU tensors;
 - the counts at depth 1 and 2, extrapolated, equal the full-depth count;
 - the collective bytes it records for a (2, 2) mesh (the layer gathers'
@@ -45,7 +45,7 @@ def one_torch_thread():
     torch.set_num_threads(old)
 
 ARCHS = ("qwen2.5-3b", "rwkv6-1.6b", "dbrx-132b", "zamba2-2.7b", "whisper-tiny")
-MOE_ARCHS = ("dbrx-132b", "arctic-480b")
+TP_ARCHS = ("dbrx-132b", "arctic-480b", "rwkv6-1.6b", "zamba2-2.7b")
 SHAPES = {"train": InputShape("t", 32, 8, "train"), "prefill": InputShape("p", 32, 4, "prefill"),
           "decode": InputShape("d", 32, 8, "decode")}
 
@@ -73,7 +73,7 @@ def jax_argument_bytes():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     shapes = {k: dataclasses.astuple(v) for k, v in SHAPES.items()}
-    archs = ARCHS + tuple(a for a in MOE_ARCHS if a not in ARCHS)
+    archs = ARCHS + tuple(a for a in TP_ARCHS if a not in ARCHS)
     proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT, json.dumps(shapes), json.dumps(archs)], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -89,12 +89,13 @@ def test_argument_bytes_equal_jax(jax_argument_bytes, arch, kind):
 
 
 @pytest.mark.parametrize("kind", list(SHAPES))
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", TP_ARCHS)
 def test_tensor_parallel_argument_bytes_equal_jax(jax_argument_bytes, arch, kind):
     """With ``tensor_parallel`` (the MoE family: heads, experts and
-    arctic's residual MLP split over ``model``, the rows spread over the
-    model groups) the rank's arguments are still its shards under the
-    rules, as GSPMD's are in JAX: equal to JAX's ``argument_size_in_bytes``."""
+    arctic's residual MLP split over ``model``; rwkv6's and Mamba2's heads,
+    the packed leaves run whole; the rows spread over the model groups) the
+    rank's arguments are still its shards under the rules, as GSPMD's are
+    in JAX: equal to JAX's ``argument_size_in_bytes``."""
     mesh = make_host_mesh(2, 2, devices=["meta"] * 4)
     summary = dryrun.count_combo(get_config(arch, "smoke"), SHAPES[kind], mesh, tensor_parallel=True)
     assert summary["work"]["tensor_parallel"] and summary["work"]["computing_ranks"] == 4

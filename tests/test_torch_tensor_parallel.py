@@ -30,9 +30,10 @@ blocks, as the JAX package's GSPMD splits a dense decoder.
 - the dry run: a smoke step's recorded collectives equal to a gloo run's
   received bytes, fewer under ``tp_reduce_scatter``; qwen2.5-3b train_4k
   and prefill_32k at full width on (16, 16) on every rank;
-- ``tensor_parallel=True`` on a family it does not cover (rwkv6, zamba2,
-  whisper) raises, naming its ``ROADMAP.md`` item; hillclimb's ``tp_rs`` is in
-  ``tests/test_torch_roofline.py``.
+- ``tensor_parallel=True`` on the family it does not cover (whisper)
+  raises, naming its ``ROADMAP.md`` item; the recurrent families (rwkv6,
+  zamba2) are in ``tests/test_torch_tp_recurrent.py``, hillclimb's
+  ``tp_rs`` in ``tests/test_torch_roofline.py``.
 
 76-111 s on one worker, host-dependent (five spawns of gloo workers; the
 MoE cases add ~5 s to the (2, 2) spawn and the serving test ~2 s).
@@ -425,7 +426,7 @@ def test_serving_on_a_mesh_gives_the_engines_greedy_tokens():
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_uncovered_families_are_refused_with_their_roadmap_item(arch):
     from repro_torch.core import SEBS, SEBSTrainer
     from repro_torch.data import DataPipeline, TokenDataset

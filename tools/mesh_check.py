@@ -1,9 +1,10 @@
-"""chip_smoke.py's phases 30-31, 34-36, 37 and 38 alone, and the sharded mesh across cards.
+"""chip_smoke.py's phases 30-31, 34-36, 37, 38 and 39 alone, and the sharded mesh across cards.
 
     python3 tools/mesh_check.py               # phases 30-31 on one card
     python3 tools/mesh_check.py --experts     # phases 34-36 on one card
     python3 tools/mesh_check.py --tensor-parallel  # phases 36-37 and the G 8 kernel shape on one card
     python3 tools/mesh_check.py --tensor-parallel --arch dbrx-132b  # phase 38 (the MoE family) on one card
+    python3 tools/mesh_check.py --tensor-parallel --arch rwkv6-1.6b  # phase 39 (rwkv6, zamba2) on one card
     python3 tools/mesh_check.py --four-cards  # a machine with four cards
     python3 tools/mesh_check.py --four-cards --arch arctic-480b --layers 1
 
@@ -29,7 +30,16 @@ the same kernel checks (G 6 at a rank's 24/4 heads too):
 tensor parallelism held to the one-process run, each ``tp_reduce_scatter``
 twin bit-equal; dbrx-132b at 1 full-width layer on (1, 2), two updates,
 each worker's peak against the dry run's count) and
-``chip_smoke.sharded_serving`` (38(c) among its runs).
+``chip_smoke.sharded_serving`` (38(c) among its runs). With a recurrent
+``--arch`` (rwkv6-1.6b or zamba2-2.7b: both run either way) it runs phase
+39: the GLA kernels at a rank's 16 of rwkv6's 32 heads and 40 of Mamba2's
+80, the flash kernels at zamba2's shared block's 16/16 heads of 80
+(``chip_smoke.recurrent_tp_kernel_checks``), then
+``chip_smoke.recurrent_tensor_parallel`` (rwkv6 and zamba2 smoke on (2, 2)
+held to their one-process runs, each ``tp_reduce_scatter`` twin
+bit-equal; rwkv6-1.6b at 2 full-width layers and zamba2-2.7b at 1 of 9
+repeats on (1, 2), two updates each, each worker's peak against the dry
+run's count) and ``chip_smoke.sharded_serving`` (39(c) among its runs).
 
 ``--four-cards --arch A`` with an MoE arch: a (1, 4) mesh over the four
 cards, each holding E/4 experts whole (no gather of them), A at full width
@@ -183,16 +193,29 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.tensor_parallel:
         records: dict = {}
-        cs.tp_kernel_checks(records)
-        for name in ("flash_attention_fwd_g8", "flash_attention_bwd_g8", "flash_attention_fwd_g6tp",
-                     "flash_attention_bwd_g6tp"):
+        recurrent = get_config(args.arch, "full").family in ("ssm", "hybrid")
+        if recurrent:
+            cs.recurrent_tp_kernel_checks(records)
+            for name in ("gla_fwd_tp", "gla_bwd_tp", "gla_fwd_mamba2tp", "gla_bwd_mamba2tp"):
+                r = records[name]
+                print(f"{name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}; bound {r['bound'][0]:.5f} by "
+                      f"{r['bound'][1]}; plain {r['plain_ms']:.3f}); max abs err {r['max_abs_err']:.3g}, "
+                      f"excess {r['excess']:.3g}, planted fault {r['fault_excess']:.3g} | {smi}", flush=True)
+        else:
+            cs.tp_kernel_checks(records)
+        for name in (("flash_attention_fwd_d80tp", "flash_attention_bwd_d80tp") if recurrent else
+                     ("flash_attention_fwd_g8", "flash_attention_bwd_g8", "flash_attention_fwd_g6tp",
+                      "flash_attention_bwd_g6tp")):
             r = records[name]
             print(f"{name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}; bound {r['bound'][0]:.5f}; plain "
                   f"{r['plain_ms']:.3f}; SDPA {r['library_ms']:.4f} (device {r['library_device_ms']:.4f}), "
                   f"default dispatch {r['library_ms_default']:.4f} (device {r['library_device_ms_default']:.4f})); "
                   f"max abs err {r['max_abs_err']:.3g} | {smi}", flush=True)
         t1 = time.perf_counter()
-        if get_config(args.arch, "full").num_experts:
+        if recurrent:
+            cs.recurrent_tensor_parallel(smi, updates=2)
+            print(f"phase 39(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
+        elif get_config(args.arch, "full").num_experts:
             cs.moe_tensor_parallel(smi, updates=2)
             print(f"phase 38(a, b): {time.perf_counter() - t1:.1f} s", flush=True)
         else:
